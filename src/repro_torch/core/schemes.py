@@ -1,0 +1,428 @@
+"""Linear-scheme API: registry + tagged params + per-layer policy.
+
+PyTorch counterpart of ``repro.core.schemes`` (serving part).  This module
+is the only place that knows how a linear layer's parameters are stored;
+everything else goes through :func:`linear_init`, :func:`linear_apply`,
+:func:`merge_linear` / :func:`merge_tree` and :func:`dense_view`.
+
+Schemes (dispatched by the tag on :class:`LinearParams`):
+
+  fp       plain dense weight
+  qalora   INT-N group-wise base + group-pooled adapter    (the paper)
+  intq     bare INT-N group-wise linear (merged QA-LoRA output)
+
+The qalora / intq schemes have one route: the kernel wrappers behind
+:mod:`repro_torch.kernels.ops`, which launch the Hopper kernels on CUDA
+tensors (or raise) and run the kernels' plain versions on CPU tensors.
+
+:class:`PolicyTree` maps glob patterns over parameter paths to
+:class:`QuantPolicy` records; the last matching rule wins, and the bare
+catch-all ``"*"`` never applies to ``lm_head``.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import fnmatch
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from . import qalora as qalora_lib
+from . import quant as quant_lib
+
+__all__ = [
+    "QuantPolicy", "FP", "PolicyTree", "resolve_path",
+    "LinearScheme", "LinearParams", "register_scheme", "get_scheme",
+    "is_linear", "dense_linear", "quantized_base",
+    "adapter_params", "linear_init", "linear_apply", "merge_linear",
+    "dense_view", "map_linears", "merge_tree",
+]
+
+
+# ---------------------------------------------------------------------------
+# policy
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantPolicy:
+    """Per-linear quantization/adaptation policy (one resolved record)."""
+
+    mode: str = "qalora"  # a registered scheme name
+    bits: int = 4
+    group_size: int = 32
+    rank: int = 16
+    s: float = 2.0
+    # the reference's kernel switch, kept in the policy record; the port
+    # always takes the kernel wrappers
+    use_kernel: bool = False
+    dtype: Any = torch.float32  # compute/adapter dtype
+    scale_dtype: Any = torch.float32  # scale/zero storage dtype
+
+    def at(self, *names: str) -> "QuantPolicy":
+        return self
+
+    def resolve(self) -> "QuantPolicy":
+        return self
+
+    @property
+    def default(self) -> "QuantPolicy":
+        return self
+
+
+FP = QuantPolicy(mode="fp")
+_POLICY_FIELDS = frozenset(f.name for f in dataclasses.fields(QuantPolicy))
+
+# the head is exempt from catch-all quantization rules unless named
+_HEAD_PATHS = ("lm_head", "head")
+_CATCH_ALL = "*"
+
+
+def _norm_head(path: str) -> str:
+    return "lm_head" if path in _HEAD_PATHS else path
+
+
+@dataclasses.dataclass(frozen=True)
+class PolicyTree:
+    """Glob-pattern -> :class:`QuantPolicy` rules with scoped resolution
+    (``pol.at("attn").at("wq")``); the LAST matching rule wins."""
+
+    rules: Tuple[Tuple[str, QuantPolicy], ...]
+    prefix: str = ""
+
+    def at(self, *names: str) -> "PolicyTree":
+        pre = "/".join((self.prefix,) + names) if self.prefix else "/".join(names)
+        return dataclasses.replace(self, prefix=pre)
+
+    def resolve(self) -> QuantPolicy:
+        path = _norm_head(self.prefix)
+        hit = None
+        for pat, pol in self.rules:
+            if path == "lm_head" and pat == _CATCH_ALL:
+                continue  # lm_head exemption: catch-all never quantizes it
+            if fnmatch.fnmatchcase(path, _norm_head(pat)):
+                hit = pol
+        if hit is None:
+            return dataclasses.replace(self.default, mode="fp")
+        return hit
+
+    @property
+    def default(self) -> QuantPolicy:
+        for pat, pol in reversed(self.rules):
+            if pat == _CATCH_ALL:
+                return pol
+        return self.rules[-1][1] if self.rules else FP
+
+    def __getattr__(self, name):
+        # delegate QuantPolicy field reads (``cfg.quant.dtype``) to the
+        # default rule
+        if name in _POLICY_FIELDS:
+            return getattr(self.default, name)
+        raise AttributeError(name)
+
+    @classmethod
+    def parse(cls, spec: str, base: Optional[QuantPolicy] = None) -> "PolicyTree":
+        """Parse ``"*=int4,*/attn/wo=int8,lm_head=fp"``.  Values: ``fp`` |
+        ``int<N>`` (QA-LoRA at N bits) | ``intq<N>`` (bare quantized), with
+        optional ``:g<M>`` / ``:r<R>`` suffixes."""
+        base = base or QuantPolicy()
+        rules = []
+        for item in spec.split(","):
+            item = item.strip()
+            if not item:
+                continue
+            if "=" not in item:
+                raise ValueError(f"policy item {item!r}: expected pattern=value")
+            pat, val = item.split("=", 1)
+            rules.append((pat.strip(), _parse_value(val.strip(), base)))
+        return cls(rules=tuple(rules))
+
+
+def _parse_value(val: str, base: QuantPolicy) -> QuantPolicy:
+    tok, *opts = val.split(":")
+    kw: Dict[str, Any] = {}
+    if tok == "fp":
+        kw["mode"] = tok
+    elif tok in ("lora", "qlora"):
+        raise ValueError(f"policy value {tok!r}: scheme not yet ported, "
+                         f"see ROADMAP.md")
+    elif tok.startswith("intq"):
+        kw["mode"] = "intq"
+        if tok[4:]:
+            kw["bits"] = int(tok[4:])
+    elif tok.startswith("int"):
+        kw["mode"] = "qalora"
+        if tok[3:]:
+            kw["bits"] = int(tok[3:])
+    elif tok == "qalora":
+        kw["mode"] = "qalora"
+    else:
+        raise ValueError(f"unknown policy value {tok!r}")
+    for o in opts:
+        if o.startswith("g"):
+            kw["group_size"] = int(o[1:])
+        elif o.startswith("r"):
+            kw["rank"] = int(o[1:])
+        else:
+            raise ValueError(f"unknown policy option {o!r} in {val!r}")
+    return dataclasses.replace(base, **kw)
+
+
+def resolve_path(pol, path: str) -> QuantPolicy:
+    """Resolve the policy for an explicit parameter path; a uniform policy
+    never quantizes ``lm_head``."""
+    if isinstance(pol, PolicyTree):
+        return dataclasses.replace(pol, prefix=path).resolve()
+    if _norm_head(path) == "lm_head" and pol.mode != "fp":
+        return dataclasses.replace(pol, mode="fp")
+    return pol
+
+
+# ---------------------------------------------------------------------------
+# tagged container
+# ---------------------------------------------------------------------------
+
+
+class LinearParams(nn.Module):
+    """One linear layer's parameters, tagged with its scheme + policy.
+
+    The scheme-defined payload is registered on the module (tensors as
+    buffers, containers as submodules); :attr:`data` returns it as a dict
+    in the order it was given.
+    """
+
+    def __init__(self, data: Dict[str, Any], scheme: str = "fp",
+                 policy: QuantPolicy = FP):
+        super().__init__()
+        self._keys = tuple(data)
+        for k, v in data.items():
+            if isinstance(v, nn.Module):
+                self.add_module(k, v)
+            else:
+                self.register_buffer(k, v)
+        self.scheme = scheme
+        self.policy = policy
+
+    @property
+    def data(self) -> Dict[str, Any]:
+        return {k: getattr(self, k) for k in self._keys}
+
+
+def is_linear(p) -> bool:
+    return isinstance(p, LinearParams)
+
+
+def dense_linear(w: torch.Tensor, policy: Optional[QuantPolicy] = None):
+    """Wrap a dense weight as an fp-scheme linear."""
+    pol = policy or dataclasses.replace(FP, dtype=w.dtype)
+    return LinearParams({"w": w}, scheme="fp",
+                        policy=dataclasses.replace(pol, mode="fp"))
+
+
+# schemes whose payload carries a packed INT-N base
+_QUANT_BASE_SCHEMES = ("intq", "qalora")
+
+
+def quantized_base(lp: LinearParams) -> quant_lib.QuantizedLinear:
+    """The packed :class:`QuantizedLinear` base of a quantized-base
+    scheme."""
+    if not is_linear(lp) or lp.scheme not in _QUANT_BASE_SCHEMES:
+        got = lp.scheme if is_linear(lp) else type(lp).__name__
+        raise ValueError(f"quantized_base: expected one of "
+                         f"{_QUANT_BASE_SCHEMES}, got {got!r}")
+    data = lp.data
+    return data["q"]
+
+
+def adapter_params(lp: LinearParams):
+    """The trainable adapter payload of an adapter-bearing linear, found
+    through the scheme's declared ``trainable`` keys."""
+    keys = get_scheme(lp.scheme).trainable
+    if len(keys) != 1:
+        raise ValueError(f"adapter_params: scheme {lp.scheme!r} declares "
+                         f"{len(keys)} trainable keys {tuple(keys)}; "
+                         f"expected exactly one adapter payload")
+    data = lp.data
+    return data[keys[0]]
+
+
+# ---------------------------------------------------------------------------
+# scheme protocol + registry
+# ---------------------------------------------------------------------------
+
+
+class LinearScheme:
+    """Protocol for one linear storage/compute scheme over a 2-D
+    ``[D_in, D_out]`` payload dict."""
+
+    name: str = "?"
+    trainable: Tuple[str, ...] = ()  # payload keys holding trainable leaves
+
+    def init(self, generator, d_in: int, d_out: int, pol: QuantPolicy,
+             device) -> dict:
+        raise NotImplementedError
+
+    def apply(self, data: dict, x, pol: QuantPolicy):
+        raise NotImplementedError
+
+    def merge(self, data: dict, pol: QuantPolicy) -> Tuple[str, dict]:
+        """Fold adapters for deployment; returns (scheme_name, data)."""
+        raise NotImplementedError
+
+    def dense_view(self, data: dict, pol: QuantPolicy, dtype=None):
+        """Effective (adapter-included) dense weight ``[D_in, D_out]``."""
+        name, merged = self.merge(data, pol)
+        return get_scheme(name).dense_view(merged, pol, dtype)
+
+
+_REGISTRY: Dict[str, LinearScheme] = {}
+
+
+def register_scheme(name: str):
+    def deco(cls):
+        inst = cls()
+        inst.name = name
+        _REGISTRY[name] = inst
+        return cls
+    return deco
+
+
+def get_scheme(name: str) -> LinearScheme:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown linear scheme {name!r}; "
+                       f"registered: {sorted(_REGISTRY)}")
+
+
+def _randn_weight(generator, d_in, d_out, device):
+    return torch.randn((d_in, d_out), generator=generator, device=device,
+                       dtype=torch.float32) / math.sqrt(d_in)
+
+
+@register_scheme("fp")
+class FPScheme(LinearScheme):
+    """Plain dense linear."""
+
+    def init(self, generator, d_in, d_out, pol, device):
+        return {"w": _randn_weight(generator, d_in, d_out, device).to(pol.dtype)}
+
+    def apply(self, data, x, pol):
+        return x @ data["w"].to(x.dtype)
+
+    def merge(self, data, pol):
+        return "fp", data
+
+    def dense_view(self, data, pol, dtype=None):
+        w = data["w"]
+        return w.to(dtype) if dtype is not None else w
+
+
+@register_scheme("qalora")
+class QALoRAScheme(LinearScheme):
+    """The paper: frozen INT-N group-wise base + group-pooled adapter,
+    through the fused kernels (tiled or GEMV by M) on the card."""
+
+    trainable = ("ad",)
+
+    def init(self, generator, d_in, d_out, pol, device):
+        w = _randn_weight(generator, d_in, d_out, device)
+        qt = quant_lib.quantize(w, pol.bits, pol.group_size,
+                                scale_dtype=pol.scale_dtype)
+        del w
+        return {"q": qt,
+                "ad": qalora_lib.init_qalora(generator, qt.n_groups, pol.rank,
+                                             d_out, pol.dtype, device=device)}
+
+    def apply(self, data, x, pol):
+        from repro_torch.kernels import ops
+        return ops.qalora_matmul(x, data["q"], data["ad"], s=pol.s)
+
+    def merge(self, data, pol):
+        """Exact merge (Appendix B): zeros update only, stays INT-N."""
+        return "intq", {"q": qalora_lib.merge(data["q"], data["ad"], pol.s)}
+
+
+@register_scheme("intq")
+class IntQScheme(LinearScheme):
+    """Bare INT-N group-wise linear: the merged QA-LoRA output."""
+
+    def init(self, generator, d_in, d_out, pol, device):
+        w = _randn_weight(generator, d_in, d_out, device)
+        return {"q": quant_lib.quantize(w, pol.bits, pol.group_size,
+                                        scale_dtype=pol.scale_dtype)}
+
+    def apply(self, data, x, pol):
+        from repro_torch.kernels import ops
+        return ops.qmatmul(x, data["q"])
+
+    def merge(self, data, pol):
+        return "intq", data
+
+    def dense_view(self, data, pol, dtype=None):
+        return quant_lib.dequantize(data["q"], dtype or torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# single-linear entry points
+# ---------------------------------------------------------------------------
+
+
+def linear_init(generator, d_in: int, d_out: int, pol,
+                device="cuda") -> LinearParams:
+    """Init one projection under ``pol`` (a QuantPolicy or a scoped
+    PolicyTree)."""
+    rp = pol.resolve()
+    scheme = get_scheme(rp.mode)
+    return LinearParams(scheme.init(generator, d_in, d_out, rp, device),
+                        scheme=rp.mode, policy=rp)
+
+
+def linear_apply(lp: LinearParams, x):
+    """Tag-driven forward."""
+    return get_scheme(lp.scheme).apply(lp.data, x, lp.policy)
+
+
+def merge_linear(lp: LinearParams) -> LinearParams:
+    """Merge adapters for deployment.  QA-LoRA stays quantized (exact).
+    Idempotent."""
+    name, data = get_scheme(lp.scheme).merge(lp.data, lp.policy)
+    return LinearParams(data, scheme=name,
+                        policy=dataclasses.replace(lp.policy, mode=name))
+
+
+def dense_view(lp: LinearParams, dtype=None):
+    """Effective (adapter-included) dense weight in ``dtype`` (or the
+    storage dtype)."""
+    return get_scheme(lp.scheme).dense_view(lp.data, lp.policy, dtype)
+
+
+# ---------------------------------------------------------------------------
+# tree walkers
+# ---------------------------------------------------------------------------
+
+
+def map_linears(module: nn.Module, fn, path: str = "") -> nn.Module:
+    """A copy of ``module`` with every :class:`LinearParams` replaced by
+    ``fn(path, lp)``.  Containers are copied shallowly: buffers that no
+    linear replaces are shared with the input, not duplicated."""
+    if isinstance(module, LinearParams):
+        return fn(path, module)
+    out = copy.copy(module)
+    out._parameters = dict(module._parameters)
+    out._buffers = dict(module._buffers)
+    out._modules = {k: (map_linears(v, fn, f"{path}/{k}" if path else k)
+                        if v is not None else None)
+                    for k, v in module._modules.items()}
+    return out
+
+
+def merge_tree(params: nn.Module) -> nn.Module:
+    """Merge every adapter in the model into its base (tag-driven walk);
+    idempotent."""
+    return map_linears(params, lambda path, lp: merge_linear(lp))
+

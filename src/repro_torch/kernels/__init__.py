@@ -1,0 +1,34 @@
+"""Hand-written Hopper kernels of the port, each beside its plain PyTorch
+version, behind the dispatching entry points of :mod:`.ops`.
+
+``KERNELS`` maps each kernel's name to its wrapper; every wrapper carries a
+plain-integer ``launches`` count that it raises by one per kernel launch
+(CPU calls, which take the plain version, do not count).
+"""
+
+from __future__ import annotations
+
+from .qalora_fused import qalora_matmul_cuda
+from .qmatmul import qmatmul_cuda
+from .qmatvec import GEMV_MAX_M, qalora_matvec_cuda, qmatvec_cuda
+
+KERNELS = {
+    "qmatmul": qmatmul_cuda,
+    "qmatvec": qmatvec_cuda,
+    "qalora_matmul": qalora_matmul_cuda,
+    "qalora_matvec": qalora_matvec_cuda,
+}
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+__all__ = ["GEMV_MAX_M", "KERNELS", "launches", "reset_launches",
+           "qmatmul_cuda", "qmatvec_cuda", "qalora_matmul_cuda",
+           "qalora_matvec_cuda"]

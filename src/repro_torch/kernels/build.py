@@ -1,0 +1,147 @@
+"""Build and load the hand-written CUDA kernels (``repro_torch/csrc``).
+
+Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for sm_90a
+into its own shared library with a plain C interface and loaded with
+``ctypes``; no PyTorch headers are compiled, so a build takes seconds.
+Libraries are cached by the hash of their sources in the build directory
+(``$REPRO_TORCH_BUILD_DIR``, default ``build/repro_torch`` at the root of
+the checkout).  :func:`build_all` starts one ``nvcc`` per source, all at
+once.
+
+Every C entry returns ``cudaGetLastError()`` after its launch; the Python
+wrappers raise when it is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = ("qmatmul", "qmatvec", "qalora_fused")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argtypes of every C entry, by library
+SIGNATURES = {
+    "qmatmul": {"qmatmul_bf16": [_P] * 5 + [_I] * 7 + [_P]},
+    "qmatvec": {
+        "qmatvec_bf16": [_P] * 5 + [_I] * 6 + [_P],
+        "qalora_matvec_bf16": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
+    },
+    "qalora_fused": {
+        "qalora_matmul_bf16": [_P] * 7 + [_I] * 6 + [_F] + [_I] * 2 + [_P],
+    },
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+# the ptxas report of each build (registers, shared memory, spills)
+BUILD_LOG: Dict[str, str] = {}
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+class KernelLaunchError(RuntimeError):
+    pass
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return CSRC.parents[2] / "build" / "repro_torch"
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise KernelBuildError("nvcc not found (PATH or $CUDA_HOME/bin): the "
+                           "CUDA kernels are built on the machine with the card")
+
+
+def _source_hash(name: str) -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _lib_path(name: str) -> Path:
+    return build_dir() / f"lib{name}-{_source_hash(name)}.so"
+
+
+def _nvcc_cmd(name: str, out: Path):
+    return [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC),
+            "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+    """Compile every missing library, one ``nvcc`` per source, all started
+    together.  Returns {name: seconds} of the builds that ran."""
+    import time
+    todo = [n for n in names if not _lib_path(n).exists()]
+    if not todo:
+        return {}
+    build_dir().mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for n in todo:
+        tmp = _lib_path(n).with_suffix(f".{os.getpid()}.tmp")
+        procs[n] = (tmp, subprocess.Popen(_nvcc_cmd(n, tmp),
+                                          stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+    secs, errors = {}, []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        secs[n] = time.perf_counter() - t0
+        BUILD_LOG[n] = out
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {n}.cu:\n{out}")
+            continue
+        os.replace(tmp, _lib_path(n))
+    if errors:
+        raise KernelBuildError("\n".join(errors))
+    return secs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        if name not in _LIBS:
+            build_all([name])
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for fn, argtypes in SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry reported a CUDA error."""
+    if rc != 0:
+        raise KernelLaunchError(f"{what}: CUDA error {rc} (cudaError_t)")
+
+
+def current_stream(device: Optional[object] = None) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,247 @@
+"""The gqa decoder LM: init, prefill, ragged decode step and greedy
+generation.  Counterpart of the gqa family of ``repro.models.lm``.
+
+Parameters are an :class:`LMParams` module: the embedding, the final norm,
+the (fp) head and one block per layer in a ``ModuleList`` (the reference
+stacks layers on a leading axis and scans; here a Python loop walks the
+list).  Every projection routes through the linear-scheme API, so a
+``qalora`` model, its merged ``intq`` model and the kernel routing are
+policy switches.
+
+Batch format: ``{"tokens": [B, S] int}``.  Decode caches follow
+:class:`repro_torch.models.slot_state.SlotState`; decode steps write their
+K/V into the cache they are given, in place, and return it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import schemes
+from .attention import StepPlan, gqa_apply, gqa_init, gqa_prefill_chunk
+from .common import rmsnorm, rmsnorm_init
+from .mlp import mlp_apply, mlp_init
+from .slot_state import SlotState, attn_cfg as _attn_cfg
+
+
+class LMParams(nn.Module):
+    """Model parameters: buffer ``embed [V, d]``, ``final_ln``, ``head``
+    (a tagged linear ``[d, V]``, None when tied) and ``blocks``."""
+
+    def __init__(self, embed: torch.Tensor, final_ln: nn.Module,
+                 head: Optional[schemes.LinearParams], blocks: List[nn.Module]):
+        super().__init__()
+        self.register_buffer("embed", embed)
+        self.final_ln = final_ln
+        self.head = head
+        self.blocks = nn.ModuleList(blocks)
+
+
+def _gqa_block_init(generator, cfg: ArchConfig, pol, device) -> nn.ModuleDict:
+    return nn.ModuleDict({
+        "ln1": rmsnorm_init(cfg.d_model, device=device),
+        "ln2": rmsnorm_init(cfg.d_model, device=device),
+        "attn": gqa_init(generator, _attn_cfg(cfg), pol.at("attn"), device),
+        "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, pol.at("mlp"),
+                        cfg.gated_mlp, device),
+    })
+
+
+def _gqa_block(p, x, cfg: ArchConfig, *, window=None, theta=None):
+    a, kv = gqa_apply(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                      _attn_cfg(cfg), window=window, theta=theta,
+                      chunk_q=cfg.chunk_q, chunk_k=cfg.chunk_k)
+    x = x + a
+    m = mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.act)
+    return x + m, kv
+
+
+def _gqa_block_chunk(p, x, cache, cur_len, n_new, cfg: ArchConfig, *,
+                     window=None, theta=None, plan=None):
+    """Ragged chunk through one block: x [B,C,d], per-slot n_new consumed."""
+    a, cache = gqa_prefill_chunk(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                                 cache, cur_len, n_new, _attn_cfg(cfg),
+                                 window=window, theta=theta, plan=plan)
+    x = x + a
+    m = mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.act)
+    return x + m, cache
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raises when CUDA is asked for and
+    there is none (never falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but "
+                           f"torch.cuda.is_available() is False")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class LM:
+    cfg: ArchConfig
+
+    def __post_init__(self):
+        if self.cfg.family != "gqa":
+            raise NotImplementedError(
+                f"family {self.cfg.family!r} is not ported yet (see "
+                f"ROADMAP.md); the port serves gqa")
+
+    # ---------------- init ----------------
+
+    def init(self, generator: torch.Generator, device="cuda") -> LMParams:
+        """Random init on ``device``, one layer at a time: each quantized
+        linear is drawn in f32 and quantized at once, so peak memory stays
+        near the quantized model's size."""
+        cfg, pol = self.cfg, self.cfg.quant
+        dev = resolve_device(device)
+        d = cfg.d_model
+
+        def randn(shape):
+            return torch.randn(shape, generator=generator, device=dev,
+                               dtype=torch.float32)
+
+        embed = (randn((cfg.vocab, d)) * 0.02).to(pol.dtype)
+        head = None
+        if not cfg.tie_embeddings:
+            hpol = schemes.resolve_path(pol, "lm_head")
+            if hpol.mode != "fp":
+                raise NotImplementedError("a quantized lm_head is not yet "
+                                          "ported (see ROADMAP.md)")
+            head = schemes.dense_linear((randn((d, cfg.vocab)) * 0.02)
+                                        .to(pol.dtype), hpol)
+        bpol = pol.at("blocks")
+        blocks = [_gqa_block_init(generator, cfg, bpol, dev)
+                  for _ in range(cfg.n_layers)]
+        return LMParams(embed, rmsnorm_init(d, device=dev), head, blocks)
+
+    # ---------------- shared pieces ----------------
+
+    def _layer_extras(self):
+        """Per-layer (window, rope_theta) (gemma3's local:global
+        interleave); window 0 means full attention."""
+        cfg = self.cfg
+        out = []
+        for layer in range(cfg.n_layers):
+            if cfg.global_every and (layer % cfg.global_every
+                                     == cfg.global_every - 1):
+                out.append((0, cfg.global_rope_theta))
+            else:
+                out.append((cfg.window or 0, cfg.rope_theta))
+        return out
+
+    def _embed(self, params: LMParams, tokens):
+        return params.embed[tokens.to(torch.int64)]
+
+    def _logits(self, params: LMParams, h):
+        if self.cfg.tie_embeddings:
+            return (h @ params.embed.T.to(h.dtype)).to(torch.float32)
+        return schemes.linear_apply(params.head, h).to(torch.float32)
+
+    def _trunk(self, params: LMParams, x, collect_cache: bool = False):
+        """Runs the layer stack.  Returns (h, cache or None)."""
+        ks, vs = [], []
+        for blk, (window, theta) in zip(params.blocks, self._layer_extras()):
+            x, (k, v) = _gqa_block(blk, x, self.cfg, window=window, theta=theta)
+            if collect_cache:
+                ks.append(k)
+                vs.append(v)
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs)} \
+            if collect_cache else None
+        return x, cache
+
+    # ---------------- public API ----------------
+
+    @torch.no_grad()
+    def prefill(self, params: LMParams, batch: Dict[str, Any]):
+        """Returns (last-token logits [B, V] f32, cache dict)."""
+        tokens = batch["tokens"]
+        x = self._embed(params, tokens)
+        h, cache = self._trunk(params, x, collect_cache=True)
+        h = rmsnorm(params.final_ln, h[:, -1:], self.cfg.norm_eps)
+        logits = self._logits(params, h)[:, 0]
+        length = torch.full((tokens.shape[0],), tokens.shape[1],
+                            dtype=torch.int32, device=tokens.device)
+        return logits, {"layers": cache, "len": length}
+
+    def slot_state(self) -> SlotState:
+        return SlotState(self.cfg)
+
+    def init_cache(self, batch: int, seq: int, dtype=torch.bfloat16,
+                   device="cuda"):
+        """Fresh decode cache (see :class:`SlotState`)."""
+        return self.slot_state().init(batch, seq, dtype=dtype,
+                                      device=resolve_device(device))
+
+    def decode_step(self, params: LMParams, cache, tokens):
+        """tokens: [B, 1] -> (logits [B, V], updated cache): the C=1
+        always-active case of :meth:`step_ragged`."""
+        return self.step_ragged(params, cache, tokens,
+                                torch.ones_like(cache["len"]))
+
+    @torch.no_grad()
+    def step_ragged(self, params: LMParams, cache, tokens, n_new):
+        """Ragged serve step: slot b consumes ``tokens[b, :n_new[b]]`` at
+        positions ``len[b]..`` and advances by ``n_new[b]``.  Returns
+        (logits [B, V] at each slot's last consumed row, cache)."""
+        h, layers, n_new = self._ragged_trunk(params, cache, tokens, n_new)
+        last = (n_new.to(torch.int64) - 1).clamp(0, tokens.shape[1] - 1)
+        idx = last[:, None, None].expand(h.shape[0], 1, h.shape[2])
+        h_last = torch.gather(h, 1, idx)
+        logits = self._logits(params, h_last)[:, 0]
+        return logits, self.slot_state().advance(cache, layers, n_new)
+
+    def _ragged_trunk(self, params: LMParams, cache, tokens, n_new):
+        cur = cache["len"]
+        n_new = n_new.to(torch.int32)
+        x = self._embed(params, tokens)
+        kc, vc = cache["layers"]["k"], cache["layers"]["v"]
+        plan = StepPlan(cur, n_new, tokens.shape[1], kc.shape[2],
+                        self.cfg.head_dim)
+        for layer, (blk, (window, theta)) in enumerate(
+                zip(params.blocks, self._layer_extras())):
+            x, _ = _gqa_block_chunk(blk, x, {"k": kc[layer], "v": vc[layer]},
+                                    cur, n_new, self.cfg, window=window,
+                                    theta=theta, plan=plan)
+        h = rmsnorm(params.final_ln, x, self.cfg.norm_eps)
+        return h, {"k": kc, "v": vc}, n_new
+
+    # ---------------- serving: prefill + greedy decode ----------------
+
+    def merge_prefill_cache(self, prefill_cache, decode_cache):
+        """Embed a :meth:`prefill` cache into a full-capacity decode cache:
+        equal shapes carry over, smaller leaves are zero-padded up to the
+        decode layout (cast to the decode cache's dtype)."""
+        if isinstance(prefill_cache, dict):
+            return {k: self.merge_prefill_cache(prefill_cache[k], decode_cache[k])
+                    for k in decode_cache}
+        p, c = prefill_cache, decode_cache
+        if p.shape == c.shape:
+            return p.to(c.dtype).clone()
+        assert p.ndim == c.ndim and all(
+            ps <= cs for ps, cs in zip(p.shape, c.shape)), (p.shape, c.shape)
+        out = torch.zeros_like(c)
+        out[tuple(slice(0, n) for n in p.shape)] = p.to(c.dtype)
+        return out
+
+    @torch.no_grad()
+    def generate(self, params: LMParams, cache, logits, gen_len: int):
+        """Greedy decode: token t+1 = argmax of step t's logits, starting
+        from ``logits`` (from :meth:`prefill`).  Returns (tokens
+        [B, gen_len] int32, final cache); the tokens stay on the device
+        until the caller reads them."""
+        tok = logits.argmax(dim=-1).to(torch.int32)  # [B]
+        if gen_len <= 0:
+            return torch.zeros((tok.shape[0], 0), dtype=torch.int32,
+                               device=tok.device), cache
+        toks = [tok]
+        for _ in range(gen_len - 1):
+            lg, cache = self.decode_step(params, cache, tok[:, None])
+            tok = lg.argmax(dim=-1).to(torch.int32)
+            toks.append(tok)
+        return torch.stack(toks, dim=1), cache

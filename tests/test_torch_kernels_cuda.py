@@ -1,0 +1,151 @@
+"""The port's four CUDA kernels against their plain PyTorch versions, on the
+card, at small shapes and all four bit widths.
+
+Needs an NVIDIA Hopper card and ``nvcc``; skips cleanly without them.  It
+imports no JAX, so it runs on a machine without it:
+
+    PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
+
+Tolerance: both sides round w to bf16 at the same point and multiply
+exactly in f32; they differ only in the order of the f32 sums (and, with
+an adapter, in where a pooled sum rounds to bf16), so each output may land
+on a neighbouring bf16 value: two bf16 steps of the largest output,
+2**-6 * max|y|.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.core import quant
+from repro_torch.kernels.qalora_fused import (qalora_matmul_cuda,
+                                              qalora_matmul_plain)
+from repro_torch.kernels.qmatmul import qmatmul_cuda, qmatmul_plain
+from repro_torch.kernels.qmatvec import (qalora_matvec_cuda,
+                                         qalora_matvec_plain, qmatvec_cuda,
+                                         qmatvec_plain)
+
+pytestmark = pytest.mark.cuda
+
+BITS = (2, 3, 4, 8)
+PAIRS = {
+    "qmatvec": (qmatvec_cuda, qmatvec_plain, False, 4),
+    "qmatmul": (qmatmul_cuda, qmatmul_plain, False, 100),
+    "qalora_matvec": (qalora_matvec_cuda, qalora_matvec_plain, True, 8),
+    "qalora_matmul": (qalora_matmul_cuda, qalora_matmul_plain, True, 40),
+}
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: torch.cuda.is_available() is False")
+    from repro_torch.kernels import build
+    try:
+        build.nvcc_path()
+    except build.KernelBuildError as e:
+        pytest.skip(str(e))
+    build.build_all()
+    return torch.device("cuda")
+
+
+def _inputs(dev, bits, m, k=256, n=96, g=32, rank=8, scale_dtype=torch.bfloat16,
+            seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed * 97 + bits * 7 + m)
+    w = torch.randn((k, n), generator=gen, device=dev) / np.sqrt(k)
+    qt = quant.quantize(w, bits, g, scale_dtype=scale_dtype)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    a = (torch.randn((k // g, rank), generator=gen, device=dev) / np.sqrt(k // g)
+         + 0.01).to(torch.bfloat16)
+    b = (torch.randn((rank, n), generator=gen, device=dev) * 0.05
+         + 0.01).to(torch.bfloat16)
+    return x, qt, a, b
+
+
+def _run(name, x, qt, a, b, s=0.7):
+    kern, plain, adapter, _ = PAIRS[name]
+    args = (x, qt.qweight, qt.scale, qt.zero)
+    kw = dict(bits=qt.bits, group_size=qt.group_size)
+    if adapter:
+        args += (a, b)
+        kw["s"] = s
+    before = kern.launches
+    y = kern(*args, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    return y, plain(*args, **kw)
+
+
+def _assert_close(y, ref):
+    assert y.dtype == ref.dtype == torch.bfloat16 and y.shape == ref.shape
+    y, ref = y.float(), ref.float()
+    assert torch.isfinite(y).all()
+    tol = 2.0 ** -6 * ref.abs().max().item()
+    err = (y - ref).abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("name", sorted(PAIRS))
+def test_kernel_matches_plain(card, name, bits):
+    m = PAIRS[name][3]
+    _assert_close(*_run(name, *_inputs(card, bits, m)))
+
+
+@pytest.mark.parametrize("name", sorted(PAIRS))
+def test_kernel_f32_scales(card, name):
+    m = PAIRS[name][3]
+    x, qt, a, b = _inputs(card, 4, m, scale_dtype=torch.float32, seed=1)
+    _assert_close(*_run(name, x, qt, a, b))
+
+
+@pytest.mark.parametrize("m", (1, 3, 8))
+@pytest.mark.parametrize("name", ("qmatvec", "qalora_matvec"))
+def test_gemv_splits_k_across_a_cluster(card, name, m):
+    """A long K over few columns: the GEMV kernels split K across the
+    blocks of a cluster and add the blocks' partials in rank order, so
+    repeated calls give identical bits."""
+    x, qt, a, b = _inputs(card, 4, m, k=4096, n=64, seed=3)
+    y, ref = _run(name, x, qt, a, b)
+    _assert_close(y, ref)
+    assert torch.equal(y, _run(name, x, qt, a, b)[0])
+
+
+@pytest.mark.parametrize("name", ("qmatmul", "qalora_matmul"))
+def test_tiled_kernels_take_unaligned_x(card, name):
+    """x at an odd element offset: the tiled kernels load it one element at
+    a time instead of 16 bytes at a time."""
+    x, qt, a, b = _inputs(card, 4, 70, seed=2)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    xu = buf[1:].view(x.shape)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 and xu.is_contiguous()
+    y, ref = _run(name, xu, qt, a, b)
+    _assert_close(y, ref)
+    y_aligned, _ = _run(name, x, qt, a, b)
+    assert torch.equal(y, y_aligned)
+
+
+def test_wrappers_refuse_what_kernels_do_not_take(card):
+    x, qt, a, b = _inputs(card, 4, 4)
+    with pytest.raises(TypeError):
+        qmatvec_cuda(x.float(), qt.qweight, qt.scale, qt.zero, bits=4,
+                     group_size=32)
+    with pytest.raises(ValueError):
+        qmatvec_cuda(torch.cat([x, x, x]), qt.qweight, qt.scale, qt.zero,
+                     bits=4, group_size=32)  # M = 12 > GEMV_MAX_M
+    with pytest.raises(ValueError):
+        qmatmul_cuda(x, qt.qweight.T, qt.scale, qt.zero, bits=4,
+                     group_size=32)
+    for fn in (qalora_matvec_cuda, qalora_matmul_cuda):  # A/B bf16 only
+        with pytest.raises(TypeError):
+            fn(x, qt.qweight, qt.scale, qt.zero, a.float(), b.float(), s=1.0,
+               bits=4, group_size=32)
+
+
+def test_reset_and_read_launch_counts(card):
+    kernels.reset_launches()
+    _run("qmatvec", *_inputs(card, 4, 2))
+    counts = kernels.launches()
+    assert counts["qmatvec"] == 1 and sum(counts.values()) == 1
