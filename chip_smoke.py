@@ -9,21 +9,37 @@ Phases, each printing one JSON line:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` does,
    and records its clocks, power draw and temperature (sampled again
    after each kernel timing).
-2. build   -- builds the four dequant-matmul kernels from ``src/repro_torch/csrc``.
+2. build   -- builds the five dequant-matmul kernels from
+   ``src/repro_torch/csrc`` (three sources, one ``nvcc`` each, in parallel).
 3. kernels -- holds each kernel against its plain PyTorch version on the
    card in bf16 at the main-path shapes of llama7b-proxy int4 g32 (M = 4
-   for the GEMV kernels, M = 512 for the tiled ones), plus a sweep of bits
-   {2, 3, 4, 8} and a sweep of the GEMV's M, and times kernel, plain
-   version and one PyTorch matmul on the pre-dequantised weight
-   (``library_ms``) with CUDA events, rotating over enough weight copies
-   to keep the 50 MB L2 cold.
+   for the GEMV kernels, M = 512 for the tiled ones; the slot GEMV with
+   ids [1, 2, 0, 3] over a 5-row adapter bank), the tiled ``qmatmul`` also
+   at M = 256 (the continuous path's ragged step: 4 slots x 64-token
+   chunks), plus a sweep of bits {2, 3, 4, 8} (the slot GEMV also at M = 1
+   and 8), a sweep of the GEMV's M, and the slot GEMV with every id 0
+   against ``qmatvec`` bit for bit.  Times kernel, plain version and the
+   PyTorch library calls on the pre-dequantised weight (``library_ms``)
+   with CUDA events, rotating over enough weight copies to keep the 50 MB
+   L2 cold; at M = 256 also the ragged step's whole multi-tenant linear
+   (tiled kernel plus plain bank delta) and the bank delta alone.
 4. small   -- a reduced model on the card (kernels) against the same
    weights on the CPU (plain versions).
 5. serve   -- ``repro_torch.launch.serve`` on the full llama7b-proxy
    (32 layers, d 4096, d_ff 11008, vocab 32000, int4 g32 r64, bf16):
    4 requests x 128 prompt + 32 generated tokens, then the merge check;
-   all four kernels must have launched on that run.
-6. the ``kernels`` summary, and the final ``{"ok": true, ...}`` line.
+   the four kernels of that path must have launched on that run.
+6. adapters -- ``repro_torch.launch.serve --engine continuous`` on the full
+   llama7b-proxy with three demo tenants and the null adapter over one
+   INT4 base: 8 requests x 128 prompt + 32 generated tokens on 4 slots,
+   prefill chunks of 64, decode bursts of 8.  The slot GEMV must launch
+   224 times per decode model step and the tiled kernel 224 times per
+   ragged step; each tenant's slot-routed logits (the null adapter's too)
+   must match its merged tree, and be nearer it than the next tenant's
+   merged tree, both with every row bound to one tenant and in one batch
+   whose rows cycle the tenants and the null adapter.  The greedy tokens
+   each tenant gives on the same prompts are recorded.
+7. the ``kernels`` summary, and the final ``{"ok": true, ...}`` line.
 
 Any failed phase exits non-zero before the final line.  Without a card,
 or without the repository's ``src`` beside this file, it exits non-zero
@@ -55,22 +71,40 @@ SHAPES = ((4096, 4096, 4), (4096, 11008, 2), (11008, 4096, 1))
 BITS, GROUP, RANK, S = 4, 32, 64, 2.0
 GEMV_M, TILED_M = 4, 512
 SWEEP_SHAPE = (4096, 4096)
+# the slot GEMV: a 5-row bank (row 0 the null adapter) and one id per row
+SLOT_BANK_ROWS = 5
+SLOT_IDS = {1: [1], 4: [1, 2, 0, 3], 8: [1, 2, 0, 3, 4, 1, 0, 2]}
+SLOT_SWEEP_M = (1, 8)
 # the GEMV at M = 1, 4, 8 on one shape: a time that grows with M points at
 # the multiply-adds, a flat one at the bytes in flight
 GEMV_M_SWEEP = ((1, 8), (4096, 11008))
+# the continuous path's ragged step (phase adapters): 4 slots x 64-token
+# chunks reach the tiled kernel at M = 256, one adapter id per slot, and
+# the plain bank delta is added to its output
+RAGGED_SLOTS, RAGGED_CHUNK = 4, 64
+RAGGED_M = RAGGED_SLOTS * RAGGED_CHUNK
+RAGGED_SLOT_IDS = (1, 2, 3, 0)
 L2_BYTES = 50e6
 
 KERNELS = {
-    # name: (adapter?, M, source, Pallas function replaced)
-    "qmatmul": (False, TILED_M, "src/repro_torch/csrc/qmatmul.cu",
+    # name: (what it adds to the base product, M, source, Pallas function
+    # replaced)
+    "qmatmul": ("base", TILED_M, "src/repro_torch/csrc/qmatmul.cu",
                 "src/repro/kernels/qmatmul.py:76"),
-    "qmatvec": (False, GEMV_M, "src/repro_torch/csrc/qmatvec.cu",
+    "qmatvec": ("base", GEMV_M, "src/repro_torch/csrc/qmatvec.cu",
                 "src/repro/kernels/qmatvec.py:68"),
-    "qalora_matmul": (True, TILED_M, "src/repro_torch/csrc/qalora_fused.cu",
+    "qalora_matmul": ("adapter", TILED_M,
+                      "src/repro_torch/csrc/qalora_fused.cu",
                       "src/repro/kernels/qalora_fused.py:62"),
-    "qalora_matvec": (True, GEMV_M, "src/repro_torch/csrc/qmatvec.cu",
+    "qalora_matvec": ("adapter", GEMV_M, "src/repro_torch/csrc/qmatvec.cu",
                       "src/repro/kernels/qmatvec.py:133"),
+    "qalora_slot_matvec": ("slot", GEMV_M, "src/repro_torch/csrc/qmatvec.cu",
+                           "src/repro/kernels/qmatvec.py:212"),
 }
+# the kernels each served path must launch
+STATIC_PATH = ("qmatmul", "qmatvec", "qalora_matmul", "qalora_matvec")
+ADAPTER_PATH = ("qmatmul", "qalora_slot_matvec")
+LAYER_LINEARS = sum(c for _, _, c in SHAPES)  # 7 quantized linears a layer
 
 RECORD = {"phases": []}
 
@@ -137,17 +171,24 @@ def phase_build():
 # ---------------------------------------------------------------------------
 
 
-def _bound(m, k, n, bits, adapter, scale_bytes=2, ab_bytes=2, x_bytes=2):
+def _bound(m, k, n, bits, n_adapters=0, adapter_rows=None, scale_bytes=2,
+           ab_bytes=2, x_bytes=2):
     """Least time for the work: bytes (each input read once, the output
-    written once) over the memory rate, or operations over the bf16 peak."""
+    written once) over the memory rate, or operations over the bf16 peak.
+    ``n_adapters`` distinct adapters' A and B are read (the slot GEMV: the
+    distinct non-null ids of this run's data, plus its m int32 ids), and
+    ``adapter_rows`` rows of x (default all m) go through an adapter."""
     from repro_torch.core.quant import codes_per_byte
     groups = k // GROUP
     nbytes = (k // codes_per_byte(bits)) * n + 2 * groups * n * scale_bytes \
         + m * k * x_bytes + m * n * x_bytes
     flops = 2 * m * k * n
-    if adapter:
-        nbytes += (groups * RANK + RANK * n) * ab_bytes
-        flops += 2 * m * (groups * RANK + RANK * n)
+    if n_adapters:
+        rows = m if adapter_rows is None else adapter_rows
+        nbytes += n_adapters * (groups * RANK + RANK * n) * ab_bytes
+        if adapter_rows is not None:
+            nbytes += 4 * m
+        flops += 2 * rows * (groups * RANK + RANK * n)
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOP_S
     return {"bytes": nbytes, "flops": flops,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -170,18 +211,27 @@ def _time_ms(torch, fn, arg_sets, iters):
     return start.elapsed_time(end) / iters
 
 
-def _case(torch, gen, m, k, n, bits, adapter):
-    """Inputs for one kernel call: quantized weight, adapter, x (bf16)."""
+def _case(torch, gen, m, k, n, bits, kind):
+    """Inputs for one kernel call: the quantized weight, then what the
+    kernel adds (adapter A and B, or the slot GEMV's banks and ids), all
+    bf16 but the ids."""
     from repro_torch.core import quant
     w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
     qt = quant.quantize(w, bits, GROUP, scale_dtype=torch.bfloat16)
     del w
-    a = (torch.randn((k // GROUP, RANK), generator=gen, device="cuda")
+    if kind == "base":
+        return qt, ()
+    rows = (SLOT_BANK_ROWS,) if kind == "slot" else ()
+    a = (torch.randn(rows + (k // GROUP, RANK), generator=gen, device="cuda")
          / math.sqrt(k // GROUP) + 0.01).to(torch.bfloat16)
-    b = (torch.randn((RANK, n), generator=gen, device="cuda") * 0.01
+    b = (torch.randn(rows + (RANK, n), generator=gen, device="cuda") * 0.01
          + 0.01).to(torch.bfloat16)
-    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
-    return qt, a, b, x
+    if kind == "adapter":
+        return qt, (a, b)
+    a[0] = 0  # the null adapter
+    b[0] = 0
+    ids = torch.tensor(SLOT_IDS[m], dtype=torch.int32, device="cuda")
+    return qt, (a, b, ids)
 
 
 def _calls(name):
@@ -189,8 +239,42 @@ def _calls(name):
     from repro_torch.kernels import qalora_fused, qmatmul, qmatvec
     plain = {"qmatmul": qmatmul.qmatmul_plain, "qmatvec": qmatvec.qmatvec_plain,
              "qalora_matmul": qalora_fused.qalora_matmul_plain,
-             "qalora_matvec": qmatvec.qalora_matvec_plain}[name]
+             "qalora_matvec": qmatvec.qalora_matvec_plain,
+             "qalora_slot_matvec": qmatvec.qalora_slot_matvec_plain}[name]
     return kernels.KERNELS[name], plain
+
+
+def _library_fn(torch, kind, x):
+    """One PyTorch call for the same function, where there is one: cuBLAS
+    on the pre-dequantised weight (the adapter folded into it for kernels 3
+    and 4).  No single call gathers an adapter per row, so for the slot
+    GEMV it is cuBLAS for the base plus ``torch.bmm`` / ``torch.baddbmm``
+    on A and B rows gathered beforehand."""
+    if kind != "slot":
+        return lambda w: x @ w
+    m, k = x.shape
+
+    def slot(w, a_sel, b_sel):
+        pooled = x.reshape(m, 1, k // GROUP, GROUP).sum(-1)
+        return torch.baddbmm((x @ w)[:, None], torch.bmm(pooled, a_sel),
+                             b_sel, alpha=S)[:, 0]
+    return slot
+
+
+def _library_args(torch, kind, q, extra):
+    from repro_torch.core.qalora import QALoRAParams
+    from repro_torch.core.schemes import LinearParams, QuantPolicy, dense_view
+    mode = "qalora" if kind == "adapter" else "intq"
+    pol = QuantPolicy(mode=mode, bits=q.bits, group_size=GROUP, rank=RANK,
+                      s=S)
+    data = {"q": q, "ad": QALoRAParams(*extra)} if kind == "adapter" \
+        else {"q": q}
+    w = dense_view(LinearParams(data, pol.mode, pol), torch.bfloat16)
+    if kind != "slot":
+        return (w,)
+    a, b, ids = extra
+    rows = ids.to(torch.int64)
+    return (w, a[rows].contiguous(), b[rows].contiguous())
 
 
 def _check_one(torch, name, m, k, n, bits, gen, timing):
@@ -199,21 +283,20 @@ def _check_one(torch, name, m, k, n, bits, gen, timing):
     they differ only in f32 summation order (and, with an adapter, where a
     pooled sum rounds to bf16): each bf16 output may land on a
     neighbouring value, two bf16 steps of the largest output at most,
-    2**-6 * max|y|."""
-    from repro_torch.core.schemes import LinearParams, QuantPolicy, dense_view
-    from repro_torch.core.qalora import QALoRAParams
-    adapter = KERNELS[name][0]
+    2**-6 * max|y|.  The slot GEMV with every id 0 must give qmatvec's
+    output bit for bit (same base loop and split, adapter skipped)."""
+    kind = KERNELS[name][0]
     kern, plain = _calls(name)
-    qt, a, b, x = _case(torch, gen, m, k, n, bits, adapter)
+    qt, extra = _case(torch, gen, m, k, n, bits, kind)
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
 
-    def args_of(q):
-        base = (x, q.qweight, q.scale, q.zero)
-        return base + ((a, b) if adapter else ())
+    def args_of(q, ex):
+        return (x, q.qweight, q.scale, q.zero) + ex
     kw = dict(bits=bits, group_size=GROUP)
-    if adapter:
+    if kind != "base":
         kw["s"] = S
-    y = kern(*args_of(qt), **kw)
-    ref = plain(*args_of(qt), **kw)
+    y = kern(*args_of(qt, extra), **kw)
+    ref = plain(*args_of(qt, extra), **kw)
     torch.cuda.synchronize()
     yf, rf = y.float(), ref.float()
     err = (yf - rf).abs().max().item()
@@ -221,55 +304,112 @@ def _check_one(torch, name, m, k, n, bits, gen, timing):
     row = {"kernel": name, "M": m, "K": k, "N": n, "bits": bits,
            "max_abs_err": err, "tol": tol,
            "finite": bool(torch.isfinite(yf).all())}
-    row.update(_bound(m, k, n, bits, adapter))
+    ok = row["finite"] and err <= tol
+    if kind == "slot":
+        ids = SLOT_IDS[m]
+        row["ids"] = ids
+        row.update(_bound(m, k, n, bits, n_adapters=len(set(ids) - {0}),
+                          adapter_rows=sum(i != 0 for i in ids)))
+        from repro_torch.kernels.qmatvec import qmatvec_cuda
+        zeros = torch.zeros_like(extra[2])
+        y0 = kern(*args_of(qt, extra[:2] + (zeros,)), **kw)
+        base = qmatvec_cuda(x, qt.qweight, qt.scale, qt.zero, **{
+            k_: v for k_, v in kw.items() if k_ != "s"})
+        row["null_ids_bit_identical"] = bool(torch.equal(y0, base))
+        ok = ok and row["null_ids_bit_identical"]
+    else:
+        row.update(_bound(m, k, n, bits, n_adapters=int(kind == "adapter")))
     if timing:
         per_copy = qt.qweight.numel() + 4 * qt.scale.numel()
-        copies = [qt] + [_case(torch, gen, m, k, n, bits, adapter)[0]
-                         for _ in range(max(1, math.ceil(2.5 * L2_BYTES
-                                                         / per_copy)) - 1)]
+        copies = [(qt, extra)] + [
+            _case(torch, gen, m, k, n, bits, kind)
+            for _ in range(max(1, math.ceil(2.5 * L2_BYTES / per_copy)) - 1)]
         row["kernel_ms"] = _time_ms(
-            torch, lambda *t: kern(*t, **kw), [args_of(q) for q in copies], 50)
+            torch, lambda *t: kern(*t, **kw),
+            [args_of(q, ex) for q, ex in copies], 50)
         row["clocks"] = _smi(CLOCKS)
         row["plain_ms"] = _time_ms(
-            torch, lambda *t: plain(*t, **kw), [args_of(q) for q in copies], 5)
-        pol = QuantPolicy(mode="qalora" if adapter else "intq", bits=bits,
-                          group_size=GROUP, rank=RANK, s=S)
-        dense = []
-        for q in copies[:max(2, math.ceil(2.5 * L2_BYTES / (2 * k * n)))]:
-            data = {"q": q, "ad": QALoRAParams(a, b)} if adapter else {"q": q}
-            dense.append(dense_view(LinearParams(data, pol.mode, pol),
-                                    torch.bfloat16))
-        while len(dense) < 2:
-            dense.append(dense[0].clone())
-        row["library_ms"] = _time_ms(
-            torch, lambda w: x @ w, [(w,) for w in dense], 50)
-        del copies, dense
-    ok = row["finite"] and err <= tol
+            torch, lambda *t: plain(*t, **kw),
+            [args_of(q, ex) for q, ex in copies], 5)
+        lib = [_library_args(torch, kind, q, ex) for q, ex in
+               copies[:max(2, math.ceil(2.5 * L2_BYTES / (2 * k * n)))]]
+        while len(lib) < 2:
+            lib.append(tuple(t.clone() for t in lib[0]))
+        row["library_ms"] = _time_ms(torch, _library_fn(torch, kind, x),
+                                     lib, 50)
+        del copies, lib
     row["ok"] = ok
     emit({"phase": "kernel_row", **row})
     if not ok:
         raise AssertionError(f"{name} M={m} K={k} N={n} bits={bits}: "
-                             f"max_abs_err {err} > tol {tol}")
+                             f"max_abs_err {err} > tol {tol}, or the null "
+                             f"ids were not bit-identical to qmatvec")
+    return row
+
+
+def _time_ragged_linear(torch, gen, k, n):
+    """The ragged step's whole multi-tenant linear at M = ``RAGGED_M``
+    (the tiled kernel plus the plain bank delta, ``ops._slot_matmul_tiled``)
+    and the bank delta alone, on one shape: the tiled kernel's own time
+    at that M is the ``qmatmul`` row beside it."""
+    from repro_torch.core.qalora import bank_adapter_delta
+    from repro_torch.kernels import ops
+    ids = torch.tensor(RAGGED_SLOT_IDS, dtype=torch.int32, device="cuda") \
+        .repeat_interleave(RAGGED_CHUNK)
+    x = torch.randn((RAGGED_M, k), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    qt, (a, b, _) = _case(torch, gen, GEMV_M, k, n, BITS, "slot")
+    per_copy = qt.qweight.numel() + 4 * qt.scale.numel() + 2 * b.numel()
+    copies = [(qt, a, b)] + [
+        (q,) + ex[:2] for q, ex in (
+            _case(torch, gen, GEMV_M, k, n, BITS, "slot") for _ in range(
+                max(1, math.ceil(2.5 * L2_BYTES / per_copy)) - 1))]
+    row = {"path": "ragged step", "M": RAGGED_M, "K": k, "N": n,
+           "ids": list(RAGGED_SLOT_IDS), "rows_per_id": RAGGED_CHUNK,
+           "bank_rows": SLOT_BANK_ROWS}
+    row["slot_tiled_ms"] = _time_ms(
+        torch, lambda q, a_, b_: ops._slot_matmul_tiled(
+            x, q.qweight, q.scale, q.zero, a_, b_, ids, s=S, bits=BITS,
+            group_size=GROUP), copies, 20)
+    row["bank_delta_ms"] = _time_ms(
+        torch, lambda q, a_, b_: bank_adapter_delta(x, a_, b_, ids, S, GROUP),
+        copies, 20)
+    emit({"phase": "ragged_linear_row", **row})
+    del copies
     return row
 
 
 def phase_kernels(torch):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for name, (adapter, m, _, _) in KERNELS.items():
+    for name, (_, m, _, _) in KERNELS.items():
         rows[name] = [_check_one(torch, name, m, k, n, BITS, gen, timing=True)
                       for k, n, _ in SHAPES]
+    # the tiled kernel at the continuous path's ragged-step M, and that
+    # step's whole multi-tenant linear
+    ragged = [_check_one(torch, "qmatmul", RAGGED_M, k, n, BITS, gen,
+                         timing=True) for k, n, _ in SHAPES]
+    for row, (k, n, _) in zip(ragged, SHAPES):
+        row.update(_time_ragged_linear(torch, gen, k, n))
     sweep = [_check_one(torch, name, KERNELS[name][1], *SWEEP_SHAPE, bits, gen,
                         timing=False)
              for bits in (2, 3, 4, 8) for name in KERNELS]
+    sweep += [_check_one(torch, "qalora_slot_matvec", m, *SWEEP_SHAPE, bits,
+                         gen, timing=False)
+              for bits in (2, 3, 4, 8) for m in SLOT_SWEEP_M]
     ms, (k, n) = GEMV_M_SWEEP
     sweep += [_check_one(torch, "qmatvec", m, k, n, BITS, gen, timing=True)
               for m in ms]
     emit({"phase": "kernels_checked", "rows": sum(map(len, rows.values()))
-          + len(sweep), "tolerance": "2**-6 * max|plain| (two bf16 steps)",
+          + len(ragged) + len(sweep),
+          "tolerance": "2**-6 * max|plain| (two bf16 steps)",
+          "ragged_step_per_layer_ms": {
+              key: _per_layer(ragged, key) for key in
+              ("kernel_ms", "bound_ms", "library_ms", "slot_tiled_ms",
+               "bank_delta_ms")},
           "clocks_after": _smi(CLOCKS)})
     torch.cuda.empty_cache()
-    return rows
+    return rows, ragged
 
 
 def _per_layer(rows, key):
@@ -340,11 +480,11 @@ def phase_serve(torch):
         "tokens_in_vocab": bool(((toks >= 0) & (toks < 32000)).all()),
         "merge_finite": all(math.isfinite(r["max_abs_diff"])
                             for r in res["merge_check"].values()),
-        "all_kernels_launched": all(v > 0 for v in counts.values()),
+        "path_kernels_launched": all(counts[k] > 0 for k in STATIC_PATH),
     }
     out = {"phase": "serve", **res, "launches": counts,
-           "launches_per_prefill": 7 * n_layers,
-           "launches_per_decode_step": 7 * n_layers,
+           "launches_per_prefill": LAYER_LINEARS * n_layers,
+           "launches_per_decode_step": LAYER_LINEARS * n_layers,
            "prefill_ms": res["prefill_s"] * 1e3,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "depth_cut": "none (all 32 layers)", "checks": checks,
@@ -354,6 +494,95 @@ def phase_serve(torch):
     if not out["ok"]:
         raise AssertionError(f"serve checks failed: {checks}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 6: many tenants over one INT4 base, continuous engine
+# ---------------------------------------------------------------------------
+
+ADAPTER_ARGV = ["--arch", "llama7b-proxy", "--engine", "continuous",
+                "--slots", "4", "--prefill-chunk", "64", "--decode-burst", "8",
+                "--prompt-len", "128",
+                "--adapters", "alice=demo:1,bob=demo:2,carol=demo:3",
+                "--device", "cuda"]
+
+
+def phase_adapters(torch):
+    """The multi-tenant path at full width and depth.  The engine's launch
+    counts are read when it drains (``launches_engine``); the per-tenant
+    merge check launches after that and is counted apart."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    serve.main(ADAPTER_ARGV + ["--requests", "4", "--gen-len", "2"])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    res = serve.main(ADAPTER_ARGV + ["--requests", "8", "--gen-len", "32",
+                                     "--verify"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    total = kernels.launches()
+    engine = res.pop("launches_engine")
+    toks = res.pop("tokens")
+    checks_raw = res.pop("tenant_check")
+    cross = {name: {ph: r["rel"] for ph, r in c.items()}
+             for name, c in res.pop("tenant_cross_check").items()}
+    per_step = LAYER_LINEARS * res["n_layers"]
+    mixed = res.pop("mixed_check")
+    streams = {name: tuple(c["prefill"]["argmax"] + c["decode"]["argmax"])
+               for name, c in checks_raw.items()}
+    tenant_rel = {name: {ph: r["rel"] for ph, r in c.items()}
+                  for name, c in checks_raw.items()}
+    checks = {
+        "tokens_shape": list(toks.shape) == [8, 32],
+        "tokens_in_vocab": bool(((toks >= 0) & (toks < 32000)).all()),
+        "slot_launches_per_decode_step":
+            engine["qalora_slot_matvec"] == per_step * res["decode_steps"],
+        "tiled_launches_per_ragged_step":
+            engine["qmatmul"] == per_step * res["ragged_dispatches"],
+        "only_path_kernels": all(v == 0 for k, v in engine.items()
+                                 if k not in ADAPTER_PATH),
+        "tenants_within_merge_bound": all(
+            r <= res["merge_bound_rel"] for t in tenant_rel.values()
+            for r in t.values()),
+        # each tenant's slot-routed logits are nearer its own merged tree
+        # than the next tenant's: the gather served the right adapter
+        "tenants_told_apart": all(
+            tenant_rel[t][ph] < cross[t][ph] for t in cross
+            for ph in tenant_rel[t]),
+        # one tree whose rows cycle alice, bob, carol and the null
+        # adapter: row i within the bound of its own tenant's merged tree,
+        # and nearer it than the next tenant's
+        "mixed_rows_routed": all(
+            o <= res["merge_bound_rel"] and o < f
+            for ph in ("prefill", "decode")
+            for o, f in zip(mixed[ph]["rel"], mixed[ph]["next_rel"])),
+    }
+    out = {"phase": "adapters", **res, "launches": engine,
+           "launches_merge_check": {k: total[k] - engine[k] for k in total},
+           "launches_per_decode_step": per_step,
+           "launches_per_ragged_step": per_step,
+           "tenant_rel": tenant_rel, "tenant_cross_rel": cross,
+           "mixed_check": mixed,
+           # greedy tokens (prefill and one decode step) of the same prompts
+           # per tenant: recorded, not checked, since on these random
+           # weights the +0.01 nudge sets the argmax whatever the tenant
+           # (PERF.md); tenants_told_apart checks the routing
+           "streams": {t: list(s) for t, s in streams.items()},
+           "same_prompt_streams_differ": len(set(streams.values())) > 1,
+           "prefill_ms": res["ragged_s"] * 1e3,
+           "ragged_ms_per_step": res["ragged_s"] * 1e3
+           / max(res["ragged_dispatches"], 1),
+           "decode_ms": res["burst_s"] * 1e3,
+           "bank_mb": res["bank_bytes"] / 1e6, "peak_mem_gb": peak,
+           "depth_cut": "none (all 32 layers)", "checks": checks,
+           "sample_tokens": toks[0][:8].tolist()}
+    out["ok"] = all(checks.values())
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"adapters checks failed: {checks}")
+    return engine
 
 
 # ---------------------------------------------------------------------------
@@ -377,9 +606,12 @@ def main() -> int:
     try:
         smi_line = phase_device(torch)
         phase_build()
-        rows = phase_kernels(torch)
+        rows, ragged = phase_kernels(torch)
         phase_small(torch)
         counts = phase_serve(torch)
+        counts = {k: counts[k] for k in STATIC_PATH}
+        counts.update({k: v for k, v in phase_adapters(torch).items()
+                       if k not in STATIC_PATH})
     except Exception as e:  # report, save and fail: no result line
         import traceback
         traceback.print_exc()
@@ -387,20 +619,32 @@ def main() -> int:
         save()
         return 1
     summary = []
-    for name, (adapter, m, source, replaces) in KERNELS.items():
+    for name, (kind, m, source, replaces) in KERNELS.items():
         r = rows[name]
         summary.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
-            "max_abs_err": max(x["max_abs_err"] for x in r),
+            "max_abs_err": max(x["max_abs_err"] for x in r + (
+                ragged if name == "qmatmul" else [])),
             "ms": _per_layer(r, "kernel_ms"),
             "plain_ms": _per_layer(r, "plain_ms"),
             "bound_ms": _per_layer(r, "bound_ms"),
             "bound_by": r[1]["bound_by"],
             "library_ms": _per_layer(r, "library_ms"),
             "work": f"one layer's linears at M={m}: 4x(4096,4096) + "
-                    f"2x(4096,11008) + 1x(11008,4096), int4 g32, bf16",
+                    f"2x(4096,11008) + 1x(11008,4096), int4 g32, bf16"
+                    + (f", ids {SLOT_IDS[m]} over a {SLOT_BANK_ROWS}-row "
+                       f"bank" if kind == "slot" else ""),
+            "launches_path": "continuous multi-tenant serve (phase "
+                             "adapters)" if name not in STATIC_PATH
+                             else "static serve (phase serve)",
             "status": "ported, checked"})
+        if name == "qmatmul":
+            summary[-1]["ragged_step"] = {
+                "work": f"the same linears at M={RAGGED_M} (phase adapters)",
+                "ms": _per_layer(ragged, "kernel_ms"),
+                "bound_ms": _per_layer(ragged, "bound_ms"),
+                "with_bank_delta_ms": _per_layer(ragged, "slot_tiled_ms")}
     RECORD["seconds"] = time.perf_counter() - t0
     RECORD["card"] = smi_line
     save()

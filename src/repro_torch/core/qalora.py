@@ -59,6 +59,34 @@ def adapter_delta(x: torch.Tensor, p: QALoRAParams, s: float,
     return (pooled @ p.a.to(x.dtype)) @ p.b.to(x.dtype) * s
 
 
+def bank_adapter_delta(x: torch.Tensor, a_bank: torch.Tensor,
+                       b_bank: torch.Tensor, ids: torch.Tensor, s: float,
+                       group_size: int) -> torch.Tensor:
+    """Per-row adapter delta from stacked banks (multi-tenant serving).
+
+    ``a_bank [N, L, r]`` / ``b_bank [N, r, D_out]`` stack N adapters;
+    ``ids [B]`` picks one per leading row of ``x [B, ..., D_in]``, whose
+    delta is ``s * pool(x_b) @ A[ids_b] @ B[ids_b]``.  Bank row 0 is the
+    null adapter (zeros, delta exactly 0).
+
+    The reference gathers ``[B, r, D_out]`` copies of B; at prefill M that
+    is hundreds of MB per linear.  Here each row contracts with every
+    adapter's A (``[B, ..., N, r]``), the rows of other adapters are set to
+    exact zeros, and one product with the ``[N * r, D_out]`` stack of B
+    adds only the row's own adapter: the same f32 products and sums, in
+    another order.  Pooling and both products run in f32; the result is
+    cast to ``x.dtype``."""
+    f32 = torch.float32
+    n, _, rank = a_bank.shape
+    pooled = group_pool(x.to(f32), group_size)             # [B, ..., L]
+    t = torch.einsum("b...l,nlr->b...nr", pooled, a_bank.to(f32))
+    own = ids.to(torch.int64)[:, None] == torch.arange(n, device=ids.device)
+    own = own.reshape(own.shape[:1] + (1,) * (t.dim() - 3) + (n, 1))
+    t = torch.where(own, t, 0.0).flatten(-2)               # [B, ..., N*r]
+    delta = t @ b_bank.to(f32).reshape(n * rank, -1)
+    return (delta * s).to(x.dtype)
+
+
 def qalora_forward(x: torch.Tensor, qt: QuantizedLinear, p: QALoRAParams,
                    s: float, compute_dtype=None) -> torch.Tensor:
     """Plain fine-tuning / serving forward (no kernel)."""

@@ -10,6 +10,8 @@ Schemes (dispatched by the tag on :class:`LinearParams`):
   fp       plain dense weight
   qalora   INT-N group-wise base + group-pooled adapter    (the paper)
   intq     bare INT-N group-wise linear (merged QA-LoRA output)
+  qalora_slot  one INT-N base + a bank of adapters, one per batch row
+               (multi-tenant serving; built by ``serving.AdapterStore``)
 
 The qalora / intq schemes have one route: the kernel wrappers behind
 :mod:`repro_torch.kernels.ops`, which launch the Hopper kernels on CUDA
@@ -224,7 +226,7 @@ def dense_linear(w: torch.Tensor, policy: Optional[QuantPolicy] = None):
 
 
 # schemes whose payload carries a packed INT-N base
-_QUANT_BASE_SCHEMES = ("intq", "qalora")
+_QUANT_BASE_SCHEMES = ("intq", "qalora", "qalora_slot")
 
 
 def quantized_base(lp: LinearParams) -> quant_lib.QuantizedLinear:
@@ -240,8 +242,8 @@ def quantized_base(lp: LinearParams) -> quant_lib.QuantizedLinear:
 
 def adapter_params(lp: LinearParams):
     """The trainable adapter payload of an adapter-bearing linear, found
-    through the scheme's declared ``trainable`` keys."""
-    keys = get_scheme(lp.scheme).trainable
+    through the scheme's :meth:`LinearScheme.trainable_paths`."""
+    keys = get_scheme(lp.scheme).trainable_paths(lp.data)
     if len(keys) != 1:
         raise ValueError(f"adapter_params: scheme {lp.scheme!r} declares "
                          f"{len(keys)} trainable keys {tuple(keys)}; "
@@ -265,6 +267,11 @@ class LinearScheme:
     def init(self, generator, d_in: int, d_out: int, pol: QuantPolicy,
              device) -> dict:
         raise NotImplementedError
+
+    def trainable_paths(self, data: dict) -> Tuple[str, ...]:
+        """Payload keys holding trainable leaves (empty: nothing to
+        train or extract)."""
+        return self.trainable
 
     def apply(self, data: dict, x, pol: QuantPolicy):
         raise NotImplementedError
@@ -345,6 +352,36 @@ class QALoRAScheme(LinearScheme):
     def merge(self, data, pol):
         """Exact merge (Appendix B): zeros update only, stays INT-N."""
         return "intq", {"q": qalora_lib.merge(data["q"], data["ad"], pol.s)}
+
+
+@register_scheme("qalora_slot")
+class QALoRASlotScheme(LinearScheme):
+    """Multi-tenant serving: one frozen INT-N base shared by a bank of
+    QA-LoRA adapters, with one adapter index per batch row.
+
+    The payload is ``{"q": QuantizedLinear, "a": [N, L, r] bank,
+    "b": [N, r, D_out] bank, "ids": [B] int32}``; row b of x computes
+    ``x_b @ dequant(q) + s * pool(x_b) @ A[ids_b] @ B[ids_b]``, and bank
+    row 0 is the null adapter.  Built only by
+    :meth:`repro_torch.serving.AdapterStore.with_slot_ids`."""
+
+    def init(self, generator, d_in, d_out, pol, device):
+        raise NotImplementedError(
+            "qalora_slot linears are not initialized directly; build them "
+            "from a base tree with repro_torch.serving.AdapterStore")
+
+    def apply(self, data, x, pol):
+        from repro_torch.kernels import ops
+        ids = data["ids"]
+        ids = ids.reshape(ids.shape + (1,) * (x.dim() - 1 - ids.dim()))
+        return ops.qalora_slot_matmul(x, data["q"], data["a"], data["b"],
+                                      ids.expand(x.shape[:-1]), s=pol.s)
+
+    def merge(self, data, pol):
+        raise NotImplementedError(
+            "a qalora_slot linear banks many adapters, so it has no single "
+            "merge target; use AdapterStore.merged(name) for one tenant's "
+            "merged tree")
 
 
 @register_scheme("intq")

@@ -1,10 +1,13 @@
 // Decode-shape dequant GEMV for Hopper (sm_90a):
 //   qmatvec:        y = x @ dequant(Wq)                            (kernel 2)
 //   qalora_matvec:  y = x @ dequant(Wq) + s * (pool_g(x) @ A) @ B  (kernel 4)
+//   qalora_slot_matvec: row i takes its own adapter from stacked banks,
+//     y[i] = x[i] @ dequant(Wq) + s * (pool_g(x[i]) @ A[ids[i]]) @ B[ids[i]]
+//                                                                  (kernel 5)
 // for M <= 8 rows of x.
 //
-// Replaces qmatvec_pallas and qalora_matvec_pallas
-// (src/repro/kernels/qmatvec.py:68 and :133).
+// Replaces qmatvec_pallas, qalora_matvec_pallas and
+// qalora_slot_matvec_pallas (src/repro/kernels/qmatvec.py:68, :133, :212).
 //
 // Bound: bytes.  At M <= 8 each weight byte feeds at most 8 * cpb
 // multiply-adds, far below the ~295 operations per byte where the H100's
@@ -26,6 +29,15 @@
 // adapter path pools the staged x over groups (f32 sums rounded to bf16),
 // contracts it with A's K-slice (cast to bf16) into a [M, r] f32 partial,
 // which rank 0 also adds up; B is applied once per column in the epilogue.
+//
+// Slot mode (kernel 5) is the adapter path with per-row bank offsets:
+// every block reads ids[] once into shared memory (and traps on an id
+// outside the bank, so a bad id never serves another tenant's weights),
+// row i's A and B pointers move to bank row ids[i], and rows of the null
+// adapter (id 0, all zeros) skip the adapter work, so a batch of null
+// rows gives qmatvec's output bit for bit.  The base loop and the split
+// are kernel 2's.  Bytes: the base's plus, per distinct non-null id, one
+// adapter's A and B rows.
 
 #include <cooperative_groups.h>
 
@@ -44,15 +56,19 @@ constexpr int kBlocksWanted = 132 * 8;  // SMs x resident blocks
 constexpr int kMaxRank = 128;
 constexpr size_t kMaxSmem = 200 * 1024;
 
+// what the GEMV adds to the base product
+enum Mode { kBase = 0, kAdapter = 1, kSlot = 2 };
+
 struct GemvArgs {
   const bf16* x;          // [m, K]
   const uint8_t* qw;      // [K / cpb, N]
   const void* scale;      // [K / g, N]
   const void* zero;       // [K / g, N]
-  const bf16* a;          // [K / g, rank] or null
-  const bf16* b;          // [rank, N] or null
+  const bf16* a;          // [K / g, rank], a bank [n_ad, K / g, rank], or null
+  const bf16* b;          // [rank, N], a bank [n_ad, rank, N], or null
+  const int* ids;         // slot mode: [m] bank rows, else null
   bf16* y;                // [m, N]
-  int m, K, N, g, rank;
+  int m, K, N, g, rank, n_ad;
   float s;
 };
 
@@ -88,15 +104,17 @@ __device__ __forceinline__ void load_x(const float* src, float (&out)[CPB]) {
   }
 }
 
-template <int BITS, int MT, typename S, bool ADAPTER>
+template <int BITS, int MT, typename S, int MODE>
 __global__ void __launch_bounds__(kWarps * 32)
 gemv_kernel(GemvArgs p) {
   constexpr int CPB = Pack<BITS>::CPB;
+  constexpr bool ADAPTER = MODE != kBase, SLOT = MODE == kSlot;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[kWarps][kMaxM][kCols];
   __shared__ float part[kMaxM * kCols];                  // this block's sums
   __shared__ float lpart[ADAPTER ? kMaxM * kMaxRank : 1];  // its pooled @ A
   __shared__ float ltot[ADAPTER ? kMaxM * kMaxRank : 1];   // rank 0: all
+  __shared__ int sid[kMaxM];                               // slot: bank rows
 
   cg::cluster_group cluster = cg::this_cluster();
   const S* scale = static_cast<const S*>(p.scale);
@@ -115,6 +133,11 @@ gemv_kernel(GemvArgs p) {
   float* xs = reinterpret_cast<float*>(smem);                      // [MT][rows]
   float* pooled = xs + (size_t)MT * gpb * g;                       // [m][gpb]
 
+  if (SLOT && tid < m) {
+    const int id = p.ids[tid];
+    if (id < 0 || id >= p.n_ad) __trap();
+    sid[tid] = id;
+  }
   // stage this block's K-slice of x in f32; rows m..MT-1 are zero
   for (int e = tid; e < MT * rows; e += blockDim.x) {
     const int i = e / rows, kk = e - i * rows;
@@ -135,11 +158,14 @@ gemv_kernel(GemvArgs p) {
     // lpart[m, r] = pooled @ A[K-slice] (A is bf16, the activation dtype)
     for (int e = tid; e < m * rank; e += blockDim.x) {
       const int i = e / rank, r = e - i * rank;
+      const bf16* Ai = SLOT ? A + (size_t)sid[i] * L * rank : A;
       float v = 0.f;
+      if (!SLOT || sid[i] != 0) {
 #pragma unroll 8
-      for (int gl = 0; gl < ng; ++gl)
-        v = fmaf(pooled[i * gpb + gl],
-                 __bfloat162float(A[(size_t)(g_lo + gl) * rank + r]), v);
+        for (int gl = 0; gl < ng; ++gl)
+          v = fmaf(pooled[i * gpb + gl],
+                   __bfloat162float(Ai[(size_t)(g_lo + gl) * rank + r]), v);
+      }
       lpart[e] = v;
     }
   }
@@ -197,12 +223,13 @@ gemv_kernel(GemvArgs p) {
       float v = 0.f;
       for (int r2 = 0; r2 < split; ++r2)
         v += cluster.map_shared_rank(part, r2)[i * kCols + lane];
-      if (ADAPTER) {
+      if (ADAPTER && (!SLOT || sid[i] != 0)) {
+        const bf16* Bi = SLOT ? B + (size_t)sid[i] * rank * N : B;
         float ad = 0.f;
 #pragma unroll 8
         for (int r = 0; r < rank; ++r)
           ad = fmaf(round_bf16(ltot[i * rank + r]),
-                    __bfloat162float(B[(size_t)r * N + n]), ad);
+                    __bfloat162float(Bi[(size_t)r * N + n]), ad);
         v = add_scaled(v, p.s, ad);
       }
       p.y[(size_t)i * N + n] = __float2bfloat16_rn(v);
@@ -211,11 +238,11 @@ gemv_kernel(GemvArgs p) {
   cluster.sync();  // the other blocks' shared memory stays until rank 0 is done
 }
 
-template <int BITS, int MT, typename S, bool ADAPTER>
+template <int BITS, int MT, typename S, int MODE>
 int launch(const GemvArgs& a, cudaStream_t stream) {
-  auto kern = gemv_kernel<BITS, MT, S, ADAPTER>;
+  auto kern = gemv_kernel<BITS, MT, S, MODE>;
   const int split = choose_split(a);
-  const size_t smem = gemv_smem_bytes(a, split, ADAPTER);
+  const size_t smem = gemv_smem_bytes(a, split, MODE != kBase);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > 24 * 1024) {  // + ~17 KB static: past the 48 KB default
     const cudaError_t e = cudaFuncSetAttribute(
@@ -239,28 +266,35 @@ int launch(const GemvArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int BITS, typename S, bool ADAPTER>
+template <int BITS, typename S, int MODE>
 int by_m(const GemvArgs& a, cudaStream_t stream) {
   switch (m_rounded(a.m)) {
-    case 1: return launch<BITS, 1, S, ADAPTER>(a, stream);
-    case 2: return launch<BITS, 2, S, ADAPTER>(a, stream);
-    case 4: return launch<BITS, 4, S, ADAPTER>(a, stream);
-    default: return launch<BITS, 8, S, ADAPTER>(a, stream);
+    case 1: return launch<BITS, 1, S, MODE>(a, stream);
+    case 2: return launch<BITS, 2, S, MODE>(a, stream);
+    case 4: return launch<BITS, 4, S, MODE>(a, stream);
+    default: return launch<BITS, 8, S, MODE>(a, stream);
   }
 }
 
-template <typename S, bool ADAPTER>
+template <typename S, int MODE>
 int by_bits(const GemvArgs& a, int bits, cudaStream_t stream) {
   switch (bits) {
-    case 2: return by_m<2, S, ADAPTER>(a, stream);
-    case 3: return by_m<3, S, ADAPTER>(a, stream);
-    case 4: return by_m<4, S, ADAPTER>(a, stream);
-    case 8: return by_m<8, S, ADAPTER>(a, stream);
+    case 2: return by_m<2, S, MODE>(a, stream);
+    case 3: return by_m<3, S, MODE>(a, stream);
+    case 4: return by_m<4, S, MODE>(a, stream);
+    case 8: return by_m<8, S, MODE>(a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-bool args_ok(const GemvArgs& a, bool adapter) {
+template <int MODE>
+int by_scale(const GemvArgs& a, int bits, int scale_is_f32, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return scale_is_f32 ? by_bits<float, MODE>(a, bits, st)
+                      : by_bits<bf16, MODE>(a, bits, st);
+}
+
+bool args_ok(const GemvArgs& a) {
   return a.m >= 1 && a.m <= kMaxM && a.g >= 1 && a.K % a.g == 0 &&
          a.g % 4 == 0 && a.rank >= 0 && a.rank <= kMaxRank;
 }
@@ -272,12 +306,10 @@ extern "C" int qmatvec_bf16(const void* x, const void* qw, const void* scale,
                             int g, int bits, int scale_is_f32, void* stream) {
   (void)cudaGetLastError();
   const GemvArgs a{static_cast<const bf16*>(x), static_cast<const uint8_t*>(qw),
-                   scale, zero, nullptr, nullptr, static_cast<bf16*>(y),
-                   m, K, N, g, 0, 0.f};
-  if (!args_ok(a, false)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return scale_is_f32 ? by_bits<float, false>(a, bits, st)
-                      : by_bits<bf16, false>(a, bits, st);
+                   scale, zero, nullptr, nullptr, nullptr, static_cast<bf16*>(y),
+                   m, K, N, g, 0, 0, 0.f};
+  if (!args_ok(a)) return (int)cudaErrorInvalidValue;
+  return by_scale<kBase>(a, bits, scale_is_f32, stream);
 }
 
 extern "C" int qalora_matvec_bf16(const void* x, const void* qw,
@@ -289,10 +321,26 @@ extern "C" int qalora_matvec_bf16(const void* x, const void* qw,
   (void)cudaGetLastError();
   const GemvArgs a{static_cast<const bf16*>(x), static_cast<const uint8_t*>(qw),
                    scale, zero, static_cast<const bf16*>(A),
-                   static_cast<const bf16*>(B), static_cast<bf16*>(y),
-                   m, K, N, g, rank, s};
-  if (!args_ok(a, true) || rank < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return scale_is_f32 ? by_bits<float, true>(a, bits, st)
-                      : by_bits<bf16, true>(a, bits, st);
+                   static_cast<const bf16*>(B), nullptr, static_cast<bf16*>(y),
+                   m, K, N, g, rank, 1, s};
+  if (!args_ok(a) || rank < 1) return (int)cudaErrorInvalidValue;
+  return by_scale<kAdapter>(a, bits, scale_is_f32, stream);
+}
+
+// A and B are banks [n_ad, K / g, rank] and [n_ad, rank, N]; ids [m] int32
+// on the device, each in [0, n_ad).
+extern "C" int qalora_slot_matvec_bf16(const void* x, const void* qw,
+                                       const void* scale, const void* zero,
+                                       const void* A, const void* B,
+                                       const void* ids, void* y, int m, int K,
+                                       int N, int g, int rank, int n_ad,
+                                       float s, int bits, int scale_is_f32,
+                                       void* stream) {
+  (void)cudaGetLastError();
+  const GemvArgs a{static_cast<const bf16*>(x), static_cast<const uint8_t*>(qw),
+                   scale, zero, static_cast<const bf16*>(A),
+                   static_cast<const bf16*>(B), static_cast<const int*>(ids),
+                   static_cast<bf16*>(y), m, K, N, g, rank, n_ad, s};
+  if (!args_ok(a) || rank < 1 || n_ad < 1) return (int)cudaErrorInvalidValue;
+  return by_scale<kSlot>(a, bits, scale_is_f32, stream);
 }

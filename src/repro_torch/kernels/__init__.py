@@ -10,13 +10,15 @@ from __future__ import annotations
 
 from .qalora_fused import qalora_matmul_cuda
 from .qmatmul import qmatmul_cuda
-from .qmatvec import GEMV_MAX_M, qalora_matvec_cuda, qmatvec_cuda
+from .qmatvec import (GEMV_MAX_M, qalora_matvec_cuda,
+                      qalora_slot_matvec_cuda, qmatvec_cuda)
 
 KERNELS = {
     "qmatmul": qmatmul_cuda,
     "qmatvec": qmatvec_cuda,
     "qalora_matmul": qalora_matmul_cuda,
     "qalora_matvec": qalora_matvec_cuda,
+    "qalora_slot_matvec": qalora_slot_matvec_cuda,
 }
 
 
@@ -31,4 +33,4 @@ def launches() -> dict:
 
 __all__ = ["GEMV_MAX_M", "KERNELS", "launches", "reset_launches",
            "qmatmul_cuda", "qmatvec_cuda", "qalora_matmul_cuda",
-           "qalora_matvec_cuda"]
+           "qalora_matvec_cuda", "qalora_slot_matvec_cuda"]

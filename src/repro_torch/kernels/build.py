@@ -35,6 +35,8 @@ SIGNATURES = {
     "qmatvec": {
         "qmatvec_bf16": [_P] * 5 + [_I] * 6 + [_P],
         "qalora_matvec_bf16": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
+        "qalora_slot_matvec_bf16": [_P] * 8 + [_I] * 6 + [_F] + [_I] * 2
+                                   + [_P],
     },
     "qalora_fused": {
         "qalora_matmul_bf16": [_P] * 7 + [_I] * 6 + [_F] + [_I] * 2 + [_P],

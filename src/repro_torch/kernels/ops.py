@@ -7,18 +7,21 @@ The kernels mask their own edges, so M is never padded.  Block shapes are
 fixed in the kernels (no autotuning).
 
 On CUDA tensors every call launches a kernel or raises; CPU tensors take
-the kernels' plain versions.
+the kernels' plain versions.  :func:`qalora_slot_matmul` at M > 8 adds the
+plain PyTorch bank delta to the tiled base product, as the reference does
+outside any Pallas kernel.
 """
 
 from __future__ import annotations
 
 import math
 
-from ..core.qalora import QALoRAParams
+from ..core.qalora import QALoRAParams, bank_adapter_delta
 from ..core.quant import QuantizedLinear
 from .qalora_fused import qalora_matmul_cuda
 from .qmatmul import qmatmul_cuda
-from .qmatvec import GEMV_MAX_M, qalora_matvec_cuda, qmatvec_cuda
+from .qmatvec import (GEMV_MAX_M, qalora_matvec_cuda,
+                      qalora_slot_matvec_cuda, qmatvec_cuda)
 
 
 def _flatten(x):
@@ -43,4 +46,33 @@ def qalora_matmul(x, qt: QuantizedLinear, p: QALoRAParams, s: float = 1.0):
     fn = qalora_matvec_cuda if m <= GEMV_MAX_M else qalora_matmul_cuda
     y = fn(x2, qt.qweight, qt.scale, qt.zero, p.a.detach(), p.b.detach(),
            s=float(s), bits=qt.bits, group_size=qt.group_size)
+    return y.reshape(*lead, qt.d_out)
+
+
+def _slot_matmul_tiled(x, qweight, scale, zero, a_bank, b_bank, ids, *,
+                       s: float, bits: int, group_size: int):
+    """M > 8: the tiled base kernel plus the plain bank delta, rounded to
+    x's dtype before the sum, as in the reference."""
+    base = qmatmul_cuda(x, qweight, scale, zero, bits=bits,
+                        group_size=group_size)
+    delta = bank_adapter_delta(x, a_bank, b_bank, ids, s, group_size)
+    return base + delta.to(base.dtype)
+
+
+def qalora_slot_matmul(x, qt: QuantizedLinear, a_bank, b_bank, ids,
+                       s: float = 1.0):
+    """Multi-tenant ``y[i] = x[i] @ dequant(qt) + s * pool(x[i]) @
+    A[ids[i]] @ B[ids[i]]`` over banks ``a_bank [N, L, r]`` / ``b_bank
+    [N, r, D_out]``; ``ids`` has shape ``x.shape[:-1]`` (one bank row per
+    leading row of x).  M <= 8 (decode) runs the slot GEMV kernel in one
+    launch; larger M the tiled base kernel plus
+    :func:`repro_torch.core.qalora.bank_adapter_delta`."""
+    if tuple(ids.shape) != tuple(x.shape[:-1]):
+        raise ValueError(f"ids must have shape x.shape[:-1] = "
+                         f"{tuple(x.shape[:-1])}, got {tuple(ids.shape)}")
+    x2, lead, m = _flatten(x)
+    fn = qalora_slot_matvec_cuda if m <= GEMV_MAX_M else _slot_matmul_tiled
+    y = fn(x2, qt.qweight, qt.scale, qt.zero, a_bank, b_bank,
+           ids.reshape(m).contiguous(), s=float(s), bits=qt.bits,
+           group_size=qt.group_size)
     return y.reshape(*lead, qt.d_out)

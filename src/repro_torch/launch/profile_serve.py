@@ -1,15 +1,29 @@
 """Where the serve path's time goes on the card: ``torch.profiler`` over
-one prefill and a window of decode steps of the merged model.
+one prefill and a window of decode steps of the merged model (static
+engine), or over one ragged step and one decode burst of the continuous
+engine serving demo tenants over one INT4 base.
 
     python -m repro_torch.launch.profile_serve --arch llama7b-proxy \\
         --requests 4 --prompt-len 128 --steps 8 --out chiprun_out/profile
+    python -m repro_torch.launch.profile_serve --arch llama7b-proxy \\
+        --engine continuous --requests 4 --prompt-len 128
 
-Prints one JSON line per phase (prefill, decode): wall ms (host clock
-around work ending in ``torch.cuda.synchronize()``), device-busy ms (the
-sum of the kernels' own device time), the device's idle share, and the
-device time grouped by kind (the port's GEMV / tiled kernels, matrix
-products in PyTorch, everything else).  Writes the profiler tables and a
-Chrome trace per phase under ``--out``.
+The continuous engine runs as ``chip_smoke.py``'s adapters phase does:
+one slot per request, 64-token prefill chunks, bursts of 8, 32 tokens
+per request, tenants alice, bob and carol (demo seeds 1-3) and the null
+adapter.
+
+The continuous engine first serves the requests once without the
+profiler (phase ``run``: wall ms, tok/s, ms per ragged step and per
+decode model step, from ``EngineStats``).  Prints one JSON line per
+profiled phase (prefill and decode, or ragged and burst):
+wall ms (host clock around work ending in ``torch.cuda.synchronize()``),
+device-busy ms (the sum of the kernels' own device time), the device's
+idle share, the number of kernels the device ran, the device time and
+kernel count grouped by kind (the port's GEMV / tiled kernels, matrix
+products in PyTorch, everything else), and the host operations that took
+the most host time.  Writes the profiler tables and a Chrome trace per
+phase under ``--out``.
 """
 
 from __future__ import annotations
@@ -21,6 +35,11 @@ import time
 
 import numpy as np
 import torch
+
+
+# the continuous engine's settings (those of chip_smoke.py's adapters phase)
+PREFILL_CHUNK, DECODE_BURST, GEN_LEN = 64, 8, 32
+TENANTS = ("alice=demo:1", "bob=demo:2", "carol=demo:3")
 
 
 def _kind(name: str) -> str:
@@ -50,46 +69,40 @@ def _profile(fn, out_dir: str, tag: str):
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     kinds: dict = {}
+    counts: dict = {}
     busy_us = 0.0
     for evt in events:
         us = _device_us(evt)
         if us <= 0 or evt.device_type.name != "CUDA":
             continue
         busy_us += us
-        kinds[_kind(evt.key)] = kinds.get(_kind(evt.key), 0.0) + us / 1e3
+        kind = _kind(evt.key)
+        kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
+        counts[kind] = counts.get(kind, 0) + evt.count
+    host = sorted((e for e in events if e.device_type.name == "CPU"),
+                  key=lambda e: -e.self_cpu_time_total)[:8]
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, f"{tag}_table.txt"), "w") as f:
         f.write(events.table(sort_by="self_device_time_total"
                              if hasattr(events[0], "self_device_time_total")
                              else "self_cuda_time_total", row_limit=40))
+        f.write("\n")
+        f.write(events.table(sort_by="self_cpu_time_total", row_limit=40))
     prof.export_chrome_trace(os.path.join(out_dir, f"{tag}_trace.json"))
     busy_ms = busy_us / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-            "device_ms_by_kind": kinds}
+            "device_kernels": sum(counts.values()),
+            "device_ms_by_kind": kinds, "device_kernels_by_kind": counts,
+            "host_top": [{"op": e.key, "calls": e.count,
+                          "self_host_ms": e.self_cpu_time_total / 1e3}
+                         for e in host]}
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="llama7b-proxy")
-    ap.add_argument("--requests", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=128)
-    ap.add_argument("--steps", type=int, default=8)
-    ap.add_argument("--out", default="chiprun_out/profile")
-    args = ap.parse_args(argv)
-
-    import repro_torch.configs as C
-    from repro_torch.launch.serve import build_model
-    from repro_torch.models.lm import resolve_device
-
-    dev = resolve_device("cuda")
-    cfg = C.get(args.arch)
-    lm, _, merged = build_model(cfg, dev)
-    b, s = args.requests, args.prompt_len
-    toks = torch.as_tensor(np.random.default_rng(0).integers(
-        4, cfg.vocab, size=(b, s)).astype(np.int32), device=dev)
+def _static(lm, merged, toks, args, dev):
+    """One prefill, then ``--steps`` decode steps of the merged model."""
+    b, s = toks.shape
     max_len = s + args.steps + 4
-
     state = {}
 
     def prefill():
@@ -110,13 +123,83 @@ def main(argv=None):
     decode(2)()
     res = {"prefill": _profile(prefill, args.out, "prefill"),
            "decode": _profile(decode(args.steps), args.out, "decode")}
-    res["decode"]["per_step_wall_ms"] = res["decode"]["wall_ms"] / args.steps
-    res["decode"]["per_step_busy_ms"] = (res["decode"]["device_busy_ms"]
-                                         / args.steps)
+    res["decode"]["model_steps"] = args.steps
+    return res
+
+
+def _continuous(lm, params, toks, args, dev):
+    """The first ragged step and the first decode burst of one
+    :class:`ContinuousEngine` (after a warm-up engine), every request
+    bound round-robin to the tenants and the null adapter."""
+    from repro_torch.launch.serve import build_store
+    from repro_torch.serving import ContinuousEngine
+    store, tenants = build_store(params, TENANTS)
+    cycle = [*tenants, None]
+    prompts = toks.cpu().numpy()
+
+    def engine(gen_len):
+        eng = ContinuousEngine(
+            lm, store.base, n_slots=toks.shape[0],
+            max_len=toks.shape[1] + GEN_LEN, prefill_chunk=PREFILL_CHUNK,
+            decode_burst=DECODE_BURST, adapters=store)
+        for i, p in enumerate(prompts):
+            eng.submit(p, gen_len, adapter_id=cycle[i % len(cycle)])
+        return eng
+
+    engine(2).run()     # warm-up: first-call set-up
+    eng = engine(GEN_LEN)   # a whole run without the profiler
+    eng.run()
+    st = eng.stats
+    res = {"run": {"wall_ms": st.seconds * 1e3, "tok_s": st.tok_per_s,
+                   "ragged_ms_per_step": st.ragged_seconds * 1e3
+                   / max(st.ragged_dispatches, 1),
+                   "decode_ms_per_step": (st.seconds - st.ragged_seconds)
+                   * 1e3 / max(st.model_steps - PREFILL_CHUNK
+                               * st.ragged_dispatches, 1)}}
+    eng = engine(GEN_LEN)
+    res["ragged"] = _profile(eng.step_once, args.out, "ragged")
+    while any(s is not None and s.prefilling for s in eng.sched.slots):
+        eng.step_once()
+    steps = eng.stats.model_steps
+    res["burst"] = _profile(eng.step_once, args.out, "burst")
+    res["burst"]["model_steps"] = eng.stats.model_steps - steps
+    res["ragged"]["tenants"] = tenants
+    return res
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="llama7b-proxy")
+    ap.add_argument("--engine", choices=("static", "continuous"),
+                    default="static")
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=128)
+    ap.add_argument("--steps", type=int, default=8,
+                    help="decode steps profiled (static engine)")
+    ap.add_argument("--out", default="chiprun_out/profile")
+    args = ap.parse_args(argv)
+
+    import repro_torch.configs as C
+    from repro_torch.launch.serve import build_model
+    from repro_torch.models.lm import resolve_device
+
+    dev = resolve_device("cuda")
+    cfg = C.get(args.arch)
+    lm, params, merged = build_model(cfg, dev)
+    b, s = args.requests, args.prompt_len
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        4, cfg.vocab, size=(b, s)).astype(np.int32), device=dev)
+    res = (_static(lm, merged, toks, args, dev) if args.engine == "static"
+           else _continuous(lm, params, toks, args, dev))
     for phase, r in res.items():
-        print(json.dumps({"phase": phase, "arch": cfg.name, "requests": b,
-                          "prompt_len": s, "device": torch.cuda.get_device_name(0),
-                          **r}), flush=True)
+        steps = r.get("model_steps", 1)
+        r["per_step_wall_ms"] = r["wall_ms"] / steps
+        if "device_busy_ms" in r:
+            r["per_step_busy_ms"] = r["device_busy_ms"] / steps
+        print(json.dumps({"phase": phase, "engine": args.engine,
+                          "arch": cfg.name, "requests": b, "prompt_len": s,
+                          "device": torch.cuda.get_device_name(0), **r}),
+              flush=True)
     return res
 
 

@@ -1,5 +1,6 @@
-"""Static serving driver: prefill + greedy decode with the merged QA-LoRA
-model (counterpart of the static engine of ``repro.launch.serve``).
+"""Serving driver: the merged QA-LoRA model through the static engine
+(prefill + greedy decode), or many QA-LoRA tenants over one INT-N base
+through the continuous engine (counterpart of ``repro.launch.serve``).
 
 The paper's deployment claim: after the merge the served model is still
 INT-N (codes and scales unchanged, zeros updated) and computes what the
@@ -9,8 +10,20 @@ route CUDA tensors nowhere else): the merged model's prefill in the tiled
 matmul and its decode in the GEMV; ``--verify`` runs the unmerged adapter
 model through the fused QA-LoRA kernels at both M ranges.
 
+``--engine continuous`` serves through
+:class:`repro_torch.serving.ContinuousEngine`; with ``--adapters
+name=demo:<seed>,...`` each tenant is the adapter model plus seeded noise
+on its adapters, banked in one :class:`repro_torch.serving.AdapterStore`,
+and requests cycle the tenants and the null adapter round-robin.  Decode
+steps then run the slot GEMV kernel (one adapter per row); ``--verify``
+holds each tenant's slot-routed logits to its merged tree.
+
     python -m repro_torch.launch.serve --arch llama7b-proxy \\
         --requests 4 --prompt-len 128 --gen-len 32 --verify
+    python -m repro_torch.launch.serve --arch llama7b-proxy \\
+        --engine continuous --slots 4 --prefill-chunk 64 --decode-burst 8 \\
+        --requests 8 --prompt-len 128 --gen-len 32 \\
+        --adapters alice=demo:1,bob=demo:2,carol=demo:3 --verify
     python -m repro_torch.launch.serve --arch gemma3-1b --reduced \\
         --device cpu --requests 2 --prompt-len 8 --gen-len 6 --verify
 """
@@ -23,7 +36,7 @@ import time
 import numpy as np
 import torch
 
-NOT_PORTED = ("engine", "adapters", "speculate", "page_size")
+NOT_PORTED = ("speculate", "page_size")
 
 
 def merge_model(params):
@@ -46,6 +59,54 @@ def bump_adapters(params, delta: float = 0.01):
         return lp
     map_linears(params, one)
     return params
+
+
+@torch.no_grad()
+def demo_tenant(params, seed: int, scale: float = 0.02):
+    """A stand-in fine-tune of the adapter model ``params``: every adapter
+    leaf plus ``scale`` times normal noise from a generator seeded with
+    ``1000 + seed`` (the reference's demo tenants).  The quantized bases
+    are shared with ``params``, not copied."""
+    from repro_torch.core import schemes
+    from repro_torch.core.qalora import QALoRAParams
+    gen = None
+
+    def one(path, lp):
+        nonlocal gen
+        if lp.scheme != "qalora":
+            return lp
+        ad = schemes.adapter_params(lp)
+        if gen is None:
+            gen = torch.Generator(device=ad.a.device).manual_seed(1000 + seed)
+
+        def noisy(t):
+            return t + scale * torch.randn(t.shape, generator=gen,
+                                           device=t.device).to(t.dtype)
+        return schemes.LinearParams(
+            {"q": schemes.quantized_base(lp),
+             "ad": QALoRAParams(noisy(ad.a), noisy(ad.b))},
+            scheme="qalora", policy=lp.policy)
+    return schemes.map_linears(params, one)
+
+
+def build_store(params, specs):
+    """An :class:`AdapterStore` over ``params`` (merged on entry) with one
+    tenant per ``name=demo:<seed>`` spec.  Returns (store, names)."""
+    from repro_torch.serving import AdapterStore
+    store = AdapterStore(params, capacity=max(4, len(specs)))
+    names = []
+    for spec in specs:
+        name, eq, src = spec.partition("=")
+        if not eq or not name or not src:
+            raise ValueError(f"--adapters entry {spec!r} is not name=spec")
+        if not src.startswith("demo:"):
+            raise ValueError(f"--adapters {spec!r}: checkpoint sources are "
+                             f"not yet ported (see ROADMAP.md); use "
+                             f"name=demo:<seed>")
+        store.register(name, demo_tenant(params,
+                                          int(src[len("demo:"):] or "0")))
+        names.append(name)
+    return store, names
 
 
 def build_model(cfg, device, seed: int = 0):
@@ -112,23 +173,92 @@ def merge_check(lm, params, merged, prompts, max_len: int,
     decode step on the merged model's greedy token.  Returns max|delta|
     and max|logits| of each."""
     toks = torch.as_tensor(prompts, dtype=torch.int32, device=device)
+    nxt = lm.prefill(merged, {"tokens": toks})[0].argmax(-1).to(torch.int32)
+    a, m = (_two_steps(lm, p, toks, nxt, max_len, cache_dtype, device)
+            for p in (params, merged))
+    return {ph: _compare(a[ph], m[ph]) for ph in a}
+
+
+def _two_steps(lm, params, toks, nxt, max_len: int, cache_dtype, device):
+    """Prefill logits of ``toks``, then the logits of one decode step on
+    the tokens ``nxt`` [B]."""
+    logits, pre = lm.prefill(params, {"tokens": toks})
+    cache = lm.merge_prefill_cache(
+        pre, lm.init_cache(toks.shape[0], max_len, dtype=cache_dtype,
+                           device=device))
+    step = lm.decode_step(params, cache, nxt[:, None])[0]
+    return {"prefill": logits, "decode": step}
+
+
+def _compare(got, ref):
+    """max|got - ref|, max|ref|, their ratio ``rel``, and got's argmax."""
+    diff, top = float((got - ref).abs().max()), float(ref.abs().max())
+    return {"max_abs_diff": diff, "max_abs_logit": top,
+            "rel": diff / max(top, 1e-30), "argmax": got.argmax(-1).tolist()}
+
+
+NULL_TENANT = "<null>"
+
+
+def tenant_check(lm, store, tenants, prompts, max_len: int,
+                 cache_dtype=torch.float32, device="cuda"):
+    """Slot-routed trees against merged trees, at prefill (the tiled
+    kernel plus the bank delta) and one decode step (the slot GEMV) on the
+    same prompts; the decode step feeds every tree the base model's greedy
+    token.  For each tenant and the null adapter (key ``NULL_TENANT``), a
+    tree with every row bound to it, against its own merged tree and the
+    next one's (a gather that serves the right tenant is nearer its own);
+    then one tree whose rows cycle the tenants and the null adapter, row i
+    against row i of its tenant's merged tree and of the next one's.
+    Returns ({tenant: own check}, {tenant: check against the next
+    tenant}, mixed check)."""
+    toks = torch.as_tensor(prompts, dtype=torch.int32, device=device)
     b = toks.shape[0]
-    out = {}
-    runs = {}
-    for name, p in (("adapter", params), ("merged", merged)):
-        logits, pre = lm.prefill(p, {"tokens": toks})
-        cache = lm.merge_prefill_cache(
-            pre, lm.init_cache(b, max_len, dtype=cache_dtype, device=device))
-        runs[name] = (logits, cache)
-    nxt = runs["merged"][0].argmax(-1).to(torch.int32)[:, None]
-    step = {name: lm.decode_step(p, runs[name][1], nxt)[0]
-            for name, p in (("adapter", params), ("merged", merged))}
-    for phase, pair in (("prefill", (runs["adapter"][0], runs["merged"][0])),
-                        ("decode", (step["adapter"], step["merged"]))):
-        a, m = pair
-        out[phase] = {"max_abs_diff": float((a - m).abs().max()),
-                      "max_abs_logit": float(m.abs().max())}
-    return out
+    names = [*tenants, None]
+    nxt = lm.prefill(store.base, {"tokens": toks})[0].argmax(-1) \
+        .to(torch.int32)
+
+    def run(tree):
+        return _two_steps(lm, tree, toks, nxt, max_len, cache_dtype, device)
+    merged = [run(store.merged(name)) for name in names]
+    own, other = {}, {}
+    for i, name in enumerate(names):
+        key = NULL_TENANT if name is None else name
+        routed = run(store.with_slot_ids(
+            np.full(b, store.resolve(name), np.int32)))
+        own[key], other[key] = (
+            {ph: _compare(routed[ph], ref[ph]) for ph in routed}
+            for ref in (merged[i], merged[(i + 1) % len(names)]))
+    which = [i % len(names) for i in range(b)]
+    routed = run(store.with_slot_ids(np.asarray(
+        [store.resolve(names[w]) for w in which], np.int32)))
+    mixed = {"tenants": [NULL_TENANT if names[w] is None else names[w]
+                         for w in which]}
+    for ph in routed:
+        mixed[ph] = {key: [_compare(routed[ph][r], merged[
+            (w + step) % len(names)][ph][r])["rel"]
+            for r, w in enumerate(which)]
+            for key, step in (("rel", 0), ("next_rel", 1))}
+    return own, other, mixed
+
+
+def serve_continuous(lm, params, prompts, gen_len: int, max_len: int, *,
+                     slots: int, prefill_chunk: int, decode_burst: int,
+                     store, who, device="cuda"):
+    """Serve every prompt through one :class:`ContinuousEngine` (request i
+    bound to adapter ``who(i)``).  Returns (tokens [B, gen_len] numpy,
+    engine stats, the kernel launch counts when the engine drained)."""
+    from repro_torch import kernels
+    from repro_torch.serving import ContinuousEngine
+    eng = ContinuousEngine(lm, params, n_slots=slots, max_len=max_len,
+                           prefill_chunk=prefill_chunk,
+                           decode_burst=decode_burst, adapters=store)
+    rids = [eng.submit(p, gen_len, adapter_id=who(i))
+            for i, p in enumerate(prompts)]
+    outputs = eng.run()
+    _sync(device)
+    gen = np.asarray([outputs[r] for r in rids], dtype=np.int32)
+    return gen, eng.stats, kernels.launches()
 
 
 def merge_bound(cfg) -> float:
@@ -151,17 +281,31 @@ def main(argv=None):
     ap.add_argument("--policy", default="",
                     help='per-layer policy rules, e.g. "*=int4,*/attn/wo=int8"')
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--engine", choices=("static", "continuous", "frontend"),
+                    default="static")
+    ap.add_argument("--slots", type=int, default=0,
+                    help="continuous engine slots (default min(4, requests))")
+    ap.add_argument("--prefill-chunk", type=int, default=8)
+    ap.add_argument("--decode-burst", type=int, default=8)
+    ap.add_argument("--adapters", default="",
+                    help="tenants name=demo:<seed>,... (continuous engine)")
     # serving modes of the reference that the port does not have yet
-    ap.add_argument("--engine", default="static")
-    ap.add_argument("--adapters", default="")
     ap.add_argument("--speculate", type=int, default=0)
     ap.add_argument("--page-size", type=int, default=0)
     args = ap.parse_args(argv)
     for name in NOT_PORTED:
         val = getattr(args, name)
-        if val and val != "static":
+        if val:
             ap.error(f"--{name.replace('_', '-')} {val}: not yet ported, "
-                     f"see ROADMAP.md (the port serves the static engine)")
+                     f"see ROADMAP.md")
+    if args.engine == "frontend":
+        ap.error("--engine frontend: not yet ported, see ROADMAP.md (the "
+                 "port serves the static and continuous engines)")
+    if args.adapters and args.engine != "continuous":
+        ap.error("--adapters needs --engine continuous (per-slot adapters "
+                 "apply to slotted serving)")
+    if args.engine == "continuous" and args.gen_len < 1:
+        ap.error("--engine continuous needs --gen-len >= 1")
 
     import repro_torch.configs as C
     from repro_torch.core.schemes import PolicyTree
@@ -174,6 +318,18 @@ def main(argv=None):
                                                 base=cfg.quant.default))
     t0 = time.perf_counter()
     lm, params, merged = build_model(cfg, device)
+    store, tenants = None, []
+    if args.adapters:
+        try:
+            store, tenants = build_store(
+                params, [s for s in args.adapters.split(",") if s])
+        except ValueError as e:
+            ap.error(f"--adapters: {e}")
+        merged = store.base
+        print(f"[serve] adapter store: {store.n_adapters} tenants {tenants} "
+              f"over one int{cfg.quant.default.bits} base (capacity "
+              f"{store.capacity} + null adapter, banks "
+              f"{store.bank_bytes / 1e6:.1f} MB)")
     _sync(device)
     init_s = time.perf_counter() - t0
 
@@ -187,35 +343,96 @@ def main(argv=None):
         prompts[:] = 0
 
     result = {"arch": cfg.name, "n_layers": cfg.n_layers,
-              "device": str(device), "requests": b, "prompt_len": prompt_len,
-              "gen_len": args.gen_len, "init_s": init_s}
-    toks, times = generate(lm, merged, prompts, args.gen_len, max_len,
-                           device=device)
-    result.update(times)
-    result["decode_ms_per_token"] = (times["decode_s"] * 1e3
-                                     / max(args.gen_len - 1, 1))
-    result["tok_s"] = b * toks.shape[1] / max(times["total_s"], 1e-9)
+              "device": str(device), "engine": args.engine, "requests": b,
+              "prompt_len": prompt_len, "gen_len": args.gen_len,
+              "init_s": init_s}
+    if args.engine == "continuous":
+        # requests cycle the tenants round-robin, with a null-adapter
+        # request in the mix
+        cycle = [*tenants, None]
+        slots = args.slots or min(4, b)
+        toks, st, counts = serve_continuous(
+            lm, merged, prompts, args.gen_len, max_len, slots=slots,
+            prefill_chunk=args.prefill_chunk, decode_burst=args.decode_burst,
+            store=store, who=lambda i: cycle[i % len(cycle)], device=device)
+        decode_steps = (st.model_steps
+                        - args.prefill_chunk * st.ragged_dispatches)
+        result.update(
+            slots=slots, prefill_chunk=args.prefill_chunk,
+            decode_burst=args.decode_burst, tenants=tenants,
+            bank_bytes=store.bank_bytes if store else 0,
+            total_s=st.seconds, ragged_s=st.ragged_seconds,
+            burst_s=st.seconds - st.ragged_seconds,
+            dispatches=st.dispatches, ragged_dispatches=st.ragged_dispatches,
+            model_steps=st.model_steps, decode_steps=decode_steps,
+            occupancy=st.occupancy, tokens_out=st.tokens_out,
+            tok_s=st.tok_per_s, launches_engine=counts,
+            decode_ms_per_step=((st.seconds - st.ragged_seconds) * 1e3
+                                / max(decode_steps, 1)))
+        print(f"[serve] {b} requests x {toks.shape[1]} tokens in "
+              f"{st.seconds:.3f}s ({st.tok_per_s:.1f} tok/s, continuous, "
+              f"{slots} slots, occupancy {st.occupancy:.0%}, "
+              f"{st.dispatches} dispatches ({st.ragged_dispatches} ragged), "
+              f"{len(tenants)}+null tenants, {device})")
+    else:
+        toks, times = generate(lm, merged, prompts, args.gen_len, max_len,
+                               device=device)
+        result.update(times)
+        result["decode_ms_per_token"] = (times["decode_s"] * 1e3
+                                         / max(args.gen_len - 1, 1))
+        result["tok_s"] = b * toks.shape[1] / max(times["total_s"], 1e-9)
+        print(f"[serve] {b} requests x {toks.shape[1]} tokens in "
+              f"{times['total_s']:.3f}s ({result['tok_s']:.1f} tok/s, "
+              f"prefill+decode, {device})")
     result["tokens"] = toks
-    print(f"[serve] {b} requests x {toks.shape[1]} tokens in "
-          f"{times['total_s']:.3f}s ({result['tok_s']:.1f} tok/s, "
-          f"prefill+decode, {device})")
     print(f"[serve] sample generation: {toks[0][:8]}")
 
     if args.verify:
-        check = merge_check(lm, params, merged, prompts, max_len,
-                            device=device)
+        # the adapter model against its merge, or each tenant's slot-routed
+        # tree against its merged tree
         bound = merge_bound(cfg)
-        result["merge_check"] = check
         result["merge_bound_rel"] = bound
-        for phase, r in check.items():
-            rel = r["max_abs_diff"] / max(r["max_abs_logit"], 1e-30)
-            r["rel"] = rel
-            print(f"[serve] merge-exactness {phase}: max|adapter - merged| = "
-                  f"{r['max_abs_diff']:.3e} ({rel:.2e} of max|logit|, "
-                  f"bound {bound:.0e})")
-            if not rel <= bound:
-                raise AssertionError(f"merged model diverged from the adapter "
-                                     f"model at {phase}: {rel:.3e} > {bound}")
+        others = {}
+        if store is None:
+            result["merge_check"] = merge_check(lm, params, merged, prompts,
+                                                max_len, device=device)
+            checks = {"adapter model": result["merge_check"]}
+        else:
+            checks, others, mixed = tenant_check(lm, store, tenants, prompts,
+                                                 max_len, device=device)
+            result["tenant_check"] = checks
+            result["tenant_cross_check"] = others
+            result["mixed_check"] = mixed
+            for phase in ("prefill", "decode"):
+                own, far = mixed[phase]["rel"], mixed[phase]["next_rel"]
+                print(f"[serve] mixed tenants {mixed['tenants']}, {phase}: "
+                      f"row vs its tenant's merged tree up to {max(own):.2e} "
+                      f"of max|logit|, vs the next tenant's from "
+                      f"{min(far):.2e}")
+                for r, (o, f) in enumerate(zip(own, far)):
+                    if not (o <= bound and o < f):
+                        raise AssertionError(
+                            f"mixed row {r} ({mixed['tenants'][r]}) at "
+                            f"{phase}: {o:.3e} of max|logit| from its "
+                            f"tenant's merged tree (bound {bound}), "
+                            f"{f:.3e} from the next tenant's")
+        for name, check in checks.items():
+            for phase, r in check.items():
+                far = others[name][phase]["rel"] if name in others else None
+                print(f"[serve] {name} vs merged, {phase}: max|diff| = "
+                      f"{r['max_abs_diff']:.3e} ({r['rel']:.2e} of "
+                      f"max|logit|, bound {bound:.0e}"
+                      + (f"; vs the next tenant's merged tree {far:.2e}"
+                         if far is not None else "")
+                      + f"; argmax {r['argmax'][:4]})")
+                if not r["rel"] <= bound:
+                    raise AssertionError(
+                        f"{name} diverged from its merged tree at {phase}: "
+                        f"{r['rel']:.3e} > {bound}")
+                if far is not None and not r["rel"] < far:
+                    raise AssertionError(
+                        f"{name} at {phase} is no nearer its own merged tree "
+                        f"({r['rel']:.3e}) than the next tenant's ({far:.3e})")
     print("[serve] done")
     return result
 

@@ -193,14 +193,17 @@ def gqa_apply(p, x, cfg: AttnConfig, positions=None, window=None, theta=None,
 
 def insert_plan(cur_len, n_new, c: int, s: int):
     """Where a ragged chunk of ``c`` rows lands in a cache of capacity
-    ``s``: (slot index [B], per chunk row i: (clamped position [B], keep
-    [B] bool)).  Shared by every layer's K and V inserts of one step."""
-    rows = torch.arange(cur_len.shape[0], device=cur_len.device)
-    out = []
-    for i in range(c):
-        pos = cur_len.to(torch.int64) + i
-        out.append((pos.clamp(max=s - 1), (i < n_new) & (pos < s)))
-    return rows, out
+    ``s``: (slot index [B, 1], position [B, C'] taken modulo ``s``, write
+    [B, C'] bool), for the first C' = min(c, s) rows (a row past the
+    capacity is never written).  Within a slot the C' positions are
+    distinct, so one indexed write never hits a position twice.  Shared by
+    every layer's K and V inserts of one step."""
+    c = min(c, s)
+    i = torch.arange(c, device=cur_len.device)[None, :]
+    pos = cur_len.to(torch.int64)[:, None] + i
+    write = (i < n_new.to(torch.int64)[:, None]) & (pos < s)
+    rows = torch.arange(cur_len.shape[0], device=cur_len.device)[:, None]
+    return rows, pos % s, write
 
 
 def _insert_tokens(cache, new, cur_len, n_new, plan=None):
@@ -208,18 +211,14 @@ def _insert_tokens(cache, new, cur_len, n_new, plan=None):
     cur_len[b] + i for i < n_new[b]; rows i >= n_new[b], and positions past
     the capacity, are dropped.  cache [B,S,...], new [B,C,...].
 
-    One indexed write per chunk row, each touching one position per slot,
-    so no host synchronisation: a dropped row writes back the value its
-    (clamped) position holds at that moment.  ``plan`` is a precomputed
-    :func:`insert_plan`."""
-    b, s = cache.shape[0], cache.shape[1]
-    rows, at_keep = plan if plan is not None else insert_plan(
-        cur_len, n_new, new.shape[1], s)
-    new = new.to(cache.dtype)
-    shape = (b,) + (1,) * (cache.dim() - 2)
-    for i, (at, keep) in enumerate(at_keep):
-        cache[rows, at] = torch.where(keep.reshape(shape), new[:, i],
-                                      cache[rows, at])
+    One indexed write for the whole chunk, with no host synchronisation:
+    a dropped row writes back the value its position holds.  ``plan`` is
+    a precomputed :func:`insert_plan`."""
+    rows, pos, write = plan if plan is not None else insert_plan(
+        cur_len, n_new, new.shape[1], cache.shape[1])
+    new = new[:, :pos.shape[1]].to(cache.dtype)
+    keep = write.reshape(write.shape + (1,) * (cache.dim() - 2))
+    cache[rows, pos] = torch.where(keep, new, cache[rows, pos])
     return cache
 
 

@@ -45,6 +45,14 @@ class SlotState:
                 "len": torch.zeros((n_slots,), dtype=torch.int32,
                                    device=device)}
 
+    def reset(self, cache, mask) -> dict:
+        """Evict the masked slots (``mask [n_slots]`` bool): their lengths
+        go to 0; their KV rows stay in place, masked by the length, never
+        read."""
+        return {"layers": cache["layers"],
+                "len": torch.where(mask, torch.zeros_like(cache["len"]),
+                                   cache["len"])}
+
     def advance(self, cache, layers, n_new) -> dict:
         """Fold a step's layer state back in, advancing each slot's length
         by the rows it consumed."""

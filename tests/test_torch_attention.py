@@ -74,14 +74,19 @@ def test_chunk_and_decode_attention_match_reference(window):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL, rtol=0)
 
 
-def test_insert_tokens_matches_reference():
+@pytest.mark.parametrize("s,c,cur,n_new", [
+    (8, 3, [0, 3, 6], [2, 0, 3]),
+    # a chunk longer than the cache, and slots that run past its end
+    (4, 6, [0, 2, 3], [6, 3, 1]),
+    (5, 1, [4, 0, 5], [1, 1, 1])])
+def test_insert_tokens_matches_reference(s, c, cur, n_new):
     """Ragged insert: rows past a slot's n_new, and positions past the
     capacity, are dropped on both sides."""
     rng = np.random.default_rng(2)
-    b, s, c, kvh, d = 3, 8, 3, 2, 4
+    b, kvh, d = 3, 2, 4
     cache, new = _randn(rng, b, s, kvh, d), _randn(rng, b, c, kvh, d)
-    cur = np.array([0, 3, 6], np.int32)
-    n_new = np.array([2, 0, 3], np.int32)
+    cur = np.array(cur, np.int32)
+    n_new = np.array(n_new, np.int32)
     ref = RA._insert_tokens(jnp.asarray(cache), jnp.asarray(new),
                             jnp.asarray(cur), jnp.asarray(n_new))
     out = TA._insert_tokens(_t(cache).clone(), _t(new), _t(cur), _t(n_new))

@@ -1,4 +1,4 @@
-"""The port's four CUDA kernels against their plain PyTorch versions, on the
+"""The port's five CUDA kernels against their plain PyTorch versions, on the
 card, at small shapes and all four bit widths.
 
 Needs an NVIDIA Hopper card and ``nvcc``; skips cleanly without them.  It
@@ -23,8 +23,10 @@ from repro_torch.kernels.qalora_fused import (qalora_matmul_cuda,
                                               qalora_matmul_plain)
 from repro_torch.kernels.qmatmul import qmatmul_cuda, qmatmul_plain
 from repro_torch.kernels.qmatvec import (qalora_matvec_cuda,
-                                         qalora_matvec_plain, qmatvec_cuda,
-                                         qmatvec_plain)
+                                         qalora_matvec_plain,
+                                         qalora_slot_matvec_cuda,
+                                         qalora_slot_matvec_plain,
+                                         qmatvec_cuda, qmatvec_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -149,3 +151,68 @@ def test_reset_and_read_launch_counts(card):
     _run("qmatvec", *_inputs(card, 4, 2))
     counts = kernels.launches()
     assert counts["qmatvec"] == 1 and sum(counts.values()) == 1
+
+
+def _bank(dev, a, b, n_bank=4, seed=0):
+    """A bank of ``n_bank`` adapters shaped like (a, b); row 0 is the null
+    adapter."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ab = (torch.randn((n_bank,) + a.shape, generator=gen, device=dev)
+          * a.float().std() + 0.01).to(torch.bfloat16)
+    bb = (torch.randn((n_bank,) + b.shape, generator=gen, device=dev)
+          * 0.05 + 0.01).to(torch.bfloat16)
+    ab[0] = 0
+    bb[0] = 0
+    return ab, bb
+
+
+@pytest.mark.parametrize("m", (1, 4, 8))
+@pytest.mark.parametrize("bits", BITS)
+def test_slot_kernel_matches_plain(card, bits, m):
+    x, qt, a, b = _inputs(card, bits, m, seed=4)
+    ab, bb = _bank(card, a, b)
+    ids = torch.tensor([(i * 3 + 1) % 4 for i in range(m)], dtype=torch.int32,
+                       device=card)
+    args = (x, qt.qweight, qt.scale, qt.zero, ab, bb, ids)
+    kw = dict(s=0.7, bits=bits, group_size=qt.group_size)
+    before = qalora_slot_matvec_cuda.launches
+    y = qalora_slot_matvec_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert qalora_slot_matvec_cuda.launches == before + 1
+    _assert_close(y, qalora_slot_matvec_plain(*args, **kw))
+    # each row equals the single-adapter kernel on its own bank row
+    for i in range(m):
+        one = qalora_matvec_cuda(x[i:i + 1], qt.qweight, qt.scale, qt.zero,
+                                 ab[ids[i]], bb[ids[i]], **kw)
+        _assert_close(y[i:i + 1], one)
+
+
+@pytest.mark.parametrize("m", (1, 4, 8))
+def test_slot_kernel_null_ids_equal_qmatvec_bit_for_bit(card, m):
+    x, qt, a, b = _inputs(card, 4, m, k=4096, n=96, seed=5)
+    ab, bb = _bank(card, a, b)
+    zeros = torch.zeros((m,), dtype=torch.int32, device=card)
+    y = qalora_slot_matvec_cuda(x, qt.qweight, qt.scale, qt.zero, ab, bb,
+                                zeros, s=2.0, bits=4, group_size=32)
+    base = qmatvec_cuda(x, qt.qweight, qt.scale, qt.zero, bits=4,
+                        group_size=32)
+    assert torch.equal(y, base)
+
+
+def test_slot_wrapper_refuses_what_the_kernel_does_not_take(card):
+    x, qt, a, b = _inputs(card, 4, 4)
+    ab, bb = _bank(card, a, b)
+    ids = torch.zeros((4,), dtype=torch.int32, device=card)
+    kw = dict(s=1.0, bits=4, group_size=32)
+    with pytest.raises(ValueError, match="ids"):
+        qalora_slot_matvec_cuda(x, qt.qweight, qt.scale, qt.zero, ab, bb,
+                                ids.long(), **kw)
+    with pytest.raises(ValueError, match="ids"):
+        qalora_slot_matvec_cuda(x, qt.qweight, qt.scale, qt.zero, ab, bb,
+                                ids[:3], **kw)
+    with pytest.raises(TypeError):
+        qalora_slot_matvec_cuda(x, qt.qweight, qt.scale, qt.zero, ab.float(),
+                                bb.float(), ids, **kw)
+    with pytest.raises(ValueError, match="banks"):
+        qalora_slot_matvec_cuda(x, qt.qweight, qt.scale, qt.zero, a, b, ids,
+                                **kw)

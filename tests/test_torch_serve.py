@@ -26,42 +26,11 @@ from repro_torch import kernels as tkernels  # noqa: E402
 from repro_torch.core import schemes as TS  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models.lm import LM as TLM  # noqa: E402
+from _torch_parity import bump as _bump, numpy_tree as _numpy_tree  # noqa: E402
 
 ARCHS = ("gemma3-1b", "llama7b-proxy")
 GEN_LEN = 5
 TOL = 1e-4
-
-
-def _bump(params):
-    """+0.01 on every adapter leaf, as the reference serve driver does."""
-    return jax.tree_util.tree_map_with_path(
-        lambda path, x: x + 0.01 if any(
-            getattr(k, "key", None) == "ad" for k in path) else x, params)
-
-
-def _numpy_tree(params):
-    """A reference params tree as the bridge's numpy layout, read through
-    the scheme API's accessors."""
-    def lin(lp):
-        if lp.scheme == "fp":
-            return {"scheme": "fp", "weight": np.asarray(RS.dense_view(lp))}
-        qt = RS.quantized_base(lp)
-        d = {"scheme": lp.scheme, "bits": qt.bits,
-             "group_size": qt.group_size,
-             "qweight": np.asarray(qt.qweight), "scale": np.asarray(qt.scale),
-             "zero": np.asarray(qt.zero)}
-        if lp.scheme == "qalora":
-            ad = RS.adapter_params(lp)
-            d.update(s=lp.policy.s, a=np.asarray(ad.a), b=np.asarray(ad.b))
-        return d
-
-    def walk(p):
-        if RS.is_linear(p):
-            return lin(p)
-        if isinstance(p, dict):
-            return {k: walk(v) for k, v in p.items()}
-        return np.asarray(p)
-    return walk(params)
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -225,8 +194,9 @@ def test_serve_cli_cpu(argv):
         assert r["rel"] <= out["merge_bound_rel"]
 
 
-@pytest.mark.parametrize("flag", (["--engine", "continuous"],
-                                  ["--adapters", "a=demo:1"],
+@pytest.mark.parametrize("flag", (["--engine", "frontend"],
+                                  ["--engine", "continuous",
+                                   "--adapters", "a=ckpt/a"],
                                   ["--speculate", "2"], ["--page-size", "4"]))
 def test_serve_cli_refuses_modes_not_ported(flag, capsys):
     with pytest.raises(SystemExit):
