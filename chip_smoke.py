@@ -9,8 +9,9 @@ Phases, each printing one JSON line:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` does,
    and records its clocks, power draw and temperature (sampled again
    after each kernel timing).
-2. build   -- builds the five dequant-matmul kernels from
-   ``src/repro_torch/csrc`` (three sources, one ``nvcc`` each, in parallel).
+2. build   -- builds the six kernels from ``src/repro_torch/csrc`` (four
+   sources, one ``nvcc`` each, in parallel): five dequant-matmul kernels
+   and flash attention.
 3. kernels -- holds each kernel against its plain PyTorch version on the
    card in bf16 at the main-path shapes of llama7b-proxy int4 g32 (M = 4
    for the GEMV kernels, M = 512 for the tiled ones; the slot GEMV with
@@ -23,13 +24,27 @@ Phases, each printing one JSON line:
    with CUDA events, rotating over enough weight copies to keep the 50 MB
    L2 cold; at M = 256 also the ragged step's whole multi-tenant linear
    (tiled kernel plus plain bank delta) and the bank delta alone.
-4. small   -- a reduced model on the card (kernels) against the same
+4. flash   -- kernel 6, ``repro_torch.kernels.ops.flash_mha``, causal, in
+   bf16 at the attention shapes of llama7b-proxy (B 4, S 2048, 32 heads,
+   d 128) and gemma3-1b (B 4, S 4096, 4 heads, d 256, its one KV head
+   repeated to 4; local layers with window 512, global ones without),
+   launch counts read around those three calls; each held row by row
+   (every query row within 2**-6 of its own largest output) against the
+   plain version on the card and against ``scaled_dot_product_attention``,
+   the llama row also against the port model's ``flash_attention``;
+   kernel, plain version and
+   ``scaled_dot_product_attention`` (``library_ms``) timed with CUDA
+   events on two input copies (L2 cold); then a sweep at small shapes
+   against the plain version: bf16 and f32, every head dim, causal or
+   not, window 0 or 16, Sq != Sk both ways, ragged lengths, and rows that
+   see no key.  No served path calls it, as in the JAX package.
+5. small   -- a reduced model on the card (kernels) against the same
    weights on the CPU (plain versions).
-5. serve   -- ``repro_torch.launch.serve`` on the full llama7b-proxy
+6. serve   -- ``repro_torch.launch.serve`` on the full llama7b-proxy
    (32 layers, d 4096, d_ff 11008, vocab 32000, int4 g32 r64, bf16):
    4 requests x 128 prompt + 32 generated tokens, then the merge check;
    the four kernels of that path must have launched on that run.
-6. adapters -- ``repro_torch.launch.serve --engine continuous`` on the full
+7. adapters -- ``repro_torch.launch.serve --engine continuous`` on the full
    llama7b-proxy with three demo tenants and the null adapter over one
    INT4 base: 8 requests x 128 prompt + 32 generated tokens on 4 slots,
    prefill chunks of 64, decode bursts of 8.  The slot GEMV must launch
@@ -39,7 +54,7 @@ Phases, each printing one JSON line:
    merged tree, both with every row bound to one tenant and in one batch
    whose rows cycle the tenants and the null adapter.  The greedy tokens
    each tenant gives on the same prompts are recorded.
-7. the ``kernels`` summary, and the final ``{"ok": true, ...}`` line.
+8. the ``kernels`` summary, and the final ``{"ok": true, ...}`` line.
 
 Any failed phase exits non-zero before the final line.  Without a card,
 or without the repository's ``src`` beside this file, it exits non-zero
@@ -101,6 +116,32 @@ KERNELS = {
     "qalora_slot_matvec": ("slot", GEMV_M, "src/repro_torch/csrc/qmatvec.cu",
                            "src/repro/kernels/qmatvec.py:212"),
 }
+# kernel 6 at the attention shapes of the two configs, bf16, causal:
+# (row, B, S, heads, KV heads, head dim, window)
+FLASH_ROWS = (("llama7b-proxy", 4, 2048, 32, 32, 128, 0),
+              ("gemma3-1b local", 4, 4096, 4, 1, 256, 512),
+              ("gemma3-1b global", 4, 4096, 4, 1, 256, 0))
+FLASH_SOURCE = "src/repro_torch/csrc/flash.cu"
+FLASH_REPLACES = "src/repro/kernels/flash.py:73"
+FLASH_DIMS = (16, 32, 64, 128, 256)
+# the sweep's (Sq, Sk, causal, window), at every head dim and both dtypes:
+# Sq != Sk both ways, ragged lengths, rows that see no key ((64, 16, False,
+# 8) and, causal, (96, 40, True, 16))
+FLASH_SWEEP = [(128, 128, c, w) for c in (True, False) for w in (0, 16)] + [
+    (64, 128, False, 0), (128, 64, True, 0), (64, 16, False, 8),
+    (100, 100, True, 16), (72, 40, False, 0), (96, 40, True, 16)]
+# bf16, per query row: max|y - ref| over the row within 2**-6 of that row's
+# own max|ref| (a wrong key tile in a deep row, whose outputs average
+# thousands of keys and are far below the tensor's max, shows here; one
+# bf16 step of disagreement is half the bound)
+FLASH_BF16_ROW_TOL = 2.0 ** -6
+# the port model's attention against the kernel (llama row): the bf16 bound
+# of tests/test_flash_kernel.py (the model keeps p in f32), and the row-wise
+# bound above
+FLASH_MODEL_TOL = 5e-2
+# f32 sweep: the bound of tests/test_flash_kernel.py
+FLASH_F32_TOL = 2e-4
+
 # the kernels each served path must launch
 STATIC_PATH = ("qmatmul", "qmatvec", "qalora_matmul", "qalora_matvec")
 ADAPTER_PATH = ("qmatmul", "qalora_slot_matvec")
@@ -189,6 +230,12 @@ def _bound(m, k, n, bits, n_adapters=0, adapter_rows=None, scale_bytes=2,
         if adapter_rows is not None:
             nbytes += 4 * m
         flops += 2 * rows * (groups * RANK + RANK * n)
+    return _bound_of(nbytes, flops)
+
+
+def _bound_of(nbytes, flops):
+    """The larger of bytes over the memory rate and operations over the
+    bf16 peak, and which of the two it is."""
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOP_S
     return {"bytes": nbytes, "flops": flops,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -419,7 +466,197 @@ def _per_layer(rows, key):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: a reduced model on the card against the CPU
+# phase 4: flash attention (kernel 6)
+# ---------------------------------------------------------------------------
+
+
+def _fold(t):
+    """[B, S, H, d] -> contiguous [B*H, S, d], as ops.flash_mha folds."""
+    b, s_, h, d = t.shape
+    return t.permute(0, 2, 1, 3).reshape(b * h, s_, d).contiguous()
+
+
+def _flash_inputs(torch, gen, b, sq, sk, h, kvh, d, dtype):
+    """q [B, Sq, H, d], k and v [B, Sk, KvH, d] repeated to H heads on the
+    head axis (as ``jnp.repeat(axis=2)`` expands GQA)."""
+    def rnd(s_, heads):
+        return torch.randn((b, s_, heads, d), generator=gen, device="cuda") \
+            .to(dtype)
+    q, k, v = rnd(sq, h), rnd(sk, kvh), rnd(sk, kvh)
+    if kvh < h:
+        k = k.repeat_interleave(h // kvh, dim=2)
+        v = v.repeat_interleave(h // kvh, dim=2)
+    return q, k, v
+
+
+def _visible_pairs(sq, sk, causal, window):
+    """(query, key) pairs the mask keeps, per batch-head."""
+    import numpy as np
+    i = np.arange(sq)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros_like(i)
+    hi = np.minimum(sk - 1, i) if causal else np.full_like(i, sk - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _flash_bound(bh, sq, sk, d, causal, window):
+    """4 d flops per visible pair (q k^T and p v) over the bf16 peak, or
+    q, k, v read once and o written once (bf16) over the memory rate."""
+    flops = 4 * d * bh * _visible_pairs(sq, sk, causal, window)
+    nbytes = (2 * sq + 2 * sk) * bh * d * 2
+    return _bound_of(nbytes, flops)
+
+
+def _row_ratio(y, ref):
+    """Largest max|y - ref| of a query row (the last axis) over
+    FLASH_BF16_ROW_TOL times that row's max|ref|: at most 1 passes."""
+    yf, rf = y.float(), ref.float()
+    return ((yf - rf).abs().amax(-1) / (FLASH_BF16_ROW_TOL
+                                        * rf.abs().amax(-1))).max().item()
+
+
+def _flash_check(torch, y, ref):
+    """(max|y - ref|, row ratio or None, ok): bf16 within the row-wise
+    bound (p and o round to bf16 at the same points, p against another
+    running max in the kernel's tiles), f32 within rtol = atol =
+    FLASH_F32_TOL."""
+    yf, rf = y.float(), ref.float()
+    diff = (yf - rf).abs()
+    ok = bool(torch.isfinite(yf).all())
+    ratio = None
+    if y.dtype == torch.bfloat16:
+        ratio = _row_ratio(y, ref)
+        ok = ok and ratio <= 1
+    else:
+        ok = ok and bool((diff <= FLASH_F32_TOL
+                          + FLASH_F32_TOL * rf.abs()).all())
+    return diff.max().item(), ratio, ok
+
+
+def _sdpa_fn(torch, sq, sk, window):
+    """One PyTorch call for the same function on [B, H, S, d]: causal, or a
+    boolean band for the window (True takes part)."""
+    import torch.nn.functional as F
+    if not window:
+        return lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True)
+    i = torch.arange(sq, device="cuda")[:, None]
+    j = torch.arange(sk, device="cuda")[None, :]
+    band = (j <= i) & (j > i - window)
+    return lambda q, k, v: F.scaled_dot_product_attention(q, k, v,
+                                                          attn_mask=band)
+
+
+def phase_flash(torch):
+    """Kernel 6 at full width (the path: counts reset just before the three
+    ``ops.flash_mha`` calls and read just after), then its checks, timings
+    and the small-shape sweep."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash import flash_mha_cuda, flash_mha_plain
+    from repro_torch.models.attention import flash_attention
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    inputs = [_flash_inputs(torch, gen, b, s_, s_, h, kvh, d, torch.bfloat16)
+              for _, b, s_, h, kvh, d, _ in FLASH_ROWS]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    outs = [ops.flash_mha(q, k, v, causal=True, window=w)
+            for (q, k, v), (*_, w) in zip(inputs, FLASH_ROWS)]
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    rows = []
+    for (name, b, s_, h, kvh, d, w), (q, k, v), y in zip(FLASH_ROWS, inputs,
+                                                        outs):
+        folded = [_fold(t) for t in (q, k, v)]
+        ref = flash_mha_plain(*folded, causal=True, window=w)
+        err, ratio, ok = _flash_check(torch, _fold(y), ref)
+        row = {"row": name, "B": b, "S": s_, "H": h, "KvH": kvh, "d": d,
+               "window": w, "causal": True, "max_abs_err": err,
+               "row_err_ratio": ratio, "ok": ok,
+               **_flash_bound(b * h, s_, s_, d, True, w)}
+        if name == "llama7b-proxy":
+            model = flash_attention(q, k, v, causal=True)
+            yf, mf = y.float(), model.float()
+            excess = ((yf - mf).abs() - FLASH_MODEL_TOL
+                      - FLASH_MODEL_TOL * mf.abs()).max().item()
+            row["model_max_abs_diff"] = (yf - mf).abs().max().item()
+            row["model_within_rtol_atol"] = excess <= 0
+            row["model_row_err_ratio"] = _row_ratio(y, model)
+            row["ok"] = ok = (ok and excess <= 0
+                              and row["model_row_err_ratio"] <= 1)
+            del model, yf, mf
+        del ref
+        copies = [folded, [_fold(t) for t in _flash_inputs(
+            torch, gen, b, s_, s_, h, kvh, d, torch.bfloat16)]]
+        row["kernel_ms"] = _time_ms(
+            torch, lambda *t: flash_mha_cuda(*t, causal=True, window=w),
+            copies, 20)
+        row["clocks"] = _smi(CLOCKS)
+        row["plain_ms"] = _time_ms(
+            torch, lambda *t: flash_mha_plain(*t, causal=True, window=w),
+            copies, 3)
+        lib = [[t.view(b, h, s_, d) for t in c] for c in copies]
+        sdpa = _sdpa_fn(torch, s_, s_, w)
+        row["library_ms"] = _time_ms(torch, sdpa, lib, 20)
+        lib_y = sdpa(*lib[0])
+        row["library_max_abs_diff"] = (
+            lib_y.float() - _fold(y).view(b, h, s_, d).float()).abs().max() \
+            .item()
+        row["library_row_err_ratio"] = _row_ratio(
+            lib_y, _fold(y).view(b, h, s_, d))
+        row["ok"] = ok = ok and row["library_row_err_ratio"] <= 1
+        del copies, lib, lib_y
+        emit({"phase": "flash_row", **row})
+        rows.append(row)
+        if not ok:
+            raise AssertionError(f"flash {name}: a check failed: {row}")
+    del inputs, outs
+    torch.cuda.empty_cache()
+
+    sweep, bad = 0, []
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in FLASH_DIMS:
+            for sq, sk, causal, w in FLASH_SWEEP:
+                q, k, v = _flash_inputs(torch, gen, 1, sq, sk, 2, 2, d, dtype)
+                y = ops.flash_mha(q, k, v, causal=causal, window=w)
+                ref = flash_mha_plain(_fold(q), _fold(k), _fold(v),
+                                      causal=causal, window=w,
+                                      block_q=sq, block_k=sk)
+                err, ratio, ok = _flash_check(torch, _fold(y), ref)
+                sweep += 1
+                worst[dtype] = max(worst[dtype], ratio if ratio is not None
+                                   else err)
+                if not ok:
+                    bad.append({"dtype": str(dtype), "d": d, "Sq": sq,
+                                "Sk": sk, "causal": causal, "window": w,
+                                "max_abs_err": err, "row_err_ratio": ratio})
+    checks = {
+        "rows_within_tol": all(r["ok"] for r in rows),
+        "sweep_within_tol": not bad,
+        "path_launched_flash": counts["flash_mha"] == len(FLASH_ROWS),
+        "only_flash_on_path": all(v == 0 for k, v in counts.items()
+                                  if k != "flash_mha"),
+    }
+    out = {"phase": "flash", "launches": counts, "sweep_cases": sweep,
+           "sweep_failures": bad,
+           "sweep_bf16_max_row_err_ratio": worst[torch.bfloat16],
+           "sweep_f32_max_abs_err": worst[torch.float32],
+           "tolerance": "bf16 per query row max|y - ref| <= 2**-6 * "
+                        "max_row|ref| (row_err_ratio <= 1), against the "
+                        "plain version, the model's attention (llama row) "
+                        "and scaled_dot_product_attention; f32 rtol = atol "
+                        f"= {FLASH_F32_TOL}; llama row vs model attention "
+                        f"also rtol = atol = {FLASH_MODEL_TOL}",
+           "checks": checks, "clocks_after": _smi(CLOCKS)}
+    out["ok"] = all(checks.values())
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"flash checks failed: {checks}, {bad[:5]}")
+    return rows, counts["flash_mha"]
+
+
+# ---------------------------------------------------------------------------
+# phase 5: a reduced model on the card against the CPU
 # ---------------------------------------------------------------------------
 
 
@@ -456,7 +693,7 @@ def phase_small(torch):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: serve the full model
+# phase 6: serve the full model
 # ---------------------------------------------------------------------------
 
 
@@ -497,7 +734,7 @@ def phase_serve(torch):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: many tenants over one INT4 base, continuous engine
+# phase 7: many tenants over one INT4 base, continuous engine
 # ---------------------------------------------------------------------------
 
 ADAPTER_ARGV = ["--arch", "llama7b-proxy", "--engine", "continuous",
@@ -607,6 +844,7 @@ def main() -> int:
         smi_line = phase_device(torch)
         phase_build()
         rows, ragged = phase_kernels(torch)
+        flash_rows, flash_launches = phase_flash(torch)
         phase_small(torch)
         counts = phase_serve(torch)
         counts = {k: counts[k] for k in STATIC_PATH}
@@ -645,6 +883,22 @@ def main() -> int:
                 "ms": _per_layer(ragged, "kernel_ms"),
                 "bound_ms": _per_layer(ragged, "bound_ms"),
                 "with_bank_delta_ms": _per_layer(ragged, "slot_tiled_ms")}
+    llama = flash_rows[0]
+    summary.append({
+        "name": "flash_mha", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES, "launches": flash_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
+        "ms": llama["kernel_ms"], "plain_ms": llama["plain_ms"],
+        "bound_ms": llama["bound_ms"], "bound_by": llama["bound_by"],
+        "library_ms": llama["library_ms"],
+        "work": "causal attention, bf16, llama7b-proxy: B 4, S 2048, "
+                "32 heads, d 128",
+        "launches_path": "phase flash (no served path calls it, as in the "
+                         "JAX package)",
+        "status": "ported, checked",
+        "rows": {r["row"]: {key: r[key] for key in (
+            "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err", "row_err_ratio")} for r in flash_rows}})
     RECORD["seconds"] = time.perf_counter() - t0
     RECORD["card"] = smi_line
     save()

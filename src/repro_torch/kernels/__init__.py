@@ -8,6 +8,7 @@ plain-integer ``launches`` count that it raises by one per kernel launch
 
 from __future__ import annotations
 
+from .flash import flash_mha_cuda
 from .qalora_fused import qalora_matmul_cuda
 from .qmatmul import qmatmul_cuda
 from .qmatvec import (GEMV_MAX_M, qalora_matvec_cuda,
@@ -19,6 +20,7 @@ KERNELS = {
     "qalora_matmul": qalora_matmul_cuda,
     "qalora_matvec": qalora_matvec_cuda,
     "qalora_slot_matvec": qalora_slot_matvec_cuda,
+    "flash_mha": flash_mha_cuda,
 }
 
 
@@ -33,4 +35,4 @@ def launches() -> dict:
 
 __all__ = ["GEMV_MAX_M", "KERNELS", "launches", "reset_launches",
            "qmatmul_cuda", "qmatvec_cuda", "qalora_matmul_cuda",
-           "qalora_matvec_cuda", "qalora_slot_matvec_cuda"]
+           "qalora_matvec_cuda", "qalora_slot_matvec_cuda", "flash_mha_cuda"]

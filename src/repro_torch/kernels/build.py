@@ -24,7 +24,7 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("qmatmul", "qmatvec", "qalora_fused")
+SOURCES = ("qmatmul", "qmatvec", "qalora_fused", "flash")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -41,6 +41,7 @@ SIGNATURES = {
     "qalora_fused": {
         "qalora_matmul_bf16": [_P] * 7 + [_I] * 6 + [_F] + [_I] * 2 + [_P],
     },
+    "flash": {"flash_mha_fwd": [_P] * 4 + [_I] * 6 + [_F, _I, _P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -18,6 +18,7 @@ import math
 
 from ..core.qalora import QALoRAParams, bank_adapter_delta
 from ..core.quant import QuantizedLinear
+from .flash import flash_mha_cuda
 from .qalora_fused import qalora_matmul_cuda
 from .qmatmul import qmatmul_cuda
 from .qmatvec import (GEMV_MAX_M, qalora_matvec_cuda,
@@ -76,3 +77,32 @@ def qalora_slot_matmul(x, qt: QuantizedLinear, a_bank, b_bank, ids,
            ids.reshape(m).contiguous(), s=float(s), bits=qt.bits,
            group_size=qt.group_size)
     return y.reshape(*lead, qt.d_out)
+
+
+def flash_mha(q, k, v, causal=True, window=0, block_q=128, block_k=128):
+    """Flash attention, q/k/v ``[B, S, H, d]`` (MHA: a GQA caller expands
+    K/V to q's heads first), output ``[B, Sq, H, d]`` in q's dtype; the
+    counterpart of ``repro.kernels.ops.flash_mha``.  Heads fold into the
+    batch for :func:`~repro_torch.kernels.flash.flash_mha_cuda`, which
+    checks the rest.  The block sizes (capped at Sq and Sk) must divide the
+    sequences, as the Pallas kernel requires; they shape only the plain
+    version's tiles."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be [B, S, H, d], got "
+                             f"{tuple(t.shape)}")
+    b, sq, h, _ = q.shape
+    if k.shape[2] != h or v.shape[2] != h:
+        raise ValueError(f"flash_mha is MHA only: k and v need q's {h} heads "
+                         f"(expand GQA K/V first), got {k.shape[2]} and "
+                         f"{v.shape[2]}")
+
+    def fold(t):
+        return t.permute(0, 2, 1, 3).reshape(-1, t.shape[1], t.shape[3]) \
+            .contiguous()
+    # through a name, as the dispatch above: repro_lint's RL004 follows
+    # calls by simple name from the reference's jit root `flash_mha`
+    fn = flash_mha_cuda
+    o = fn(fold(q), fold(k), fold(v), causal=causal, window=window,
+           block_q=block_q, block_k=block_k)
+    return o.reshape(b, h, sq, o.shape[-1]).permute(0, 2, 1, 3)

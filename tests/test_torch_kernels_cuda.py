@@ -1,5 +1,6 @@
-"""The port's five CUDA kernels against their plain PyTorch versions, on the
-card, at small shapes and all four bit widths.
+"""The port's six CUDA kernels against their plain PyTorch versions, on the
+card, at small shapes: the dequant-matmul kernels at all four bit widths,
+flash attention in bf16 and f32 at every head dim it takes.
 
 Needs an NVIDIA Hopper card and ``nvcc``; skips cleanly without them.  It
 imports no JAX, so it runs on a machine without it:
@@ -10,7 +11,9 @@ Tolerance: both sides round w to bf16 at the same point and multiply
 exactly in f32; they differ only in the order of the f32 sums (and, with
 an adapter, in where a pooled sum rounds to bf16), so each output may land
 on a neighbouring bf16 value: two bf16 steps of the largest output,
-2**-6 * max|y|.
+2**-6 * max|y|.  Flash attention: bf16 within 2**-6 * max|o| (p and o
+round to bf16 at the same points, p relative to another running max);
+f32 within rtol = atol = 2e-4 (the bound of tests/test_flash_kernel.py).
 """
 
 import numpy as np
@@ -19,6 +22,8 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core import quant
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash import flash_mha_cuda, flash_mha_plain
 from repro_torch.kernels.qalora_fused import (qalora_matmul_cuda,
                                               qalora_matmul_plain)
 from repro_torch.kernels.qmatmul import qmatmul_cuda, qmatmul_plain
@@ -216,3 +221,69 @@ def test_slot_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="banks"):
         qalora_slot_matvec_cuda(x, qt.qweight, qt.scale, qt.zero, a, b, ids,
                                 **kw)
+
+
+# flash attention: (Sq, Sk, causal, window) cases, run at every head dim;
+# Sq != Sk both ways, ragged lengths, and rows that see no key (Sq past
+# Sk + window - 1, causal or not: the mean of V over all keys)
+FLASH_CASES = [(128, 128, c, w) for c in (True, False) for w in (0, 16)] + [
+    (64, 128, False, 0), (128, 64, True, 0), (64, 16, False, 8),
+    (100, 100, True, 16), (72, 40, False, 0), (96, 40, True, 16)]
+
+
+def _flash_inputs(dev, b, sq, sk, h, d, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn((b, s, h, d), generator=gen, device=dev)
+                 .to(dtype) for s in (sq, sk, sk))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=[f"sq{c[0]}-sk{c[1]}-{'causal' if c[2] else 'full'}"
+                              f"-w{c[3]}" for c in FLASH_CASES])
+@pytest.mark.parametrize("d", (16, 32, 64, 128, 256))
+@pytest.mark.parametrize("dtype", ("bf16", "f32"))
+def test_flash_kernel_matches_plain(card, dtype, d, case):
+    sq, sk, causal, window = case
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q, k, v = _flash_inputs(card, 1, sq, sk, 2, d, tdt, seed=d + sq)
+    before = flash_mha_cuda.launches
+    y = ops.flash_mha(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_mha_cuda.launches == before + 1
+
+    def fold(t):
+        return t.permute(0, 2, 1, 3).reshape(2, t.shape[1], d).contiguous()
+    ref = flash_mha_plain(fold(q), fold(k), fold(v), causal=causal,
+                          window=window, block_q=sq, block_k=sk)
+    y = fold(y).float()
+    ref = ref.float()
+    assert y.shape == ref.shape and torch.isfinite(y).all()
+    if dtype == "bf16":  # per query row, 2**-6 of the row's own max|o|
+        tol = 2.0 ** -6 * ref.abs().amax(-1)
+        assert ((y - ref).abs().amax(-1) <= tol).all()
+    else:
+        torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-4)
+
+
+def test_flash_rows_that_see_no_key_give_the_mean_of_v(card):
+    q, k, v = _flash_inputs(card, 1, 64, 16, 2, 64, torch.float32, seed=9)
+    y = ops.flash_mha(q, k, v, causal=False, window=8)
+    vmean = v.mean(dim=1, keepdim=True).expand(1, 64 - 23, 2, 64)
+    torch.testing.assert_close(y[:, 23:], vmean, rtol=2e-4, atol=2e-4)
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(card):
+    q, k, v = _flash_inputs(card, 2, 64, 64, 1, 64, torch.bfloat16)
+    q, k, v = (t.reshape(2, 64, 64) for t in (q, k, v))
+    before = flash_mha_cuda.launches
+    with pytest.raises(TypeError):
+        flash_mha_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head dim"):
+        flash_mha_cuda(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                       v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_mha_cuda(q.transpose(0, 1), k.transpose(0, 1),
+                       v.transpose(0, 1))
+    with pytest.raises(ValueError, match="on cuda"):
+        flash_mha_cuda(q, k.cpu(), v)
+    assert flash_mha_cuda.launches == before
