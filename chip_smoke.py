@@ -17,9 +17,15 @@ Phases, each printing one JSON line:
    for the GEMV kernels, M = 512 for the tiled ones; the slot GEMV with
    ids [1, 2, 0, 3] over a 5-row adapter bank), the tiled ``qmatmul`` also
    at M = 256 (the continuous path's ragged step: 4 slots x 64-token
-   chunks), plus a sweep of bits {2, 3, 4, 8} (the slot GEMV also at M = 1
-   and 8), a sweep of the GEMV's M, and the slot GEMV with every id 0
-   against ``qmatvec`` bit for bit.  Times kernel, plain version and the
+   chunks) and the tiled ``qalora_matmul`` there too, kernel 3's rank
+   projection (``qalora_rank_proj``, its first launch) on its own at both
+   M, plus a sweep of bits {2, 3, 4, 8} (the slot GEMV also at M = 1
+   and 8), a sweep of the GEMV's M, the slot GEMV with every id 0
+   against ``qmatvec`` bit for bit, and an edge sweep of the two tiled
+   kernels (M around their tiles, N not 16-aligned, every group size
+   ``block_k`` takes, both scale dtypes).  The tiled rows record the
+   kernel's design: tile, stages, shared memory, and registers and spills
+   from the ptxas report.  Times kernel, plain version and the
    PyTorch library calls on the pre-dequantised weight (``library_ms``)
    with CUDA events, rotating over enough weight copies to keep the 50 MB
    L2 cold; at M = 256 also the ragged step's whole multi-tenant linear
@@ -43,7 +49,9 @@ Phases, each printing one JSON line:
 6. serve   -- ``repro_torch.launch.serve`` on the full llama7b-proxy
    (32 layers, d 4096, d_ff 11008, vocab 32000, int4 g32 r64, bf16):
    4 requests x 128 prompt + 32 generated tokens, then the merge check;
-   the four kernels of that path must have launched on that run.
+   the kernels of that path must have launched on that run, kernel 3 and
+   its rank projection once per linear of the merge check's unmerged
+   prefill (224).
 7. adapters -- ``repro_torch.launch.serve --engine continuous`` on the full
    llama7b-proxy with three demo tenants and the null adapter over one
    INT4 base: 8 requests x 128 prompt + 32 generated tokens on 4 slots,
@@ -100,6 +108,17 @@ RAGGED_SLOTS, RAGGED_CHUNK = 4, 64
 RAGGED_M = RAGGED_SLOTS * RAGGED_CHUNK
 RAGGED_SLOT_IDS = (1, 2, 3, 0)
 L2_BYTES = 50e6
+# the tiled kernels' edges: M around their row tiles, N of 96, 100 (not
+# 16-aligned) and 200, every group size block_k takes with K = 2 *
+# block_k(g) + g (a last K step of one group); bits and the scale dtype
+# cycle over the cases
+EDGE_M = (9, 65, 127, 129, 257)
+EDGE_N = (96, 100, 200)
+EDGE_G = (16, 24, 32, 64, 128)
+EDGE_RANK = 16
+# kernel 3's first launch: t = bf16(pool_g(x) @ A), one per linear
+PROJ = ("qalora_rank_proj", "src/repro_torch/csrc/qalora_fused.cu",
+        "src/repro/kernels/qalora_fused.py:62")
 
 KERNELS = {
     # name: (what it adds to the base product, M, source, Pallas function
@@ -143,7 +162,8 @@ FLASH_MODEL_TOL = 5e-2
 FLASH_F32_TOL = 2e-4
 
 # the kernels each served path must launch
-STATIC_PATH = ("qmatmul", "qmatvec", "qalora_matmul", "qalora_matvec")
+STATIC_PATH = ("qmatmul", "qmatvec", "qalora_matmul", "qalora_matvec",
+               "qalora_rank_proj")
 ADAPTER_PATH = ("qmatmul", "qalora_slot_matvec")
 LAYER_LINEARS = sum(c for _, _, c in SHAPES)  # 7 quantized linears a layer
 
@@ -193,7 +213,13 @@ def phase_device(torch):
 
 
 def phase_build():
+    """Builds every library afresh in its own directory, so the build time
+    and the ptxas report are this run's."""
+    import shutil
     from repro_torch.kernels import build
+    bdir = os.path.join(ROOT, "build", "chip_smoke")
+    shutil.rmtree(bdir, ignore_errors=True)
+    os.environ["REPRO_TORCH_BUILD_DIR"] = bdir
     t0 = time.perf_counter()
     per_source = build.build_all()
     secs = time.perf_counter() - t0
@@ -204,7 +230,41 @@ def phase_build():
         for name, log in build.BUILD_LOG.items():
             f.write(f"==== {name}.cu\n{log}\n")
     emit({"phase": "build", "seconds": secs,
-          "per_source_seconds": per_source, "sources": list(build.SOURCES)})
+          "per_source_seconds": per_source, "sources": list(build.SOURCES),
+          "design": {n: _design(n) for n in ("qmatmul", "qalora_matmul")}})
+
+
+# each kernel's entry in the ptxas report (a fragment of its mangled name,
+# bits 4 and bf16 scales: the served instantiation)
+PTXAS_ENTRY = {
+    "qmatmul": ("qmatmul", "tiled_kernelILi4E13__nv_bfloat16Lb0E"),
+    "qalora_matmul": ("qalora_fused", "tiled_kernelILi4E13__nv_bfloat16Lb1E"),
+    "qalora_rank_proj": ("qalora_fused", "rank_proj_kernel"),
+}
+
+
+def _ptxas(name):
+    """Registers and spills of one kernel from its library's ptxas report
+    (its shared memory is all dynamic)."""
+    from repro_torch.kernels import build
+    lib, entry = PTXAS_ENTRY[name]
+    return build.ptxas_report(build.BUILD_LOG.get(lib, ""), entry)
+
+
+def _design(name):
+    """The tiled kernel's tile, threads, stages and dynamic shared memory
+    at the served operands (int4, g = 32: K step 64; bf16 scales; r = RANK
+    for kernel 3), with its ptxas numbers."""
+    import ctypes
+    from repro_torch.kernels import build
+    from repro_torch.kernels.qmatmul import block_k
+    out = (ctypes.c_int * 5)()
+    rank = RANK if name == "qalora_matmul" else 0
+    build.library("qmatmul").tiled_design(block_k(GROUP), GROUP, rank, BITS,
+                                          0, out)
+    return {"tile": f"{out[0]}x{out[1]}", "threads": out[2],
+            "stages": out[3], "bk": block_k(GROUP), "smem_bytes": out[4],
+            "ptxas": _ptxas(name)}
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +313,31 @@ def _time_ms(torch, fn, arg_sets, iters):
     start.record()
     for i in range(iters):
         fn(*arg_sets[i % len(arg_sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _time_graph_ms(torch, fn, arg_sets, iters):
+    """Device time of one call, for calls shorter than the host's cost of
+    issuing them: ``iters`` calls rotating through ``arg_sets`` are
+    captured in one CUDA graph, and one replay is timed with CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for args in arg_sets[:2]:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -426,18 +511,113 @@ def _time_ragged_linear(torch, gen, k, n):
     return row
 
 
+def _check_proj(torch, m, k, gen):
+    """Kernel 3's rank projection alone, t = bf16(pool_g(x) @ A) [m, RANK],
+    against its plain version (two bf16 steps of max|t|: a pooled sum in
+    another order may round to a neighbouring bf16 value), timed over
+    copies of x and A (L2 cold).  Library: one cuBLAS product of x with A
+    repeated over each group's rows (the same function, rounded once)."""
+    from repro_torch.kernels.qalora_fused import (qalora_rank_proj_cuda,
+                                                  qalora_rank_proj_plain)
+    groups = k // GROUP
+
+    def inputs():
+        x = torch.randn((m, k), generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        a = (torch.randn((groups, RANK), generator=gen, device="cuda")
+             / math.sqrt(groups) + 0.01).to(torch.bfloat16)
+        return x, a
+    copies = [inputs() for _ in range(max(2, math.ceil(
+        2.5 * L2_BYTES / (2 * m * k))))]
+    x, a = copies[0]
+    t = qalora_rank_proj_cuda(x, a, group_size=GROUP)
+    ref = qalora_rank_proj_plain(x, a, group_size=GROUP)
+    torch.cuda.synchronize()
+    err = (t.float() - ref.float()).abs().max().item()
+    tol = 2.0 ** -6 * ref.float().abs().max().item()
+    row = {"kernel": PROJ[0], "M": m, "K": k, "rank": RANK,
+           "max_abs_err": err, "tol": tol,
+           "finite": bool(torch.isfinite(t.float()).all()),
+           **_bound_of(2 * (m * k + groups * RANK + m * RANK),
+                       m * k + 2 * m * groups * RANK)}
+    # a few microseconds a call: kernel and library timed from CUDA graphs
+    # (eager calls measure the host's launch rate)
+    row["kernel_ms"] = _time_graph_ms(
+        torch, lambda x_, a_: qalora_rank_proj_cuda(x_, a_, group_size=GROUP),
+        copies, 50)
+    row["plain_ms"] = _time_ms(
+        torch, lambda x_, a_: qalora_rank_proj_plain(x_, a_, group_size=GROUP),
+        copies, 5)
+    lib = [(x_, a_.repeat_interleave(GROUP, 0)) for x_, a_ in copies]
+    row["library_ms"] = _time_graph_ms(torch, lambda x_, ar: x_ @ ar, lib, 50)
+    row["ok"] = row["finite"] and err <= tol
+    emit({"phase": "kernel_row", **row})
+    if not row["ok"]:
+        raise AssertionError(f"{PROJ[0]} M={m} K={k}: max_abs_err {err} > "
+                             f"tol {tol}")
+    return row
+
+
+def _edge_sweep(torch, gen):
+    """The two tiled kernels against their plain versions at their edges
+    (EDGE_M x EDGE_N x EDGE_G, bits and scale dtype cycling), each within
+    2**-6 * max|plain|.  Returns the number of kernel calls checked."""
+    from repro_torch.core import quant
+    from repro_torch.kernels.qmatmul import block_k
+    calls, worst, bad = 0, 0.0, []
+    cases = [(g, m, n) for g in EDGE_G for m in EDGE_M for n in EDGE_N]
+    for i, (g, m, n) in enumerate(cases):
+        bits = (2, 3, 4, 8)[i % 4]
+        sd = (torch.bfloat16, torch.float32)[(i // 4) % 2]
+        k = 2 * block_k(g) + g
+        w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+        qt = quant.quantize(w, bits, g, scale_dtype=sd)
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        a = (torch.randn((k // g, EDGE_RANK), generator=gen, device="cuda")
+             / math.sqrt(k // g) + 0.01).to(torch.bfloat16)
+        b = (torch.randn((EDGE_RANK, n), generator=gen, device="cuda") * 0.05
+             + 0.01).to(torch.bfloat16)
+        for name in ("qmatmul", "qalora_matmul"):
+            kern, plain = _calls(name)
+            args = (x, qt.qweight, qt.scale, qt.zero)
+            kw = dict(bits=bits, group_size=g)
+            if name == "qalora_matmul":
+                args += (a, b)
+                kw["s"] = S
+            y, ref = kern(*args, **kw).float(), plain(*args, **kw).float()
+            ratio = (y - ref).abs().max().item() / (
+                2.0 ** -6 * ref.abs().max().item())
+            calls += 1
+            worst = max(worst, ratio)
+            if not (bool(torch.isfinite(y).all()) and ratio <= 1):
+                bad.append({"kernel": name, "M": m, "N": n, "K": k, "g": g,
+                            "bits": bits, "scale": str(sd), "ratio": ratio})
+    out = {"phase": "edge_sweep", "calls": calls, "M": EDGE_M, "N": EDGE_N,
+           "g": EDGE_G, "rank": EDGE_RANK,
+           "worst_err_over_tol": worst, "failures": bad[:10], "ok": not bad}
+    emit(out)
+    if bad:
+        raise AssertionError(f"edge sweep: {len(bad)} failures, {bad[:3]}")
+    return calls
+
+
 def phase_kernels(torch):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
     for name, (_, m, _, _) in KERNELS.items():
         rows[name] = [_check_one(torch, name, m, k, n, BITS, gen, timing=True)
                       for k, n, _ in SHAPES]
-    # the tiled kernel at the continuous path's ragged-step M, and that
-    # step's whole multi-tenant linear
+    rows[PROJ[0]] = [_check_proj(torch, TILED_M, k, gen) for k, _, _ in SHAPES]
+    # the tiled kernels (and kernel 3's projection) at the continuous path's
+    # ragged-step M, and that step's whole multi-tenant linear
     ragged = [_check_one(torch, "qmatmul", RAGGED_M, k, n, BITS, gen,
                          timing=True) for k, n, _ in SHAPES]
     for row, (k, n, _) in zip(ragged, SHAPES):
         row.update(_time_ragged_linear(torch, gen, k, n))
+    ragged_adapter = [_check_one(torch, "qalora_matmul", RAGGED_M, k, n, BITS,
+                                 gen, timing=True) for k, n, _ in SHAPES]
+    ragged_proj = [_check_proj(torch, RAGGED_M, k, gen) for k, _, _ in SHAPES]
+    edge_calls = _edge_sweep(torch, gen)
     sweep = [_check_one(torch, name, KERNELS[name][1], *SWEEP_SHAPE, bits, gen,
                         timing=False)
              for bits in (2, 3, 4, 8) for name in KERNELS]
@@ -448,15 +628,20 @@ def phase_kernels(torch):
     sweep += [_check_one(torch, "qmatvec", m, k, n, BITS, gen, timing=True)
               for m in ms]
     emit({"phase": "kernels_checked", "rows": sum(map(len, rows.values()))
-          + len(ragged) + len(sweep),
+          + len(ragged) + len(ragged_adapter) + len(ragged_proj) + len(sweep),
+          "edge_sweep_calls": edge_calls,
           "tolerance": "2**-6 * max|plain| (two bf16 steps)",
           "ragged_step_per_layer_ms": {
               key: _per_layer(ragged, key) for key in
               ("kernel_ms", "bound_ms", "library_ms", "slot_tiled_ms",
                "bank_delta_ms")},
+          "ragged_step_qalora_matmul_per_layer_ms": {
+              key: _per_layer(ragged_adapter, key) for key in
+              ("kernel_ms", "bound_ms", "library_ms")},
           "clocks_after": _smi(CLOCKS)})
     torch.cuda.empty_cache()
-    return rows, ragged
+    return rows, {"qmatmul": ragged, "qalora_matmul": ragged_adapter,
+                  PROJ[0]: ragged_proj}
 
 
 def _per_layer(rows, key):
@@ -718,6 +903,11 @@ def phase_serve(torch):
         "merge_finite": all(math.isfinite(r["max_abs_diff"])
                             for r in res["merge_check"].values()),
         "path_kernels_launched": all(counts[k] > 0 for k in STATIC_PATH),
+        # the merge check's one unmerged prefill: kernel 3 once per linear,
+        # each launch with its rank projection
+        "qalora_matmul_per_unmerged_prefill":
+            counts["qalora_matmul"] == LAYER_LINEARS * n_layers
+            == counts["qalora_rank_proj"],
     }
     out = {"phase": "serve", **res, "launches": counts,
            "launches_per_prefill": LAYER_LINEARS * n_layers,
@@ -857,13 +1047,15 @@ def main() -> int:
         save()
         return 1
     summary = []
+    design = next(p for p in RECORD["phases"] if p["phase"] == "build")[
+        "design"]
     for name, (kind, m, source, replaces) in KERNELS.items():
         r = rows[name]
         summary.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
-            "max_abs_err": max(x["max_abs_err"] for x in r + (
-                ragged if name == "qmatmul" else [])),
+            "max_abs_err": max(x["max_abs_err"]
+                               for x in r + ragged.get(name, [])),
             "ms": _per_layer(r, "kernel_ms"),
             "plain_ms": _per_layer(r, "plain_ms"),
             "bound_ms": _per_layer(r, "bound_ms"),
@@ -877,12 +1069,34 @@ def main() -> int:
                              "adapters)" if name not in STATIC_PATH
                              else "static serve (phase serve)",
             "status": "ported, checked"})
-        if name == "qmatmul":
+        if name in ragged:
+            rr = ragged[name]
             summary[-1]["ragged_step"] = {
                 "work": f"the same linears at M={RAGGED_M} (phase adapters)",
-                "ms": _per_layer(ragged, "kernel_ms"),
-                "bound_ms": _per_layer(ragged, "bound_ms"),
-                "with_bank_delta_ms": _per_layer(ragged, "slot_tiled_ms")}
+                **{f"{key}_ms": _per_layer(rr, f"{key}_ms") for key in (
+                    "kernel", "plain", "library", "bound")}}
+            if name == "qmatmul":
+                summary[-1]["ragged_step"]["with_bank_delta_ms"] = \
+                    _per_layer(rr, "slot_tiled_ms")
+        if name in design:
+            summary[-1]["design"] = design[name]
+    r = rows[PROJ[0]]
+    summary.append({
+        "name": PROJ[0], "route": "cuda", "source": PROJ[1],
+        "replaces": PROJ[2], "launches": counts[PROJ[0]],
+        "max_abs_err": max(x["max_abs_err"] for x in r + ragged[PROJ[0]]),
+        **{f"{key}_ms": _per_layer(r, f"{key}_ms")
+           for key in ("plain", "library")},
+        "ms": _per_layer(r, "kernel_ms"), "bound_ms": _per_layer(r, "bound_ms"),
+        "bound_by": r[0]["bound_by"],
+        "work": f"kernel 3's first launch, t = bf16(pool_g(x) @ A), for one "
+                f"layer's linears at M={TILED_M}: 6 at K=4096, 1 at "
+                f"K=11008, r {RANK}",
+        "launches_path": "static serve (phase serve): one per kernel 3 launch",
+        "status": "ported, checked (part of kernel 3)",
+        "ptxas": _ptxas(PROJ[0]),
+        "ragged_step": {f"{key}_ms": _per_layer(ragged[PROJ[0]], f"{key}_ms")
+                        for key in ("kernel", "library", "bound")}})
     llama = flash_rows[0]
     summary.append({
         "name": "flash_mha", "route": "cuda", "source": FLASH_SOURCE,

@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry, by library
 SIGNATURES = {
-    "qmatmul": {"qmatmul_bf16": [_P] * 5 + [_I] * 7 + [_P]},
+    "qmatmul": {"qmatmul_bf16": [_P] * 5 + [_I] * 7 + [_P],
+                "tiled_design": [_I] * 5 + [_P]},
     "qmatvec": {
         "qmatvec_bf16": [_P] * 5 + [_I] * 6 + [_P],
         "qalora_matvec_bf16": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
@@ -39,6 +40,7 @@ SIGNATURES = {
                                    + [_P],
     },
     "qalora_fused": {
+        "qalora_rank_proj_bf16": [_P] * 3 + [_I] * 4 + [_P],
         "qalora_matmul_bf16": [_P] * 7 + [_I] * 6 + [_F] + [_I] * 2 + [_P],
     },
     "flash": {"flash_mha_fwd": [_P] * 4 + [_I] * 6 + [_F, _I, _P]},
@@ -137,6 +139,24 @@ def library(name: str) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             _LIBS[name] = lib
     return _LIBS[name]
+
+
+def ptxas_report(log: str, entry: str) -> Optional[dict]:
+    """Registers, stack frame and spill bytes of the kernel whose mangled
+    name contains ``entry``, read from an ``nvcc -Xptxas -v`` log (such as
+    ``BUILD_LOG[name]``); None if the log has no such kernel."""
+    import re
+    for block in log.split("Compiling entry")[1:]:
+        if entry in block.splitlines()[0]:
+            return {key: int(m.group(1)) if (m := re.search(pat, block))
+                    else None
+                    for key, pat in (("registers", r"Used (\d+) registers"),
+                                     ("stack", r"(\d+) bytes stack frame"),
+                                     ("spill_stores",
+                                      r"(\d+) bytes spill stores"),
+                                     ("spill_loads",
+                                      r"(\d+) bytes spill loads"))}
+    return None
 
 
 def check(rc: int, what: str) -> None:

@@ -2,9 +2,10 @@
 
 Replaces ``qmatmul_pallas`` (``src/repro/kernels/qmatmul.py:76``) with the
 CUDA kernel in ``csrc/qmatmul.cu`` + ``csrc/tiled.cuh``.  Bound by
-operations at prefill M; the kernel runs 64 x 64 output tiles on the
-tensor cores (WMMA bf16, f32 accumulators) with each dequantised weight
-tile shared by 64 rows of x.
+operations at prefill M; the kernel runs 128 x 64 output tiles on the
+tensor cores (WMMA bf16, f32 accumulators) over a 4-stage ``cp.async``
+ring of raw operands, with each dequantised weight tile shared by 128
+rows of x.
 
 :func:`qmatmul_cuda` launches the kernel for CUDA tensors (and raises on
 anything it does not take) and runs :func:`qmatmul_plain`, the plain
@@ -78,8 +79,8 @@ def check_operands(x, qweight, scale, zero, bits: int, group_size: int):
 
 def block_k(group_size: int) -> int:
     """K step of the tiled kernels: a multiple of the group size and of 16
-    (the WMMA depth), at least 64 (fewer, larger steps: each step waits for
-    memory once)."""
+    (the WMMA depth), at least 64 (fewer, larger steps: each step costs
+    one barrier and one ring stage)."""
     step = group_size * 16 // math.gcd(group_size, 16)
     bk = step * -(-64 // step)
     if bk > 128:

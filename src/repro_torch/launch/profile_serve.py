@@ -47,6 +47,8 @@ def _kind(name: str) -> str:
         return "gemv (port)"
     if "tiled_kernel" in name:
         return "tiled (port)"
+    if "rank_proj_kernel" in name:
+        return "rank projection (port)"
     if any(t in name.lower() for t in ("gemm", "cutlass", "cublas", "sm90_xmma")):
         return "matmul (torch)"
     return "other (torch)"

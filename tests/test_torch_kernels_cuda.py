@@ -25,8 +25,10 @@ from repro_torch.core import quant
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash import flash_mha_cuda, flash_mha_plain
 from repro_torch.kernels.qalora_fused import (qalora_matmul_cuda,
-                                              qalora_matmul_plain)
-from repro_torch.kernels.qmatmul import qmatmul_cuda, qmatmul_plain
+                                              qalora_matmul_plain,
+                                              qalora_rank_proj_cuda,
+                                              qalora_rank_proj_plain)
+from repro_torch.kernels.qmatmul import block_k, qmatmul_cuda, qmatmul_plain
 from repro_torch.kernels.qmatvec import (qalora_matvec_cuda,
                                          qalora_matvec_plain,
                                          qalora_slot_matvec_cuda,
@@ -124,14 +126,65 @@ def test_tiled_kernels_take_unaligned_x(card, name):
     """x at an odd element offset: the tiled kernels load it one element at
     a time instead of 16 bytes at a time."""
     x, qt, a, b = _inputs(card, 4, 70, seed=2)
-    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
-    xu = buf[1:].view(x.shape)
-    xu.copy_(x)
-    assert xu.data_ptr() % 16 and xu.is_contiguous()
+    xu = _unaligned(x)
     y, ref = _run(name, xu, qt, a, b)
     _assert_close(y, ref)
     y_aligned, _ = _run(name, x, qt, a, b)
     assert torch.equal(y, y_aligned)
+
+
+# the tiled kernels' edges: M around the 64- and 128-row tiles, N of 96
+# (16-aligned), 100 (not 16-aligned: narrower copies) and 200 (ragged last
+# tile), every group size block_k takes, with K = 2 * block_k(g) + g (a
+# last K step of one group)
+EDGE_M = (9, 65, 127, 129, 257)
+EDGE_N = (96, 100, 200)
+EDGE_G = (16, 24, 32, 64, 128)
+
+
+def _unaligned(x):
+    """x's values at an odd element offset (not 16-byte aligned)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    xu = buf[1:].view(x.shape)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 and xu.is_contiguous()
+    return xu
+
+
+@pytest.mark.parametrize("scale_dtype", ("bf16", "f32"))
+@pytest.mark.parametrize("g", EDGE_G)
+@pytest.mark.parametrize("bits", BITS)
+def test_tiled_kernels_at_their_edges(card, bits, g, scale_dtype):
+    sd = torch.bfloat16 if scale_dtype == "bf16" else torch.float32
+    k = 2 * block_k(g) + g
+    for m in EDGE_M:
+        for n in EDGE_N:
+            x, qt, a, b = _inputs(card, bits, m, k=k, n=n, g=g, rank=16,
+                                  scale_dtype=sd, seed=n)
+            for name in ("qmatmul", "qalora_matmul"):
+                y, ref = _run(name, x, qt, a, b)
+                try:
+                    _assert_close(y, ref)
+                except AssertionError as e:
+                    raise AssertionError(f"{name} M={m} N={n} K={k}") from e
+
+
+@pytest.mark.parametrize("rank", (8, 64))
+@pytest.mark.parametrize("g", (16, 24, 32, 128))
+@pytest.mark.parametrize("m", (9, 130))
+def test_rank_projection_kernel_matches_plain(card, m, g, rank):
+    """Kernel 3's first launch alone, t = bf16(pool_g(x) @ A): within two
+    bf16 steps of max|t| (a pooled sum, taken in another order, may round
+    to a neighbouring bf16 value), and the same bits from an unaligned x
+    (one element at a time instead of 16 bytes)."""
+    x, _, a, _ = _inputs(card, 4, m, k=4 * block_k(g), g=g, rank=rank)
+    before = qalora_rank_proj_cuda.launches
+    t = qalora_rank_proj_cuda(x, a, group_size=g)
+    torch.cuda.synchronize()
+    assert qalora_rank_proj_cuda.launches == before + 1
+    _assert_close(t, qalora_rank_proj_plain(x, a, group_size=g))
+    assert torch.equal(qalora_rank_proj_cuda(_unaligned(x), a, group_size=g),
+                       t)
 
 
 def test_wrappers_refuse_what_kernels_do_not_take(card):
@@ -156,6 +209,11 @@ def test_reset_and_read_launch_counts(card):
     _run("qmatvec", *_inputs(card, 4, 2))
     counts = kernels.launches()
     assert counts["qmatvec"] == 1 and sum(counts.values()) == 1
+    kernels.reset_launches()
+    _run("qalora_matmul", *_inputs(card, 4, 40))
+    counts = kernels.launches()
+    assert counts["qalora_matmul"] == counts["qalora_rank_proj"] == 1
+    assert sum(counts.values()) == 2
 
 
 def _bank(dev, a, b, n_bank=4, seed=0):

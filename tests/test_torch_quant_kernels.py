@@ -23,7 +23,8 @@ from repro_torch.core import quant as tquant  # noqa: E402
 from repro_torch.core import schemes as tschemes  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
-from repro_torch.kernels.qalora_fused import qalora_matmul_cuda  # noqa: E402
+from repro_torch.kernels.qalora_fused import (  # noqa: E402
+    qalora_matmul_cuda, qalora_rank_proj_cuda, qalora_rank_proj_plain)
 from repro_torch.kernels.qmatmul import block_k, qmatmul_cuda  # noqa: E402
 from repro_torch.kernels.qmatvec import (qalora_matvec_cuda,  # noqa: E402
                                          qmatvec_cuda)
@@ -198,6 +199,36 @@ def test_qalora_matmul_plain_matches_pallas_interpret(bits, m):
     np.testing.assert_allclose(y, y_pallas, atol=2e-5, rtol=0)
     np.testing.assert_allclose(y, y_ref, atol=2e-5, rtol=0)
     np.testing.assert_allclose(y_tref, y_ref, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("g", (16, 24, 32))
+@pytest.mark.parametrize("m", (1, 9, 40))
+def test_rank_proj_plain_matches_group_pool_at_a(m, g):
+    """Kernel 3's rank projection, plain version, against the reference's
+    ``group_pool(x) @ A``.  f32: the same sums in another order, within
+    2e-5.  bf16 (the kernel's cast points: pooled x, A and t round to
+    bf16): against the reference on the same bf16-rounded x and A, each
+    entry within 2**-7 of ``|pool(x)| @ |A|`` (one rounding of each
+    pooled value and one of t, each at most 2**-9 relative)."""
+    rng = np.random.default_rng(100 * m + g)
+    k, rank = 4 * g, 8
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    a = (rng.standard_normal((k // g, rank)) / np.sqrt(k // g)).astype(
+        np.float32)
+    ref = np.asarray(rq.group_pool(jnp.asarray(x), g) @ jnp.asarray(a))
+    before = tkernels.launches()
+    got = qalora_rank_proj_cuda(_t(x), _t(a), group_size=g)
+    assert tkernels.launches() == before  # CPU calls take the plain version
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-5, rtol=0)
+
+    xb, ab = _t(x).to(torch.bfloat16), _t(a).to(torch.bfloat16)
+    tb = qalora_rank_proj_plain(xb, ab, group_size=g)
+    assert tb.dtype == torch.bfloat16 and tb.shape == (m, rank)
+    xr, ar = xb.float().numpy(), ab.float().numpy()
+    pooled = np.asarray(rq.group_pool(jnp.asarray(xr), g))
+    ref_b = pooled @ ar
+    bound = 2.0 ** -7 * (np.abs(pooled) @ np.abs(ar))
+    assert (np.abs(tb.float().numpy() - ref_b) <= bound + 1e-6).all()
 
 
 @pytest.mark.parametrize("m,gemv", ((1, True), (8, True), (9, False),
