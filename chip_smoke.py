@@ -9,27 +9,32 @@ Phases, each printing one JSON line:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` does,
    and records its clocks, power draw and temperature (sampled again
    after each kernel timing).
-2. build   -- builds the six kernels from ``src/repro_torch/csrc`` (four
-   sources, one ``nvcc`` each, in parallel): five dequant-matmul kernels
-   and flash attention.
+2. build   -- builds the six kernels and the two rank projections from
+   ``src/repro_torch/csrc`` (four libraries, one ``nvcc`` each, in
+   parallel): five dequant-matmul kernels and flash attention.
 3. kernels -- holds each kernel against its plain PyTorch version on the
    card in bf16 at the main-path shapes of llama7b-proxy int4 g32 (M = 4
    for the GEMV kernels, M = 512 for the tiled ones; the slot GEMV with
    ids [1, 2, 0, 3] over a 5-row adapter bank), the tiled ``qmatmul`` also
    at M = 256 (the continuous path's ragged step: 4 slots x 64-token
-   chunks) and the tiled ``qalora_matmul`` there too, kernel 3's rank
-   projection (``qalora_rank_proj``, its first launch) on its own at both
-   M, plus a sweep of bits {2, 3, 4, 8} (the slot GEMV also at M = 1
-   and 8), a sweep of the GEMV's M, the slot GEMV with every id 0
-   against ``qmatvec`` bit for bit, and an edge sweep of the two tiled
-   kernels (M around their tiles, N not 16-aligned, every group size
-   ``block_k`` takes, both scale dtypes).  The tiled rows record the
-   kernel's design: tile, stages, shared memory, and registers and spills
-   from the ptxas report.  Times kernel, plain version and the
-   PyTorch library calls on the pre-dequantised weight (``library_ms``)
-   with CUDA events, rotating over enough weight copies to keep the 50 MB
-   L2 cold; at M = 256 also the ragged step's whole multi-tenant linear
-   (tiled kernel plus plain bank delta) and the bank delta alone.
+   chunks) and the tiled ``qalora_matmul`` there too, the rank projection
+   (``qalora_rank_proj``, the first launch of kernels 3 and 4) on its own
+   at M = 512, 256 and 4, and kernel 5's slot projection
+   (``qalora_slot_rank_proj``) at M = 4 (and 1 and 8), plus a sweep of
+   bits {2, 3, 4, 8} (the slot GEMV also at M = 1 and 8), a sweep of the
+   GEMV's M, the slot GEMV with every id 0 against ``qmatvec`` bit for
+   bit, and an edge sweep of the two tiled kernels (M around their tiles,
+   N not 16-aligned, every group size ``block_k`` takes, both scale
+   dtypes).  The tiled rows record the kernel's design: tile, stages,
+   shared memory, and registers and spills from the ptxas report.  Times
+   kernel, plain version and the PyTorch library calls on the
+   pre-dequantised weight (``library_ms``) with CUDA events, rotating over
+   enough weight copies to keep the 50 MB L2 cold; the GEMV kernels, the
+   projections and their library calls, which take a few microseconds of
+   device time a call, by replaying CUDA graphs of those calls (the GEMV
+   rows keep their eager times beside them); at M = 256 also the ragged
+   step's whole multi-tenant linear (tiled kernel plus plain bank delta)
+   and the bank delta alone.
 4. flash   -- kernel 6, ``repro_torch.kernels.ops.flash_mha``, causal, in
    bf16 at the attention shapes of llama7b-proxy (B 4, S 2048, 32 heads,
    d 128) and gemma3-1b (B 4, S 4096, 4 heads, d 256, its one KV head
@@ -49,16 +54,19 @@ Phases, each printing one JSON line:
 6. serve   -- ``repro_torch.launch.serve`` on the full llama7b-proxy
    (32 layers, d 4096, d_ff 11008, vocab 32000, int4 g32 r64, bf16):
    4 requests x 128 prompt + 32 generated tokens, then the merge check;
-   the kernels of that path must have launched on that run, kernel 3 and
-   its rank projection once per linear of the merge check's unmerged
-   prefill (224).
+   the kernels of that path must have launched on that run, kernel 3 once
+   per linear of the merge check's unmerged prefill (224), kernel 4 once
+   per linear of its unmerged decode step (224), and the rank projection
+   with each of them (448; kernel 4's C entry launches its projection
+   itself and reports each of its two launches, which the wrapper counts).
 7. adapters -- ``repro_torch.launch.serve --engine continuous`` on the full
    llama7b-proxy with three demo tenants and the null adapter over one
    INT4 base: 8 requests x 128 prompt + 32 generated tokens on 4 slots,
-   prefill chunks of 64, decode bursts of 8.  The slot GEMV must launch
-   224 times per decode model step and the tiled kernel 224 times per
-   ragged step; each tenant's slot-routed logits (the null adapter's too)
-   must match its merged tree, and be nearer it than the next tenant's
+   prefill chunks of 64, decode bursts of 8.  The slot GEMV and its slot
+   projection (counted from what kernel 5's C entry reports it launched)
+   must each launch 224 times per decode model step and the
+   tiled kernel 224 times per ragged step; each tenant's slot-routed
+   logits (the null adapter's too) must match its merged tree, and be nearer it than the next tenant's
    merged tree, both with every row bound to one tenant and in one batch
    whose rows cycle the tenants and the null adapter.  The greedy tokens
    each tenant gives on the same prompts are recorded.
@@ -107,6 +115,7 @@ GEMV_M_SWEEP = ((1, 8), (4096, 11008))
 RAGGED_SLOTS, RAGGED_CHUNK = 4, 64
 RAGGED_M = RAGGED_SLOTS * RAGGED_CHUNK
 RAGGED_SLOT_IDS = (1, 2, 3, 0)
+GEMV_MAX_M = 8  # repro_torch.kernels.qmatvec.GEMV_MAX_M
 L2_BYTES = 50e6
 # the tiled kernels' edges: M around their row tiles, N of 96, 100 (not
 # 16-aligned) and 200, every group size block_k takes with K = 2 *
@@ -116,9 +125,13 @@ EDGE_M = (9, 65, 127, 129, 257)
 EDGE_N = (96, 100, 200)
 EDGE_G = (16, 24, 32, 64, 128)
 EDGE_RANK = 16
-# kernel 3's first launch: t = bf16(pool_g(x) @ A), one per linear
-PROJ = ("qalora_rank_proj", "src/repro_torch/csrc/qalora_fused.cu",
+# the first launch of kernels 3 and 4: t = bf16(pool_g(x) @ A), one per
+# linear
+PROJ = ("qalora_rank_proj", "src/repro_torch/csrc/rank_proj.cuh",
         "src/repro/kernels/qalora_fused.py:62")
+# kernel 5's first launch: t[i] = bf16(pool_g(x[i]) @ A[ids[i]])
+SLOT_PROJ = ("qalora_slot_rank_proj", "src/repro_torch/csrc/rank_proj.cuh",
+             "src/repro/kernels/qmatvec.py:212")
 
 KERNELS = {
     # name: (what it adds to the base product, M, source, Pallas function
@@ -164,7 +177,7 @@ FLASH_F32_TOL = 2e-4
 # the kernels each served path must launch
 STATIC_PATH = ("qmatmul", "qmatvec", "qalora_matmul", "qalora_matvec",
                "qalora_rank_proj")
-ADAPTER_PATH = ("qmatmul", "qalora_slot_matvec")
+ADAPTER_PATH = ("qmatmul", "qalora_slot_matvec", "qalora_slot_rank_proj")
 LAYER_LINEARS = sum(c for _, _, c in SHAPES)  # 7 quantized linears a layer
 
 RECORD = {"phases": []}
@@ -239,13 +252,18 @@ def phase_build():
 PTXAS_ENTRY = {
     "qmatmul": ("qmatmul", "tiled_kernelILi4E13__nv_bfloat16Lb0E"),
     "qalora_matmul": ("qalora_fused", "tiled_kernelILi4E13__nv_bfloat16Lb1E"),
-    "qalora_rank_proj": ("qalora_fused", "rank_proj_kernel"),
+    "qalora_rank_proj": ("qalora_fused", "rank_proj_kernelILi4ELb0E"),
+    "qmatvec": ("qmatvec", "gemv_kernelILi4E13__nv_bfloat16Li0E"),
+    "qalora_matvec": ("qmatvec", "gemv_kernelILi4E13__nv_bfloat16Li1E"),
+    "qalora_slot_matvec": ("qmatvec", "gemv_kernelILi4E13__nv_bfloat16Li2E"),
+    "qalora_rank_proj_gemv": ("qmatvec", "rank_proj_kernelILi1ELb0E"),
+    "qalora_slot_rank_proj": ("qmatvec", "rank_proj_kernelILi1ELb1E"),
 }
 
 
 def _ptxas(name):
     """Registers and spills of one kernel from its library's ptxas report
-    (its shared memory is all dynamic)."""
+    (bits 4, bf16 scales)."""
     from repro_torch.kernels import build
     lib, entry = PTXAS_ENTRY[name]
     return build.ptxas_report(build.BUILD_LOG.get(lib, ""), entry)
@@ -456,20 +474,29 @@ def _check_one(torch, name, m, k, n, bits, gen, timing):
         copies = [(qt, extra)] + [
             _case(torch, gen, m, k, n, bits, kind)
             for _ in range(max(1, math.ceil(2.5 * L2_BYTES / per_copy)) - 1)]
-        row["kernel_ms"] = _time_ms(
-            torch, lambda *t: kern(*t, **kw),
-            [args_of(q, ex) for q, ex in copies], 50)
-        row["clocks"] = _smi(CLOCKS)
-        row["plain_ms"] = _time_ms(
-            torch, lambda *t: plain(*t, **kw),
-            [args_of(q, ex) for q, ex in copies], 5)
+        calls = [args_of(q, ex) for q, ex in copies]
         lib = [_library_args(torch, kind, q, ex) for q, ex in
                copies[:max(2, math.ceil(2.5 * L2_BYTES / (2 * k * n)))]]
         while len(lib) < 2:
             lib.append(tuple(t.clone() for t in lib[0]))
-        row["library_ms"] = _time_ms(torch, _library_fn(torch, kind, x),
-                                     lib, 50)
-        del copies, lib
+        lib_fn = _library_fn(torch, kind, x)
+        row["kernel_ms"] = _time_ms(torch, lambda *t: kern(*t, **kw), calls,
+                                    50)
+        row["library_ms"] = _time_ms(torch, lib_fn, lib, 50)
+        if m <= GEMV_MAX_M:
+            # a GEMV call takes a few microseconds of device time, less than
+            # the host's cost of issuing it: kernel and library are timed
+            # by CUDA-graph replay, the eager times kept beside them
+            row["kernel_eager_ms"] = row["kernel_ms"]
+            row["library_eager_ms"] = row["library_ms"]
+            row["kernel_ms"] = _time_graph_ms(
+                torch, lambda *t: kern(*t, **kw), calls, 50)
+            row["library_ms"] = _time_graph_ms(torch, lib_fn, lib, 50)
+            row["timing"] = "CUDA-graph replay (eager beside it)"
+        row["clocks"] = _smi(CLOCKS)
+        row["plain_ms"] = _time_ms(
+            torch, lambda *t: plain(*t, **kw), calls, 5)
+        del copies, lib, calls
     row["ok"] = ok
     emit({"phase": "kernel_row", **row})
     if not ok:
@@ -511,50 +538,103 @@ def _time_ragged_linear(torch, gen, k, n):
     return row
 
 
-def _check_proj(torch, m, k, gen):
-    """Kernel 3's rank projection alone, t = bf16(pool_g(x) @ A) [m, RANK],
+def _check_proj(torch, m, k, gen, slot=False, gemv=False):
+    """The rank projection alone, t = bf16(pool_g(x) @ A) [m, RANK]: kernel
+    3's first launch, or with ``gemv`` kernel 4's (its one-row-a-block
+    form, through its C entry, since the served path launches it from
+    kernel 4's), or with ``slot`` kernel 5's, row i
+    from bank row ids[i] of a SLOT_BANK_ROWS-row bank (ids SLOT_IDS[m]);
     against its plain version (two bf16 steps of max|t|: a pooled sum in
-    another order may round to a neighbouring bf16 value), timed over
-    copies of x and A (L2 cold).  Library: one cuBLAS product of x with A
-    repeated over each group's rows (the same function, rounded once)."""
+    another order may round to a neighbouring bf16 value).  Kernel and
+    library are timed from CUDA graphs (a few microseconds a call: eager
+    calls measure the host's launch rate) over copies of x and A that keep
+    the L2 cold; the library is one cuBLAS product of x with A repeated
+    over each group's rows (``torch.bmm`` on the rows' A, gathered
+    beforehand, for the slot variant): the same function, rounded once."""
+    from repro_torch.kernels import build
     from repro_torch.kernels.qalora_fused import (qalora_rank_proj_cuda,
                                                   qalora_rank_proj_plain)
+    from repro_torch.kernels.qmatvec import (qalora_slot_rank_proj_cuda,
+                                             qalora_slot_rank_proj_plain)
     groups = k // GROUP
+    rows = (SLOT_BANK_ROWS,) if slot else ()
+    ids = torch.tensor(SLOT_IDS[m], dtype=torch.int32, device="cuda") \
+        if slot else None
 
     def inputs():
         x = torch.randn((m, k), generator=gen, device="cuda") \
             .to(torch.bfloat16)
-        a = (torch.randn((groups, RANK), generator=gen, device="cuda")
+        a = (torch.randn(rows + (groups, RANK), generator=gen, device="cuda")
              / math.sqrt(groups) + 0.01).to(torch.bfloat16)
+        if slot:
+            a[0] = 0  # the null adapter
         return x, a
-    copies = [inputs() for _ in range(max(2, math.ceil(
-        2.5 * L2_BYTES / (2 * m * k))))]
+    if slot:
+        kern = lambda x_, a_: qalora_slot_rank_proj_cuda(  # noqa: E731
+            x_, a_, ids, group_size=GROUP)
+        plain = lambda x_, a_: qalora_slot_rank_proj_plain(  # noqa: E731
+            x_, a_, ids, group_size=GROUP)
+        n_ad = len(set(SLOT_IDS[m]) - {0})
+        bound = _bound_of(2 * (m * k + n_ad * groups * RANK + m * RANK) + 4 * m,
+                          m * k + 2 * sum(i != 0 for i in SLOT_IDS[m])
+                          * groups * RANK)
+    else:
+        if gemv:
+            lib = build.library("qmatvec")
+
+            def kern(x_, a_):
+                t_ = torch.empty((m, RANK), dtype=torch.bfloat16,
+                                 device="cuda")
+                build.check(lib.qalora_gemv_rank_proj_bf16(
+                    x_.data_ptr(), a_.data_ptr(), t_.data_ptr(), m, k, GROUP,
+                    RANK, build.current_stream()),
+                    "qalora_gemv_rank_proj_bf16")
+                return t_
+        else:
+            kern = lambda x_, a_: qalora_rank_proj_cuda(  # noqa: E731
+                x_, a_, group_size=GROUP)
+        plain = lambda x_, a_: qalora_rank_proj_plain(  # noqa: E731
+            x_, a_, group_size=GROUP)
+        bound = _bound_of(2 * (m * k + groups * RANK + m * RANK),
+                          m * k + 2 * m * groups * RANK)
+    per_copy = 2 * m * k + 2 * math.prod(rows) * groups * RANK
+    n_copies = min(2000, max(2, math.ceil(2.5 * L2_BYTES / per_copy)))
+    copies = [inputs() for _ in range(n_copies)]
     x, a = copies[0]
-    t = qalora_rank_proj_cuda(x, a, group_size=GROUP)
-    ref = qalora_rank_proj_plain(x, a, group_size=GROUP)
+    t = kern(x, a)
+    ref = plain(x, a)
     torch.cuda.synchronize()
     err = (t.float() - ref.float()).abs().max().item()
     tol = 2.0 ** -6 * ref.float().abs().max().item()
-    row = {"kernel": PROJ[0], "M": m, "K": k, "rank": RANK,
+    name = SLOT_PROJ[0] if slot else PROJ[0]
+    row = {"kernel": name, "M": m, "K": k, "rank": RANK,
            "max_abs_err": err, "tol": tol,
-           "finite": bool(torch.isfinite(t.float()).all()),
-           **_bound_of(2 * (m * k + groups * RANK + m * RANK),
-                       m * k + 2 * m * groups * RANK)}
-    # a few microseconds a call: kernel and library timed from CUDA graphs
-    # (eager calls measure the host's launch rate)
-    row["kernel_ms"] = _time_graph_ms(
-        torch, lambda x_, a_: qalora_rank_proj_cuda(x_, a_, group_size=GROUP),
-        copies, 50)
-    row["plain_ms"] = _time_ms(
-        torch, lambda x_, a_: qalora_rank_proj_plain(x_, a_, group_size=GROUP),
-        copies, 5)
-    lib = [(x_, a_.repeat_interleave(GROUP, 0)) for x_, a_ in copies]
-    row["library_ms"] = _time_graph_ms(torch, lambda x_, ar: x_ @ ar, lib, 50)
-    row["ok"] = row["finite"] and err <= tol
+           "finite": bool(torch.isfinite(t.float()).all()), **bound}
+    if slot:
+        row["ids"] = SLOT_IDS[m]
+        row["null_rows_zero"] = bool((t[ids == 0] == 0).all())
+    iters = max(50, n_copies)
+    row["kernel_ms"] = _time_graph_ms(torch, kern, copies, iters)
+    row["plain_ms"] = _time_ms(torch, plain, copies, 5)
+
+    def lib_args(x_, a_):
+        if not slot:
+            return x_, a_.repeat_interleave(GROUP, 0)
+        return (x_[:, None, :],
+                a_[ids.to(torch.int64)].repeat_interleave(GROUP, 1))
+    lib_bytes = 2 * k * RANK * (m if slot else 1)
+    lib = [lib_args(*c) for c in copies[:max(2, min(n_copies, math.ceil(
+        2.5 * L2_BYTES / lib_bytes)))]]
+    lib_fn = torch.bmm if slot else (lambda x_, ar: x_ @ ar)
+    row["library_ms"] = _time_graph_ms(torch, lib_fn, lib,
+                                       max(50, len(lib)))
+    del copies, lib
+    row["ok"] = row["finite"] and err <= tol and row.get("null_rows_zero",
+                                                         True)
     emit({"phase": "kernel_row", **row})
     if not row["ok"]:
-        raise AssertionError(f"{PROJ[0]} M={m} K={k}: max_abs_err {err} > "
-                             f"tol {tol}")
+        raise AssertionError(f"{name} M={m} K={k}: max_abs_err {err} > "
+                             f"tol {tol}, or a null row was not zero")
     return row
 
 
@@ -608,6 +688,14 @@ def phase_kernels(torch):
         rows[name] = [_check_one(torch, name, m, k, n, BITS, gen, timing=True)
                       for k, n, _ in SHAPES]
     rows[PROJ[0]] = [_check_proj(torch, TILED_M, k, gen) for k, _, _ in SHAPES]
+    # the projections the GEMV kernels launch: kernel 4's, and kernel 5's
+    # slot projection
+    gemv_proj = [_check_proj(torch, GEMV_M, k, gen, gemv=True)
+                 for k, _, _ in SHAPES]
+    rows[SLOT_PROJ[0]] = [_check_proj(torch, GEMV_M, k, gen, slot=True)
+                          for k, _, _ in SHAPES]
+    sweep_proj = [_check_proj(torch, m, SWEEP_SHAPE[0], gen, slot=True)
+                  for m in SLOT_SWEEP_M]
     # the tiled kernels (and kernel 3's projection) at the continuous path's
     # ragged-step M, and that step's whole multi-tenant linear
     ragged = [_check_one(torch, "qmatmul", RAGGED_M, k, n, BITS, gen,
@@ -628,7 +716,8 @@ def phase_kernels(torch):
     sweep += [_check_one(torch, "qmatvec", m, k, n, BITS, gen, timing=True)
               for m in ms]
     emit({"phase": "kernels_checked", "rows": sum(map(len, rows.values()))
-          + len(ragged) + len(ragged_adapter) + len(ragged_proj) + len(sweep),
+          + len(ragged) + len(ragged_adapter) + len(ragged_proj) + len(sweep)
+          + len(gemv_proj) + len(sweep_proj),
           "edge_sweep_calls": edge_calls,
           "tolerance": "2**-6 * max|plain| (two bf16 steps)",
           "ragged_step_per_layer_ms": {
@@ -641,7 +730,7 @@ def phase_kernels(torch):
           "clocks_after": _smi(CLOCKS)})
     torch.cuda.empty_cache()
     return rows, {"qmatmul": ragged, "qalora_matmul": ragged_adapter,
-                  PROJ[0]: ragged_proj}
+                  PROJ[0]: ragged_proj, "gemv_proj": gemv_proj}
 
 
 def _per_layer(rows, key):
@@ -903,11 +992,15 @@ def phase_serve(torch):
         "merge_finite": all(math.isfinite(r["max_abs_diff"])
                             for r in res["merge_check"].values()),
         "path_kernels_launched": all(counts[k] > 0 for k in STATIC_PATH),
-        # the merge check's one unmerged prefill: kernel 3 once per linear,
-        # each launch with its rank projection
+        # the merge check's one unmerged prefill and decode step: kernel 3
+        # and kernel 4 once per linear, each launch with its rank projection
         "qalora_matmul_per_unmerged_prefill":
-            counts["qalora_matmul"] == LAYER_LINEARS * n_layers
-            == counts["qalora_rank_proj"],
+            counts["qalora_matmul"] == LAYER_LINEARS * n_layers,
+        "qalora_matvec_per_unmerged_decode_step":
+            counts["qalora_matvec"] == LAYER_LINEARS * n_layers,
+        "rank_proj_per_unmerged_linear":
+            counts["qalora_rank_proj"]
+            == counts["qalora_matmul"] + counts["qalora_matvec"],
     }
     out = {"phase": "serve", **res, "launches": counts,
            "launches_per_prefill": LAYER_LINEARS * n_layers,
@@ -966,6 +1059,8 @@ def phase_adapters(torch):
         "tokens_in_vocab": bool(((toks >= 0) & (toks < 32000)).all()),
         "slot_launches_per_decode_step":
             engine["qalora_slot_matvec"] == per_step * res["decode_steps"],
+        "slot_proj_launches_per_decode_step":
+            engine["qalora_slot_rank_proj"] == per_step * res["decode_steps"],
         "tiled_launches_per_ragged_step":
             engine["qmatmul"] == per_step * res["ragged_dispatches"],
         "only_path_kernels": all(v == 0 for k, v in engine.items()
@@ -1080,6 +1175,13 @@ def main() -> int:
                     _per_layer(rr, "slot_tiled_ms")
         if name in design:
             summary[-1]["design"] = design[name]
+        elif name in PTXAS_ENTRY:
+            summary[-1]["ptxas"] = _ptxas(name)
+        if m <= GEMV_MAX_M:
+            summary[-1]["timing"] = "CUDA-graph replay"
+            summary[-1]["eager_ms"] = _per_layer(r, "kernel_eager_ms")
+            summary[-1]["library_eager_ms"] = _per_layer(r,
+                                                         "library_eager_ms")
     r = rows[PROJ[0]]
     summary.append({
         "name": PROJ[0], "route": "cuda", "source": PROJ[1],
@@ -1092,11 +1194,36 @@ def main() -> int:
         "work": f"kernel 3's first launch, t = bf16(pool_g(x) @ A), for one "
                 f"layer's linears at M={TILED_M}: 6 at K=4096, 1 at "
                 f"K=11008, r {RANK}",
-        "launches_path": "static serve (phase serve): one per kernel 3 launch",
-        "status": "ported, checked (part of kernel 3)",
+        "launches_path": "static serve (phase serve): one per kernel 3 and "
+                         "kernel 4 launch",
+        "status": "ported, checked (part of kernels 3 and 4)",
         "ptxas": _ptxas(PROJ[0]),
         "ragged_step": {f"{key}_ms": _per_layer(ragged[PROJ[0]], f"{key}_ms")
-                        for key in ("kernel", "library", "bound")}})
+                        for key in ("kernel", "library", "bound")},
+        "gemv": {"work": f"kernel 4's first launch, one row of x a block, "
+                         f"at M={GEMV_M}",
+                 "ptxas": _ptxas("qalora_rank_proj_gemv"),
+                 "max_abs_err": max(x["max_abs_err"]
+                                    for x in ragged["gemv_proj"]),
+                 **{f"{key}_ms": _per_layer(ragged["gemv_proj"], f"{key}_ms")
+                    for key in ("kernel", "plain", "library", "bound")}}})
+    r = rows[SLOT_PROJ[0]]
+    summary.append({
+        "name": SLOT_PROJ[0], "route": "cuda", "source": SLOT_PROJ[1],
+        "replaces": SLOT_PROJ[2], "launches": counts[SLOT_PROJ[0]],
+        "max_abs_err": max(x["max_abs_err"] for x in r),
+        **{f"{key}_ms": _per_layer(r, f"{key}_ms")
+           for key in ("plain", "library")},
+        "ms": _per_layer(r, "kernel_ms"), "bound_ms": _per_layer(r, "bound_ms"),
+        "bound_by": r[0]["bound_by"],
+        "work": f"kernel 5's first launch, t[i] = bf16(pool_g(x[i]) @ "
+                f"A[ids[i]]), for one layer's linears at M={GEMV_M}, ids "
+                f"{SLOT_IDS[GEMV_M]} over a {SLOT_BANK_ROWS}-row bank: 6 at "
+                f"K=4096, 1 at K=11008, r {RANK}",
+        "launches_path": "continuous multi-tenant serve (phase adapters): "
+                         "one per kernel 5 launch",
+        "status": "ported, checked (part of kernel 5)",
+        "ptxas": _ptxas(SLOT_PROJ[0])})
     llama = flash_rows[0]
     summary.append({
         "name": "flash_mha", "route": "cuda", "source": FLASH_SOURCE,

@@ -49,4 +49,38 @@ __device__ __forceinline__ float add_scaled(float acc, float s, float adapter) {
   return __fadd_rn(acc, __fmul_rn(s, adapter));
 }
 
+// The float value of a small code: exact, one logic op and one add.
+__device__ __forceinline__ float code_f32(unsigned code) {
+  return __uint_as_float(0x4B000000u | code) - 8388608.f;
+}
+
+// 16-byte asynchronous copy to shared memory, zero-filled when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+// 8-byte asynchronous copy to shared memory (through L1).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+inline bool x_vectorizable(const void* x, int K) {
+  return K % 8 == 0 && aligned16(x);
+}
+
 }  // namespace qdq

@@ -85,20 +85,6 @@ inline size_t tiled_smem_bytes(const TiledArgs& a, int cpb) {
   return main > epi ? main : epi;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // WMMA bf16 16x16x16 fragment loads with the shared state space spelled
 // out: through a generic pointer the compiler emits generic loads and
 // movmatrix for these fragments instead of ldmatrix.
@@ -126,11 +112,6 @@ __device__ __forceinline__ void load_b(FragB& f, const bf16* p, int ldm) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))), "r"(ldm)
       : "memory");
-}
-
-// The float value of a small code: exact, one logic op and one add.
-__device__ __forceinline__ float code_f32(unsigned code) {
-  return __uint_as_float(0x4B000000u | code) - 8388608.f;
 }
 
 // 16 consecutive scale or zero values from shared memory, as f32
@@ -479,14 +460,6 @@ inline bool tiled_args_ok(const TiledArgs& a) {
          (long long)a.K * a.N < (1LL << 31) &&
          a.bk <= kMaxBK && a.bk % 16 == 0 && a.bk % a.g == 0 &&
          (a.scale_bytes == 2 || a.scale_bytes == 4);
-}
-
-inline bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-inline bool x_vectorizable(const void* x, int K) {
-  return K % 8 == 0 && aligned16(x);
 }
 
 // codes, scale and zero rows can be copied 16 bytes at a time

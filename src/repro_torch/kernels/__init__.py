@@ -12,15 +12,19 @@ from .flash import flash_mha_cuda
 from .qalora_fused import qalora_matmul_cuda, qalora_rank_proj_cuda
 from .qmatmul import qmatmul_cuda
 from .qmatvec import (GEMV_MAX_M, qalora_matvec_cuda,
-                      qalora_slot_matvec_cuda, qmatvec_cuda)
+                      qalora_slot_matvec_cuda, qalora_slot_rank_proj_cuda,
+                      qmatvec_cuda)
 
 KERNELS = {
     "qmatmul": qmatmul_cuda,
     "qmatvec": qmatvec_cuda,
     "qalora_matmul": qalora_matmul_cuda,
-    # kernel 3's first launch (the rank projection), counted apart
+    # the rank projection, the first launch of kernels 3 and 4, counted
+    # apart
     "qalora_rank_proj": qalora_rank_proj_cuda,
     "qalora_matvec": qalora_matvec_cuda,
+    # kernel 5's first launch (the slot projection), counted apart
+    "qalora_slot_rank_proj": qalora_slot_rank_proj_cuda,
     "qalora_slot_matvec": qalora_slot_matvec_cuda,
     "flash_mha": flash_mha_cuda,
 }
@@ -37,5 +41,5 @@ def launches() -> dict:
 
 __all__ = ["GEMV_MAX_M", "KERNELS", "launches", "reset_launches",
            "qmatmul_cuda", "qmatvec_cuda", "qalora_matmul_cuda",
-           "qalora_rank_proj_cuda",
+           "qalora_rank_proj_cuda", "qalora_slot_rank_proj_cuda",
            "qalora_matvec_cuda", "qalora_slot_matvec_cuda", "flash_mha_cuda"]

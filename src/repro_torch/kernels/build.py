@@ -35,9 +35,12 @@ SIGNATURES = {
                 "tiled_design": [_I] * 5 + [_P]},
     "qmatvec": {
         "qmatvec_bf16": [_P] * 5 + [_I] * 6 + [_P],
-        "qalora_matvec_bf16": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
-        "qalora_slot_matvec_bf16": [_P] * 8 + [_I] * 6 + [_F] + [_I] * 2
-                                   + [_P],
+        "qalora_matvec_bf16": [_P] * 8 + [_I] * 5 + [_F] + [_I] * 2
+                              + [_P] * 2,
+        "qalora_gemv_rank_proj_bf16": [_P] * 3 + [_I] * 4 + [_P],
+        "qalora_slot_rank_proj_bf16": [_P] * 4 + [_I] * 5 + [_P],
+        "qalora_slot_matvec_bf16": [_P] * 9 + [_I] * 6 + [_F] + [_I] * 2
+                                   + [_P] * 2,
     },
     "qalora_fused": {
         "qalora_rank_proj_bf16": [_P] * 3 + [_I] * 4 + [_P],

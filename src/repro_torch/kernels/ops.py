@@ -10,17 +10,23 @@ On CUDA tensors every call launches a kernel or raises; CPU tensors take
 the kernels' plain versions.  :func:`qalora_slot_matmul` at M > 8 adds the
 plain PyTorch bank delta to the tiled base product, as the reference does
 outside any Pallas kernel.
+
+:func:`qalora_matmul` is differentiable in x, A and B (the Pallas kernels
+have no VJP, so the backward is plain PyTorch); the quantized base gets no
+gradient.  The other entry points serve only.
 """
 
 from __future__ import annotations
 
 import math
 
+import torch
+
 from ..core.qalora import QALoRAParams, bank_adapter_delta
 from ..core.quant import QuantizedLinear
 from .flash import flash_mha_cuda
 from .qalora_fused import qalora_matmul_cuda
-from .qmatmul import qmatmul_cuda
+from .qmatmul import dequant_plain, qmatmul_cuda
 from .qmatvec import (GEMV_MAX_M, qalora_matvec_cuda,
                       qalora_slot_matvec_cuda, qmatvec_cuda)
 
@@ -41,12 +47,56 @@ def qmatmul(x, qt: QuantizedLinear):
     return y.reshape(*lead, qt.d_out)
 
 
+class _QALoRAMatmul(torch.autograd.Function):
+    """The fused product of :func:`qalora_matmul` on ``x [M, K]``.  Forward:
+    the GEMV kernel at M <= 8 and the tiled one above on CUDA, the plain
+    version on the CPU.  Backward, in plain PyTorch with ``t = pool_g(x) @
+    A`` and the forward's cast points (f32 sums, each gradient in its
+    input's dtype)::
+
+        dB = s * t^T dY
+        dA = s * pool_g(x)^T (dY B^T)
+        dx = dY dequant(W)^T + s * expand_g(dY B^T A^T)
+    """
+
+    @staticmethod
+    def forward(ctx, x, a, b, qt, s):
+        fn = qalora_matvec_cuda if x.shape[0] <= GEMV_MAX_M \
+            else qalora_matmul_cuda
+        ctx.save_for_backward(x, a, b)
+        ctx.qt, ctx.s = qt, s
+        return fn(x, qt.qweight, qt.scale, qt.zero, a, b, s=s, bits=qt.bits,
+                  group_size=qt.group_size)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, a, b = ctx.saved_tensors
+        qt, s = ctx.qt, ctx.s
+        f32, g = torch.float32, qt.group_size
+        m, k = x.shape
+        dyf = dy.to(f32)
+        pooled = x.to(f32).reshape(m, k // g, g).sum(-1).to(x.dtype).to(f32)
+        dyb = dyf @ b.to(f32).T                                 # [M, r]
+        dx = da = db = None
+        if ctx.needs_input_grad[0]:
+            w = dequant_plain(qt.qweight, qt.scale, qt.zero, qt.bits, g,
+                              x.dtype).to(f32)
+            dpool = dyb @ a.to(x.dtype).to(f32).T               # [M, L]
+            dx = (dyf @ w.T + s * dpool.repeat_interleave(g, dim=1)) \
+                .to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            da = (s * (pooled.T @ dyb)).to(a.dtype)
+        if ctx.needs_input_grad[2]:
+            t = (pooled @ a.to(x.dtype).to(f32)).to(b.dtype).to(f32)
+            db = (s * (t.T @ dyf)).to(b.dtype)
+        return dx, da, db, None, None
+
+
 def qalora_matmul(x, qt: QuantizedLinear, p: QALoRAParams, s: float = 1.0):
-    """Fused ``y = x @ dequant(qt) + s * pool_sum(x) @ A @ B``."""
+    """Fused ``y = x @ dequant(qt) + s * pool_sum(x) @ A @ B``; gradients
+    reach x, ``p.a`` and ``p.b`` (:class:`_QALoRAMatmul`)."""
     x2, lead, m = _flatten(x)
-    fn = qalora_matvec_cuda if m <= GEMV_MAX_M else qalora_matmul_cuda
-    y = fn(x2, qt.qweight, qt.scale, qt.zero, p.a.detach(), p.b.detach(),
-           s=float(s), bits=qt.bits, group_size=qt.group_size)
+    y = _QALoRAMatmul.apply(x2, p.a, p.b, qt, float(s))
     return y.reshape(*lead, qt.d_out)
 
 

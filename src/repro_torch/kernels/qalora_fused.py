@@ -19,7 +19,7 @@ import torch
 from . import build
 from .qmatmul import block_k, check_operands, dequant_plain
 
-MAX_RANK = 128  # the GEMV kernels' shared-memory adapter accumulator
+MAX_RANK = 128  # the GEMV kernels stage t [8][128] in shared memory
 
 
 def qalora_rank_proj_plain(x, a, *, group_size: int, out_dtype=None):

@@ -22,6 +22,9 @@ from ..core.quant import codes_per_byte, unpack
 from . import build
 
 SCALE_DTYPES = (torch.bfloat16, torch.float32)
+# Above this M the tiled kernels run; at or below it the GEMV kernels (and
+# the rank projection's one-row-a-block launch).
+GEMV_MAX_M = 8
 
 
 def dequant_plain(qweight, scale, zero, bits: int, group_size: int, dtype):

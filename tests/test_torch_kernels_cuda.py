@@ -33,6 +33,8 @@ from repro_torch.kernels.qmatvec import (qalora_matvec_cuda,
                                          qalora_matvec_plain,
                                          qalora_slot_matvec_cuda,
                                          qalora_slot_matvec_plain,
+                                         qalora_slot_rank_proj_cuda,
+                                         qalora_slot_rank_proj_plain,
                                          qmatvec_cuda, qmatvec_plain)
 
 pytestmark = pytest.mark.cuda
@@ -279,6 +281,166 @@ def test_slot_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="banks"):
         qalora_slot_matvec_cuda(x, qt.qweight, qt.scale, qt.zero, a, b, ids,
                                 **kw)
+
+
+@pytest.mark.parametrize("m", (1, 4, 8))
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("name", ("qalora_matvec", "qalora_slot_matvec"))
+def test_hoisted_adapter_gemv_matches_plain(card, name, bits, m):
+    """Kernels 4 and 5 with the rank projection hoisted out of the GEMV: one
+    host call launches the projection (counted apart) and the GEMV, which
+    reads t in its epilogue; a K long enough for a cluster split."""
+    x, qt, a, b = _inputs(card, bits, m, k=2048, n=160, seed=6)
+    kw = dict(s=0.7, bits=bits, group_size=qt.group_size)
+    if name == "qalora_matvec":
+        kern, plain, proj, extra = (qalora_matvec_cuda, qalora_matvec_plain,
+                                    qalora_rank_proj_cuda, (a, b))
+    else:
+        ab, bb = _bank(card, a, b)
+        ids = torch.tensor([(i * 3 + 1) % 4 for i in range(m)],
+                           dtype=torch.int32, device=card)
+        kern, plain, proj, extra = (qalora_slot_matvec_cuda,
+                                    qalora_slot_matvec_plain,
+                                    qalora_slot_rank_proj_cuda, (ab, bb, ids))
+    args = (x, qt.qweight, qt.scale, qt.zero) + extra
+    before = (kern.launches, proj.launches)
+    y = kern(*args, **kw)
+    torch.cuda.synchronize()
+    assert (kern.launches, proj.launches) == (before[0] + 1, before[1] + 1)
+    _assert_close(y, plain(*args, **kw))
+    assert torch.equal(y, kern(*args, **kw))  # fixed summation order
+
+
+@pytest.mark.parametrize("m", (1, 4, 8))
+@pytest.mark.parametrize("name", ("qmatvec", "qalora_matvec",
+                                  "qalora_slot_matvec"))
+def test_gemv_edges_unaligned_n_and_x(card, name, m):
+    """N = 100 (not 8-aligned: byte loads for the codes, element loads for
+    scale and zero, B read from global memory in the epilogue) and x at an
+    odd element offset (element loads for x): within tolerance, and the
+    unaligned x gives the aligned x's bits."""
+    x, qt, a, b = _inputs(card, 4, m, k=1024, n=100, rank=16, seed=9)
+    kw = dict(bits=4, group_size=qt.group_size)
+    if name == "qmatvec":
+        kern, plain, extra = qmatvec_cuda, qmatvec_plain, ()
+    elif name == "qalora_matvec":
+        kern, plain, extra = qalora_matvec_cuda, qalora_matvec_plain, (a, b)
+        kw["s"] = 0.7
+    else:
+        ab, bb = _bank(card, a, b)
+        ids = torch.tensor([(i * 3 + 1) % 4 for i in range(m)],
+                           dtype=torch.int32, device=card)
+        kern, plain, extra = (qalora_slot_matvec_cuda,
+                              qalora_slot_matvec_plain, (ab, bb, ids))
+        kw["s"] = 0.7
+    w = (qt.qweight, qt.scale, qt.zero)
+    y = kern(x, *w, *extra, **kw)
+    torch.cuda.synchronize()
+    _assert_close(y, plain(x, *w, *extra, **kw))
+    assert torch.equal(kern(_unaligned(x), *w, *extra, **kw), y)
+
+
+@pytest.mark.parametrize("m", (1, 4, 8))
+def test_slot_rank_proj_kernel_matches_plain(card, m):
+    """Kernel 5's first launch alone: row i's t from bank row ids[i] within
+    two bf16 steps of max|t|, rows of id 0 exact zeros."""
+    x, _, a, b = _inputs(card, 4, m, k=1024, rank=64, seed=7)
+    ab, _ = _bank(card, a, b)
+    ids = torch.tensor([(i * 3 + 1) % 4 for i in range(m)], dtype=torch.int32,
+                       device=card)
+    if m > 1:
+        ids[1] = 0
+    before = qalora_slot_rank_proj_cuda.launches
+    t = qalora_slot_rank_proj_cuda(x, ab, ids, group_size=32)
+    torch.cuda.synchronize()
+    assert qalora_slot_rank_proj_cuda.launches == before + 1
+    _assert_close(t, qalora_slot_rank_proj_plain(x, ab, ids, group_size=32))
+    assert (t[ids == 0] == 0).all()
+
+
+@pytest.mark.parametrize("rank", (8, 64))
+@pytest.mark.parametrize("g", (16, 32))
+@pytest.mark.parametrize("m", (1, 4, 8))
+def test_gemv_rank_proj_entry_matches_plain(card, m, g, rank):
+    """Kernel 4's first launch alone (one row of x a block, as kernel 4's C
+    entry launches it), through its C entry: within two bf16 steps of
+    max|t|, the same bits from an unaligned x."""
+    from repro_torch.kernels import build
+    x, _, a, _ = _inputs(card, 4, m, k=1024, g=g, rank=rank, seed=8)
+
+    def proj(x_):
+        t_ = torch.empty((m, rank), dtype=torch.bfloat16, device=card)
+        build.check(build.library("qmatvec").qalora_gemv_rank_proj_bf16(
+            x_.data_ptr(), a.data_ptr(), t_.data_ptr(), m, 1024, g, rank,
+            build.current_stream()), "qalora_gemv_rank_proj_bf16")
+        return t_
+    t = proj(x)
+    torch.cuda.synchronize()
+    _assert_close(t, qalora_rank_proj_plain(x, a, group_size=g))
+    assert torch.equal(proj(_unaligned(x)), t)
+
+
+def test_slot_kernel_traps_on_an_id_outside_the_bank(card, tmp_path):
+    """A bad id never serves another tenant's weights: the kernel traps.
+    A trap ends the CUDA context, so it runs in a process of its own."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    script = tmp_path / "bad_id.py"
+    script.write_text(
+        "import torch\n"
+        "from repro_torch.core import quant\n"
+        "from repro_torch.kernels.qmatvec import qalora_slot_matvec_cuda\n"
+        "d = 'cuda'\n"
+        "qt = quant.quantize(torch.randn(256, 96, device=d), 4, 32,\n"
+        "                    scale_dtype=torch.bfloat16)\n"
+        "x = torch.randn(2, 256, device=d).to(torch.bfloat16)\n"
+        "ab = torch.zeros(3, 8, 8, device=d, dtype=torch.bfloat16)\n"
+        "bb = torch.zeros(3, 8, 96, device=d, dtype=torch.bfloat16)\n"
+        "ids = torch.tensor([1, 3], dtype=torch.int32, device=d)\n"
+        "qalora_slot_matvec_cuda(x, qt.qweight, qt.scale, qt.zero, ab, bb,\n"
+        "                        ids, s=1.0, bits=4, group_size=32)\n"
+        "torch.cuda.synchronize()\n"
+        "print('NO TRAP')\n")
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(__import__("os").environ, PYTHONPATH=src)
+    res = subprocess.run([sys.executable, str(script)], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0 and "NO TRAP" not in res.stdout, res.stdout
+
+
+def test_gemv_launch_counts(card):
+    kernels.reset_launches()
+    _run("qalora_matvec", *_inputs(card, 4, 4))
+    counts = kernels.launches()
+    assert counts["qalora_matvec"] == counts["qalora_rank_proj"] == 1
+    assert sum(counts.values()) == 2
+
+
+@pytest.mark.parametrize("m", (4, 40), ids=("gemv", "tiled"))
+def test_qalora_autograd_on_the_card(card, m):
+    """A bf16 step through the kernels on the card: the gradients for x, A
+    and B are within 2**-6 of each one's largest magnitude of the f32
+    plain route on the CPU, on the same values."""
+    from repro_torch.core.qalora import QALoRAParams
+    x, qt, a, b = _inputs(card, 4, m, seed=8)
+    c = torch.randn((m, qt.d_out), device=card).to(torch.bfloat16)
+
+    def grads(dev, dtype):
+        q = quant.QuantizedLinear(qt.qweight.to(dev), qt.scale.to(dev),
+                                  qt.zero.to(dev), qt.bits, qt.group_size)
+        p = QALoRAParams(a.to(dev, dtype).clone(), b.to(dev, dtype).clone())
+        xd = x.to(dev, dtype).clone().requires_grad_(True)
+        (ops.qalora_matmul(xd, q, p, s=0.7) * c.to(dev, dtype)).sum() \
+            .backward()
+        return [t.grad.float().cpu() for t in (xd, p.a, p.b)]
+    kernels.reset_launches()
+    got = grads(card, torch.bfloat16)
+    counts = kernels.launches()
+    assert counts["qalora_matvec" if m <= 8 else "qalora_matmul"] == 1
+    for name, gk, gr in zip("xAB", got, grads("cpu", torch.float32)):
+        tol = 2.0 ** -6 * gr.abs().max().item()
+        assert (gk - gr).abs().max().item() <= tol, name
 
 
 # flash attention: (Sq, Sk, causal, window) cases, run at every head dim;
