@@ -39,13 +39,17 @@ Phases, each printing one JSON line:
    bf16 at the attention shapes of llama7b-proxy (B 4, S 2048, 32 heads,
    d 128) and gemma3-1b (B 4, S 4096, 4 heads, d 256, its one KV head
    repeated to 4; local layers with window 512, global ones without),
-   launch counts read around those three calls; each held row by row
-   (every query row within 2**-6 of its own largest output) against the
-   plain version on the card and against ``scaled_dot_product_attention``,
-   the llama row also against the port model's ``flash_attention``;
-   kernel, plain version and
-   ``scaled_dot_product_attention`` (``library_ms``) timed with CUDA
-   events on two input copies (L2 cold); then a sweep at small shapes
+   launch counts read around those three calls, and the design each call
+   reports it launched (the wgmma design must have run every row); each
+   held row by row (every query row within 2**-6 of its own largest
+   output) against the plain version on the card and against
+   ``scaled_dot_product_attention``, the llama row also against the port
+   model's ``flash_attention``; kernel, plain version and
+   ``scaled_dot_product_attention`` timed with CUDA events on two input
+   copies (L2 cold), SDPA once as called and once forced to each of its
+   backends, the fastest by name being ``library_ms``; the ptxas
+   registers and spills of the wgmma design (no spills allowed); then a
+   sweep at small shapes
    against the plain version: bf16 and f32, every head dim, causal or
    not, window 0 or 16, Sq != Sk both ways, ragged lengths, and rows that
    see no key.  No served path calls it, as in the JAX package.
@@ -173,6 +177,10 @@ FLASH_BF16_ROW_TOL = 2.0 ** -6
 FLASH_MODEL_TOL = 5e-2
 # f32 sweep: the bound of tests/test_flash_kernel.py
 FLASH_F32_TOL = 2e-4
+# the design bf16 at d 128 and 256 must launch (flash_mha_cuda.last_design)
+FLASH_DESIGN = "wgmma_tma"
+# PyTorch's SDPA backends, each forced in turn (torch.nn.attention)
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 
 # the kernels each served path must launch
 STATIC_PATH = ("qmatmul", "qmatvec", "qalora_matmul", "qalora_matvec",
@@ -820,6 +828,21 @@ def _sdpa_fn(torch, sq, sk, window):
                                                           attn_mask=band)
 
 
+def _flash_ptxas():
+    """{d: registers, stack and spills} of the wgmma design's
+    instantiations, from this run's build of flash.cu."""
+    import re
+    from repro_torch.kernels import build
+    from repro_torch.launch import flash_variants
+    out = {}
+    for entry, rep in flash_variants.flash_ptxas(
+            build.BUILD_LOG.get("flash", "")).items():
+        m = re.search(r"flash_wgmmaILi(\d+)E", entry)
+        if m:
+            out[int(m.group(1))] = rep
+    return out
+
+
 def phase_flash(torch):
     """Kernel 6 at full width (the path: counts reset just before the three
     ``ops.flash_mha`` calls and read just after), then its checks, timings
@@ -827,25 +850,28 @@ def phase_flash(torch):
     from repro_torch import kernels
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash import flash_mha_cuda, flash_mha_plain
+    from repro_torch.launch import flash_variants
     from repro_torch.models.attention import flash_attention
     gen = torch.Generator(device="cuda").manual_seed(0)
     inputs = [_flash_inputs(torch, gen, b, s_, s_, h, kvh, d, torch.bfloat16)
               for _, b, s_, h, kvh, d, _ in FLASH_ROWS]
     torch.cuda.synchronize()
     kernels.reset_launches()
-    outs = [ops.flash_mha(q, k, v, causal=True, window=w)
-            for (q, k, v), (*_, w) in zip(inputs, FLASH_ROWS)]
+    outs, designs = [], []
+    for (q, k, v), (*_, w) in zip(inputs, FLASH_ROWS):
+        outs.append(ops.flash_mha(q, k, v, causal=True, window=w))
+        designs.append(flash_mha_cuda.last_design)
     torch.cuda.synchronize()
     counts = kernels.launches()
     rows = []
-    for (name, b, s_, h, kvh, d, w), (q, k, v), y in zip(FLASH_ROWS, inputs,
-                                                        outs):
+    for (name, b, s_, h, kvh, d, w), (q, k, v), y, design in zip(
+            FLASH_ROWS, inputs, outs, designs):
         folded = [_fold(t) for t in (q, k, v)]
         ref = flash_mha_plain(*folded, causal=True, window=w)
         err, ratio, ok = _flash_check(torch, _fold(y), ref)
         row = {"row": name, "B": b, "S": s_, "H": h, "KvH": kvh, "d": d,
-               "window": w, "causal": True, "max_abs_err": err,
-               "row_err_ratio": ratio, "ok": ok,
+               "window": w, "causal": True, "design": design,
+               "max_abs_err": err, "row_err_ratio": ratio, "ok": ok,
                **_flash_bound(b * h, s_, s_, d, True, w)}
         if name == "llama7b-proxy":
             model = flash_attention(q, k, v, causal=True)
@@ -870,7 +896,23 @@ def phase_flash(torch):
             copies, 3)
         lib = [[t.view(b, h, s_, d) for t in c] for c in copies]
         sdpa = _sdpa_fn(torch, s_, s_, w)
-        row["library_ms"] = _time_ms(torch, sdpa, lib, 20)
+        row["library_default_ms"] = _time_ms(torch, sdpa, lib, 20)
+        # each SDPA backend forced in turn; the fastest that takes the
+        # inputs is the library time
+        row["library_backends_ms"] = backends = {}
+        for backend in SDPA_BACKENDS:
+            forced = flash_variants.sdpa_call(s_, w, backend)
+            try:
+                forced(*lib[0])
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                backends[backend] = f"refused: {str(e).splitlines()[0]}"
+                continue
+            backends[backend] = _time_ms(torch, forced, lib, 20)
+        timed = {k_: v_ for k_, v_ in backends.items()
+                 if isinstance(v_, float)}
+        row["library_backend"] = min(timed, key=timed.get)
+        row["library_ms"] = timed[row["library_backend"]]
         lib_y = sdpa(*lib[0])
         row["library_max_abs_diff"] = (
             lib_y.float() - _fold(y).view(b, h, s_, d).float()).abs().max() \
@@ -904,14 +946,24 @@ def phase_flash(torch):
                     bad.append({"dtype": str(dtype), "d": d, "Sq": sq,
                                 "Sk": sk, "causal": causal, "window": w,
                                 "max_abs_err": err, "row_err_ratio": ratio})
+    ptxas = _flash_ptxas()
     checks = {
         "rows_within_tol": all(r["ok"] for r in rows),
         "sweep_within_tol": not bad,
         "path_launched_flash": counts["flash_mha"] == len(FLASH_ROWS),
         "only_flash_on_path": all(v == 0 for k, v in counts.items()
                                   if k != "flash_mha"),
+        "rows_ran_wgmma_design": all(r["design"] == FLASH_DESIGN
+                                     for r in rows),
+        "wgmma_design_built_without_spills": len(ptxas) == 3 and all(
+            r["spill_stores"] == 0 and r["spill_loads"] == 0
+            for r in ptxas.values()),
     }
     out = {"phase": "flash", "launches": counts, "sweep_cases": sweep,
+           "designs": {r["row"]: r["design"] for r in rows},
+           "library_backends": {r["row"]: r["library_backend"]
+                                for r in rows},
+           "ptxas_wgmma": ptxas,
            "sweep_failures": bad,
            "sweep_bf16_max_row_err_ratio": worst[torch.bfloat16],
            "sweep_f32_max_abs_err": worst[torch.float32],
@@ -1232,13 +1284,19 @@ def main() -> int:
         "ms": llama["kernel_ms"], "plain_ms": llama["plain_ms"],
         "bound_ms": llama["bound_ms"], "bound_by": llama["bound_by"],
         "library_ms": llama["library_ms"],
+        "library": f"scaled_dot_product_attention, fastest backend: "
+                   f"{llama['library_backend']}",
         "work": "causal attention, bf16, llama7b-proxy: B 4, S 2048, "
                 "32 heads, d 128",
         "launches_path": "phase flash (no served path calls it, as in the "
                          "JAX package)",
-        "status": "ported, checked",
+        "status": "ported, checked; redesigned (wgmma, TMA ring)",
+        "design": llama["design"],
+        "ptxas": next(p for p in RECORD["phases"]
+                      if p["phase"] == "flash")["ptxas_wgmma"],
         "rows": {r["row"]: {key: r[key] for key in (
-            "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "design", "kernel_ms", "plain_ms", "library_ms",
+            "library_backend", "library_default_ms", "bound_ms", "bound_by",
             "max_abs_err", "row_err_ratio")} for r in flash_rows}})
     RECORD["seconds"] = time.perf_counter() - t0
     RECORD["card"] = smi_line

@@ -46,7 +46,7 @@ SIGNATURES = {
         "qalora_rank_proj_bf16": [_P] * 3 + [_I] * 4 + [_P],
         "qalora_matmul_bf16": [_P] * 7 + [_I] * 6 + [_F] + [_I] * 2 + [_P],
     },
-    "flash": {"flash_mha_fwd": [_P] * 4 + [_I] * 6 + [_F, _I, _P]},
+    "flash": {"flash_mha_fwd": [_P] * 4 + [_I] * 6 + [_F, _I, _P, _P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,20 +1,26 @@
 """Flash attention forward (causal / sliding window) on ``[B·H, S, d]``.
 
 Replaces ``flash_mha_pallas`` (``src/repro/kernels/flash.py:73``) with the
-CUDA kernel in ``csrc/flash.cu``.  Bound by operations at the models'
-sequence lengths (4·d flops per visible (query, key) pair); the kernel runs
-both products of each 64-row query tile on the tensor cores in bf16
-(``mma.sync``, f32 accumulators) and in full f32 on the CUDA cores for f32
-inputs, keeps the online-softmax state in registers and skips key tiles
-that no row of the tile sees.
+CUDA kernels in ``csrc/flash.cu``.  Bound by operations at the models'
+sequence lengths (4·d flops per visible (query, key) pair).  bf16 at the
+served head dims (64, 128, 256) runs ``flash_wgmma``: a producer warp
+feeds K and V tiles by TMA through a shared-memory ring, two consumer
+warpgroups of 64 query rows run both products on ``wgmma`` and overlap
+one's softmax with the other's products.  f32 (on the CUDA cores) and
+bf16 at d 16 and 32 run the first port's ``mma.sync`` kernel.  Both keep
+the online-softmax state in registers and skip key tiles that no row of
+the tile sees.
 
-:func:`flash_mha_cuda` launches the kernel for CUDA tensors (and raises on
-anything it does not take) and runs :func:`flash_mha_plain`, the plain
-PyTorch version with the Pallas kernel's cast points, for CPU tensors.
+:func:`flash_mha_cuda` launches a kernel for CUDA tensors (and raises on
+anything it does not take), records the design the C entry reported in
+``flash_mha_cuda.last_design``, and runs :func:`flash_mha_plain`, the
+plain PyTorch version with the Pallas kernel's cast points, for CPU
+tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -23,6 +29,10 @@ from . import build
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.bfloat16, torch.float32)
+# what ``flash_mha_fwd`` reports it launched: the warp-specialised wgmma
+# kernel fed by a TMA ring (bf16 at d >= 64), or the mma.sync kernel of
+# the first port (f32, and bf16 at d 16 and 32)
+DESIGNS = {0: "mma_sync", 1: "wgmma_tma"}
 NEG_INF = -1e30
 
 
@@ -121,14 +131,19 @@ def flash_mha_cuda(q, k, v, *, causal=True, window=0, block_q=128,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     o = torch.empty_like(q)
+    design = ctypes.c_int(-1)
     rc = build.library("flash").flash_mha_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, sq, sk, d,
         int(causal), int(window or 0), 1.0 / math.sqrt(d),
-        int(q.dtype == torch.float32),
+        int(q.dtype == torch.float32), ctypes.byref(design),
         build.current_stream(q.device))
     build.check(rc, "flash_mha_fwd")
     flash_mha_cuda.launches += 1
+    flash_mha_cuda.last_design = DESIGNS[design.value]
     return o
 
 
 flash_mha_cuda.launches = 0
+# the design the last launch ran (a value of DESIGNS), as the C entry
+# reported it
+flash_mha_cuda.last_design = None

@@ -11,9 +11,10 @@ Tolerance: both sides round w to bf16 at the same point and multiply
 exactly in f32; they differ only in the order of the f32 sums (and, with
 an adapter, in where a pooled sum rounds to bf16), so each output may land
 on a neighbouring bf16 value: two bf16 steps of the largest output,
-2**-6 * max|y|.  Flash attention: bf16 within 2**-6 * max|o| (p and o
-round to bf16 at the same points, p relative to another running max);
-f32 within rtol = atol = 2e-4 (the bound of tests/test_flash_kernel.py).
+2**-6 * max|y|.  Flash attention: bf16 within 2**-6 of each query row's
+max|o| (p and o round to bf16 at the same points, p relative to another
+running max); f32 within rtol = atol = 2e-4 (the bound of
+tests/test_flash_kernel.py).
 """
 
 import numpy as np
@@ -470,6 +471,7 @@ def test_flash_kernel_matches_plain(card, dtype, d, case):
     y = ops.flash_mha(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert flash_mha_cuda.launches == before + 1
+    assert flash_mha_cuda.last_design == _flash_design(tdt, d)
 
     def fold(t):
         return t.permute(0, 2, 1, 3).reshape(2, t.shape[1], d).contiguous()
@@ -479,10 +481,91 @@ def test_flash_kernel_matches_plain(card, dtype, d, case):
     ref = ref.float()
     assert y.shape == ref.shape and torch.isfinite(y).all()
     if dtype == "bf16":  # per query row, 2**-6 of the row's own max|o|
-        tol = 2.0 ** -6 * ref.abs().amax(-1)
-        assert ((y - ref).abs().amax(-1) <= tol).all()
+        _assert_rows_close(y, ref)
     else:
         torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-4)
+
+
+def _flash_design(dtype, d):
+    """The design flash_mha_fwd launches: the wgmma kernel for bf16 at the
+    served head dims, the mma.sync kernel otherwise."""
+    return "wgmma_tma" if dtype == torch.bfloat16 and d >= 64 else "mma_sync"
+
+
+def _assert_rows_close(y, ref):
+    """bf16: every query row within 2**-6 of that row's own max|ref|."""
+    y, ref = y.float(), ref.float()
+    assert y.shape == ref.shape and torch.isfinite(y).all()
+    tol = 2.0 ** -6 * ref.abs().amax(-1)
+    assert ((y - ref).abs().amax(-1) <= tol).all(), \
+        ((y - ref).abs().amax(-1) / tol).max().item()
+
+
+def _flash_bf16_vs_plain(dev, b, sq, sk, h, d, causal, window, seed):
+    """(kernel output, plain version's), both [B*H, Sq, d], bf16."""
+    q, k, v = (t.permute(0, 2, 1, 3).reshape(b * h, t.shape[1], d)
+               .contiguous() for t in _flash_inputs(dev, b, sq, sk, h, d,
+                                                    torch.bfloat16, seed))
+    y = flash_mha_cuda(q, k, v, causal=causal, window=window, block_q=sq,
+                       block_k=sk)
+    torch.cuda.synchronize()
+    assert flash_mha_cuda.last_design == "wgmma_tma"
+    return y, flash_mha_plain(q, k, v, causal=causal, window=window,
+                              block_q=sq, block_k=sk)
+
+
+# the wgmma design's tile edges (128 query rows a block, 128 keys a ring
+# stage; 64 at d = 256): lengths around them, Sq != Sk both ways, windows
+# of 1, 63, 64 and 65 crossing a key tile's edge, and rows that see no key
+# (non-causal window 1, Sq 257 > Sk 64: rows i >= 64)
+FLASH_EDGE_CASES = [(s, s, True, 0) for s in (127, 128, 129, 255, 257)] + [
+    (129, 257, True, 0), (257, 129, False, 0), (255, 128, True, 0),
+    (257, 257, True, 1), (257, 257, True, 63), (257, 257, True, 64),
+    (257, 257, True, 65), (255, 129, False, 64), (257, 64, False, 1)]
+
+
+@pytest.mark.parametrize("case", FLASH_EDGE_CASES,
+                         ids=[f"sq{c[0]}-sk{c[1]}-{'causal' if c[2] else 'full'}"
+                              f"-w{c[3]}" for c in FLASH_EDGE_CASES])
+@pytest.mark.parametrize("d", (64, 128, 256))
+def test_flash_wgmma_design_at_its_tile_edges(card, d, case):
+    sq, sk, causal, window = case
+    _assert_rows_close(*_flash_bf16_vs_plain(card, 1, sq, sk, 2, d, causal,
+                                             window, seed=sq + sk + d))
+
+
+@pytest.mark.parametrize("window", (0, 512))
+@pytest.mark.parametrize("d", (64, 128, 256))
+def test_flash_wgmma_deep_rows(card, d, window):
+    """S 4096, causal: a deep row averages thousands of keys, far below the
+    tensor's max, so a wrong key tile shows in the row-wise bound."""
+    _assert_rows_close(*_flash_bf16_vs_plain(card, 1, 4096, 4096, 2, d, True,
+                                             window, seed=d + window))
+
+
+@pytest.mark.parametrize("d", (64, 128, 256))
+def test_flash_wgmma_is_bit_identical_run_to_run(card, d):
+    """No race in the ring: two calls on the same input agree bit for
+    bit."""
+    q, k, v = (t.permute(0, 2, 1, 3).reshape(8, 1024, d).contiguous()
+               for t in _flash_inputs(card, 2, 1024, 1024, 4, d,
+                                      torch.bfloat16, seed=d))
+    ys = [flash_mha_cuda(q, k, v, causal=True, window=w)
+          for w in (0, 0, 300, 300)]
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1]) and torch.equal(ys[2], ys[3])
+
+
+@pytest.mark.parametrize("d", (16, 32, 64, 128, 256))
+@pytest.mark.parametrize("dtype", ("bf16", "f32"))
+def test_flash_reports_the_design_it_launched(card, dtype, d):
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q, k, v = (t.reshape(2, 64, d) for t in _flash_inputs(
+        card, 1, 64, 64, 2, d, tdt))
+    flash_mha_cuda.last_design = None
+    flash_mha_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_mha_cuda.last_design == _flash_design(tdt, d)
 
 
 def test_flash_rows_that_see_no_key_give_the_mean_of_v(card):
