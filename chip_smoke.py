@@ -74,7 +74,29 @@ Phases, each printing one JSON line:
    merged tree, both with every row bound to one tenant and in one batch
    whose rows cycle the tenants and the null adapter.  The greedy tokens
    each tenant gives on the same prompts are recorded.
-8. the ``kernels`` summary, and the final ``{"ok": true, ...}`` line.
+8. train_small -- one QA-LoRA train step (``repro_torch.launch.steps``)
+   of llama7b-proxy at full width and 2 layers, bf16, remat on, on a
+   batch of 2 x 128 tokens from the port's stream: on the card through
+   kernel 3 and its projection (twice per linear: once more when remat
+   recomputes the block), against the same step on the CPU through the
+   plain versions on the same weights upcast to f32; the loss and each
+   adapter gradient within limits set from the H100's readings, the f32
+   updates of A and B and the updated B within bounds argued from bf16's
+   8-bit significand; and, as the loss limit's measure, how far the card's
+   loss moves with every B zeroed (the adapter term dropped).
+9. train    -- ``repro_torch.launch.train``'s own ``setup`` and ``run`` on
+   the full llama7b-proxy (int4 g32 r64, bf16, remat): 4 steps of 16 x 256
+   tokens of alpaca, lr 2e-4, max grad norm 0.3, a checkpoint every 2 steps
+   under ``build/`` (removed at the end); the codes, scales and zeros bit
+   for bit unchanged, B nonzero after step 1, kernel 3 and its projection
+   2 x 224 times a step and no other kernel; the merged result against the
+   trained adapter model (``serve.merge_check``, kernels 1-4); then steps
+   3-4 again from the step-2 checkpoint, with the same losses and adapters
+   bit for bit.  Step wall ms, tokens/s, peak memory, and kernel 3's and
+   the plain backward's shares of a step; kernel 3 and its projection
+   held against their plain versions at the step's M = 4096 on one
+   layer's 7 linears.
+10. the ``kernels`` summary, and the final ``{"ok": true, ...}`` line.
 
 Any failed phase exits non-zero before the final line.  Without a card,
 or without the repository's ``src`` beside this file, it exits non-zero
@@ -1160,6 +1182,441 @@ def phase_adapters(torch):
 
 
 # ---------------------------------------------------------------------------
+# phases 8-9: QA-LoRA fine-tuning
+# ---------------------------------------------------------------------------
+
+# bf16 keeps 8 significant bits: one rounding is off by at most u = 2**-8
+# relative.  The card's step rounds activations, gradients and weights to
+# bf16 where the CPU's f32 step does not; a block has ~16 rounding points
+# on its forward path and as many on its backward path, so a first-order
+# worst case (64 u = 0.25 for a gradient across two blocks) is far above
+# what the card shows.  The loss and gradient limits are therefore set
+# from the readings of this phase (H100 80GB HBM3, 700 W; the inputs are
+# seeded, so a rerun reads the same): loss rel 1.27e-4, gradient rel at
+# most 0.080 (median 0.065).  The loss limit is ten times its reading and
+# the gradient limit twice its reading, near the median's 2.5x.  Dropping
+# the adapter term (every B zeroed) moved the card's loss 2.25e-2 from the
+# CPU's: the loss limit sees a forward fault of ~6 % of that term, and the
+# phase checks that it still sees the whole term.
+BF16_U = 2.0 ** -8
+TRAIN_LOSS_TOL = 1.3e-3
+TRAIN_GRAD_TOL = 0.16
+# Adam's first step moves each element by lr * g / |g| (= +-lr), so two
+# updates differ only where the sign of g differs, and a share f of
+# flipped elements puts their relative distance at 2 sqrt(f).  A relative
+# gradient error eps flips a share arctan(eps) / pi of Gaussian elements:
+# 8 % at 64 u; allow one element in eight
+TRAIN_FLIP_SHARE = 1 / 8
+TRAIN_UPDATE_TOL = 2 * math.sqrt(TRAIN_FLIP_SHARE)
+# the updated B (a demo tenant's: rms 0.02) rounds to bf16 (u / 2) and
+# moves by 2 lr = 4e-4 where the update flipped
+TRAIN_B_RMS, TRAIN_LR = 0.02, 2e-4
+TRAIN_B_TOL = (math.sqrt(TRAIN_FLIP_SHARE) * 2 * TRAIN_LR / TRAIN_B_RMS
+               + BF16_U / 2)
+TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
+# phase train: the paper's batch of 16 x 256 tokens on alpaca, lr 2e-4,
+# max grad norm 0.3 (AdamWConfig's default), 4 steps with a checkpoint
+# every 2, then steps 3-4 again from the step-2 checkpoint
+TRAIN_ARGV = ["--arch", "llama7b-proxy", "--seq-len", "256",
+              "--global-batch", "16", "--dataset", "alpaca", "--lr", "2e-4",
+              "--ckpt-every", "2", "--log-every", "1", "--device", "cuda"]
+TRAIN_STEPS, TRAIN_RESUME_AT = 4, 2
+# the kernels of a train step and of the merge check after it
+TRAIN_PATH = ("qalora_matmul", "qalora_rank_proj")
+MERGE_PATH = ("qmatmul", "qmatvec", "qalora_matmul", "qalora_matvec",
+              "qalora_rank_proj")
+
+
+def _rel(got, ref):
+    """||got - ref|| / ||ref|| in f32 (0 when both are 0)."""
+    got, ref = got.float(), ref.to(got.device).float()
+    n = ref.norm().item()
+    d = (got - ref).norm().item()
+    return d / n if n else d
+
+
+def _adam_first_update(opt, cfg, name):
+    """The f32 update AdamW made to ``name`` on its first step (before the
+    cast to the parameter's dtype), from the moments it left:
+    lr * mu_hat / (sqrt(nu_hat) + eps) at t = 1."""
+    mu, nu = opt["mu"][name], opt["nu"][name]
+    return cfg.lr * (mu / (1 - cfg.b1)) / (
+        (nu / (1 - cfg.b2)).sqrt() + cfg.eps)
+
+
+def phase_train_small(torch, device="cuda", n_layers=2, seq=128, batch=2):
+    """One train step of llama7b-proxy at full width and ``n_layers``
+    layers (bf16, remat as the config says; the adapters are a seeded demo
+    tenant's, so B is nonzero and every gradient is too, where an
+    initialised B = 0 gives A none) on the card through the
+    kernels, against the same step on the CPU through the plain versions,
+    on the same weights upcast to f32 and one batch of ``batch`` x ``seq``
+    tokens from the port's stream.  Gradients are read back from the
+    first moments (mu = (1 - b1) * clipped g)."""
+    import repro_torch.configs as C
+    from repro_torch import kernels
+    from repro_torch.data import make_stream
+    from repro_torch.launch.serve import demo_tenant
+    from repro_torch.launch.steps import make_train_fn
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import AdamWConfig, adamw_init, trainable_tensors
+    cfg = C.get("llama7b-proxy").scaled(n_layers=n_layers)
+    lm = LM(cfg)
+    card = demo_tenant(lm.init(torch.Generator(device=device).manual_seed(0),
+                               device), 1)
+    cpu = copy.deepcopy(card).to("cpu").float()
+    toks, labs = make_stream("alpaca", vocab=cfg.vocab, seq_len=seq,
+                             global_batch=batch).next_batch()
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, max_grad_norm=0.3)
+    step = make_train_fn(lm, opt_cfg)
+    # the loss limit's measure: the card's loss with the adapter term
+    # dropped (every B zeroed, then restored), before any count is reset
+    with torch.no_grad():
+        bs = [t for k, t in trainable_tensors(card).items()
+              if k.endswith(".b")]
+        kept = [t.clone() for t in bs]
+        for t in bs:
+            t.zero_()
+        dropped = float(lm.loss(card, {
+            "tokens": torch.as_tensor(toks).to(device),
+            "labels": torch.as_tensor(labs).to(device)})[0])
+        for t, k in zip(bs, kept):
+            t.copy_(k)
+        del bs, kept
+    sides = {}
+    for side, params, dev in (("card", card, device), ("cpu", cpu, "cpu")):
+        tr = trainable_tensors(params)
+        before = {k: v.detach().clone() for k, v in tr.items()}
+        opt = adamw_init(tr)
+        batch_t = {"tokens": torch.as_tensor(toks).to(dev),
+                   "labels": torch.as_tensor(labs).to(dev)}
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        m = step(params, opt, batch_t)
+        loss = float(m["loss"])
+        secs = time.perf_counter() - t0
+        gnorm = float(m["grad_norm"])
+        clip = min(1.0, opt_cfg.max_grad_norm / max(gnorm, 1e-9))
+        sides[side] = {
+            "loss": loss, "grad_norm": gnorm, "seconds": secs,
+            "launches": kernels.launches(), "tr": tr, "before": before,
+            "opt": opt,
+            "grad": {k: opt["mu"][k] / (1 - opt_cfg.b1) / clip for k in tr}}
+    c, p = sides["card"], sides["cpu"]
+    names = list(c["tr"])
+    a_names = [k for k in names if k.endswith(".a")]
+    b_names = [k for k in names if k.endswith(".b")]
+    grad_rel = {k: _rel(c["grad"][k], p["grad"][k]) for k in names}
+    upd_rel = {k: _rel(_adam_first_update(c["opt"], opt_cfg, k),
+                       _adam_first_update(p["opt"], opt_cfg, k))
+               for k in names}
+    b_rel = {k: _rel(c["tr"][k], p["tr"][k]) for k in b_names}
+    a_moved = sum(int((c["tr"][k] != c["before"][k]).sum()) for k in a_names)
+    a_total = sum(c["tr"][k].numel() for k in a_names)
+    b_moved = sum(int((c["tr"][k] != c["before"][k]).sum()) for k in b_names)
+    b_total = sum(c["tr"][k].numel() for k in b_names)
+    per_step = LAYER_LINEARS * n_layers * (2 if cfg.remat else 1)
+    loss_rel = abs(c["loss"] - p["loss"]) / abs(p["loss"])
+    launches = c["launches"]
+    out = {"phase": "train_small",
+           "card": _smi("name,power.limit") if torch.device(device).type
+           == "cuda" else "cpu",
+           "arch": cfg.name, "n_layers": n_layers,
+           "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "remat": cfg.remat, "batch": [batch, seq],
+           "loss": {"card": c["loss"], "cpu": p["loss"], "rel": loss_rel,
+                    "bound": TRAIN_LOSS_TOL,
+                    "card_adapters_dropped": dropped,
+                    "adapters_dropped_rel":
+                        abs(dropped - p["loss"]) / abs(p["loss"])},
+           "grad_norm": {"card": c["grad_norm"], "cpu": p["grad_norm"]},
+           "grad_rel_max": max(grad_rel.values()),
+           "grad_rel_median": sorted(grad_rel.values())[len(names) // 2],
+           # all adapter gradients as one vector
+           "grad_rel_global": math.sqrt(
+               sum((c["grad"][k].cpu() - p["grad"][k]).norm().item() ** 2
+                   for k in names)
+               / sum(p["grad"][k].norm().item() ** 2 for k in names)),
+           "grad_rel_worst": sorted(grad_rel.items(), key=lambda kv: -kv[1])[:4],
+           "grad_bound": TRAIN_GRAD_TOL,
+           "update_f32_rel_max": {
+               "A": max(upd_rel[k] for k in a_names),
+               "B": max(upd_rel[k] for k in b_names)},
+           "update_bound": TRAIN_UPDATE_TOL,
+           "updated_b_rel_max": max(b_rel.values()), "b_bound": TRAIN_B_TOL,
+           "card_a_elements_moved_in_bf16": a_moved / a_total,
+           "card_b_elements_moved_in_bf16": b_moved / b_total,
+           "step_seconds": {"card": c["seconds"], "cpu": p["seconds"]},
+           "launches": launches, "launches_expected": per_step}
+    checks = {
+        "finite": all(math.isfinite(s[k]) for s in (c, p)
+                      for k in ("loss", "grad_norm")),
+        "loss_within_bound": loss_rel <= TRAIN_LOSS_TOL,
+        # the limit is tight enough to see the adapter term dropped
+        "loss_limit_sees_adapters_dropped":
+            out["loss"]["adapters_dropped_rel"] > TRAIN_LOSS_TOL,
+        "grads_within_bound": out["grad_rel_max"] <= TRAIN_GRAD_TOL,
+        "f32_updates_within_bound": all(
+            v <= TRAIN_UPDATE_TOL for v in out["update_f32_rel_max"].values()),
+        "updated_b_within_bound": out["updated_b_rel_max"] <= TRAIN_B_TOL,
+        "kernel3_per_linear_and_remat": all(
+            launches[k] == per_step for k in TRAIN_PATH)
+        and all(v == 0 for k, v in launches.items() if k not in TRAIN_PATH),
+        "cpu_step_launched_nothing": set(p["launches"].values()) == {0},
+    }
+    out.update(checks=checks, ok=all(checks.values()))
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"train_small checks failed: {checks}")
+
+
+def _train_linears_at_m(torch, params, m):
+    """One layer's 7 ``qalora`` linears of the trained model at the train
+    step's M, each held against its plain version, then timed.  Checks,
+    each within two bf16 steps of the plain version's max (the tolerance
+    of phase kernels): kernel 3 with 3a (``ops.qalora_matmul``, the path's
+    call) on the trained adapters; kernel 3 again with a seeded B of rms
+    0.01 in place of the trained one, whose adapter term (B moved by
+    ~4 lr from 0 in four steps) is far under that tolerance, so that the
+    epilogue's ``s t B`` is seen at this M too; and 3a alone on the
+    trained A.  Times: kernel 3's forward (with 3a), the plain backward of
+    ``_QALoRAMatmul`` (dx, dA, dB) alone, its ``dY dequant(W)^T`` product
+    alone, and cuBLAS's ``x @ W`` on the pre-dequantised bf16 weight; ms
+    per layer, CUDA events.  Runs after the path's counting window.
+    Returns (times, check rows)."""
+    from repro_torch.core import schemes
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.qalora_fused import (
+        qalora_matmul_cuda, qalora_matmul_plain, qalora_rank_proj_cuda,
+        qalora_rank_proj_plain)
+    from repro_torch.kernels.qmatmul import dequant_plain
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    blk = params.blocks[0]
+    lps = [blk["attn"][n] for n in ("wq", "wk", "wv", "wo")] + [
+        blk["mlp"][n] for n in ("gate", "up", "down")]
+    tot = {"kernel3_fwd_ms": 0.0, "plain_bwd_ms": 0.0, "bwd_dx_product_ms": 0.0,
+           "cublas_fwd_ms": 0.0}
+    rows = []
+
+    def held(name, got, ref, **what):
+        got, ref = got.float(), ref.float()
+        err = (got - ref).abs().max().item()
+        tol = 2.0 ** -6 * ref.abs().max().item()
+        finite = bool(torch.isfinite(got).all())
+        rows.append({"kernel": name, "M": m, **what, "max_abs_err": err,
+                     "tol": tol, "finite": finite,
+                     "ok": finite and err <= tol})
+    for lp in lps:
+        qt, ad = schemes.quantized_base(lp), schemes.adapter_params(lp)
+        x = torch.randn((m, qt.d_in), generator=gen, device="cuda") \
+            .to(torch.bfloat16).requires_grad_(True)
+        dy = torch.randn((m, qt.d_out), generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        s = lp.policy.s
+        kw = dict(s=s, bits=qt.bits, group_size=qt.group_size)
+        q = (qt.qweight, qt.scale, qt.zero)
+        shape = {"K": qt.d_in, "N": qt.d_out}
+        with torch.no_grad():
+            xd = x.detach()
+            held("qalora_matmul", ops.qalora_matmul(xd, qt, ad, s),
+                 qalora_matmul_plain(xd, *q, ad.a, ad.b, **kw),
+                 adapters="trained", **shape)
+            b_vis = (torch.randn(ad.b.shape, generator=gen, device="cuda")
+                     * 0.01).to(ad.b.dtype)
+            held("qalora_matmul", qalora_matmul_cuda(xd, *q, ad.a, b_vis, **kw),
+                 qalora_matmul_plain(xd, *q, ad.a, b_vis, **kw),
+                 adapters="trained A, seeded B", **shape)
+            held("qalora_rank_proj",
+                 qalora_rank_proj_cuda(xd, ad.a, group_size=qt.group_size),
+                 qalora_rank_proj_plain(xd, ad.a, group_size=qt.group_size),
+                 adapters="trained A", K=qt.d_in)
+            torch.cuda.synchronize()
+            del b_vis
+            tot["kernel3_fwd_ms"] += _time_ms(
+                torch, lambda: ops.qalora_matmul(x, qt, ad, s), [()], 5)
+        y = ops.qalora_matmul(x, qt, ad, s)
+        tot["plain_bwd_ms"] += _time_ms(
+            torch, lambda: torch.autograd.grad(y, (x, ad.a, ad.b), dy,
+                                               retain_graph=True), [()], 3)
+        w32 = dequant_plain(qt.qweight, qt.scale, qt.zero, qt.bits,
+                            qt.group_size, torch.bfloat16).float()
+        dyf = dy.float()
+        tot["bwd_dx_product_ms"] += _time_ms(torch, lambda: dyf @ w32.T,
+                                             [()], 3)
+        w16 = w32.to(torch.bfloat16)
+        tot["cublas_fwd_ms"] += _time_ms(torch, lambda: xd @ w16, [()], 5)
+        del y, w32, w16, dyf
+    torch.cuda.empty_cache()
+    return tot, rows
+
+
+def _free(torch):
+    """Drop what the deleted model and its closures held on the card."""
+    import gc
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _link_tree(src, dst):
+    """``dst`` as a copy of directory ``src`` made of hard links."""
+    import shutil
+    shutil.copytree(src, dst, copy_function=os.link)
+
+
+def phase_train(torch, argv=None, steps=TRAIN_STEPS,
+                resume_at=TRAIN_RESUME_AT, prompt_len=128):
+    """``repro_torch.launch.train`` on the full llama7b-proxy through its
+    own ``setup`` and ``run``: ``steps`` steps with a checkpoint every
+    ``resume_at``, counts reset just before the loop and read just after;
+    the frozen base bit-identical before and after; B nonzero after step 1;
+    the merge of the trained adapters and ``serve.merge_check`` on it; then
+    a second run resumed from the step-``resume_at`` checkpoint (hard-link
+    copies in a directory of its own), whose losses and adapters must equal
+    the uninterrupted run's bit for bit (the same kernels and cuBLAS calls
+    at the same shapes, in the same order, on the same values)."""
+    import shutil
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.launch import serve, train
+    from repro_torch.optim import trainable_tensors
+    argv = list(TRAIN_ARGV if argv is None else argv)
+    run_a, run_b = (os.path.join(TRAIN_DIR, n) for n in ("run", "resume"))
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    os.makedirs(TRAIN_DIR)
+    try:
+        ap = train.build_parser()
+        args = ap.parse_args(argv + ["--steps", str(steps), "--ckpt-dir",
+                                     run_a])
+        t0 = time.perf_counter()
+        st = train.setup(args)
+        setup_s = time.perf_counter() - t0
+        dev = st.device
+        frozen_before = {k: v.clone() for k, v in st.params.named_buffers()}
+        inner, first = st.step_fn, {}
+
+        def step_fn(params, opt_state, batch):
+            metrics = inner(params, opt_state, batch)
+            if not first:
+                first["b_nonzero"] = all(
+                    bool((t != 0).any()) for k, t in st.trainable.items()
+                    if k.endswith(".b"))
+            return metrics
+        st.step_fn = step_fn
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        res = train.run(st, args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        counts = kernels.launches()
+        base_same = all(torch.equal(frozen_before[k], v)
+                        for k, v in st.params.named_buffers())
+        del frozen_before
+        per_step = LAYER_LINEARS * st.cfg.n_layers * (
+            2 if st.cfg.remat else 1)
+        step_launches = res["launches"]
+        # the merged model against the trained adapter model
+        merged = serve.merge_model(st.params)
+        prompts = np.random.default_rng(0).integers(
+            4, st.cfg.vocab, size=(4, prompt_len)).astype(np.int32)
+        kernels.reset_launches()
+        mcheck = serve.merge_check(st.lm, st.params, merged, prompts,
+                                   prompt_len + 1, device=dev)
+        merge_counts = kernels.launches()
+        bound = serve.merge_bound(st.cfg)
+        trained = {k: v.detach().clone() for k, v in st.trainable.items()}
+        m_train = args.global_batch * args.seq_len
+        timing, at_m = (_train_linears_at_m(torch, st.params, m_train)
+                        if dev.type == "cuda" else ({}, []))
+        del merged, st, res["state"], inner, step_fn
+        _free(torch)
+        # steps resume_at.. again, from the step-resume_at checkpoint
+        os.makedirs(run_b)
+        for d in ("base", f"step_{resume_at:08d}"):
+            _link_tree(os.path.join(run_a, d), os.path.join(run_b, d))
+        args_b = ap.parse_args(argv + ["--steps", str(steps), "--ckpt-dir",
+                                       run_b])
+        st_b = train.setup(args_b)
+        kernels.reset_launches()
+        res_b = train.run(st_b, args_b)
+        counts_b = kernels.launches()
+        tr_b = trainable_tensors(st_b.params)
+        same_adapters = all(torch.equal(tr_b[k], trained[k]) for k in trained)
+        adapter_maxdiff = max((tr_b[k].float() - trained[k].float()).abs()
+                              .max().item() for k in trained)
+        resumed_steps_ok = all(
+            s[k] == per_step for s in res_b["launches"] for k in TRAIN_PATH)
+        del st_b, res_b["state"], tr_b, trained
+        _free(torch)
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    median = res["step_ms_median"]
+    layers = res["n_layers"]
+    remat = per_step // (LAYER_LINEARS * layers)
+    out = {"phase": "train",
+           "card": _smi("name,power.limit") if dev.type == "cuda" else "cpu",
+           "arch": res["arch"], "n_layers": layers,
+           "depth_cut": "none (all 32 layers)",
+           "batch": [args.global_batch, args.seq_len], "dataset": args.dataset,
+           "lr": args.lr, "steps": steps, "setup_s": setup_s,
+           "loss": res["loss"], "grad_norm": res["grad_norm"],
+           "step_ms": res["step_ms"], "step_ms_median_after_first": median,
+           "tokens_per_s": res["tokens_per_s"],
+           "peak_mem_gb": (res["peak_mem_bytes"] or 0) / 1e9,
+           "checkpoints": {k: res[k] for k in (
+               "base_save_s", "ckpt_snapshot_ms", "ckpt_drain_s")},
+           "launches": counts, "launches_per_step": step_launches,
+           "launches_expected_per_step": per_step,
+           "resumed": {"from_step": resume_at, "loss": res_b["loss"],
+                       "step_ms": res_b["step_ms"], "launches": counts_b,
+                       "adapters_bit_identical": same_adapters,
+                       "adapter_max_abs_diff": adapter_maxdiff},
+           "merge_check": mcheck, "merge_bound_rel": bound,
+           "merge_launches": merge_counts}
+    if timing:
+        k3 = timing["kernel3_fwd_ms"] * layers * remat
+        bwd = timing["plain_bwd_ms"] * layers
+        out["per_layer_ms_at_M"] = {"M": m_train, **timing}
+        out["kernels_at_M"] = at_m
+        out["step_share"] = {
+            "kernel3_ms": k3, "kernel3": k3 / median,
+            "plain_bwd_linears_ms": bwd, "plain_bwd_linears": bwd / median,
+            "bwd_dx_product_ms": timing["bwd_dx_product_ms"] * layers}
+    checks = {
+        "losses_finite": all(math.isfinite(x) for x in res["loss"]),
+        "base_bit_identical": base_same,
+        "b_nonzero_after_step_1": bool(first.get("b_nonzero")),
+        "kernel3_and_3a_per_step": all(
+            s[k] == per_step for s in step_launches for k in TRAIN_PATH),
+        "no_other_kernel_in_a_step": all(
+            v == 0 for s in step_launches for k, v in s.items()
+            if k not in TRAIN_PATH),
+        "path_kernels_launched": all(counts[k] > 0 for k in TRAIN_PATH),
+        "resumed_losses_identical": res_b["loss"] == res["loss"][resume_at:],
+        "resumed_kernel3_and_3a_per_step": resumed_steps_ok,
+        "resumed_adapters_identical": same_adapters,
+        "merge_within_bound": all(r["rel"] <= bound for r in mcheck.values()),
+        "merge_path_kernels_launched": all(
+            merge_counts[k] > 0 for k in MERGE_PATH),
+        # kernel 3 and 3a against their plain versions at the step's M
+        "kernel3_and_3a_at_train_M_within_bound":
+            dev.type != "cuda" or (
+                {r["kernel"] for r in at_m} == set(TRAIN_PATH)
+                and all(r["ok"] for r in at_m)),
+    }
+    out.update(checks=checks, ok=all(checks.values()))
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"train checks failed: {checks}")
+    errs = {k: max(r["max_abs_err"] for r in at_m if r["kernel"] == k)
+            for k in TRAIN_PATH} if at_m else {}
+    return counts, errs
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1187,6 +1644,8 @@ def main() -> int:
         counts = {k: counts[k] for k in STATIC_PATH}
         counts.update({k: v for k, v in phase_adapters(torch).items()
                        if k not in STATIC_PATH})
+        phase_train_small(torch)
+        train_counts, train_errs = phase_train(torch)
     except Exception as e:  # report, save and fail: no result line
         import traceback
         traceback.print_exc()
@@ -1200,9 +1659,11 @@ def main() -> int:
         r = rows[name]
         summary.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[name],
-            "max_abs_err": max(x["max_abs_err"]
-                               for x in r + ragged.get(name, [])),
+            "replaces": replaces,
+            "launches": counts[name] + train_counts.get(name, 0),
+            "max_abs_err": max([x["max_abs_err"]
+                                for x in r + ragged.get(name, [])]
+                               + [train_errs.get(name, 0.0)]),
             "ms": _per_layer(r, "kernel_ms"),
             "plain_ms": _per_layer(r, "plain_ms"),
             "bound_ms": _per_layer(r, "bound_ms"),
@@ -1216,6 +1677,11 @@ def main() -> int:
                              "adapters)" if name not in STATIC_PATH
                              else "static serve (phase serve)",
             "status": "ported, checked"})
+        if name in TRAIN_PATH:
+            summary[-1]["launches_by_path"] = {
+                "static serve (phase serve)": counts[name],
+                f"train, {TRAIN_STEPS} steps (phase train)":
+                    train_counts[name]}
         if name in ragged:
             rr = ragged[name]
             summary[-1]["ragged_step"] = {
@@ -1237,8 +1703,14 @@ def main() -> int:
     r = rows[PROJ[0]]
     summary.append({
         "name": PROJ[0], "route": "cuda", "source": PROJ[1],
-        "replaces": PROJ[2], "launches": counts[PROJ[0]],
-        "max_abs_err": max(x["max_abs_err"] for x in r + ragged[PROJ[0]]),
+        "replaces": PROJ[2],
+        "launches": counts[PROJ[0]] + train_counts[PROJ[0]],
+        "launches_by_path": {
+            "static serve (phase serve)": counts[PROJ[0]],
+            f"train, {TRAIN_STEPS} steps (phase train)":
+                train_counts[PROJ[0]]},
+        "max_abs_err": max([x["max_abs_err"] for x in r + ragged[PROJ[0]]]
+                           + [train_errs[PROJ[0]]]),
         **{f"{key}_ms": _per_layer(r, f"{key}_ms")
            for key in ("plain", "library")},
         "ms": _per_layer(r, "kernel_ms"), "bound_ms": _per_layer(r, "bound_ms"),

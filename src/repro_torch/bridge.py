@@ -1,5 +1,7 @@
 """Load parameters given as nested dicts of numpy arrays into the port's
-modules, so the JAX package and the port compute the same thing.
+modules, so the JAX package and the port compute the same thing, and
+return the port's parameters (or only its adapters, or any tensors keyed
+like them: gradients, moments) in the same layout.
 
 The tree mirrors the reference's ``LM.init`` tree, with layer stacks kept
 on their leading axis (the loader slices them into per-layer modules)::
@@ -17,6 +19,10 @@ and a linear is a dict of tags and arrays (a leading ``[L]`` axis inside
     {"scheme": "intq", "bits": 4, "group_size": 32,
      "qweight": uint8 [D_in/cpb, D_out], "scale": [L_g, D_out], "zero": ...}
     {"scheme": "qalora", ... as intq ..., "s": 2.0, "a": [L_g, r], "b": [r, D_out]}
+
+The reverse direction (:func:`numpy_tree`, :func:`adapters_numpy`) stacks
+per-layer tensors back on a leading ``[L]`` axis; bf16 tensors come back
+as f32 (exact), since numpy has no bf16.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
+
+from typing import Dict, Optional
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import schemes
@@ -99,3 +107,99 @@ def load_numpy_tree(tree, cfg: ArchConfig, device="cuda") -> LMParams:
               for layer in range(cfg.n_layers)]
     return LMParams(_tensor(tree["embed"], dev), _norm(tree["final_ln"], dev),
                     head, blocks)
+
+
+# ---------------------------------------------------------------------------
+# the reverse direction: the port's tensors as the numpy layout
+# ---------------------------------------------------------------------------
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _nest(flat: Dict[tuple, dict]):
+    """``{path: {layer or None: array or scalar}}`` -> the nested layout,
+    layers stacked on a leading axis (a per-layer scalar must agree
+    across layers)."""
+    out: dict = {}
+    for path, by_layer in flat.items():
+        if None in by_layer:
+            leaf = by_layer[None]
+        else:
+            vals = [by_layer[i] for i in sorted(by_layer)]
+            if isinstance(vals[0], np.ndarray):
+                leaf = np.stack(vals)
+            elif any(v != vals[0] for v in vals):
+                raise ValueError(f"{'/'.join(path)} differs across layers: "
+                                 f"{vals}")
+            else:
+                leaf = vals[0]
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def _where(name: str):
+    """A module name's layout path and layer (``blocks.3.attn.wq`` ->
+    (("blocks", "attn", "wq"), 3))."""
+    parts = tuple(name.split("."))
+    if parts[0] == "blocks":
+        return ("blocks",) + parts[2:], int(parts[1])
+    return parts, None
+
+
+def adapters_numpy(params: LMParams,
+                   values: Optional[Dict[str, torch.Tensor]] = None):
+    """The adapters of ``params`` as the numpy layout: ``{"blocks":
+    {"attn": {"wq": {"a": [L, L_g, r], "b": [L, r, D_out]}, ...}, "mlp":
+    {...}}}``.  With ``values`` (tensors keyed like
+    :func:`repro_torch.core.schemes.trainable_tensors`: gradients, AdamW
+    moments), those tensors are laid out in the adapters' places."""
+    values = values if values is not None else \
+        schemes.trainable_tensors(params)
+    flat: Dict[tuple, dict] = {}
+    for mname, lp in params.named_modules():
+        if not schemes.is_linear(lp):
+            continue
+        path, layer = _where(mname)
+        for pname, _ in lp.named_parameters():
+            key = path + (pname.rsplit(".", 1)[-1],)
+            flat.setdefault(key, {})[layer] = _np(values[f"{mname}.{pname}"])
+    return _nest(flat)
+
+
+def numpy_tree(params: LMParams):
+    """The whole of ``params`` in the layout :func:`load_numpy_tree`
+    reads (the reference's ``LM.init`` tree, layers stacked)."""
+    flat: Dict[tuple, dict] = {}
+
+    def put(path, layer, **leaves):
+        for k, v in leaves.items():
+            flat.setdefault(path + (k,), {})[layer] = v
+
+    for mname, mod in params.named_modules():
+        if isinstance(mod, RMSNorm):
+            put(*_where(mname), g=_np(mod.g))
+        elif schemes.is_linear(mod):
+            path, layer = _where(mname)
+            if mod.scheme == "fp":
+                put(path, layer, scheme="fp",
+                    weight=_np(schemes.dense_view(mod)))
+                continue
+            if mod.scheme not in ("intq", "qalora"):
+                raise NotImplementedError(f"{mname}: scheme {mod.scheme!r} "
+                                          f"has no numpy layout")
+            qt = schemes.quantized_base(mod)
+            put(path, layer, scheme=mod.scheme, bits=qt.bits,
+                group_size=qt.group_size, qweight=_np(qt.qweight),
+                scale=_np(qt.scale), zero=_np(qt.zero))
+            if mod.scheme == "qalora":
+                ad = schemes.adapter_params(mod)
+                put(path, layer, s=mod.policy.s, a=_np(ad.a), b=_np(ad.b))
+    tree = _nest(flat)
+    tree["embed"] = _np(params.embed)
+    return tree

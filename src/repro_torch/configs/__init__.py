@@ -28,13 +28,13 @@ SMOKE_QUANT = QuantPolicy(bits=4, group_size=16, rank=4, dtype=torch.float32,
 
 def reduced(name: str, **over) -> ArchConfig:
     """Same-family tiny config for CPU smoke tests, with the reference's
-    reductions (layers, width, vocab, window, chunks)."""
+    reductions (layers, width, vocab, window, chunks, no remat)."""
     cfg = get(name)
     kw = dict(
         n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=max(1, min(cfg.n_kv_heads, 2)), head_dim=16, d_ff=96,
         vocab=256, window=min(cfg.window or 0, 8) or None, chunk_q=16,
-        chunk_k=16, quant=SMOKE_QUANT,
+        chunk_k=16, xent_chunk=16, quant=SMOKE_QUANT, remat=False,
     )
     if cfg.global_every:
         kw.update(global_every=2)

@@ -31,9 +31,13 @@ class ArchConfig:
     quant: Union[QuantPolicy, PolicyTree] = QuantPolicy()
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # recompute each block's activations in the backward (training)
+    remat: bool = True
     # attention chunking (flash)
     chunk_q: int = 256
     chunk_k: int = 1024
+    # loss: sequence positions per cross-entropy chunk
+    xent_chunk: int = 512
 
     def scaled(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

@@ -41,7 +41,7 @@ __all__ = [
     "LinearScheme", "LinearParams", "register_scheme", "get_scheme",
     "is_linear", "dense_linear", "quantized_base",
     "adapter_params", "linear_init", "linear_apply", "merge_linear",
-    "dense_view", "map_linears", "merge_tree",
+    "dense_view", "map_linears", "merge_tree", "trainable_tensors",
 ]
 
 
@@ -462,4 +462,51 @@ def merge_tree(params: nn.Module) -> nn.Module:
     """Merge every adapter in the model into its base (tag-driven walk);
     idempotent."""
     return map_linears(params, lambda path, lp: merge_linear(lp))
+
+
+def trainable_tensors(params: nn.Module) -> Dict[str, torch.Tensor]:
+    """The trainable (adapter) tensors of a params module, by the names
+    ``params.named_parameters()`` gives them, found through each scheme's
+    :meth:`LinearScheme.trainable_paths` (the counterpart of the
+    reference's ``trainable_mask``; a module needs no mask, since
+    everything else is a buffer).
+
+    Raises when a scheme declares a trainable key that is missing or
+    selects no tensor for some layer (a misnamed payload would otherwise
+    train nothing), and when the set found differs from
+    ``params.parameters()``: autograd must build gradients for exactly
+    these tensors, never for the frozen base, embedding, norms or head."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, lp in params.named_modules():
+        if not isinstance(lp, LinearParams):
+            continue
+        path = name.replace(".", "/") or "<root>"
+        data = lp.data
+        tp = tuple(get_scheme(lp.scheme).trainable_paths(data))
+        missing = sorted(set(tp) - set(data))
+        if missing:
+            raise ValueError(
+                f"scheme '{lp.scheme}' at '{path}' declares trainable "
+                f"key(s) {missing} but the params only hold {sorted(data)} "
+                f"— nothing would train for this layer")
+        for key in tp:
+            v = data[key]
+            found = ({f"{key}.{n}": t for n, t in v.named_parameters()}
+                     if isinstance(v, nn.Module) else {key: v})
+            if not found:
+                raise ValueError(f"scheme '{lp.scheme}' at '{path}': "
+                                 f"trainable key '{key}' selects zero "
+                                 f"tensors")
+            prefix = f"{name}." if name else ""
+            out.update({prefix + n: t for n, t in found.items()})
+    declared = {id(t) for t in out.values()}
+    actual = {id(t) for t in params.parameters()}
+    if declared != actual:
+        names = dict(params.named_parameters())
+        extra = sorted(n for n, t in names.items() if id(t) not in declared)
+        raise ValueError(
+            f"the schemes' trainable tensors differ from the module's "
+            f"parameters: {extra[:4]} are parameters no scheme declares, "
+            f"{len(declared - actual)} declared tensors are not parameters")
+    return out
 

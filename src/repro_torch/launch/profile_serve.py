@@ -21,8 +21,8 @@ wall ms (host clock around work ending in ``torch.cuda.synchronize()``),
 device-busy ms (the sum of the kernels' own device time), the device's
 idle share, the number of kernels the device ran, the device time and
 kernel count grouped by kind (the port's GEMV / tiled kernels, matrix
-products in PyTorch, everything else), and the host operations that took
-the most host time.  Writes the profiler tables and a Chrome trace per
+products in PyTorch, everything else), the kernels that took the most
+device time, and the host operations that took the most host time.  Writes the profiler tables and a Chrome trace per
 phase under ``--out``.
 """
 
@@ -83,6 +83,8 @@ def _profile(fn, out_dir: str, tag: str):
         counts[kind] = counts.get(kind, 0) + evt.count
     host = sorted((e for e in events if e.device_type.name == "CPU"),
                   key=lambda e: -e.self_cpu_time_total)[:8]
+    top = sorted((e for e in events if e.device_type.name == "CUDA"
+                  and _device_us(e) > 0), key=lambda e: -_device_us(e))[:12]
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, f"{tag}_table.txt"), "w") as f:
         f.write(events.table(sort_by="self_device_time_total"
@@ -96,6 +98,8 @@ def _profile(fn, out_dir: str, tag: str):
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "device_kernels": sum(counts.values()),
             "device_ms_by_kind": kinds, "device_kernels_by_kind": counts,
+            "device_top": [{"kernel": e.key[:100], "calls": e.count,
+                            "device_ms": _device_us(e) / 1e3} for e in top],
             "host_top": [{"op": e.key, "calls": e.count,
                           "self_host_ms": e.self_cpu_time_total / 1e3}
                          for e in host]}

@@ -12,11 +12,16 @@ model through the fused QA-LoRA kernels at both M ranges.
 
 ``--engine continuous`` serves through
 :class:`repro_torch.serving.ContinuousEngine`; with ``--adapters
-name=demo:<seed>,...`` each tenant is the adapter model plus seeded noise
-on its adapters, banked in one :class:`repro_torch.serving.AdapterStore`,
-and requests cycle the tenants and the null adapter round-robin.  Decode
-steps then run the slot GEMV kernel (one adapter per row); ``--verify``
-holds each tenant's slot-routed logits to its merged tree.
+name=<source>,...`` each tenant's adapters are banked in one
+:class:`repro_torch.serving.AdapterStore`, and requests cycle the tenants
+and the null adapter round-robin.  A source is ``demo:<seed>`` (the
+adapter model plus seeded noise on its adapters) or a checkpoint written
+by ``repro_torch.launch.train`` (its directory, for the newest complete
+step, or one step's directory), whose adapters are served over the base
+they were trained on: the model built from ``--seed`` on this device, its
+adapters as initialised.  Decode steps then run the slot GEMV kernel (one
+adapter per row); ``--verify`` holds each tenant's slot-routed logits to
+its merged tree.
 
     python -m repro_torch.launch.serve --arch llama7b-proxy \\
         --requests 4 --prompt-len 128 --gen-len 32 --verify
@@ -26,6 +31,8 @@ holds each tenant's slot-routed logits to its merged tree.
         --adapters alice=demo:1,bob=demo:2,carol=demo:3 --verify
     python -m repro_torch.launch.serve --arch gemma3-1b --reduced \\
         --device cpu --requests 2 --prompt-len 8 --gen-len 6 --verify
+    python -m repro_torch.launch.serve --arch llama7b-proxy \\
+        --engine continuous --adapters tuned=build/ckpt --verify
 """
 
 from __future__ import annotations
@@ -89,34 +96,86 @@ def demo_tenant(params, seed: int, scale: float = 0.02):
     return schemes.map_linears(params, one)
 
 
-def build_store(params, specs):
+def checkpoint_tenant(params, path: str, meta: dict):
+    """The adapter model ``params`` with its adapters replaced by those of
+    a checkpoint written by ``repro_torch.launch.train``: ``path`` is the
+    trainer's ``--ckpt-dir`` (its newest complete step) or one step's
+    directory.  ``meta`` is :func:`repro_torch.launch.train.train_meta` of
+    ``params``; a checkpoint written for another model, policy, seed or
+    device, or whose adapter shapes differ, raises ValueError.  The
+    quantized bases are shared with ``params``."""
+    import os
+    from repro_torch import checkpoint
+    from repro_torch.core import schemes
+    from repro_torch.core.qalora import QALoRAParams
+    from repro_torch.launch.train import meta_mismatch
+    if not checkpoint.is_complete(path):
+        steps = (checkpoint.complete_steps(path) if os.path.isdir(path)
+                 else [])
+        if not steps:
+            raise ValueError(f"{path!r} holds no complete checkpoint "
+                             f"written by repro_torch.launch.train")
+        path = checkpoint.step_path(path, steps[-1])
+    bad = meta_mismatch(checkpoint.read_meta(path), meta)
+    if bad:
+        raise ValueError(f"checkpoint {path!r} was not trained against the "
+                         f"served model: {'; '.join(bad)}")
+    tree = checkpoint.load_pytree(path)
+    if "t" not in tree:
+        raise ValueError(f"checkpoint {path!r} holds no adapters (no 't' "
+                         f"entry): not written by repro_torch.launch.train")
+    trained = checkpoint.conform(tree["t"], schemes.trainable_tensors(params),
+                                 path)
+
+    def one(mpath, lp):
+        if lp.scheme != "qalora":
+            return lp
+        name = mpath.replace("/", ".")
+        ab = {pname.rsplit(".", 1)[-1]: trained[f"{name}.{pname}"]
+              for pname, _ in lp.named_parameters()}
+        return schemes.LinearParams(
+            {"q": schemes.quantized_base(lp), "ad": QALoRAParams(**ab)},
+            scheme="qalora", policy=lp.policy)
+    return schemes.map_linears(params, one)
+
+
+def is_demo(src: str) -> bool:
+    return src.startswith("demo:")
+
+
+def build_store(params, specs, meta=None):
     """An :class:`AdapterStore` over ``params`` (merged on entry) with one
-    tenant per ``name=demo:<seed>`` spec.  Returns (store, names)."""
+    tenant per ``name=<source>`` spec: ``demo:<seed>`` (:func:`demo_tenant`)
+    or a trainer's checkpoint (:func:`checkpoint_tenant`, which ``meta``
+    checks).  Returns (store, names)."""
     from repro_torch.serving import AdapterStore
     store = AdapterStore(params, capacity=max(4, len(specs)))
     names = []
     for spec in specs:
         name, eq, src = spec.partition("=")
         if not eq or not name or not src:
-            raise ValueError(f"--adapters entry {spec!r} is not name=spec")
-        if not src.startswith("demo:"):
-            raise ValueError(f"--adapters {spec!r}: checkpoint sources are "
-                             f"not yet ported (see ROADMAP.md); use "
-                             f"name=demo:<seed>")
-        store.register(name, demo_tenant(params,
-                                          int(src[len("demo:"):] or "0")))
+            raise ValueError(f"--adapters entry {spec!r} is not name=source")
+        if is_demo(src):
+            tree = demo_tenant(params, int(src[len("demo:"):] or "0"))
+        else:
+            tree = checkpoint_tenant(params, src, meta)
+        store.register(name, tree)
         names.append(name)
     return store, names
 
 
-def build_model(cfg, device, seed: int = 0):
+def build_model(cfg, device, seed: int = 0, bump: bool = True):
     """The served model: random init from ``seed`` on ``device``, adapters
-    nudged by +0.01, then merged.  Returns (lm, adapter params, merged
+    nudged by +0.01 (unless ``bump`` is False: then the adapters stay as
+    initialised, B = 0, and the merge is the bare base, as a trainer
+    starts from it), then merged.  Returns (lm, adapter params, merged
     params); the two share their codes and scales."""
     from repro_torch.models.lm import LM
     lm = LM(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = bump_adapters(lm.init(gen, device))
+    params = lm.init(gen, device)
+    if bump:
+        params = bump_adapters(params)
     return lm, params, merge_model(params)
 
 
@@ -288,7 +347,19 @@ def main(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=8)
     ap.add_argument("--decode-burst", type=int, default=8)
     ap.add_argument("--adapters", default="",
-                    help="tenants name=demo:<seed>,... (continuous engine)")
+                    help="tenants name=<source>,... (continuous engine); a "
+                         "source is demo:<seed> (the served adapters plus "
+                         "seeded noise) or a checkpoint written by "
+                         "repro_torch.launch.train (its --ckpt-dir, or one "
+                         "step's directory), served over the base it was "
+                         "trained on: give the trainer's --seed; a "
+                         "checkpoint of another model, policy, seed or "
+                         "device is refused, and so is a list that mixes "
+                         "demo and checkpoint sources")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the model's random init; the server and "
+                         "repro_torch.launch.train build the same base from "
+                         "the same --seed on the same device")
     # serving modes of the reference that the port does not have yet
     ap.add_argument("--speculate", type=int, default=0)
     ap.add_argument("--page-size", type=int, default=0)
@@ -314,15 +385,29 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = C.reduced(args.arch) if args.reduced else C.get(args.arch)
     if args.policy:
-        cfg = cfg.scaled(quant=PolicyTree.parse(args.policy,
-                                                base=cfg.quant.default))
-    t0 = time.perf_counter()
-    lm, params, merged = build_model(cfg, device)
-    store, tenants = None, []
-    if args.adapters:
         try:
-            store, tenants = build_store(
-                params, [s for s in args.adapters.split(",") if s])
+            pol = PolicyTree.parse(args.policy, base=cfg.quant.default)
+        except ValueError as e:
+            ap.error(f"--policy: {e}")
+        cfg = cfg.scaled(quant=pol)
+    specs = [s for s in args.adapters.split(",") if s]
+    # a trained checkpoint is served over the base it was trained on, its
+    # adapters as initialised; a demo tenant is a nudge of the nudged base,
+    # so the two do not share a base
+    trained = any(not is_demo(s.partition("=")[2]) for s in specs)
+    if trained and any(is_demo(s.partition("=")[2]) for s in specs):
+        ap.error("--adapters: demo and checkpoint sources do not mix (a "
+                 "checkpoint is served over the base as initialised, demo "
+                 "tenants over the nudged one); give one kind")
+    t0 = time.perf_counter()
+    lm, params, merged = build_model(cfg, device, seed=args.seed,
+                                     bump=not trained)
+    store, tenants = None, []
+    if specs:
+        from repro_torch.launch.train import train_meta
+        meta = train_meta(cfg, params, args.seed, device) if trained else None
+        try:
+            store, tenants = build_store(params, specs, meta)
         except ValueError as e:
             ap.error(f"--adapters: {e}")
         merged = store.base

@@ -1,5 +1,6 @@
-"""The gqa decoder LM: init, prefill, ragged decode step and greedy
-generation.  Counterpart of the gqa family of ``repro.models.lm``.
+"""The gqa decoder LM: init, the training loss, prefill, ragged decode step
+and greedy generation.  Counterpart of the gqa family of
+``repro.models.lm``.
 
 Parameters are an :class:`LMParams` module: the embedding, the final norm,
 the (fp) head and one block per layer in a ``ModuleList`` (the reference
@@ -8,7 +9,10 @@ list).  Every projection routes through the linear-scheme API, so a
 ``qalora`` model, its merged ``intq`` model and the kernel routing are
 policy switches.
 
-Batch format: ``{"tokens": [B, S] int}``.  Decode caches follow
+Batch format: ``{"tokens": [B, S] int}``, plus ``"labels"`` ([B, S] int,
+-1 = not supervised) for :meth:`LM.loss`, which runs with autograd on and
+recomputes each block in the backward when ``cfg.remat``; prefill and
+decode run under ``torch.no_grad``.  Decode caches follow
 :class:`repro_torch.models.slot_state.SlotState`; decode steps write their
 K/V into the cache they are given, in place, and return it.
 """
@@ -16,10 +20,12 @@ K/V into the cache they are given, in place, and return it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import schemes
@@ -59,6 +65,18 @@ def _gqa_block(p, x, cfg: ArchConfig, *, window=None, theta=None):
     x = x + a
     m = mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.act)
     return x + m, kv
+
+
+def _maybe_remat(fn, cfg: ArchConfig):
+    """``fn`` recomputed in the backward instead of keeping its
+    activations (``jax.checkpoint`` in the reference) when ``cfg.remat``."""
+    if not cfg.remat:
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def _gqa_block_train(p, x, cfg: ArchConfig, window, theta):
+    return _gqa_block(p, x, cfg, window=window, theta=theta)[0]
 
 
 def _gqa_block_chunk(p, x, cache, cur_len, n_new, cfg: ArchConfig, *,
@@ -143,6 +161,27 @@ class LM:
             return (h @ params.embed.T.to(h.dtype)).to(torch.float32)
         return schemes.linear_apply(params.head, h).to(torch.float32)
 
+    def _xent(self, params: LMParams, h, labels):
+        """Chunked softmax cross-entropy over ``cfg.xent_chunk`` positions
+        at a time (never ``[B, S, V]`` logits at once): labels < 0 are
+        masked, and the mean is ``loss_sum / max(n, 1)``."""
+        s = h.shape[1]
+        c = min(self.cfg.xent_chunk, s)
+        if s % c:
+            raise ValueError(f"sequence {s} is not a multiple of xent_chunk "
+                             f"{c}")
+        loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+        n = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(0, s, c):
+            logits = self._logits(params, h[:, i:i + c])
+            yc = labels[:, i:i + c].to(torch.int64)
+            lse = torch.logsumexp(logits, dim=-1)
+            ll = logits.gather(-1, yc.clamp(min=0)[..., None])[..., 0]
+            mask = (yc >= 0).to(torch.float32)
+            loss_sum = loss_sum + ((lse - ll) * mask).sum()
+            n = n + mask.sum()
+        return loss_sum / n.clamp(min=1.0)
+
     def _trunk(self, params: LMParams, x, collect_cache: bool = False):
         """Runs the layer stack.  Returns (h, cache or None)."""
         ks, vs = [], []
@@ -156,6 +195,20 @@ class LM:
         return x, cache
 
     # ---------------- public API ----------------
+
+    def loss(self, params: LMParams, batch: Dict[str, Any]):
+        """Mean next-token cross-entropy of ``batch`` (``tokens`` and
+        ``labels``, [B, S]), with autograd on.  Returns (loss, {"xent",
+        "aux"}); gqa has no auxiliary loss, so aux is 0."""
+        x = self._embed(params, batch["tokens"])
+        for blk, (window, theta) in zip(params.blocks, self._layer_extras()):
+            block = functools.partial(_gqa_block_train, cfg=self.cfg,
+                                      window=window, theta=theta)
+            x = _maybe_remat(block, self.cfg)(blk, x)
+        h = rmsnorm(params.final_ln, x, self.cfg.norm_eps)
+        xent = self._xent(params, h, batch["labels"])
+        aux = torch.zeros((), dtype=torch.float32, device=xent.device)
+        return xent, {"xent": xent, "aux": aux}
 
     @torch.no_grad()
     def prefill(self, params: LMParams, batch: Dict[str, Any]):

@@ -37,3 +37,44 @@ def numpy_tree(params):
             return {k: walk(v) for k, v in p.items()}
         return np.asarray(p)
     return walk(params)
+
+
+def _adapter_leaf(path):
+    """(layout path, "a" or "b") of a reference adapter leaf, else None:
+    ``blocks/attn/wq/<data>/ad/a`` -> (("blocks", "attn", "wq"), "a")."""
+    keys = [getattr(k, "key", getattr(k, "name", None)) for k in path]
+    if len(keys) < 3 or keys[-2] != "ad" or keys[-3] != "data":
+        return None
+    return tuple(keys[:-3]), keys[-1]
+
+
+def ref_adapters(tree):
+    """The adapter leaves of a reference tree (params, trainable half,
+    gradients or AdamW moments) in the layout of
+    ``repro_torch.bridge.adapters_numpy``."""
+    out = {}
+    for path, x in jax.tree_util.tree_leaves_with_path(tree):
+        where = _adapter_leaf(path)
+        if where is None:
+            continue
+        node = out
+        for k in where[0]:
+            node = node.setdefault(k, {})
+        node[where[1]] = np.asarray(x)
+    return out
+
+
+def with_adapters(params, adapters):
+    """The reference tree ``params`` with its adapters replaced by the
+    arrays of ``adapters`` (the ``adapters_numpy`` layout)."""
+    def one(path, x):
+        where = _adapter_leaf(path)
+        if where is None:
+            return x
+        node = adapters
+        for k in where[0]:
+            node = node[k]
+        new = node[where[1]]
+        assert new.shape == x.shape, (where, new.shape, x.shape)
+        return jax.numpy.asarray(new, x.dtype)
+    return jax.tree_util.tree_map_with_path(one, params)

@@ -444,6 +444,36 @@ def test_qalora_autograd_on_the_card(card, m):
         assert (gk - gr).abs().max().item() <= tol, name
 
 
+def test_qalora_autograd_under_checkpoint_recomputes_through_kernel_3(card):
+    """``ops.qalora_matmul`` under ``torch.utils.checkpoint`` (the model's
+    remat) gives the same output and gradients as without it, bit for bit
+    (the same kernel launches on the same values), and launches kernel 3
+    and its projection twice (forward, then again in the backward) where
+    the plain call launches them once."""
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.core.qalora import QALoRAParams
+    x, qt, a, b = _inputs(card, 4, 40, seed=9)
+    c = torch.randn((40, qt.d_out), device=card).to(torch.bfloat16)
+
+    def run(remat):
+        p = QALoRAParams(a.clone(), b.clone())
+        xd = x.clone().requires_grad_(True)
+
+        def f(x_):
+            return ops.qalora_matmul(x_, qt, p, s=0.7) * c
+        kernels.reset_launches()
+        y = checkpoint(f, xd, use_reentrant=False) if remat else f(xd)
+        y.sum().backward()
+        torch.cuda.synchronize()
+        return [y.detach(), xd.grad, p.a.grad, p.b.grad], kernels.launches()
+    plain, n_plain = run(False)
+    remat, n_remat = run(True)
+    assert n_plain["qalora_matmul"] == n_plain["qalora_rank_proj"] == 1
+    assert n_remat["qalora_matmul"] == n_remat["qalora_rank_proj"] == 2
+    for name, got, want in zip(("y", "x", "A", "B"), remat, plain):
+        assert torch.equal(got, want), name
+
+
 # flash attention: (Sq, Sk, causal, window) cases, run at every head dim;
 # Sq != Sk both ways, ragged lengths, and rows that see no key (Sq past
 # Sk + window - 1, causal or not: the mean of V over all keys)

@@ -195,8 +195,7 @@ def test_serve_cli_cpu(argv):
 
 
 @pytest.mark.parametrize("flag", (["--engine", "frontend"],
-                                  ["--engine", "continuous",
-                                   "--adapters", "a=ckpt/a"],
+                                  ["--policy", "*=lora"],
                                   ["--speculate", "2"], ["--page-size", "4"]))
 def test_serve_cli_refuses_modes_not_ported(flag, capsys):
     with pytest.raises(SystemExit):
