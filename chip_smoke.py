@@ -57,12 +57,22 @@ Phases, each printing one JSON line:
    weights on the CPU (plain versions).
 6. serve   -- ``repro_torch.launch.serve`` on the full llama7b-proxy
    (32 layers, d 4096, d_ff 11008, vocab 32000, int4 g32 r64, bf16):
-   4 requests x 128 prompt + 32 generated tokens, then the merge check;
-   the kernels of that path must have launched on that run, kernel 3 once
-   per linear of the merge check's unmerged prefill (224), kernel 4 once
-   per linear of its unmerged decode step (224), and the rank projection
-   with each of them (448; kernel 4's C entry launches its projection
-   itself and reports each of its two launches, which the wrapper counts).
+   4 requests x 128 prompt + 32 generated tokens, decoded by replaying
+   the captured decode step (one capture, its budget), then the merge
+   check; the kernels of that path must have launched on that run,
+   kernel 2 once per linear of each of the 31 decode steps and of the
+   merge check's merged decode step (the counts of a replay are added by
+   the graph cache), kernel 3 once per linear of the merge check's
+   unmerged prefill (224), kernel 4 once per linear of its unmerged
+   decode step (224), and the rank projection with each of them (448;
+   kernel 4's C entry launches its projection itself and reports each of
+   its two launches, which the wrapper counts).  One replay of the
+   captured step under ``torch.profiler`` must show, kernel by kernel,
+   the launches the graph cache adds a replay.  Then the same prompts
+   through a generator that replays the step and one that runs it op by
+   op (``--loop``), each captured or warmed by a first pass and then run
+   in turns: greedy tokens identical to the main run's on both, and
+   their decode ms a token.
 7. adapters -- ``repro_torch.launch.serve --engine continuous`` on the full
    llama7b-proxy with three demo tenants and the null adapter over one
    INT4 base: 8 requests x 128 prompt + 32 generated tokens on 4 slots,
@@ -73,7 +83,15 @@ Phases, each printing one JSON line:
    logits (the null adapter's too) must match its merged tree, and be nearer it than the next tenant's
    merged tree, both with every row bound to one tenant and in one batch
    whose rows cycle the tenants and the null adapter.  The greedy tokens
-   each tenant gives on the same prompts are recorded.
+   each tenant gives on the same prompts are recorded.  The ragged step
+   and the bursts replay captured graphs: at most one capture of the
+   ragged step and one per burst length (budgets 1 and 4, declared to a
+   ``CompileGuard``); one replay of each graph under ``torch.profiler``
+   must show the launches the graph cache adds.  Then the same requests
+   through an engine that replays its steps and one that runs them op by
+   op (``eager=True``), each captured or warmed by a first pass and then
+   run in turns: streams identical to the main run's, and their ms a
+   decode model step and a ragged step.
 8. train_small -- one QA-LoRA train step (``repro_torch.launch.steps``)
    of llama7b-proxy at full width and 2 layers, bf16, remat on, on a
    batch of 2 x 128 tokens from the port's stream: on the card through
@@ -1041,8 +1059,115 @@ def phase_small(torch):
 
 
 # ---------------------------------------------------------------------------
+# phases 6-7: compiled serve steps
+# ---------------------------------------------------------------------------
+
+# a port kernel's name as the profiler shows it (demangled or mangled),
+# and the launch counter that counts it, by its template argument
+_KERNEL_NAMES = (
+    (r"gemv_kernel(?:<[^,]*,[^,]*,\s*(?:\(int\))?|ILi\d+E.*?Li)(\d)",
+     {"0": "qmatvec", "1": "qalora_matvec", "2": "qalora_slot_matvec"}),
+    (r"tiled_kernel(?:<[^,]*,[^,]*,\s*|ILi\d+E.*?Lb)(true|false|0|1)",
+     {"false": "qmatmul", "0": "qmatmul", "true": "qalora_matmul",
+      "1": "qalora_matmul"}),
+    (r"rank_proj_kernel(?:<[^,]*,\s*|ILi\d+ELb)(true|false|0|1)",
+     {"false": "qalora_rank_proj", "0": "qalora_rank_proj",
+      "true": "qalora_slot_rank_proj", "1": "qalora_slot_rank_proj"}),
+)
+
+
+def _counter_of(kernel: str):
+    """The launch counter of a port kernel's name, or None."""
+    import re
+    for pat, names in _KERNEL_NAMES:
+        m = re.search(pat, kernel)
+        if m:
+            return names[m.group(1)]
+    return None
+
+
+def _replay_profiles(torch, graphs):
+    """One replay of every captured graph of the StepGraphs in ``graphs``
+    under ``torch.profiler``: the port's kernels it ran, by launch
+    counter, beside the launches the graph cache adds a replay.  The
+    replays re-run steps whose results are no longer read."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for step in graphs.values():
+        for key, g in step.graphs.items():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                g.replay()
+                torch.cuda.synchronize()
+            seen, kernels_run = {}, 0
+            for evt in prof.key_averages():
+                if evt.device_type.name != "CUDA":
+                    continue
+                kernels_run += evt.count
+                name = _counter_of(evt.key)
+                if name is not None:
+                    seen[name] = seen.get(name, 0) + evt.count
+            out[f"{step.name}{list(key[:2])}"] = {
+                "launches": dict(g.launches), "profiler": seen,
+                "device_kernels": kernels_run,
+                "match": seen == dict(g.launches)}
+    return out
+
+
+def _in_turns(run_pass):
+    """A first pass of the graphed path and of the eager one (the captures,
+    the warm-up), then two rounds with the paths in turns: graphs, eager,
+    eager, graphs.  Returns {path: {key: median, "runs": [pass results
+    after the first]}}."""
+    from statistics import median
+    paths = ("graphs", "eager")
+    for path in paths:
+        run_pass(path)
+    runs = {path: [] for path in paths}
+    for order in (paths, paths[::-1]):
+        for path in order:
+            runs[path].append(run_pass(path))
+    return {path: {key: median(r[key] for r in rs) for key in rs[0]}
+            | {"runs": rs} for path, rs in runs.items()}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: serve the full model
 # ---------------------------------------------------------------------------
+
+
+SERVE_GEN = 32
+
+
+def _static_walls(torch, want):
+    """The static path's steady state: the served model and prompts of
+    phase serve through one generator that replays its decode step and
+    one that runs it op by op, in turns.  Returns ({path: {decode ms a
+    token, prefill ms, runs}}, tokens of every pass equal ``want``)."""
+    import numpy as np
+    import repro_torch.configs as C
+    from repro_torch.launch import serve
+    cfg = C.get("llama7b-proxy")
+    lm, _, merged = serve.build_model(cfg, "cuda")
+    prompts = np.random.default_rng(0).integers(
+        4, cfg.vocab, size=(4, 128)).astype(np.int32)
+    gens = {path: serve.make_graph_generator(
+        lm, merged, prompts.shape, SERVE_GEN, 128 + SERVE_GEN,
+        device="cuda", eager=path == "eager") for path in ("graphs", "eager")}
+    same = []
+
+    def run_pass(path):
+        toks, times = gens[path](prompts)
+        same.append(bool(np.array_equal(toks, want)))
+        return {"decode_ms_per_token": times["decode_s"] * 1e3
+                / (SERVE_GEN - 1), "prefill_ms": times["prefill_s"] * 1e3}
+
+    walls = _in_turns(run_pass)
+    walls["captures"] = {p: g.graphs._cache_size() for p, g in gens.items()}
+    del gens, lm, merged
+    _free(torch)
+    return walls, all(same)
 
 
 def phase_serve(torch):
@@ -1051,15 +1176,21 @@ def phase_serve(torch):
     argv = ["--arch", "llama7b-proxy", "--requests", "4", "--prompt-len", "128",
             "--device", "cuda"]
     serve.main(argv + ["--gen-len", "2"])  # warm-up: first-call set-up
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    _free(torch)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    res = serve.main(argv + ["--gen-len", "32", "--verify"])
+    res = serve.main(argv + ["--gen-len", str(SERVE_GEN), "--verify"])
     torch.cuda.synchronize()
     counts = kernels.launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
     toks = res.pop("tokens")
+    graphs = res.pop("graphs")
+    replays = _replay_profiles(torch, graphs)
+    del graphs
+    _free(torch)
+    walls, same = _static_walls(torch, toks)
     n_layers = res["n_layers"]
+    per_step = LAYER_LINEARS * n_layers
     checks = {
         "tokens_shape": list(toks.shape) == [4, 32],
         "tokens_in_vocab": bool(((toks >= 0) & (toks < 32000)).all()),
@@ -1075,15 +1206,30 @@ def phase_serve(torch):
         "rank_proj_per_unmerged_linear":
             counts["qalora_rank_proj"]
             == counts["qalora_matmul"] + counts["qalora_matvec"],
+        # 31 decode steps (the first run eagerly as the capture's warm-up,
+        # 30 replays) and the merge check's merged decode step
+        "gemv_per_decode_step_under_replay":
+            counts["qmatvec"] == per_step * SERVE_GEN,
+        "decode_captured_once": res["captures"]["serve.decode"][0] == 1,
+        "captures_within_budget": all(
+            c <= b for c, b in res["captures"].values()),
+        "replay_launches_match_profiler": bool(replays) and all(
+            r["match"] for r in replays.values()),
+        "graphed_and_eager_tokens_identical": same,
     }
     out = {"phase": "serve", **res, "launches": counts,
-           "launches_per_prefill": LAYER_LINEARS * n_layers,
-           "launches_per_decode_step": LAYER_LINEARS * n_layers,
+           "launches_per_prefill": per_step,
+           "launches_per_decode_step": per_step,
            "prefill_ms": res["prefill_s"] * 1e3,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "replay_profiles": replays,
+           "walls": walls,
+           "peak_mem_gb": peak,
            "depth_cut": "none (all 32 layers)", "checks": checks,
            "sample_tokens": toks[0][:8].tolist()}
     out["ok"] = all(checks.values())
+    print(f"[chip_smoke] serve: decode ms a token {walls['graphs']['decode_ms_per_token']:.3f} "
+          f"(graphs) / {walls['eager']['decode_ms_per_token']:.3f} (eager); "
+          f"captures {res['captures']}", flush=True)
     emit(out)
     if not out["ok"]:
         raise AssertionError(f"serve checks failed: {checks}")
@@ -1094,31 +1240,87 @@ def phase_serve(torch):
 # phase 7: many tenants over one INT4 base, continuous engine
 # ---------------------------------------------------------------------------
 
+ADAPTER_TENANTS = ("alice=demo:1", "bob=demo:2", "carol=demo:3")
 ADAPTER_ARGV = ["--arch", "llama7b-proxy", "--engine", "continuous",
                 "--slots", "4", "--prefill-chunk", "64", "--decode-burst", "8",
-                "--prompt-len", "128",
-                "--adapters", "alice=demo:1,bob=demo:2,carol=demo:3",
+                "--prompt-len", "128", "--adapters", ",".join(ADAPTER_TENANTS),
                 "--device", "cuda"]
+
+
+def _engine_walls(torch, want):
+    """The continuous path's steady state: phase adapters' model, tenants
+    and requests through one engine that replays its steps and one that
+    runs them op by op (``eager=True``), each reset between passes, in
+    turns.  Returns ({path: {ms a decode model step, ms a ragged step,
+    runs}}, streams of every pass equal ``want``)."""
+    import numpy as np
+    import repro_torch.configs as C
+    from repro_torch.launch import serve
+    from repro_torch.serving import ContinuousEngine
+    cfg = C.get("llama7b-proxy")
+    lm, params, _ = serve.build_model(cfg, "cuda")
+    store, tenants = serve.build_store(params, ADAPTER_TENANTS)
+    cycle = [*tenants, None]
+    prompts = np.random.default_rng(0).integers(
+        4, cfg.vocab, size=(want.shape[0], 128)).astype(np.int32)
+    engines = {path: ContinuousEngine(
+        lm, store.base, n_slots=4, max_len=128 + SERVE_GEN, prefill_chunk=64,
+        decode_burst=8, adapters=store, eager=path == "eager")
+        for path in ("graphs", "eager")}
+    same = []
+
+    def run_pass(path):
+        eng = engines[path]
+        eng.reset()
+        rids = [eng.submit(p, SERVE_GEN, adapter_id=cycle[i % len(cycle)])
+                for i, p in enumerate(prompts)]
+        out = eng.run()
+        torch.cuda.synchronize()
+        same.append(bool(np.array_equal(
+            np.asarray([out[r] for r in rids], np.int32), want)))
+        st = eng.stats
+        decode_steps = st.model_steps - 64 * st.ragged_dispatches
+        return {"decode_ms_per_step": (st.seconds - st.ragged_seconds) * 1e3
+                / max(decode_steps, 1),
+                "ragged_ms_per_step": st.ragged_seconds * 1e3
+                / max(st.ragged_dispatches, 1),
+                "wall_ms": st.seconds * 1e3, "tok_s": st.tok_per_s}
+
+    walls = _in_turns(run_pass)
+    walls["captures"] = {p: {g.name: g._cache_size()
+                             for g in e.graphs.values()}
+                         for p, e in engines.items()}
+    del engines, store, lm, params
+    _free(torch)
+    return walls, all(same)
 
 
 def phase_adapters(torch):
     """The multi-tenant path at full width and depth.  The engine's launch
     counts are read when it drains (``launches_engine``); the per-tenant
-    merge check launches after that and is counted apart."""
+    merge check launches after that and is counted apart.  The engine runs
+    under a ``CompileGuard``, which it checks after every iteration."""
     from repro_torch import kernels
     from repro_torch.launch import serve
+    from repro_torch.runtime.compile_guard import CompileGuard
     serve.main(ADAPTER_ARGV + ["--requests", "4", "--gen-len", "2"])  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    _free(torch)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    res = serve.main(ADAPTER_ARGV + ["--requests", "8", "--gen-len", "32",
-                                     "--verify"])
+    with CompileGuard("chip_smoke adapters") as guard:
+        res = serve.main(ADAPTER_ARGV + ["--requests", "8", "--gen-len",
+                                         str(SERVE_GEN), "--verify"])
+        guard_counts = guard.counts()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 1e9
     total = kernels.launches()
     engine = res.pop("launches_engine")
     toks = res.pop("tokens")
+    graphs = res.pop("graphs")
+    replays = _replay_profiles(torch, graphs)
+    del graphs
+    _free(torch)
+    walls, same = _engine_walls(torch, toks)
     checks_raw = res.pop("tenant_check")
     cross = {name: {ph: r["rel"] for ph, r in c.items()}
              for name, c in res.pop("tenant_cross_check").items()}
@@ -1154,6 +1356,17 @@ def phase_adapters(torch):
             o <= res["merge_bound_rel"] and o < f
             for ph in ("prefill", "decode")
             for o, f in zip(mixed[ph]["rel"], mixed[ph]["next_rel"])),
+        # one chunk width, and burst lengths from {1, 2, 4, 8}
+        "captures_within_budget": all(
+            c <= b for c, b in res["captures"].values())
+        and all(c <= b for c, b in guard_counts.values()),
+        # the graphed engine declared both steps' budgets
+        "guard_declared": set(guard_counts) >= {"engine.ragged",
+                                                "engine.burst"},
+        "ragged_step_captured": res["captures"]["engine.ragged"][0] == 1,
+        "replay_launches_match_profiler": bool(replays) and all(
+            r["match"] for r in replays.values()),
+        "graphed_and_eager_streams_identical": same,
     }
     out = {"phase": "adapters", **res, "launches": engine,
            "launches_merge_check": {k: total[k] - engine[k] for k in total},
@@ -1172,9 +1385,17 @@ def phase_adapters(torch):
            / max(res["ragged_dispatches"], 1),
            "decode_ms": res["burst_s"] * 1e3,
            "bank_mb": res["bank_bytes"] / 1e6, "peak_mem_gb": peak,
+           "guard": {k: list(v) for k, v in guard_counts.items()},
+           "replay_profiles": replays, "walls": walls,
            "depth_cut": "none (all 32 layers)", "checks": checks,
            "sample_tokens": toks[0][:8].tolist()}
     out["ok"] = all(checks.values())
+    print(f"[chip_smoke] adapters: ms a decode model step "
+          f"{walls['graphs']['decode_ms_per_step']:.3f} (graphs) / "
+          f"{walls['eager']['decode_ms_per_step']:.3f} (eager), ms a ragged "
+          f"step {walls['graphs']['ragged_ms_per_step']:.3f} / "
+          f"{walls['eager']['ragged_ms_per_step']:.3f}; captures (count, "
+          f"budget) {res['captures']}", flush=True)
     emit(out)
     if not out["ok"]:
         raise AssertionError(f"adapters checks failed: {checks}")

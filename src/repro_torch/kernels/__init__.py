@@ -3,7 +3,10 @@ version, behind the dispatching entry points of :mod:`.ops`.
 
 ``KERNELS`` maps each kernel's name to its wrapper; every wrapper carries a
 plain-integer ``launches`` count that it raises by one per kernel launch
-(CPU calls, which take the plain version, do not count).
+(CPU calls, which take the plain version, do not count).  A replayed CUDA
+graph runs no wrapper: :class:`repro_torch.runtime.graphs.StepGraphs`
+takes the counts a capture raised back off (:func:`add_launches` with
+the negated delta) and adds them again on every replay.
 """
 
 from __future__ import annotations
@@ -39,7 +42,14 @@ def launches() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-__all__ = ["GEMV_MAX_M", "KERNELS", "launches", "reset_launches",
+def add_launches(delta: dict) -> None:
+    """Add ``delta`` ({name: count}) to the kernels' launch counts."""
+    for name, n in delta.items():
+        KERNELS[name].launches += n
+
+
+__all__ = ["GEMV_MAX_M", "KERNELS", "add_launches", "launches",
+           "reset_launches",
            "qmatmul_cuda", "qmatvec_cuda", "qalora_matmul_cuda",
            "qalora_rank_proj_cuda", "qalora_slot_rank_proj_cuda",
            "qalora_matvec_cuda", "qalora_slot_matvec_cuda", "flash_mha_cuda"]

@@ -1,21 +1,24 @@
 """Where the serve path's time goes on the card: ``torch.profiler`` over
 one prefill and a window of decode steps of the merged model (static
 engine), or over one ragged step and one decode burst of the continuous
-engine serving demo tenants over one INT4 base.
+engine serving demo tenants over one INT4 base.  The serve steps replay
+their captured CUDA graphs (captured by a warm-up first); ``--loop``
+profiles the same steps run op by op (the eager reference).
 
     python -m repro_torch.launch.profile_serve --arch llama7b-proxy \\
         --requests 4 --prompt-len 128 --steps 8 --out chiprun_out/profile
     python -m repro_torch.launch.profile_serve --arch llama7b-proxy \\
-        --engine continuous --requests 4 --prompt-len 128
+        --engine continuous --requests 4 --prompt-len 128 [--loop]
 
 The continuous engine runs as ``chip_smoke.py``'s adapters phase does:
 one slot per request, 64-token prefill chunks, bursts of 8, 32 tokens
 per request, tenants alice, bob and carol (demo seeds 1-3) and the null
 adapter.
 
-The continuous engine first serves the requests once without the
-profiler (phase ``run``: wall ms, tok/s, ms per ragged step and per
-decode model step, from ``EngineStats``).  Prints one JSON line per
+The continuous engine serves the requests once to capture its steps, then
+once more without the profiler (phase ``run``: wall ms, tok/s, ms per
+ragged step and per decode model step, from ``EngineStats``), then profiles
+the first ragged step and the first burst of a third pass.  Prints one JSON line per
 profiled phase (prefill and decode, or ragged and burst):
 wall ms (host clock around work ending in ``torch.cuda.synchronize()``),
 device-busy ms (the sum of the kernels' own device time), the device's
@@ -106,63 +109,67 @@ def _profile(fn, out_dir: str, tag: str):
 
 
 def _static(lm, merged, toks, args, dev):
-    """One prefill, then ``--steps`` decode steps of the merged model."""
+    """One prefill, then ``--steps`` decode steps of the merged model
+    through :meth:`LM.generate` (one replay a step, or op by op under
+    ``--loop``), on one decode cache kept across the passes."""
+    from repro_torch.runtime.graphs import StepGraphs
     b, s = toks.shape
-    max_len = s + args.steps + 4
+    cache = lm.init_cache(b, s + args.steps + 1, dtype=torch.float32,
+                          device=dev)
+    graphs = StepGraphs("serve.decode", dev, eager=args.loop)
     state = {}
 
     def prefill():
-        logits, pre = lm.prefill(merged, {"tokens": toks})
-        state["cache"] = lm.merge_prefill_cache(
-            pre, lm.init_cache(b, max_len, dtype=torch.float32, device=dev))
-        state["tok"] = logits.argmax(-1).to(torch.int32)[:, None]
+        state["logits"], pre = lm.prefill(merged, {"tokens": toks})
+        lm.merge_prefill_cache(pre, cache)
 
-    def decode(steps):
-        def run():
-            for _ in range(steps):
-                lg, state["cache"] = lm.decode_step(merged, state["cache"],
-                                                    state["tok"])
-                state["tok"] = lg.argmax(-1).to(torch.int32)[:, None]
-        return run
+    def decode():
+        lm.generate(merged, cache, state["logits"], args.steps + 1,
+                    graphs=graphs)
 
-    prefill()           # warm-up: first-call set-up
-    decode(2)()
+    prefill()           # warm-up: first-call set-up and the capture
+    decode()
     res = {"prefill": _profile(prefill, args.out, "prefill"),
-           "decode": _profile(decode(args.steps), args.out, "decode")}
+           "decode": _profile(decode, args.out, "decode")}
     res["decode"]["model_steps"] = args.steps
+    res["decode"]["captures"] = graphs._cache_size()
     return res
 
 
 def _continuous(lm, params, toks, args, dev):
-    """The first ragged step and the first decode burst of one
-    :class:`ContinuousEngine` (after a warm-up engine), every request
-    bound round-robin to the tenants and the null adapter."""
+    """One :class:`ContinuousEngine`, every request bound round-robin to
+    the tenants and the null adapter: a first pass captures its steps, a
+    second is timed without the profiler, and the first ragged step and
+    the first decode burst of a third are profiled."""
     from repro_torch.launch.serve import build_store
     from repro_torch.serving import ContinuousEngine
     store, tenants = build_store(params, TENANTS)
     cycle = [*tenants, None]
     prompts = toks.cpu().numpy()
+    eng = ContinuousEngine(
+        lm, store.base, n_slots=toks.shape[0],
+        max_len=toks.shape[1] + GEN_LEN, prefill_chunk=PREFILL_CHUNK,
+        decode_burst=DECODE_BURST, adapters=store, eager=args.loop)
 
-    def engine(gen_len):
-        eng = ContinuousEngine(
-            lm, store.base, n_slots=toks.shape[0],
-            max_len=toks.shape[1] + GEN_LEN, prefill_chunk=PREFILL_CHUNK,
-            decode_burst=DECODE_BURST, adapters=store)
+    def submit():
+        eng.reset()
         for i, p in enumerate(prompts):
-            eng.submit(p, gen_len, adapter_id=cycle[i % len(cycle)])
-        return eng
+            eng.submit(p, GEN_LEN, adapter_id=cycle[i % len(cycle)])
 
-    engine(2).run()     # warm-up: first-call set-up
-    eng = engine(GEN_LEN)   # a whole run without the profiler
-    eng.run()
+    submit()
+    eng.run()           # warm-up: first-call set-up and the captures
+    submit()
+    eng.run()           # a whole run without the profiler
     st = eng.stats
     res = {"run": {"wall_ms": st.seconds * 1e3, "tok_s": st.tok_per_s,
                    "ragged_ms_per_step": st.ragged_seconds * 1e3
                    / max(st.ragged_dispatches, 1),
                    "decode_ms_per_step": (st.seconds - st.ragged_seconds)
                    * 1e3 / max(st.model_steps - PREFILL_CHUNK
-                               * st.ragged_dispatches, 1)}}
-    eng = engine(GEN_LEN)
+                               * st.ragged_dispatches, 1),
+                   "captures": {g.name: g._cache_size()
+                                for g in eng.graphs.values()}}}
+    submit()
     res["ragged"] = _profile(eng.step_once, args.out, "ragged")
     while any(s is not None and s.prefilling for s in eng.sched.slots):
         eng.step_once()
@@ -182,6 +189,9 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=128)
     ap.add_argument("--steps", type=int, default=8,
                     help="decode steps profiled (static engine)")
+    ap.add_argument("--loop", action="store_true",
+                    help="profile the steps run op by op (the eager "
+                         "reference) instead of their CUDA-graph replays")
     ap.add_argument("--out", default="chiprun_out/profile")
     args = ap.parse_args(argv)
 
@@ -203,6 +213,7 @@ def main(argv=None):
         if "device_busy_ms" in r:
             r["per_step_busy_ms"] = r["device_busy_ms"] / steps
         print(json.dumps({"phase": phase, "engine": args.engine,
+                          "path": "eager" if args.loop else "graphs",
                           "arch": cfg.name, "requests": b, "prompt_len": s,
                           "device": torch.cuda.get_device_name(0), **r}),
               flush=True)

@@ -184,24 +184,69 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def make_graph_generator(lm, params, batch_shape, gen_len: int,
+                         max_len: int, cache_dtype=torch.float32,
+                         device="cuda", eager: bool = False):
+    """Build the static serve path ONCE for a prompt shape (the counterpart
+    of ``make_scan_generator``): a full-capacity decode cache and the
+    :class:`~repro_torch.runtime.graphs.StepGraphs` of its decode step,
+    both kept for every call.  Returns ``run(prompts) -> (tokens
+    [B, gen_len] numpy, timings)``; ``run.graphs`` is the step's graph
+    cache and ``run.budgets`` its capture budget, declared to the active
+    :class:`~repro_torch.runtime.compile_guard.CompileGuard` if any when
+    the step is captured (the eager and CPU routes capture nothing).
+
+    Each call prefills the prompts as one batch (eagerly), embeds the
+    prefill cache into the decode cache in place and decodes greedily with
+    :meth:`~repro_torch.models.lm.LM.generate`: on CUDA one replay of the
+    captured decode step a token (the first call captures it), or, with
+    ``eager=True``, the same step run op by op (the timing and equivalence
+    reference, ``--loop``)."""
+    import weakref
+    from repro_torch.runtime import compile_guard
+    from repro_torch.runtime.graphs import StepGraphs, captures
+    b = batch_shape[0]
+    cache = lm.init_cache(b, max_len, dtype=cache_dtype, device=device)
+    graphs = StepGraphs("serve.decode", device, eager=eager)
+
+    def run(prompts):
+        if tuple(prompts.shape) != tuple(batch_shape):
+            raise ValueError(f"prompts {tuple(prompts.shape)}: this "
+                             f"generator serves {tuple(batch_shape)}")
+        toks = torch.as_tensor(prompts, dtype=torch.int32, device=device)
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, pre = lm.prefill(params, {"tokens": toks})
+        lm.merge_prefill_cache(pre, cache)
+        _sync(device)
+        t1 = time.perf_counter()
+        out, _ = lm.generate(params, cache, logits, gen_len, graphs=graphs)
+        out = out.cpu().numpy()
+        t2 = time.perf_counter()
+        guard = compile_guard.current()
+        if guard is not None:
+            guard.check()
+        return out, {"prefill_s": t1 - t0, "decode_s": t2 - t1,
+                     "total_s": t2 - t0}
+
+    # one decode step, captured once for the generator's life
+    run.graphs, run.budgets = graphs, {graphs.name: 1}
+    guard = compile_guard.current()
+    if guard is not None and graphs.capture is not None:
+        owner = f"generator-{id(run)}"
+        weakref.finalize(run, guard.release_owner, owner)
+        guard.declare_jit(graphs.name, captures(graphs.name), 1,
+                          owner=owner)
+    return run
+
+
 def generate(lm, params, prompts, gen_len: int, max_len: int,
              cache_dtype=torch.float32, device="cuda"):
-    """Prefill the prompts as one batch, embed the prefill cache into a
-    full-capacity decode cache and decode greedily (the counterpart of
-    ``generate_scan``).  Returns (tokens [B, gen_len] numpy, timings)."""
-    b = prompts.shape[0]
-    toks = torch.as_tensor(prompts, dtype=torch.int32, device=device)
-    _sync(device)
-    t0 = time.perf_counter()
-    logits, pre = lm.prefill(params, {"tokens": toks})
-    cache = lm.merge_prefill_cache(
-        pre, lm.init_cache(b, max_len, dtype=cache_dtype, device=device))
-    _sync(device)
-    t1 = time.perf_counter()
-    out, _ = lm.generate(params, cache, logits, gen_len)
-    out = out.cpu().numpy()
-    t2 = time.perf_counter()
-    return out, {"prefill_s": t1 - t0, "decode_s": t2 - t1, "total_s": t2 - t0}
+    """One-shot prefill + greedy decode (see :func:`make_graph_generator`;
+    the counterpart of ``generate_scan``).  Returns (tokens [B, gen_len]
+    numpy, timings)."""
+    return make_graph_generator(lm, params, prompts.shape, gen_len, max_len,
+                                cache_dtype, device)(prompts)
 
 
 def generate_loop_reference(lm, params, prompts, gen_len: int, max_len: int,
@@ -303,21 +348,23 @@ def tenant_check(lm, store, tenants, prompts, max_len: int,
 
 def serve_continuous(lm, params, prompts, gen_len: int, max_len: int, *,
                      slots: int, prefill_chunk: int, decode_burst: int,
-                     store, who, device="cuda"):
+                     store, who, device="cuda", eager: bool = False):
     """Serve every prompt through one :class:`ContinuousEngine` (request i
-    bound to adapter ``who(i)``).  Returns (tokens [B, gen_len] numpy,
-    engine stats, the kernel launch counts when the engine drained)."""
+    bound to adapter ``who(i)``; ``eager`` selects the engine's eager
+    steps).  Returns (tokens [B, gen_len] numpy, the engine, the kernel
+    launch counts when the engine drained)."""
     from repro_torch import kernels
     from repro_torch.serving import ContinuousEngine
     eng = ContinuousEngine(lm, params, n_slots=slots, max_len=max_len,
                            prefill_chunk=prefill_chunk,
-                           decode_burst=decode_burst, adapters=store)
+                           decode_burst=decode_burst, adapters=store,
+                           eager=eager)
     rids = [eng.submit(p, gen_len, adapter_id=who(i))
             for i, p in enumerate(prompts)]
     outputs = eng.run()
     _sync(device)
     gen = np.asarray([outputs[r] for r in rids], dtype=np.int32)
-    return gen, eng.stats, kernels.launches()
+    return gen, eng, kernels.launches()
 
 
 def merge_bound(cfg) -> float:
@@ -337,6 +384,10 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen-len", type=int, default=8)
     ap.add_argument("--verify", action="store_true")
+    ap.add_argument("--loop", action="store_true",
+                    help="run every serve step op by op (the eager "
+                         "reference for timing and equivalence) instead of "
+                         "replaying its captured CUDA graph")
     ap.add_argument("--policy", default="",
                     help='per-layer policy rules, e.g. "*=int4,*/attn/wo=int8"')
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -428,7 +479,9 @@ def main(argv=None):
         prompts[:] = 0
 
     result = {"arch": cfg.name, "n_layers": cfg.n_layers,
-              "device": str(device), "engine": args.engine, "requests": b,
+              "device": str(device), "engine": args.engine,
+              "path": ("graphs" if device.type == "cuda" and not args.loop
+                       else "eager"), "requests": b,
               "prompt_len": prompt_len, "gen_len": args.gen_len,
               "init_s": init_s}
     if args.engine == "continuous":
@@ -436,10 +489,13 @@ def main(argv=None):
         # request in the mix
         cycle = [*tenants, None]
         slots = args.slots or min(4, b)
-        toks, st, counts = serve_continuous(
+        toks, eng, counts = serve_continuous(
             lm, merged, prompts, args.gen_len, max_len, slots=slots,
             prefill_chunk=args.prefill_chunk, decode_burst=args.decode_burst,
-            store=store, who=lambda i: cycle[i % len(cycle)], device=device)
+            store=store, who=lambda i: cycle[i % len(cycle)], device=device,
+            eager=args.loop)
+        st = eng.stats
+        graphs, budgets = eng.graphs, eng.budgets
         decode_steps = (st.model_steps
                         - args.prefill_chunk * st.ragged_dispatches)
         result.update(
@@ -458,19 +514,26 @@ def main(argv=None):
               f"{st.seconds:.3f}s ({st.tok_per_s:.1f} tok/s, continuous, "
               f"{slots} slots, occupancy {st.occupancy:.0%}, "
               f"{st.dispatches} dispatches ({st.ragged_dispatches} ragged), "
-              f"{len(tenants)}+null tenants, {device})")
+              f"{len(tenants)}+null tenants, {result['path']}, {device})")
     else:
-        toks, times = generate(lm, merged, prompts, args.gen_len, max_len,
-                               device=device)
+        gen = make_graph_generator(lm, merged, prompts.shape, args.gen_len,
+                                   max_len, device=device, eager=args.loop)
+        toks, times = gen(prompts)
+        graphs, budgets = {"decode": gen.graphs}, gen.budgets
         result.update(times)
         result["decode_ms_per_token"] = (times["decode_s"] * 1e3
                                          / max(args.gen_len - 1, 1))
         result["tok_s"] = b * toks.shape[1] / max(times["total_s"], 1e-9)
         print(f"[serve] {b} requests x {toks.shape[1]} tokens in "
               f"{times['total_s']:.3f}s ({result['tok_s']:.1f} tok/s, "
-              f"prefill+decode, {device})")
+              f"prefill+decode, {result['path']}, {device})")
+    # the step graphs, for callers that replay or profile them
+    result["graphs"] = graphs
+    result["captures"] = {g.name: [g._cache_size(), budgets[g.name]]
+                          for g in graphs.values()}
     result["tokens"] = toks
-    print(f"[serve] sample generation: {toks[0][:8]}")
+    print(f"[serve] sample generation: {toks[0][:8]}; captures (count, "
+          f"budget): {result['captures']}")
 
     if args.verify:
         # the adapter model against its merge, or each tenant's slot-routed

@@ -14,7 +14,7 @@ Batch format: ``{"tokens": [B, S] int}``, plus ``"labels"`` ([B, S] int,
 recomputes each block in the backward when ``cfg.remat``; prefill and
 decode run under ``torch.no_grad``.  Decode caches follow
 :class:`repro_torch.models.slot_state.SlotState`; decode steps write their
-K/V into the cache they are given, in place, and return it.
+K/V and lengths into the cache they are given, in place, and return it.
 """
 
 from __future__ import annotations
@@ -23,12 +23,14 @@ import dataclasses
 import functools
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import schemes
+from repro_torch.runtime.graphs import StepGraphs
 from .attention import StepPlan, gqa_apply, gqa_init, gqa_prefill_chunk
 from .common import rmsnorm, rmsnorm_init
 from .mlp import mlp_apply, mlp_init
@@ -240,14 +242,15 @@ class LM:
     @torch.no_grad()
     def step_ragged(self, params: LMParams, cache, tokens, n_new):
         """Ragged serve step: slot b consumes ``tokens[b, :n_new[b]]`` at
-        positions ``len[b]..`` and advances by ``n_new[b]``.  Returns
-        (logits [B, V] at each slot's last consumed row, cache)."""
-        h, layers, n_new = self._ragged_trunk(params, cache, tokens, n_new)
+        positions ``len[b]..`` and advances by ``n_new[b]``, writing the
+        cache in place.  Returns (logits [B, V] at each slot's last consumed
+        row, cache)."""
+        h, n_new = self._ragged_trunk(params, cache, tokens, n_new)
         last = (n_new.to(torch.int64) - 1).clamp(0, tokens.shape[1] - 1)
         idx = last[:, None, None].expand(h.shape[0], 1, h.shape[2])
         h_last = torch.gather(h, 1, idx)
         logits = self._logits(params, h_last)[:, 0]
-        return logits, self.slot_state().advance(cache, layers, n_new)
+        return logits, self.slot_state().advance(cache, n_new)
 
     def _ragged_trunk(self, params: LMParams, cache, tokens, n_new):
         cur = cache["len"]
@@ -261,40 +264,79 @@ class LM:
             x, _ = _gqa_block_chunk(blk, x, {"k": kc[layer], "v": vc[layer]},
                                     cur, n_new, self.cfg, window=window,
                                     theta=theta, plan=plan)
-        h = rmsnorm(params.final_ln, x, self.cfg.norm_eps)
-        return h, {"k": kc, "v": vc}, n_new
+        return rmsnorm(params.final_ln, x, self.cfg.norm_eps), n_new
 
     # ---------------- serving: prefill + greedy decode ----------------
 
     def merge_prefill_cache(self, prefill_cache, decode_cache):
-        """Embed a :meth:`prefill` cache into a full-capacity decode cache:
-        equal shapes carry over, smaller leaves are zero-padded up to the
-        decode layout (cast to the decode cache's dtype)."""
+        """Embed a :meth:`prefill` cache into a full-capacity decode cache,
+        in place (the decode cache keeps its addresses): equal shapes carry
+        over, smaller leaves are zero-padded up to the decode layout (cast
+        to the decode cache's dtype).  Returns ``decode_cache``."""
         if isinstance(prefill_cache, dict):
-            return {k: self.merge_prefill_cache(prefill_cache[k], decode_cache[k])
-                    for k in decode_cache}
+            for k in decode_cache:
+                self.merge_prefill_cache(prefill_cache[k], decode_cache[k])
+            return decode_cache
         p, c = prefill_cache, decode_cache
-        if p.shape == c.shape:
-            return p.to(c.dtype).clone()
-        assert p.ndim == c.ndim and all(
-            ps <= cs for ps, cs in zip(p.shape, c.shape)), (p.shape, c.shape)
-        out = torch.zeros_like(c)
-        out[tuple(slice(0, n) for n in p.shape)] = p.to(c.dtype)
-        return out
+        if p.ndim != c.ndim or any(ps > cs for ps, cs in zip(p.shape,
+                                                              c.shape)):
+            raise ValueError(f"prefill leaf {tuple(p.shape)} does not fit "
+                             f"the decode leaf {tuple(c.shape)}")
+        if p.shape != c.shape:
+            c.zero_()
+        c[tuple(slice(0, n) for n in p.shape)] = p.to(c.dtype)
+        return c
 
     @torch.no_grad()
-    def generate(self, params: LMParams, cache, logits, gen_len: int):
+    def generate(self, params: LMParams, cache, logits, gen_len: int,
+                 graphs: StepGraphs):
         """Greedy decode: token t+1 = argmax of step t's logits, starting
         from ``logits`` (from :meth:`prefill`).  Returns (tokens
-        [B, gen_len] int32, final cache); the tokens stay on the device
-        until the caller reads them."""
+        [B, gen_len] int32, the cache, advanced in place); the tokens stay
+        on the device until the caller reads them.
+
+        Each step runs through ``graphs`` (a
+        :class:`~repro_torch.runtime.graphs.StepGraphs`): on CUDA one
+        replay of the captured decode step a token, the
+        counterpart of the reference's ``lax.scan``, unless ``graphs`` was
+        built eager; on the CPU the same step eagerly.  The step reads the
+        token from a static buffer, writes its argmax back there and into
+        the output column a device counter names, and advances the counter
+        and the cache, all in place: the host issues one replay a token.
+        ``graphs`` is keyed by the cache's shapes and addresses and the
+        output's width: a reused one replays when given the same cache
+        tensors (as :func:`repro_torch.launch.serve.make_graph_generator`
+        keeps them), and raises ``ValueError`` when given another
+        ``params`` tree for a captured key (the graph holds the weights it
+        was captured with)."""
         tok = logits.argmax(dim=-1).to(torch.int32)  # [B]
         if gen_len <= 0:
             return torch.zeros((tok.shape[0], 0), dtype=torch.int32,
                                device=tok.device), cache
-        toks = [tok]
+        kc = cache["layers"]["k"]
+        # the cache's addresses are part of the key: a graph replays on the
+        # tensors it was captured on
+        key = ("decode", tuple(kc.shape), kc.dtype, gen_len,
+               *(t.data_ptr() for t in (kc, cache["layers"]["v"],
+                                        cache["len"])))
+        b = tok.shape[0]
+        st = graphs.buffers(key, tok=np.zeros((b,), np.int32),
+                            pos=np.zeros((1,), np.int64),
+                            out=np.zeros((b, gen_len), np.int32))
+        st["tok"].copy_(tok)
+        st["out"][:, 0] = tok
+        st["pos"].fill_(1)
+
+        def step():
+            lg, _ = self.decode_step(params, cache, st["tok"][:, None])
+            nxt = lg.argmax(dim=-1).to(torch.int32)
+            st["tok"].copy_(nxt)
+            # clamped: a replay past the last column (a profiler's)
+            # rewrites it rather than writing past the buffer
+            st["out"].index_copy_(1, st["pos"].clamp(max=gen_len - 1),
+                                  nxt[:, None])
+            st["pos"].add_(1)
+
         for _ in range(gen_len - 1):
-            lg, cache = self.decode_step(params, cache, tok[:, None])
-            tok = lg.argmax(dim=-1).to(torch.int32)
-            toks.append(tok)
-        return torch.stack(toks, dim=1), cache
+            graphs(key, step, binds=(params,))
+        return st["out"].clone(), cache

@@ -3,7 +3,8 @@ gqa part of ``repro.models.slot_state``).
 
 A decode cache is ``{"layers": {"k": [L, B, S, KvH, hd], "v": ...},
 "len": [B] int32}``: KV rows past a slot's ``len`` are never read (every
-attention mask is bounded by it).
+attention mask is bounded by it).  Every step writes the cache in place, so
+it keeps its addresses, as a captured serve step needs.
 """
 
 from __future__ import annotations
@@ -46,15 +47,23 @@ class SlotState:
                                    device=device)}
 
     def reset(self, cache, mask) -> dict:
-        """Evict the masked slots (``mask [n_slots]`` bool): their lengths
-        go to 0; their KV rows stay in place, masked by the length, never
-        read."""
-        return {"layers": cache["layers"],
-                "len": torch.where(mask, torch.zeros_like(cache["len"]),
-                                   cache["len"])}
+        """Evict the masked slots (``mask [n_slots]`` bool), in place: their
+        lengths go to 0; their KV rows stay in place, masked by the length,
+        never read.  Returns ``cache``."""
+        cache["len"].masked_fill_(mask, 0)
+        return cache
 
-    def advance(self, cache, layers, n_new) -> dict:
-        """Fold a step's layer state back in, advancing each slot's length
-        by the rows it consumed."""
-        return {"layers": layers,
-                "len": cache["len"] + n_new.to(torch.int32)}
+    def advance(self, cache, n_new) -> dict:
+        """Advance each slot's length by the rows its step consumed, in
+        place (a captured step leaves the cache at its addresses).  Returns
+        ``cache``."""
+        cache["len"].add_(n_new.to(torch.int32))
+        return cache
+
+    def clear(self, cache) -> dict:
+        """Every slot empty and every K/V row zero, in place (an engine
+        reset: stale rows of a poisoned cache would reach the attention's
+        products)."""
+        for t in (*cache["layers"].values(), cache["len"]):
+            t.zero_()
+        return cache

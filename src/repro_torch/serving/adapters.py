@@ -17,8 +17,9 @@ banks and the per-slot ids; bases and banks are shared by reference.
 
 Unlike the reference, the port writes bank rows in place (``register``,
 ``evict``) instead of building new arrays: the banks are the store's
-largest tensors, and a serving tree built earlier sees the new rows at
-once, which is what the reference's rebuild on the next engine step gives.
+largest tensors, and a serving tree built earlier (and a serve step
+captured on it) sees the new rows at once, which is what the reference's
+rebuild on the next engine step gives.
 
 Capacity and eviction: registering past ``capacity`` evicts the least
 recently used adapter that is not live (referenced by a queued or
@@ -263,17 +264,28 @@ class AdapterStore:
 
     # ---------------- tree assembly ----------------
 
-    def with_slot_ids(self, slot_ids):
+    def with_slot_ids(self, slot_ids, out: Optional[torch.Tensor] = None):
         """Serving tree for a slot -> adapter mapping ``[B]`` (host ints).
 
         Banked linears become ``qalora_slot`` linears holding the shared
         base, both banks and the ids; the ids are checked here, on the
-        host, and copied to the device once for the whole tree."""
+        host, and copied to the device once for the whole tree: into
+        ``out`` (``[B]`` int32 on the store's device) when given, which
+        the tree then holds, so a tree for a new mapping reads the address
+        a captured step reads (the engine's static buffer), else into a new
+        tensor."""
         ids = np.asarray(slot_ids).reshape(-1)
         if ids.size and (ids.min() < 0 or ids.max() > self.capacity):
             raise ValueError(f"slot adapter ids must be in [0, "
                              f"{self.capacity}], got {ids.tolist()}")
-        ids_d = torch.as_tensor(ids.astype(np.int32), device=self.device)
+        ids = torch.from_numpy(ids.astype(np.int32))
+        if out is None:
+            ids_d = ids.to(self.device)
+        elif out.shape != ids.shape or out.dtype != torch.int32:
+            raise ValueError(f"out must be int32 of shape {tuple(ids.shape)},"
+                             f" got {out.dtype} {tuple(out.shape)}")
+        else:
+            ids_d = out.copy_(ids)
 
         def fn(path, lp: LinearParams):
             bank = self._banks.get(path)

@@ -23,41 +23,54 @@ the served tree is the store's ``with_slot_ids`` tree for the current
 slot -> adapter mapping, rebuilt only when the mapping or the store
 changes; decode steps then run the slot GEMV kernel.
 
-PyTorch runs eagerly, so the reference's compile budgets
-(``CompileGuard``) have nothing to count here.  The paged cache,
-speculative decoding, encdec sources and the other families raise.
+Compiled steps: on CUDA the ragged step (at its fixed chunk width) and
+the burst (at each k of the pow2 ladder {1, 2, .., ``decode_burst``})
+replay CUDA graphs (:class:`~repro_torch.runtime.graphs.StepGraphs`, one
+memory pool for both), the counterpart of the reference's module-level
+jits.  Their inputs are staged into static buffers through pinned host
+memory, the decode cache and the slot -> adapter ids stay at fixed
+addresses, and the captures are budgeted as the reference budgets its
+compiles (:mod:`repro_torch.runtime.compile_guard`, checked after every
+iteration).  ``eager=True`` runs the same steps op by op (the oracle runs);
+it is never chosen implicitly.  On the CPU the steps run eagerly.  The
+paged cache, speculative decoding, encdec sources and the other families
+raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.runtime import compile_guard
+from repro_torch.runtime.graphs import StepGraphs, captures
 from .scheduler import Request, Scheduler
 
 
 def _ragged_step(lm, params, cache, tokens, n_new):
-    """One ragged step; argmax and the health bit (all logits finite)
-    stay on the device."""
-    logits, cache = lm.step_ragged(params, cache, tokens, n_new)
+    """One ragged step, advancing the cache in place; argmax and the
+    health bit (all logits finite) stay on the device."""
+    logits, _ = lm.step_ragged(params, cache, tokens, n_new)
     ok = torch.isfinite(logits).all()
-    return logits.argmax(-1).to(torch.int32), ok, cache
+    return logits.argmax(-1).to(torch.int32), ok
 
 
 def _burst_steps(lm, params, cache, tok, remaining, eos, k_steps: int):
-    """``k_steps`` masked single-token ragged steps.  A slot whose remaining
-    count hits 0 (max-len or EOS) stops consuming (n_new=0), so its cache
-    and length freeze until the host evicts it.  Stop masks, argmax and
-    counts stay on the device: nothing here waits for the card."""
+    """``k_steps`` masked single-token ragged steps on the cache, in place.
+    A slot whose remaining count hits 0 (max-len or EOS) stops consuming
+    (n_new=0), so its cache and length freeze until the host evicts it.
+    Stop masks, argmax and counts stay on the device: nothing here waits
+    for the card.  Returns (tok, remaining, emitted [k, B], ok)."""
     emitted, oks = [], []
     for _ in range(k_steps):
         active = remaining > 0
-        logits, cache = lm.step_ragged(params, cache, tok[:, None],
-                                       active.to(torch.int32))
+        logits, _ = lm.step_ragged(params, cache, tok[:, None],
+                                   active.to(torch.int32))
         nxt = torch.where(active, logits.argmax(-1).to(torch.int32), tok)
         emitted.append(torch.where(active, nxt, -1))
         stop = active & ((remaining <= 1) | (nxt == eos))
@@ -65,7 +78,7 @@ def _burst_steps(lm, params, cache, tok, remaining, eos, k_steps: int):
                                 torch.where(active, remaining - 1, 0))
         oks.append(torch.isfinite(logits).all())
         tok = nxt
-    return cache, tok, remaining, torch.stack(emitted), torch.stack(oks).all()
+    return tok, remaining, torch.stack(emitted), torch.stack(oks).all()
 
 
 def _to_host(*tensors) -> List[np.ndarray]:
@@ -123,13 +136,14 @@ class ContinuousEngine:
     ``n_slots`` concurrent requests share one decode cache of per-slot
     capacity ``max_len`` (each request needs prompt + max_new <=
     max_len), on the device of ``params``.  ``decode_burst`` is clamped
-    down to a power of two, as in the reference."""
+    down to a power of two, as in the reference.  ``eager=True`` runs
+    every step op by op instead of replaying its CUDA graph."""
 
     def __init__(self, lm, params, *, n_slots: int, max_len: int,
                  prefill_chunk: int = 8, decode_burst: int = 8,
                  max_src: int = 0, adapters=None, page_size: int = 0,
                  n_pages: Optional[int] = None, speculate: int = 0,
-                 drafter=None):
+                 drafter=None, eager: bool = False):
         not_ported = {"page_size": page_size > 0, "n_pages": n_pages,
                       "speculate": speculate, "drafter": drafter,
                       "max_src": max_src}
@@ -150,14 +164,41 @@ class ContinuousEngine:
         self.decode_burst = 1 << (db.bit_length() - 1)
         self.device = params.embed.device
         self.slot_state = lm.slot_state()
-        self.reset()
-
-    def reset(self):
-        """Drop all queued and in-flight state."""
-        self.sched = Scheduler(self.n_slots, self.max_len, self.prefill_chunk)
-        self.cache = self.slot_state.init(self.n_slots, self.max_len,
+        ragged = StepGraphs("engine.ragged", self.device, eager=eager)
+        self.graphs = {"ragged": ragged,
+                       "burst": StepGraphs("engine.burst", self.device,
+                                           eager=eager, pool=ragged.pool)}
+        # captures each step may make: one chunk width for the ragged step
+        # (one placement on one card), the pow2 ladder for the burst
+        self.budgets = {"engine.ragged": 1,
+                        "engine.burst": self.decode_burst.bit_length()}
+        # the served tree's slot -> adapter ids, at a fixed address
+        self._slot_ids = torch.zeros((n_slots,), dtype=torch.int32,
+                                     device=self.device)
+        self.cache = self.slot_state.init(n_slots, max_len,
                                           dtype=torch.float32,
                                           device=self.device)
+        self.reset()
+        self._declare_budgets()
+
+    def _declare_budgets(self):
+        """Declare the steps' capture budgets to the active compile guard,
+        as the reference's engine declares its jits' (per-engine owner,
+        reclaimed when the engine is collected).  The eager and CPU routes
+        capture nothing and declare nothing."""
+        g = compile_guard.current()
+        if g is None or self.graphs["ragged"].capture is None:
+            return
+        owner = f"engine-{id(self)}"
+        weakref.finalize(self, g.release_owner, owner)
+        for name, budget in self.budgets.items():
+            g.declare_jit(name, captures(name), budget, owner=owner)
+
+    def reset(self):
+        """Drop all queued and in-flight state.  The decode cache is
+        cleared in place: the captured steps keep their addresses."""
+        self.sched = Scheduler(self.n_slots, self.max_len, self.prefill_chunk)
+        self.slot_state.clear(self.cache)
         self.stats = EngineStats()
         self._adapter_key = None
         self._refresh_adapters()
@@ -204,15 +245,11 @@ class ContinuousEngine:
         return s
 
     def poison_cache(self):
-        """Overwrite every floating-point leaf of the decode state with NaN
-        (fault injection): a slot whose state is read next produces NaN
-        logits and trips :class:`EngineCorrupted` before commit."""
-        def poison(x):
-            if isinstance(x, dict):
-                return {k: poison(v) for k, v in x.items()}
-            return torch.full_like(x, float("nan")) \
-                if x.is_floating_point() else x
-        self.cache = poison(self.cache)
+        """Overwrite every floating-point leaf of the decode state with NaN,
+        in place (fault injection): a slot whose state is read next produces
+        NaN logits and trips :class:`EngineCorrupted` before commit."""
+        for t in self.cache["layers"].values():
+            t.fill_(float("nan"))
 
     # ---------------- one engine iteration ----------------
 
@@ -230,14 +267,19 @@ class ContinuousEngine:
             self.stats.seconds += dt
             if ragged:
                 self.stats.ragged_seconds += dt
+        guard = compile_guard.current()
+        if guard is not None:
+            # after the step, not inside the finally: a budget violation
+            # must not mask a real dispatch failure mid-step
+            guard.check()
 
     def _step_once_inner(self) -> bool:
         filled = self.sched.admit()
         if filled:
             mask = np.zeros((self.n_slots,), bool)
             mask[filled] = True
-            self.cache = self.slot_state.reset(
-                self.cache, torch.as_tensor(mask, device=self.device))
+            self.slot_state.reset(self.cache,
+                                  torch.as_tensor(mask, device=self.device))
         self._refresh_adapters()
         if self.sched.all_decoding:
             self._run_burst()
@@ -248,8 +290,10 @@ class ContinuousEngine:
     def _refresh_adapters(self):
         """Rebind ``self.params`` to the store's serving tree for the
         current slot -> adapter mapping (only when the mapping or the
-        store changed), and publish the live-id set so the store never
-        evicts an adapter a queued or in-flight request needs."""
+        store changed; the ids go into the engine's static buffer, and the
+        store writes its banks in place, so the captured steps stay valid),
+        and publish the live-id set so the store never evicts an adapter a
+        queued or in-flight request needs."""
         if self.adapters is None:
             return
         self.adapters.set_live(self.sched.live_adapter_ids())
@@ -257,15 +301,16 @@ class ContinuousEngine:
         key = (tuple(ids.tolist()), self.adapters.version)
         if key != self._adapter_key:
             self._adapter_key = key
-            self.params = self.adapters.with_slot_ids(ids)
+            self.params = self.adapters.with_slot_ids(ids,
+                                                      out=self._slot_ids)
 
     def _run_ragged(self):
         """One mixed prefill/decode ragged step."""
         tokens, n_new = self.sched.plan()
-        nxt, ok, self.cache = _ragged_step(
-            self.lm, self.params, self.cache,
-            torch.as_tensor(tokens, device=self.device),
-            torch.as_tensor(n_new, device=self.device))
+        graphs, key = self.graphs["ragged"], ("ragged",) + tokens.shape
+        buf = graphs.stage(key, tokens=tokens, n_new=n_new)
+        nxt, ok = graphs(key, lambda: _ragged_step(
+            self.lm, self.params, self.cache, buf["tokens"], buf["n_new"]))
         nxt, ok = _to_host(nxt, ok)
         if not ok:
             raise EngineCorrupted("non-finite logits in ragged step (decode "
@@ -292,11 +337,11 @@ class ContinuousEngine:
         # two, so finished slots are evicted and refilled promptly
         k_min = int(remaining[remaining > 0].min())
         k = int(min(self.decode_burst, 1 << (k_min.bit_length() - 1)))
-        dev = self.device
-        self.cache, tok_d, rem_d, emitted, ok = _burst_steps(
-            self.lm, self.params, self.cache, torch.as_tensor(tok, device=dev),
-            torch.as_tensor(remaining, device=dev),
-            torch.as_tensor(eos, device=dev), k_steps=k)
+        graphs, key = self.graphs["burst"], ("burst", k)
+        buf = graphs.stage(key, tok=tok, remaining=remaining, eos=eos)
+        tok_d, rem_d, emitted, ok = graphs(key, lambda: _burst_steps(
+            self.lm, self.params, self.cache, buf["tok"], buf["remaining"],
+            buf["eos"], k_steps=k))
         emitted, tok_d, rem_d, ok = _to_host(emitted, tok_d, rem_d, ok)
         if not ok:
             raise EngineCorrupted("non-finite logits in decode burst (decode "
