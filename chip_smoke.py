@@ -114,7 +114,35 @@ Phases, each printing one JSON line:
    the plain backward's shares of a step; kernel 3 and its projection
    held against their plain versions at the step's M = 4096 on one
    layer's 7 linears.
-10. the ``kernels`` summary, and the final ``{"ok": true, ...}`` line.
+10. baselines -- the paper's contrast at full llama7b-proxy size, on a
+   float stand-in base drawn from seed 0 (bf16), with calibration
+   activations of 2048 rows a D_in (lognormal per-feature scales) and one
+   f64 GPTQ Hessian per D_in built on the card: ``convert_tree`` with a
+   GPTQ closure over all 224 linears into int4 g32 r64 ``qalora`` (wall
+   time); GPTQ's output MSE at or below RTN's on each of layer 0's 7
+   linears; GPTQ on the card against the CPU on ``W[:, :256]`` of layer
+   0's wq (at least 99.99 % identical codes, none more than one level
+   apart); that model's adapters nudged, merged and served statically (4 x
+   (128 + 32), the decode step replayed) with the merge check, counted
+   launches of kernels 1-4 and 3a against one replay under
+   ``torch.profiler``, kernels 1 and 2 held against their plain versions
+   on its merged layer-0 linears.  Then the base converted to ``qlora``
+   (NF4 wall), 2 steps of 4 x 256 through ``launch/train.py``'s
+   ``setup(params=)`` / ``run`` (no port kernel), merged to the float
+   '4+16' model and post-training quantized to ``intq`` int4 g32 by RTN
+   and by the GPTQ closure; the GPTQ PTQ model served through kernels 1
+   and 2; each PTQ model's max|logit gap| / max|logit| against the 4+16
+   model beside the QA-LoRA merge's (the paper's contrast: it must be
+   larger).  Then ``launch/serve.py --policy "*=int4,lm_head=int4"
+   --verify``: 225 linears a step, the head (K = 4096, N = 32000)
+   through kernel 4 unmerged and kernel 2 merged (a prefill's logits are
+   its last token's, so the head sees M = 4 rows there too), launch counts
+   exact and against the profiler, the decode step's replay time, and the
+   four kernels held and timed at the head's shape (kernels 3 and 1 at
+   M = 512: what a head over many rows, as training's xent, reaches).  Last, one lora and one
+   qlora train step of 2-layer llama7b-proxy on the card against the CPU
+   (as phase 8).
+11. the ``kernels`` summary, and the final ``{"ok": true, ...}`` line.
 
 Any failed phase exits non-zero before the final line.  Without a card,
 or without the repository's ``src`` beside this file, it exits non-zero
@@ -125,6 +153,7 @@ and prints no result.  Writes everything also to
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -1465,7 +1494,8 @@ def _adam_first_update(opt, cfg, name):
         (nu / (1 - cfg.b2)).sqrt() + cfg.eps)
 
 
-def phase_train_small(torch, device="cuda", n_layers=2, seq=128, batch=2):
+def phase_train_small(torch, device="cuda", n_layers=2, seq=128, batch=2,
+                      mode="qalora"):
     """One train step of llama7b-proxy at full width and ``n_layers``
     layers (bf16, remat as the config says; the adapters are a seeded demo
     tenant's, so B is nonzero and every gradient is too, where an
@@ -1473,7 +1503,8 @@ def phase_train_small(torch, device="cuda", n_layers=2, seq=128, batch=2):
     kernels, against the same step on the CPU through the plain versions,
     on the same weights upcast to f32 and one batch of ``batch`` x ``seq``
     tokens from the port's stream.  Gradients are read back from the
-    first moments (mu = (1 - b1) * clipped g)."""
+    first moments (mu = (1 - b1) * clipped g).  ``mode`` lora or qlora
+    trains that baseline's adapters (plain products, no port kernel)."""
     import repro_torch.configs as C
     from repro_torch import kernels
     from repro_torch.data import make_stream
@@ -1481,7 +1512,9 @@ def phase_train_small(torch, device="cuda", n_layers=2, seq=128, batch=2):
     from repro_torch.launch.steps import make_train_fn
     from repro_torch.models.lm import LM
     from repro_torch.optim import AdamWConfig, adamw_init, trainable_tensors
-    cfg = C.get("llama7b-proxy").scaled(n_layers=n_layers)
+    cfg = C.get("llama7b-proxy")
+    cfg = cfg.scaled(n_layers=n_layers, quant=dataclasses.replace(
+        cfg.quant, mode=mode))
     lm = LM(cfg)
     card = demo_tenant(lm.init(torch.Generator(device=device).manual_seed(0),
                                device), 1)
@@ -1538,10 +1571,11 @@ def phase_train_small(torch, device="cuda", n_layers=2, seq=128, batch=2):
     a_total = sum(c["tr"][k].numel() for k in a_names)
     b_moved = sum(int((c["tr"][k] != c["before"][k]).sum()) for k in b_names)
     b_total = sum(c["tr"][k].numel() for k in b_names)
-    per_step = LAYER_LINEARS * n_layers * (2 if cfg.remat else 1)
+    per_step = LAYER_LINEARS * n_layers * (2 if cfg.remat else 1) \
+        if mode == "qalora" else 0
     loss_rel = abs(c["loss"] - p["loss"]) / abs(p["loss"])
     launches = c["launches"]
-    out = {"phase": "train_small",
+    out = {"phase": "train_small", "mode": mode,
            "card": _smi("name,power.limit") if torch.device(device).type
            == "cuda" else "cpu",
            "arch": cfg.name, "n_layers": n_layers,
@@ -1582,6 +1616,8 @@ def phase_train_small(torch, device="cuda", n_layers=2, seq=128, batch=2):
         "f32_updates_within_bound": all(
             v <= TRAIN_UPDATE_TOL for v in out["update_f32_rel_max"].values()),
         "updated_b_within_bound": out["updated_b_rel_max"] <= TRAIN_B_TOL,
+        # qalora: kernel 3 and 3a once per linear and once more under
+        # remat; lora and qlora launch no port kernel
         "kernel3_per_linear_and_remat": all(
             launches[k] == per_step for k in TRAIN_PATH)
         and all(v == 0 for k, v in launches.items() if k not in TRAIN_PATH),
@@ -1838,6 +1874,438 @@ def phase_train(torch, argv=None, steps=TRAIN_STEPS,
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the paper's quantizers and baselines
+# ---------------------------------------------------------------------------
+
+# calibration activations of each D_in (4096, 11008): 2048 rows, each
+# feature scaled by a lognormal factor (a few features far larger than the
+# rest, as in an LLM's activations); one GPTQ Hessian per D_in
+CALIB_ROWS = 2048
+# GPTQ on the card against the CPU: W[:, :256] of layer 0's wq (GPTQ's
+# D_out columns are independent, so the slice is exact); the share of
+# identical codes, and no code more than one level apart
+GPTQ_CPU_COLS = 256
+GPTQ_SAME_SHARE = 0.9999
+# QLoRA's fine-tune: launch/train.py on the converted model, 2 steps of
+# 4 x 256 tokens
+QLORA_ARGV = ["--arch", "llama7b-proxy", "--mode", "qlora", "--seq-len",
+              "256", "--global-batch", "4", "--dataset", "alpaca", "--lr",
+              "2e-4", "--steps", "2", "--log-every", "1", "--device", "cuda"]
+HEAD_POLICY = "*=int4,lm_head=int4"
+HEAD_K, HEAD_N = 4096, 32000
+# the kernels of a served PTQ model (merged: no adapter)
+PTQ_PATH = ("qmatmul", "qmatvec")
+LAYER_NAMES = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+               ("mlp", "gate"), ("mlp", "up"), ("mlp", "down"))
+
+
+def _serve_static(torch, lm, merged, prompts, params=None):
+    """``merged`` served statically (prefill, then ``SERVE_GEN`` greedy
+    tokens by replaying the captured decode step): a first pass captures
+    the step, a second is counted and timed; with ``params`` (the adapter
+    model) ``serve.merge_check`` against ``merged`` runs inside the
+    counting window too.  Then one replay of the captured step under
+    ``torch.profiler``."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    max_len = prompts.shape[1] + SERVE_GEN
+    gen = serve.make_graph_generator(lm, merged, prompts.shape, SERVE_GEN,
+                                     max_len, device="cuda")
+    first, _ = gen(prompts)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    toks, times = gen(prompts)
+    check = (serve.merge_check(lm, params, merged, prompts, max_len,
+                               device="cuda") if params is not None else None)
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    replays = _replay_profiles(torch, {"decode": gen.graphs})
+    del gen
+    _free(torch)
+    return {"tokens": toks, "same_tokens_both_passes":
+            bool(np.array_equal(first, toks)),
+            "decode_ms_per_token": times["decode_s"] * 1e3 / (SERVE_GEN - 1),
+            "prefill_ms": times["prefill_s"] * 1e3, "launches": counts,
+            "merge_check": check, "replay_profiles": replays}
+
+
+def _hold_intq_linears(torch, blk, gen):
+    """Kernels 1 (M = 512) and 2 (M = 4) on one layer's merged ``intq``
+    linears against their plain versions (two bf16 steps of the plain
+    version's max)."""
+    from repro_torch.core import schemes
+    from repro_torch.kernels.qmatmul import qmatmul_cuda, qmatmul_plain
+    from repro_torch.kernels.qmatvec import qmatvec_cuda, qmatvec_plain
+    rows = []
+    for grp, name in LAYER_NAMES:
+        qt = schemes.quantized_base(blk[grp][name])
+        args = (qt.qweight, qt.scale, qt.zero)
+        kw = dict(bits=qt.bits, group_size=qt.group_size)
+        for kern, plain, m in ((qmatmul_cuda, qmatmul_plain, TILED_M),
+                               (qmatvec_cuda, qmatvec_plain, GEMV_M)):
+            x = torch.randn((m, qt.d_in), generator=gen, device="cuda") \
+                .to(torch.bfloat16)
+            y, ref = kern(x, *args, **kw).float(), plain(x, *args, **kw).float()
+            err = (y - ref).abs().max().item()
+            tol = 2.0 ** -6 * ref.abs().max().item()
+            rows.append({"kernel": kern.__name__.replace("_cuda", ""),
+                         "linear": f"{grp}/{name}", "M": m, "K": qt.d_in,
+                         "N": qt.d_out, "scale_dtype": str(qt.scale.dtype),
+                         "max_abs_err": err, "tol": tol,
+                         "ok": bool(torch.isfinite(y).all()) and err <= tol})
+    return rows
+
+
+def _replay_ms(torch, graph, iters=SERVE_GEN - 1):
+    """Device time of one replay of a captured decode step (CUDA events
+    around ``iters`` replays): the steady state's cost of one token."""
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _window_checks(counts, n_lin, head=False, merge_check=True):
+    """The launch checks of one static serve window over ``n_lin`` block
+    linears (and a quantized head with ``head``): kernel 2 once per linear
+    of the ``SERVE_GEN - 1`` replayed decode steps and of the merge
+    check's merged decode step; kernel 1 once per block linear of each
+    merged prefill (the generator's, and the merge check's two); with the
+    merge check, kernel 3 once per block linear of its unmerged prefill and
+    kernel 4 once per linear of its unmerged decode step, each with its
+    rank projection.  A prefill's logits are its last token's, so the head
+    sees M = 4 rows there: kernel 4 (unmerged) or 2 (merged), not 3 or
+    1."""
+    per_step = n_lin + int(head)
+    merged_prefills = 3 if merge_check else 1
+    out = {"gemv_per_decode_step_under_replay": counts["qmatvec"]
+           == per_step * (SERVE_GEN - 1 + int(merge_check))
+           + int(head) * merged_prefills,
+           "tiled_per_merged_prefill":
+               counts["qmatmul"] == n_lin * merged_prefills}
+    if merge_check:
+        out.update({
+            "qalora_matmul_per_unmerged_prefill":
+                counts["qalora_matmul"] == n_lin,
+            "qalora_matvec_per_unmerged_decode_step":
+                counts["qalora_matvec"] == per_step + int(head),
+            "rank_proj_per_unmerged_linear": counts["qalora_rank_proj"]
+            == counts["qalora_matmul"] + counts["qalora_matvec"]})
+    else:
+        out["no_adapter_kernel"] = all(
+            v == 0 for k, v in counts.items() if k not in PTQ_PATH)
+    return out
+
+
+def phase_baselines(torch):
+    """The paper's contrast at full llama7b-proxy size (32 layers, int4
+    g32 r64, bf16), on a float stand-in base drawn from seed 0: GPTQ over
+    all 224 linears into a QA-LoRA model, served with its merge check;
+    the same base converted to QLoRA (NF4), fine-tuned 2 steps by
+    ``launch/train.py``, merged to a float model (the '4+16' row) and
+    post-training quantized (RTN and GPTQ) into an INT4 model served
+    through kernels 1 and 2, its logits held beside the QA-LoRA merge's;
+    a model with a quantized ``lm_head`` (``--policy "*=int4,lm_head=int4"``)
+    served through ``launch/serve.py``; one lora and one qlora train step
+    of 2-layer llama7b-proxy on the card against the CPU.  Returns the
+    launch counts of its three serve windows and the kernel rows at the
+    head's shape."""
+    import numpy as np
+    import repro_torch.configs as C
+    from repro_torch import kernels
+    from repro_torch.core import gptq, quant, schemes
+    from repro_torch.launch import serve, train
+    from repro_torch.models.lm import LM
+    t_phase = time.perf_counter()
+    cfg = C.get("llama7b-proxy")
+    pol = cfg.quant
+    lm = LM(cfg)
+    n_lin = LAYER_LINEARS * cfg.n_layers
+    walls, checks = {}, {}
+    out = {"phase": "baselines",
+           "card": _smi("name,power.limit"), "arch": cfg.name,
+           "n_layers": cfg.n_layers, "depth_cut": "none (all 32 layers)",
+           "policy": f"int{pol.bits} g{pol.group_size} r{pol.rank}, "
+                     f"{str(pol.dtype).replace('torch.', '')} scales"}
+
+    def tick(key, t0):
+        torch.cuda.synchronize()
+        walls[key] = time.perf_counter() - t0
+
+    # 1. the float stand-in base and the calibration Hessians
+    t0 = time.perf_counter()
+    fp = LM(cfg.scaled(quant=dataclasses.replace(pol, mode="fp"))).init(
+        torch.Generator(device="cuda").manual_seed(0), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    calib = {}
+    for d in (cfg.d_model, cfg.d_ff):
+        scale = torch.exp(torch.randn(d, generator=gen, device="cuda"))
+        calib[d] = torch.randn((CALIB_ROWS, d), generator=gen,
+                               device="cuda") * scale
+    hess = {d: gptq.hessian_from_inputs(x) for d, x in calib.items()}
+    tick("fp_base_and_hessians_s", t0)
+
+    def gptq_closure(w):
+        return gptq.gptq_quantize(w, hess[w.shape[0]], pol.bits,
+                                  pol.group_size, scale_dtype=pol.scale_dtype)
+
+    # 2. GPTQ over every linear, then GPTQ against RTN on layer 0
+    t0 = time.perf_counter()
+    qmodel = schemes.convert_tree(
+        fp, pol, generator=torch.Generator(device="cuda").manual_seed(1),
+        quantizer=gptq_closure)
+    tick("gptq_convert_s", t0)
+    gptq.release_graphs()
+    schemes_seen = sorted(lp.scheme for lp in qmodel.modules()
+                          if schemes.is_linear(lp))
+    mse = []
+    for grp, name in LAYER_NAMES:
+        w = schemes.dense_view(fp.blocks[0][grp][name], torch.float32)
+        x = calib[w.shape[0]]
+        ref = x @ w
+        rtn = quant.quantize(w, pol.bits, pol.group_size,
+                             scale_dtype=pol.scale_dtype)
+        e = {}
+        for key, qt in (("gptq", schemes.quantized_base(
+                qmodel.blocks[0][grp][name])), ("rtn", rtn)):
+            e[key] = ((x @ quant.dequantize(qt) - ref) ** 2).mean().item()
+        mse.append({"linear": f"{grp}/{name}", "K": w.shape[0],
+                    "N": w.shape[1], "gptq_mse": e["gptq"],
+                    "rtn_mse": e["rtn"], "gptq_over_rtn": e["gptq"] / e["rtn"]})
+        del w, ref, rtn
+    w = schemes.dense_view(fp.blocks[0]["attn"]["wq"],
+                           torch.float32)[:, :GPTQ_CPU_COLS].contiguous()
+    t0 = time.perf_counter()
+    on_card = gptq_closure(w)
+    tick("gptq_card_slice_s", t0)
+    t0 = time.perf_counter()
+    on_cpu = gptq.gptq_quantize(w.cpu(), hess[w.shape[0]].cpu(), pol.bits,
+                                pol.group_size, scale_dtype=pol.scale_dtype)
+    walls["gptq_cpu_slice_s"] = time.perf_counter() - t0
+    ca = quant.unpack(on_card.qweight, pol.bits).cpu().to(torch.int32)
+    cb = quant.unpack(on_cpu.qweight, pol.bits).to(torch.int32)
+    card_cpu = {"linear": "blocks/0/attn/wq", "columns": GPTQ_CPU_COLS,
+                "codes": ca.numel(),
+                "same_share": (ca == cb).double().mean().item(),
+                "max_level_diff": int((ca - cb).abs().max()),
+                "scale_max_rel_diff": ((on_card.scale.cpu().float()
+                                        - on_cpu.scale.float()).abs().max()
+                                       / on_cpu.scale.float().abs().max())
+                .item()}
+    # the lazy-batch form against the reference's unblocked recursion on
+    # the whole of that linear, on the card: time and identical codes
+    w = schemes.dense_view(fp.blocks[0]["attn"]["wq"], torch.float32)
+    form = {"linear": "blocks/0/attn/wq", "K": w.shape[0], "N": w.shape[1]}
+    codes = {}
+    for key, block in (("lazy", gptq.BLOCK), ("unblocked", w.shape[0])):
+        # a first call captures the block's graph, the second replays it
+        gptq.gptq_quantize(w, hess[w.shape[0]], pol.bits, pol.group_size,
+                           scale_dtype=pol.scale_dtype, block=block)
+        t0 = time.perf_counter()
+        qt = gptq.gptq_quantize(w, hess[w.shape[0]], pol.bits, pol.group_size,
+                                scale_dtype=pol.scale_dtype, block=block)
+        tick(f"gptq_{key}_one_linear_s", t0)
+        form[f"{key}_s"] = walls.pop(f"gptq_{key}_one_linear_s")
+        codes[key] = quant.unpack(qt.qweight, pol.bits).to(torch.int32)
+        gptq.release_graphs()
+    form["block"] = gptq.BLOCK
+    form["same_share"] = (codes["lazy"] == codes["unblocked"]).double() \
+        .mean().item()
+    form["max_level_diff"] = int((codes["lazy"] - codes["unblocked"]).abs()
+                                 .max())
+    del calib, w, on_card, on_cpu, codes, qt
+    print(f"[chip_smoke] baselines: GPTQ over "
+          f"{schemes_seen.count('qalora')} linears "
+          f"in {walls['gptq_convert_s']:.1f} s; GPTQ/RTN output MSE on "
+          f"layer 0: {[round(r['gptq_over_rtn'], 3) for r in mse]}; card vs "
+          f"CPU codes identical {card_cpu['same_share']:.6f}; one 4096 x 4096 "
+          f"linear lazy-batch {form['lazy_s']:.2f} s, unblocked "
+          f"{form['unblocked_s']:.2f} s", flush=True)
+    checks.update({
+        # the head stays fp: a uniform policy never quantizes it
+        "gptq_every_linear": schemes_seen == ["fp"] * int(
+            not cfg.tie_embeddings) + ["qalora"] * n_lin,
+        "gptq_at_or_below_rtn_each_linear": all(
+            r["gptq_mse"] <= r["rtn_mse"] for r in mse),
+        "gptq_card_cpu_same_share": card_cpu["same_share"]
+        >= GPTQ_SAME_SHARE,
+        "gptq_card_cpu_within_one_level": card_cpu["max_level_diff"] <= 1,
+        "gptq_lazy_as_unblocked": form["same_share"] >= GPTQ_SAME_SHARE
+        and form["max_level_diff"] <= 1})
+
+    # 3. the GPTQ model served, with its merge check
+    serve.bump_adapters(qmodel)
+    merged = serve.merge_model(qmodel)
+    prompts = np.random.default_rng(0).integers(
+        4, cfg.vocab, size=(4, 128)).astype(np.int32)
+    g = _serve_static(torch, lm, merged, prompts, params=qmodel)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    held = _hold_intq_linears(torch, merged.blocks[0], gen)
+    bound = serve.merge_bound(cfg)
+    qalora_rel = max(r["rel"] for r in g["merge_check"].values())
+    print(f"[chip_smoke] baselines: GPTQ model, {g['decode_ms_per_token']:.3f}"
+          f" ms a token, tokens {g['tokens'][0][:8].tolist()}, merge check "
+          f"{qalora_rel:.2e} of max|logit| (bound {bound}); launches "
+          f"{g['launches']}", flush=True)
+    checks.update({f"gptq_serve_{k}": v for k, v in
+                   _window_checks(g["launches"], n_lin).items()})
+    checks.update({
+        "gptq_merge_within_bound": qalora_rel <= bound,
+        "gptq_tokens_in_vocab": bool(((g["tokens"] >= 0)
+                                      & (g["tokens"] < cfg.vocab)).all()),
+        "gptq_serve_same_tokens_both_passes": g["same_tokens_both_passes"],
+        "gptq_replay_launches_match_profiler": all(
+            r["match"] for r in g["replay_profiles"].values()),
+        "gptq_layer0_kernels_1_2_within_tol": all(r["ok"] for r in held)})
+    del qmodel, merged
+    _free(torch)
+
+    # 4. QLoRA: NF4, 2 train steps, the 4+16 merge, PTQ (RTN and GPTQ)
+    t0 = time.perf_counter()
+    ql = schemes.convert_tree(
+        fp, dataclasses.replace(pol, mode="qlora"),
+        generator=torch.Generator(device="cuda").manual_seed(2))
+    tick("nf4_convert_s", t0)
+    del fp
+    _free(torch)
+    args = train.build_parser().parse_args(QLORA_ARGV)
+    st = train.setup(args, params=ql)
+    kernels.reset_launches()
+    tr = train.run(st, args)
+    train_launches = kernels.launches()
+    del st, tr["state"]
+    m416 = serve.merge_model(ql)
+    del ql
+    _free(torch)
+    ptq_pol = dataclasses.replace(pol, mode="intq")
+    t0 = time.perf_counter()
+    ptq_rtn = schemes.convert_tree(m416, ptq_pol)
+    tick("ptq_rtn_convert_s", t0)
+    t0 = time.perf_counter()
+    ptq_gptq = schemes.convert_tree(m416, ptq_pol, quantizer=gptq_closure)
+    tick("ptq_gptq_convert_s", t0)
+    gptq.release_graphs()
+    del hess
+    max_len = prompts.shape[1] + SERVE_GEN
+    toks = torch.as_tensor(prompts, dtype=torch.int32, device="cuda")
+    nxt = lm.prefill(m416, {"tokens": toks})[0].argmax(-1).to(torch.int32)
+    ref = serve._two_steps(lm, m416, toks, nxt, max_len, torch.float32,
+                           "cuda")
+    gap = {}
+    for key, tree in (("rtn", ptq_rtn), ("gptq", ptq_gptq)):
+        got = serve._two_steps(lm, tree, toks, nxt, max_len, torch.float32,
+                               "cuda")
+        gap[key] = {ph: serve._compare(got[ph], ref[ph]) for ph in ref}
+    del ref, m416, ptq_rtn
+    _free(torch)
+    p = _serve_static(torch, lm, ptq_gptq, prompts)
+    del ptq_gptq
+    _free(torch)
+    ptq_rel = {k: max(r["rel"] for r in v.values()) for k, v in gap.items()}
+    print(f"[chip_smoke] baselines: QLoRA 4+16 -> PTQ logit gap "
+          f"{ptq_rel['gptq']:.3e} (GPTQ) / {ptq_rel['rtn']:.3e} (RTN) of "
+          f"max|logit|, beside the QA-LoRA merge's {qalora_rel:.3e}; PTQ "
+          f"model {p['decode_ms_per_token']:.3f} ms a token, tokens "
+          f"{p['tokens'][0][:8].tolist()}; NF4 {walls['nf4_convert_s']:.1f}"
+          f" s, train steps {[round(x, 1) for x in tr['step_ms']]} ms",
+          flush=True)
+    checks.update({f"ptq_serve_{k}": v for k, v in _window_checks(
+        p["launches"], n_lin, merge_check=False).items()})
+    checks.update({
+        "qlora_train_losses_finite": all(math.isfinite(x)
+                                         for x in tr["loss"]),
+        "qlora_train_no_port_kernel": set(train_launches.values()) == {0},
+        "ptq_serve_same_tokens_both_passes": p["same_tokens_both_passes"],
+        "ptq_serve_kernels_1_2_launched": all(
+            p["launches"][k] > 0 for k in PTQ_PATH),
+        "ptq_replay_launches_match_profiler": all(
+            r["match"] for r in p["replay_profiles"].values()),
+        "ptq_gap_finite": all(math.isfinite(v) for v in ptq_rel.values()),
+        # the paper's contrast: PTQ of the 4+16 model is lossy, QA-LoRA's
+        # merge is not
+        "ptq_gap_above_qalora_merge": min(ptq_rel.values()) > qalora_rel})
+
+    # 5. a quantized lm_head, through launch/serve.py
+    argv = ["--arch", "llama7b-proxy", "--requests", "4", "--prompt-len",
+            "128", "--device", "cuda", "--policy", HEAD_POLICY, "--gen-len",
+            str(SERVE_GEN), "--verify"]
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    head_launches = kernels.launches()
+    walls["head_serve_s"] = time.perf_counter() - t0
+    graphs = res.pop("graphs")
+    head_replays = _replay_profiles(torch, graphs)
+    head_ms = _replay_ms(torch, next(iter(graphs["decode"].graphs.values())))
+    del graphs
+    _free(torch)
+    head_per_step = n_lin + 1
+    head_rel = max(r["rel"] for r in res["merge_check"].values())
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    head_rows = {name: _check_one(torch, name, KERNELS[name][1], HEAD_K,
+                                  HEAD_N, BITS, gen, timing=True)
+                 for name in ("qmatmul", "qmatvec", "qalora_matmul",
+                              "qalora_matvec")}
+    print(f"[chip_smoke] baselines: lm_head=int4, {head_per_step} linears a "
+          f"step, {head_ms:.3f} ms a token (replay), merge check "
+          f"{head_rel:.2e}; head rows at K={HEAD_K} N={HEAD_N} (ms kernel / "
+          f"plain / bound): " + ", ".join(
+              f"{n} {r['kernel_ms']:.3f}/{r['plain_ms']:.3f}/"
+              f"{r['bound_ms']:.3f}" for n, r in head_rows.items()),
+          flush=True)
+    checks.update({f"head_serve_{k}": v for k, v in _window_checks(
+        head_launches, n_lin, head=True).items()})
+    checks.update({
+        "head_merge_within_bound": head_rel <= res["merge_bound_rel"],
+        "head_decode_captured_once": res["captures"]["serve.decode"][0] == 1,
+        "head_replay_launches_match_profiler": bool(head_replays) and all(
+            r["match"] for r in head_replays.values()),
+        "head_rows_within_tol": all(r["ok"] for r in head_rows.values())})
+    head_toks = res.pop("tokens")
+
+    # 6. one lora and one qlora step on the card against the CPU
+    for mode in ("lora", "qlora"):
+        phase_train_small(torch, mode=mode)
+    walls["phase_s"] = time.perf_counter() - t_phase
+    out.update({
+        "walls_s": walls, "gptq_vs_rtn_layer0": mse,
+        "gptq_card_vs_cpu": card_cpu, "gptq_forms": form,
+        "calibration_rows": CALIB_ROWS,
+        "gptq_model": {k: v for k, v in g.items() if k != "tokens"}
+        | {"sample_tokens": g["tokens"][0][:8].tolist()},
+        "gptq_layer0_kernel_rows": held, "merge_bound_rel": bound,
+        "qlora_train": {k: tr[k] for k in ("loss", "grad_norm", "step_ms",
+                                           "peak_mem_bytes")},
+        "ptq_logit_gap_vs_4_16": gap, "qalora_merge_rel": qalora_rel,
+        "ptq_model": {k: v for k, v in p.items() if k != "tokens"}
+        | {"sample_tokens": p["tokens"][0][:8].tolist()},
+        "head_model": {"policy": HEAD_POLICY, "linears_a_step": head_per_step,
+                       "launches": head_launches,
+                       "replay_profiles": head_replays,
+                       "decode_ms_per_token_replay": head_ms,
+                       "decode_ms_per_token_first_run":
+                           res["decode_ms_per_token"],
+                       "prefill_ms": res["prefill_s"] * 1e3,
+                       "merge_check": res["merge_check"],
+                       "sample_tokens": head_toks[0][:8].tolist()},
+        "checks": checks, "ok": all(checks.values())})
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"baselines checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return ({"gptq serve": g["launches"], "ptq serve": p["launches"],
+             "lm_head=int4 serve": head_launches}, head_rows)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1867,6 +2335,7 @@ def main() -> int:
                        if k not in STATIC_PATH})
         phase_train_small(torch)
         train_counts, train_errs = phase_train(torch)
+        base_counts, head_rows = phase_baselines(torch)
     except Exception as e:  # report, save and fail: no result line
         import traceback
         traceback.print_exc()
@@ -1878,13 +2347,16 @@ def main() -> int:
         "design"]
     for name, (kind, m, source, replaces) in KERNELS.items():
         r = rows[name]
+        head = head_rows.get(name)
         summary.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": counts[name] + train_counts.get(name, 0),
+            "launches": counts[name] + train_counts.get(name, 0)
+            + sum(c[name] for c in base_counts.values()),
             "max_abs_err": max([x["max_abs_err"]
                                 for x in r + ragged.get(name, [])]
-                               + [train_errs.get(name, 0.0)]),
+                               + [train_errs.get(name, 0.0)]
+                               + ([head["max_abs_err"]] if head else [])),
             "ms": _per_layer(r, "kernel_ms"),
             "plain_ms": _per_layer(r, "plain_ms"),
             "bound_ms": _per_layer(r, "bound_ms"),
@@ -1898,11 +2370,20 @@ def main() -> int:
                              "adapters)" if name not in STATIC_PATH
                              else "static serve (phase serve)",
             "status": "ported, checked"})
-        if name in TRAIN_PATH:
+        if name in STATIC_PATH:
             summary[-1]["launches_by_path"] = {
                 "static serve (phase serve)": counts[name],
                 f"train, {TRAIN_STEPS} steps (phase train)":
-                    train_counts[name]}
+                    train_counts[name],
+                **{f"{path} (phase baselines)": c[name]
+                   for path, c in base_counts.items()}}
+        if head:
+            summary[-1]["lm_head"] = {
+                "work": f"the lm_head at M={m}, K={HEAD_K}, N={HEAD_N}, "
+                        f"int4 g32, bf16 (phase baselines)",
+                **{key: head[key] for key in (
+                    "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "max_abs_err")}}
         if name in ragged:
             rr = ragged[name]
             summary[-1]["ragged_step"] = {
@@ -1925,11 +2406,14 @@ def main() -> int:
     summary.append({
         "name": PROJ[0], "route": "cuda", "source": PROJ[1],
         "replaces": PROJ[2],
-        "launches": counts[PROJ[0]] + train_counts[PROJ[0]],
+        "launches": counts[PROJ[0]] + train_counts[PROJ[0]]
+        + sum(c[PROJ[0]] for c in base_counts.values()),
         "launches_by_path": {
             "static serve (phase serve)": counts[PROJ[0]],
             f"train, {TRAIN_STEPS} steps (phase train)":
-                train_counts[PROJ[0]]},
+                train_counts[PROJ[0]],
+            **{f"{path} (phase baselines)": c[PROJ[0]]
+               for path, c in base_counts.items()}},
         "max_abs_err": max([x["max_abs_err"] for x in r + ragged[PROJ[0]]]
                            + [train_errs[PROJ[0]]]),
         **{f"{key}_ms": _per_layer(r, f"{key}_ms")

@@ -19,6 +19,13 @@ and a linear is a dict of tags and arrays (a leading ``[L]`` axis inside
     {"scheme": "intq", "bits": 4, "group_size": 32,
      "qweight": uint8 [D_in/cpb, D_out], "scale": [L_g, D_out], "zero": ...}
     {"scheme": "qalora", ... as intq ..., "s": 2.0, "a": [L_g, r], "b": [r, D_out]}
+    {"scheme": "lora", "weight": [D_in, D_out], "s": 2.0,
+     "a": [D_in, r], "b": [r, D_out]}
+    {"scheme": "qlora", "codes": uint8 [n, block/2], "absmax": [n],
+     "shape": (D_in, D_out), "block": 64, "s": 2.0, "a": ..., "b": ...}
+
+The head is a linear of any of these schemes (a quantized one under an
+explicit ``lm_head`` policy rule).
 
 The reverse direction (:func:`numpy_tree`, :func:`adapters_numpy`) stacks
 per-layer tensors back on a leading ``[L]`` axis; bf16 tensors come back
@@ -37,6 +44,8 @@ from typing import Dict, Optional
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import schemes
+from repro_torch.core.lora import LoRAParams
+from repro_torch.core.nf4 import NF4Tensor
 from repro_torch.core.qalora import QALoRAParams
 from repro_torch.core.quant import QuantizedLinear
 from repro_torch.models.common import RMSNorm
@@ -60,6 +69,19 @@ def _linear(d, cfg: ArchConfig, path: str, device, layer=None):
     if scheme == "fp":
         w = _tensor(d["weight"], device, layer)
         return schemes.dense_linear(w, dataclasses.replace(pol, dtype=w.dtype))
+    if scheme in ("lora", "qlora"):
+        ad = LoRAParams(_tensor(d["a"], device, layer),
+                        _tensor(d["b"], device, layer))
+        pol = dataclasses.replace(pol, mode=scheme, s=float(d["s"]),
+                                  rank=ad.a.shape[1], dtype=ad.a.dtype)
+        if scheme == "lora":
+            base = {"w": _tensor(d["weight"], device, layer)}
+        else:
+            base = {"nf4": NF4Tensor(_tensor(d["codes"], device, layer),
+                                     _tensor(d["absmax"], device, layer),
+                                     tuple(d["shape"]), int(d["block"]))}
+        return schemes.LinearParams({**base, "ad": ad}, scheme=scheme,
+                                    policy=pol)
     if scheme not in ("intq", "qalora"):
         raise NotImplementedError(f"{path}: scheme {scheme!r} is not yet "
                                   f"ported (see ROADMAP.md)")
@@ -172,6 +194,30 @@ def adapters_numpy(params: LMParams,
     return _nest(flat)
 
 
+def linear_numpy(lp: schemes.LinearParams) -> dict:
+    """One tagged linear in the numpy layout of the module docstring."""
+    if lp.scheme == "fp":
+        return {"scheme": "fp", "weight": _np(schemes.dense_view(lp))}
+    if lp.scheme not in ("lora", "qlora", "intq", "qalora"):
+        raise NotImplementedError(f"scheme {lp.scheme!r} has no numpy "
+                                  f"layout")
+    out = {"scheme": lp.scheme}
+    base = schemes.frozen_base(lp)
+    if lp.scheme == "lora":
+        out["weight"] = _np(base)
+    elif lp.scheme == "qlora":
+        out.update(codes=_np(base.codes), absmax=_np(base.absmax),
+                   shape=base.shape, block=base.block)
+    else:
+        out.update(bits=base.bits, group_size=base.group_size,
+                   qweight=_np(base.qweight), scale=_np(base.scale),
+                   zero=_np(base.zero))
+    if lp.scheme != "intq":
+        ad = schemes.adapter_params(lp)
+        out.update(s=lp.policy.s, a=_np(ad.a), b=_np(ad.b))
+    return out
+
+
 def numpy_tree(params: LMParams):
     """The whole of ``params`` in the layout :func:`load_numpy_tree`
     reads (the reference's ``LM.init`` tree, layers stacked)."""
@@ -185,21 +231,7 @@ def numpy_tree(params: LMParams):
         if isinstance(mod, RMSNorm):
             put(*_where(mname), g=_np(mod.g))
         elif schemes.is_linear(mod):
-            path, layer = _where(mname)
-            if mod.scheme == "fp":
-                put(path, layer, scheme="fp",
-                    weight=_np(schemes.dense_view(mod)))
-                continue
-            if mod.scheme not in ("intq", "qalora"):
-                raise NotImplementedError(f"{mname}: scheme {mod.scheme!r} "
-                                          f"has no numpy layout")
-            qt = schemes.quantized_base(mod)
-            put(path, layer, scheme=mod.scheme, bits=qt.bits,
-                group_size=qt.group_size, qweight=_np(qt.qweight),
-                scale=_np(qt.scale), zero=_np(qt.zero))
-            if mod.scheme == "qalora":
-                ad = schemes.adapter_params(mod)
-                put(path, layer, s=mod.policy.s, a=_np(ad.a), b=_np(ad.b))
+            put(*_where(mname), **linear_numpy(mod))
     tree = _nest(flat)
     tree["embed"] = _np(params.embed)
     return tree

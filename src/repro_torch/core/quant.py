@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 __all__ = ["QuantizedLinear", "quantize", "dequantize", "pack", "unpack",
-           "codes_per_byte", "packed_rows"]
+           "codes_per_byte", "packed_rows", "quantization_error"]
 
 
 def codes_per_byte(bits: int) -> int:
@@ -129,3 +129,9 @@ def dequantize(qt: QuantizedLinear, dtype: torch.dtype = torch.float32):
     w = (q * qt.scale.to(torch.float32)[:, None, :]
          + qt.zero.to(torch.float32)[:, None, :])
     return w.reshape(d_in, d_out).to(dtype)
+
+
+def quantization_error(w: torch.Tensor, bits: int, group_size: int):
+    """Mean squared RTN quantization error of ``w`` (in f32)."""
+    qt = quantize(w, bits, group_size)
+    return torch.mean((dequantize(qt) - w.to(torch.float32)) ** 2)

@@ -1,21 +1,26 @@
 """Linear-scheme API: registry + tagged params + per-layer policy.
 
-PyTorch counterpart of ``repro.core.schemes`` (serving part).  This module
-is the only place that knows how a linear layer's parameters are stored;
-everything else goes through :func:`linear_init`, :func:`linear_apply`,
-:func:`merge_linear` / :func:`merge_tree` and :func:`dense_view`.
+PyTorch counterpart of ``repro.core.schemes``.  This module is the only
+place that knows how a linear layer's parameters are stored; everything
+else goes through :func:`linear_init`, :func:`linear_apply`,
+:func:`merge_linear` / :func:`merge_tree`, :func:`dense_view` and the
+conversion :func:`from_dense_linear` / :func:`convert_tree`.
 
 Schemes (dispatched by the tag on :class:`LinearParams`):
 
   fp       plain dense weight
+  lora     fp base + unconstrained LoRA                    (baseline)
+  qlora    NF4 base + unconstrained LoRA                   (baseline)
   qalora   INT-N group-wise base + group-pooled adapter    (the paper)
-  intq     bare INT-N group-wise linear (merged QA-LoRA output)
+  intq     bare INT-N group-wise linear (merged QA-LoRA or PTQ output)
   qalora_slot  one INT-N base + a bank of adapters, one per batch row
                (multi-tenant serving; built by ``serving.AdapterStore``)
 
 The qalora / intq schemes have one route: the kernel wrappers behind
 :mod:`repro_torch.kernels.ops`, which launch the Hopper kernels on CUDA
 tensors (or raise) and run the kernels' plain versions on CPU tensors.
+The fp, lora and qlora schemes are plain PyTorch products, as in the
+reference (no Pallas kernel computes them).
 
 :class:`PolicyTree` maps glob patterns over parameter paths to
 :class:`QuantPolicy` records; the last matching rule wins, and the bare
@@ -28,20 +33,23 @@ import copy
 import dataclasses
 import fnmatch
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
+from . import lora as lora_lib
+from . import nf4 as nf4_lib
 from . import qalora as qalora_lib
 from . import quant as quant_lib
 
 __all__ = [
     "QuantPolicy", "FP", "PolicyTree", "resolve_path",
     "LinearScheme", "LinearParams", "register_scheme", "get_scheme",
-    "is_linear", "dense_linear", "quantized_base",
-    "adapter_params", "linear_init", "linear_apply", "merge_linear",
-    "dense_view", "map_linears", "merge_tree", "trainable_tensors",
+    "is_linear", "dense_linear", "quantized_base", "frozen_base",
+    "adapter_params", "from_dense_linear", "linear_init", "linear_apply",
+    "merge_linear", "dense_view", "map_linears", "merge_tree",
+    "convert_tree", "trainable_tensors",
 ]
 
 
@@ -129,8 +137,8 @@ class PolicyTree:
     @classmethod
     def parse(cls, spec: str, base: Optional[QuantPolicy] = None) -> "PolicyTree":
         """Parse ``"*=int4,*/attn/wo=int8,lm_head=fp"``.  Values: ``fp`` |
-        ``int<N>`` (QA-LoRA at N bits) | ``intq<N>`` (bare quantized), with
-        optional ``:g<M>`` / ``:r<R>`` suffixes."""
+        ``lora`` | ``qlora`` | ``int<N>`` (QA-LoRA at N bits) | ``intq<N>``
+        (bare quantized), with optional ``:g<M>`` / ``:r<R>`` suffixes."""
         base = base or QuantPolicy()
         rules = []
         for item in spec.split(","):
@@ -147,11 +155,8 @@ class PolicyTree:
 def _parse_value(val: str, base: QuantPolicy) -> QuantPolicy:
     tok, *opts = val.split(":")
     kw: Dict[str, Any] = {}
-    if tok == "fp":
+    if tok in ("fp", "lora", "qlora"):
         kw["mode"] = tok
-    elif tok in ("lora", "qlora"):
-        raise ValueError(f"policy value {tok!r}: scheme not yet ported, "
-                         f"see ROADMAP.md")
     elif tok.startswith("intq"):
         kw["mode"] = "intq"
         if tok[4:]:
@@ -194,11 +199,12 @@ class LinearParams(nn.Module):
 
     The scheme-defined payload is registered on the module (tensors as
     buffers, containers as submodules); :attr:`data` returns it as a dict
-    in the order it was given.
+    in the order it was given.  ``exempt`` marks a layer kept fp at init
+    that conversion must never quantize.
     """
 
     def __init__(self, data: Dict[str, Any], scheme: str = "fp",
-                 policy: QuantPolicy = FP):
+                 policy: QuantPolicy = FP, exempt: bool = False):
         super().__init__()
         self._keys = tuple(data)
         for k, v in data.items():
@@ -208,6 +214,7 @@ class LinearParams(nn.Module):
                 self.register_buffer(k, v)
         self.scheme = scheme
         self.policy = policy
+        self.exempt = exempt
 
     @property
     def data(self) -> Dict[str, Any]:
@@ -238,6 +245,19 @@ def quantized_base(lp: LinearParams) -> quant_lib.QuantizedLinear:
                          f"{_QUANT_BASE_SCHEMES}, got {got!r}")
     data = lp.data
     return data["q"]
+
+
+def frozen_base(lp: LinearParams):
+    """The frozen base of a linear: the one payload item its scheme does
+    not declare trainable (the dense weight of ``fp`` and ``lora``, the
+    :class:`~.nf4.NF4Tensor` of ``qlora``, the packed base of ``intq`` and
+    ``qalora``)."""
+    trainable = get_scheme(lp.scheme).trainable_paths(lp.data)
+    keys = [k for k in lp.data if k not in trainable]
+    if len(keys) != 1:
+        raise ValueError(f"frozen_base: scheme {lp.scheme!r} holds "
+                         f"{len(keys)} frozen items {keys}; expected one")
+    return lp.data[keys[0]]
 
 
 def adapter_params(lp: LinearParams):
@@ -285,6 +305,14 @@ class LinearScheme:
         name, merged = self.merge(data, pol)
         return get_scheme(name).dense_view(merged, pol, dtype)
 
+    def from_dense(self, generator, w, pol: QuantPolicy,
+                   quantizer: Optional[Callable] = None) -> dict:
+        """This scheme's payload from a dense weight ``w [D_in, D_out]``,
+        on ``w``'s device: ``quantizer`` (``w -> QuantizedLinear``, e.g. a
+        GPTQ closure) replaces RTN for a quantized base, and adapters are
+        drawn from ``generator``."""
+        raise NotImplementedError
+
 
 _REGISTRY: Dict[str, LinearScheme] = {}
 
@@ -328,6 +356,69 @@ class FPScheme(LinearScheme):
         w = data["w"]
         return w.to(dtype) if dtype is not None else w
 
+    def from_dense(self, generator, w, pol, quantizer=None):
+        return {"w": w}
+
+
+@register_scheme("lora")
+class LoRAScheme(LinearScheme):
+    """fp base + unconstrained LoRA (Hu et al., 2021)."""
+
+    trainable = ("ad",)
+
+    def init(self, generator, d_in, d_out, pol, device):
+        w = _randn_weight(generator, d_in, d_out, device).to(pol.dtype)
+        return {"w": w, "ad": lora_lib.init_lora(generator, d_in, pol.rank,
+                                                 d_out, pol.dtype, device)}
+
+    def apply(self, data, x, pol):
+        return lora_lib.lora_forward(x, data["w"].to(x.dtype), data["ad"],
+                                     pol.s)
+
+    def merge(self, data, pol):
+        return "fp", {"w": lora_lib.lora_merge(data["w"], data["ad"], pol.s)}
+
+    def from_dense(self, generator, w, pol, quantizer=None):
+        d_in, d_out = w.shape
+        return {"w": w.to(pol.dtype),
+                "ad": lora_lib.init_lora(generator, d_in, pol.rank, d_out,
+                                         pol.dtype, w.device)}
+
+
+@register_scheme("qlora")
+class QLoRAScheme(LinearScheme):
+    """NF4 base + unconstrained LoRA (Dettmers et al., 2023).  The merge
+    falls back to fp, the paper's '4+16' row, because the adapter's delta
+    is not constant within a group."""
+
+    trainable = ("ad",)
+
+    def init(self, generator, d_in, d_out, pol, device):
+        w = _randn_weight(generator, d_in, d_out, device)
+        nf4 = nf4_lib.nf4_quantize(w)
+        del w
+        return {"nf4": nf4, "ad": lora_lib.init_lora(
+            generator, d_in, pol.rank, d_out, pol.dtype, device)}
+
+    def apply(self, data, x, pol):
+        return lora_lib.qlora_forward(x, data["nf4"], data["ad"], pol.s)
+
+    def merge(self, data, pol):
+        return "fp", {"w": lora_lib.qlora_merge_fp(data["nf4"], data["ad"],
+                                                   pol.s)}
+
+    def from_dense(self, generator, w, pol, quantizer=None):
+        d_in, d_out = w.shape
+        return {"nf4": nf4_lib.nf4_quantize(w.to(torch.float32)),
+                "ad": lora_lib.init_lora(generator, d_in, pol.rank, d_out,
+                                         pol.dtype, w.device)}
+
+
+def _quantizer(pol: QuantPolicy, quantizer):
+    """``quantizer`` or RTN under ``pol``."""
+    return quantizer or (lambda w_: quant_lib.quantize(
+        w_, pol.bits, pol.group_size, scale_dtype=pol.scale_dtype))
+
 
 @register_scheme("qalora")
 class QALoRAScheme(LinearScheme):
@@ -352,6 +443,14 @@ class QALoRAScheme(LinearScheme):
     def merge(self, data, pol):
         """Exact merge (Appendix B): zeros update only, stays INT-N."""
         return "intq", {"q": qalora_lib.merge(data["q"], data["ad"], pol.s)}
+
+    def from_dense(self, generator, w, pol, quantizer=None):
+        d_in, d_out = w.shape
+        qt = _quantizer(pol, quantizer)(w.to(torch.float32))
+        return {"q": qt,
+                "ad": qalora_lib.init_qalora(generator, d_in // pol.group_size,
+                                             pol.rank, d_out, pol.dtype,
+                                             device=w.device)}
 
 
 @register_scheme("qalora_slot")
@@ -386,7 +485,8 @@ class QALoRASlotScheme(LinearScheme):
 
 @register_scheme("intq")
 class IntQScheme(LinearScheme):
-    """Bare INT-N group-wise linear: the merged QA-LoRA output."""
+    """Bare INT-N group-wise linear: the merged QA-LoRA output, or a
+    post-training quantization."""
 
     def init(self, generator, d_in, d_out, pol, device):
         w = _randn_weight(generator, d_in, d_out, device)
@@ -402,6 +502,9 @@ class IntQScheme(LinearScheme):
 
     def dense_view(self, data, pol, dtype=None):
         return quant_lib.dequantize(data["q"], dtype or torch.float32)
+
+    def from_dense(self, generator, w, pol, quantizer=None):
+        return {"q": _quantizer(pol, quantizer)(w.to(torch.float32))}
 
 
 # ---------------------------------------------------------------------------
@@ -419,17 +522,28 @@ def linear_init(generator, d_in: int, d_out: int, pol,
                         scheme=rp.mode, policy=rp)
 
 
+def from_dense_linear(generator, w, pol, quantizer=None,
+                      exempt: bool = False) -> LinearParams:
+    """A tagged linear of ``pol``'s scheme from the dense weight
+    ``w [D_in, D_out]`` (see :meth:`LinearScheme.from_dense`)."""
+    rp = pol.resolve()
+    data = get_scheme(rp.mode).from_dense(generator, w, rp, quantizer)
+    return LinearParams(data, scheme=rp.mode, policy=rp, exempt=exempt)
+
+
 def linear_apply(lp: LinearParams, x):
     """Tag-driven forward."""
     return get_scheme(lp.scheme).apply(lp.data, x, lp.policy)
 
 
 def merge_linear(lp: LinearParams) -> LinearParams:
-    """Merge adapters for deployment.  QA-LoRA stays quantized (exact).
+    """Merge adapters for deployment.  QA-LoRA stays quantized (exact);
+    LoRA and QLoRA fall back to fp (the paper's '4+16' row).
     Idempotent."""
     name, data = get_scheme(lp.scheme).merge(lp.data, lp.policy)
     return LinearParams(data, scheme=name,
-                        policy=dataclasses.replace(lp.policy, mode=name))
+                        policy=dataclasses.replace(lp.policy, mode=name),
+                        exempt=lp.exempt)
 
 
 def dense_view(lp: LinearParams, dtype=None):
@@ -462,6 +576,43 @@ def merge_tree(params: nn.Module) -> nn.Module:
     """Merge every adapter in the model into its base (tag-driven walk);
     idempotent."""
     return map_linears(params, lambda path, lp: merge_linear(lp))
+
+
+def _policy_path(path: str) -> str:
+    """A module path as the reference's policy path: the per-layer index
+    dropped (``blocks/3/attn/wq`` -> ``blocks/attn/wq``), the head named
+    ``lm_head``."""
+    return _norm_head("/".join(p for p in path.split("/") if not p.isdigit()))
+
+
+def convert_tree(params: nn.Module, pol, generator=None, quantizer=None):
+    """Re-store every linear under the (possibly per-layer) target policy
+    ``pol``: ``from_dense(dense_view(p))``, on each linear's device.
+    Exempt linears, linears whose policy already is the target's, and
+    quantized targets whose D_in the group size does not divide keep (or,
+    for the last, fall back to) fp storage.  ``quantizer`` replaces RTN
+    for quantized bases (e.g. a GPTQ closure ``w -> QuantizedLinear``).
+    Adapters are drawn from ``generator`` (default: seed 0 on the first
+    converted linear's device), which each linear advances in turn."""
+    state = {"gen": generator}
+
+    def one(path, lp: LinearParams):
+        if lp.exempt:
+            return lp
+        tp = resolve_path(pol, _policy_path(path))
+        if tp.mode == lp.scheme and tp == lp.policy:
+            return lp
+        w = dense_view(lp, dtype=torch.float32)
+        if tp.mode != "fp" and w.shape[0] % tp.group_size != 0:
+            return dense_linear(w.to(lp.policy.dtype), lp.policy)
+        if tp.mode == "fp":
+            return dense_linear(w.to(tp.dtype), tp)
+        if state["gen"] is None:
+            state["gen"] = torch.Generator(device=w.device).manual_seed(0)
+        return from_dense_linear(state["gen"], w, tp, quantizer=quantizer,
+                                 exempt=lp.exempt)
+
+    return map_linears(params, one)
 
 
 def trainable_tensors(params: nn.Module) -> Dict[str, torch.Tensor]:

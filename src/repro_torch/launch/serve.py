@@ -47,40 +47,38 @@ NOT_PORTED = ("speculate", "page_size")
 
 
 def merge_model(params):
-    """Merge every adapter into its quantized base (exact; Appendix B)."""
+    """Merge every adapter into its base: a ``qalora`` linear stays INT-N
+    (exact; Appendix B), a ``lora`` or ``qlora`` one becomes fp (the '4+16'
+    model)."""
     from repro_torch.core.schemes import merge_tree
     return merge_tree(params)
 
 
 @torch.no_grad()
 def bump_adapters(params, delta: float = 0.01):
-    """Add ``delta`` to every adapter leaf (A and B), in place, so the merge
+    """Add ``delta`` to every adapter leaf (A and B of each ``qalora``,
+    ``lora`` and ``qlora`` linear, the head's too), in place, so the merge
     is not trivial (the reference's stand-in for a fine-tuned model)."""
-    from repro_torch.core.schemes import adapter_params, map_linears
-
-    def one(path, lp):
-        if lp.scheme == "qalora":
-            ad = adapter_params(lp)
-            ad.a.add_(delta)
-            ad.b.add_(delta)
-        return lp
-    map_linears(params, one)
+    from repro_torch.core.schemes import trainable_tensors
+    for t in trainable_tensors(params).values():
+        t.add_(delta)
     return params
 
 
 @torch.no_grad()
 def demo_tenant(params, seed: int, scale: float = 0.02):
     """A stand-in fine-tune of the adapter model ``params``: every adapter
-    leaf plus ``scale`` times normal noise from a generator seeded with
-    ``1000 + seed`` (the reference's demo tenants).  The quantized bases
-    are shared with ``params``, not copied."""
+    leaf (of each ``qalora``, ``lora`` or ``qlora`` linear) plus ``scale``
+    times normal noise from a generator seeded with ``1000 + seed`` (the
+    reference's demo tenants).  The bases are shared with ``params``, not
+    copied."""
     from repro_torch.core import schemes
-    from repro_torch.core.qalora import QALoRAParams
     gen = None
 
     def one(path, lp):
         nonlocal gen
-        if lp.scheme != "qalora":
+        keys = schemes.get_scheme(lp.scheme).trainable_paths(lp.data)
+        if not keys:
             return lp
         ad = schemes.adapter_params(lp)
         if gen is None:
@@ -90,9 +88,8 @@ def demo_tenant(params, seed: int, scale: float = 0.02):
             return t + scale * torch.randn(t.shape, generator=gen,
                                            device=t.device).to(t.dtype)
         return schemes.LinearParams(
-            {"q": schemes.quantized_base(lp),
-             "ad": QALoRAParams(noisy(ad.a), noisy(ad.b))},
-            scheme="qalora", policy=lp.policy)
+            {**lp.data, keys[0]: type(ad)(noisy(ad.a), noisy(ad.b))},
+            scheme=lp.scheme, policy=lp.policy, exempt=lp.exempt)
     return schemes.map_linears(params, one)
 
 
@@ -116,7 +113,16 @@ def checkpoint_tenant(params, path: str, meta: dict):
             raise ValueError(f"{path!r} holds no complete checkpoint "
                              f"written by repro_torch.launch.train")
         path = checkpoint.step_path(path, steps[-1])
-    bad = meta_mismatch(checkpoint.read_meta(path), meta)
+    got = checkpoint.read_meta(path)
+    # a qalora entry starts with its bits; lora and qlora with the scheme
+    other = sorted({p[0] for p in got.get("policy", {}).values()
+                    if isinstance(p[0], str)})
+    if other:
+        raise ValueError(f"checkpoint {path!r} holds {'/'.join(other)} "
+                         f"adapters; --adapters serves only qalora "
+                         f"adapters (the AdapterStore banks group-pooled "
+                         f"adapters over one INT-N base)")
+    bad = meta_mismatch(got, meta)
     if bad:
         raise ValueError(f"checkpoint {path!r} was not trained against the "
                          f"served model: {'; '.join(bad)}")

@@ -5,7 +5,10 @@ config -> model (quantized init from ``--seed``) -> adapter-only AdamW ->
 train step -> data stream -> async checkpoints -> restartable loop
 (straggler detection, a final save on SIGTERM, O(1) data skip-ahead).  On
 the card every ``qalora`` linear's forward is kernel 3 with its rank
-projection; the backward is plain PyTorch.
+projection; the backward is plain PyTorch.  ``--mode lora`` and ``--mode
+qlora`` train the baselines' adapters (plain PyTorch products over a
+float or NF4 base); ``--mode fp`` declares no trainable tensor and is
+refused.
 
 It resumes from the newest complete checkpoint in ``--ckpt-dir`` (refusing
 one written for another model, seed or device), and writes the frozen base
@@ -68,15 +71,20 @@ def build_parser() -> argparse.ArgumentParser:
 def train_meta(cfg, params, seed: int, device) -> dict:
     """What a checkpoint's adapters were trained against: the model's
     shape, the seed and device type its base was built from, and every
-    adapter linear's policy (bits, group size, rank, s, dtype)."""
+    adapter linear's policy: (bits, group size, rank, s, dtype) for a
+    ``qalora`` linear, (scheme, rank, s, dtype) for ``lora`` and
+    ``qlora``."""
     from repro_torch.core import schemes
     policy = {}
     for name, lp in params.named_modules():
-        if schemes.is_linear(lp) and lp.scheme == "qalora":
-            ad = schemes.adapter_params(lp)
-            p = lp.policy
-            policy[name] = [p.bits, p.group_size, int(ad.a.shape[1]), p.s,
-                            str(ad.a.dtype).replace("torch.", "")]
+        if not schemes.is_linear(lp) or not schemes.get_scheme(
+                lp.scheme).trainable_paths(lp.data):
+            continue
+        ad = schemes.adapter_params(lp)
+        p = lp.policy
+        tail = [int(ad.a.shape[1]), p.s, str(ad.a.dtype).replace("torch.", "")]
+        policy[name] = ([p.bits, p.group_size] if lp.scheme == "qalora"
+                        else [lp.scheme]) + tail
     return {"arch": cfg.name, "n_layers": cfg.n_layers,
             "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
             "seed": int(seed), "device": torch.device(device).type,
@@ -103,9 +111,6 @@ def build_config(args):
     """The config the flags ask for; raises on what is not ported."""
     import repro_torch.configs as C
     from repro_torch.core.schemes import PolicyTree
-    if args.mode != "qalora":
-        raise NotImplementedError(f"--mode {args.mode}: {NOT_PORTED}; the "
-                                  f"port trains qalora")
     if args.mesh != "cpu":
         raise NotImplementedError(f"--mesh {args.mesh}: {NOT_PORTED}; the "
                                   f"port trains on one device")
@@ -121,10 +126,12 @@ def build_config(args):
     return cfg.scaled(quant=q)
 
 
-def setup(args) -> SimpleNamespace:
+def setup(args, params=None) -> SimpleNamespace:
     """Model, optimizer state, data stream and checkpoint manager, resumed
     from the newest complete checkpoint in ``--ckpt-dir`` if there is
-    one (the base is written there once)."""
+    one (the base is written there once).  ``params`` trains a given model
+    of the config (e.g. :func:`repro_torch.core.schemes.convert_tree` of a
+    float base) in place of the one drawn from ``--seed``."""
     from repro_torch.checkpoint import CheckpointManager, read_meta
     from repro_torch.data import make_stream
     from repro_torch.launch.steps import make_train_fn
@@ -135,9 +142,17 @@ def setup(args) -> SimpleNamespace:
     device = resolve_device(args.device)
     cfg = build_config(args)
     lm = LM(cfg)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = lm.init(gen, device)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = lm.init(gen, device)
     trainable, frozen = split_params(params)
+    if not trainable:
+        # e.g. --mode fp: the reference's mask is all False there and its
+        # optimizer sees an empty tree, a run that moves nothing
+        raise NotImplementedError(
+            f"--mode {args.mode}{' --policy ' + args.policy if args.policy else ''}"
+            f" declares no trainable tensor (an fp linear has no adapter), "
+            f"so nothing would train; use qalora, lora or qlora")
     opt_state = adamw_init(trainable)
     print(f"[train] arch={cfg.name} mode={args.mode} bits={args.bits} "
           f"trainable={count_params(trainable):,} "

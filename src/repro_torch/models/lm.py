@@ -3,9 +3,10 @@ and greedy generation.  Counterpart of the gqa family of
 ``repro.models.lm``.
 
 Parameters are an :class:`LMParams` module: the embedding, the final norm,
-the (fp) head and one block per layer in a ``ModuleList`` (the reference
-stacks layers on a leading axis and scans; here a Python loop walks the
-list).  Every projection routes through the linear-scheme API, so a
+the head (fp, or under an explicit ``lm_head`` policy rule any scheme,
+through the same kernels as the blocks' linears) and one block per layer
+in a ``ModuleList`` (the reference stacks layers on a leading axis and
+scans; here a Python loop walks the list).  Every projection routes through the linear-scheme API, so a
 ``qalora`` model, its merged ``intq`` model and the kernel routing are
 policy switches.
 
@@ -129,12 +130,12 @@ class LM:
         embed = (randn((cfg.vocab, d)) * 0.02).to(pol.dtype)
         head = None
         if not cfg.tie_embeddings:
+            # the head stays fp unless a policy rule names lm_head
+            w = (randn((d, cfg.vocab)) * 0.02).to(pol.dtype)
             hpol = schemes.resolve_path(pol, "lm_head")
-            if hpol.mode != "fp":
-                raise NotImplementedError("a quantized lm_head is not yet "
-                                          "ported (see ROADMAP.md)")
-            head = schemes.dense_linear((randn((d, cfg.vocab)) * 0.02)
-                                        .to(pol.dtype), hpol)
+            head = (schemes.dense_linear(w, hpol) if hpol.mode == "fp"
+                    else schemes.from_dense_linear(generator, w, hpol))
+            del w
         bpol = pol.at("blocks")
         blocks = [_gqa_block_init(generator, cfg, bpol, dev)
                   for _ in range(cfg.n_layers)]
@@ -166,7 +167,10 @@ class LM:
     def _xent(self, params: LMParams, h, labels):
         """Chunked softmax cross-entropy over ``cfg.xent_chunk`` positions
         at a time (never ``[B, S, V]`` logits at once): labels < 0 are
-        masked, and the mean is ``loss_sum / max(n, 1)``."""
+        masked, and the mean is ``loss_sum / max(n, 1)``.  Each chunk's
+        logits come from :meth:`_logits`, so a quantized head runs its
+        scheme's kernel (the reference multiplies by the head's dense
+        view: the same product, another order of sums)."""
         s = h.shape[1]
         c = min(self.cfg.xent_chunk, s)
         if s % c:

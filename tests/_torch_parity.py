@@ -20,6 +20,20 @@ def numpy_tree(params):
     def lin(lp):
         if lp.scheme == "fp":
             return {"scheme": "fp", "weight": np.asarray(RS.dense_view(lp))}
+        if lp.scheme in ("lora", "qlora"):
+            ad = RS.adapter_params(lp)
+            d = {"scheme": lp.scheme, "s": lp.policy.s, "a": np.asarray(ad.a),
+                 "b": np.asarray(ad.b)}
+            # the frozen base: what the scheme does not declare trainable
+            trainable = RS.get_scheme(lp.scheme).trainable_paths(lp.data)
+            (base,) = [v for k, v in lp.items() if k not in trainable]
+            if lp.scheme == "lora":
+                d["weight"] = np.asarray(base)
+            else:
+                d.update(codes=np.asarray(base.codes),
+                         absmax=np.asarray(base.absmax), shape=base.shape,
+                         block=base.block)
+            return d
         qt = RS.quantized_base(lp)
         d = {"scheme": lp.scheme, "bits": qt.bits,
              "group_size": qt.group_size,

@@ -620,3 +620,46 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="on cuda"):
         flash_mha_cuda(q, k.cpu(), v)
     assert flash_mha_cuda.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the baselines' path: the lm_head's shape, and GPTQ on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(PAIRS))
+def test_kernels_at_the_lm_head_shape(card, name):
+    """A quantized lm_head of llama7b-proxy: K 4096, N 32000, int4 g32,
+    rank 64 (kernels 3 and 4 unmerged, 1 and 2 merged)."""
+    m = PAIRS[name][3]
+    x, qt, a, b = _inputs(card, 4, m, k=4096, n=32000, g=32, rank=64, seed=2)
+    _assert_close(*_run(name, x, qt, a, b))
+
+
+@pytest.mark.parametrize("bits,g", ((4, 32), (3, 64), (2, 16), (8, 32)))
+def test_gptq_on_the_card_matches_the_cpu(card, bits, g):
+    """The same GPTQ call on the card (its blocks replayed from one
+    captured graph) and on the CPU, both in f64: at least 99.99 % of the
+    codes identical and none more than one level apart (the two sum the
+    f64 products in other orders), the scales within 1e-9 relative."""
+    from repro_torch.core import gptq
+    rng = np.random.default_rng(bits * 10 + g)
+    d_in, d_out = 512, 96
+    w = torch.from_numpy(rng.standard_normal((d_in, d_out)) / np.sqrt(d_in))
+    x = torch.from_numpy(rng.standard_normal((384, d_in))
+                         * np.exp(rng.standard_normal(d_in)))
+    x[:, 7] = 0  # a dead feature
+    h = gptq.hessian_from_inputs(x)
+    try:
+        for _ in range(2):  # a second call replays the captured blocks only
+            on_card = gptq.gptq_quantize(w.to(card), h.to(card), bits, g)
+            on_cpu = gptq.gptq_quantize(w, h, bits, g)
+            a_ = quant.unpack(on_card.qweight, bits).cpu().to(torch.int32)
+            b_ = quant.unpack(on_cpu.qweight, bits).to(torch.int32)
+            assert (a_ == b_).double().mean().item() >= 0.9999
+            assert int((a_ - b_).abs().max()) <= 1
+            rel = ((on_card.scale.cpu() - on_cpu.scale).abs().max()
+                   / on_cpu.scale.abs().max()).item()
+            assert rel <= 1e-9, rel
+    finally:
+        gptq.release_graphs()

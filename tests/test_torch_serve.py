@@ -195,7 +195,8 @@ def test_serve_cli_cpu(argv):
 
 
 @pytest.mark.parametrize("flag", (["--engine", "frontend"],
-                                  ["--policy", "*=lora"],
+                                  ["--engine", "continuous", "--page-size",
+                                   "16"],
                                   ["--speculate", "2"], ["--page-size", "4"]))
 def test_serve_cli_refuses_modes_not_ported(flag, capsys):
     with pytest.raises(SystemExit):

@@ -399,7 +399,7 @@ def test_serve_cli_refuses_a_missing_checkpoint(tmp_path, capsys):
     assert "no complete checkpoint" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flags", (["--mode", "lora"], ["--mesh", "pod"],
+@pytest.mark.parametrize("flags", (["--mesh", "multipod"], ["--mesh", "pod"],
                                    ["--sync-every", "2"]))
 def test_train_cli_refuses_what_is_not_ported(flags, capsys):
     with pytest.raises(SystemExit):
