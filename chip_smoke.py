@@ -1428,7 +1428,407 @@ def phase_adapters(torch):
     emit(out)
     if not out["ok"]:
         raise AssertionError(f"adapters checks failed: {checks}")
-    return engine
+    return engine, toks
+
+
+# ---------------------------------------------------------------------------
+# phase paged: the continuous engine on the paged KV cache
+# ---------------------------------------------------------------------------
+
+# 8 requests of a shared 96-token prefix plus 32 tokens of their own, each
+# generating 32, on 4 slots in pages of 16 tokens.  A request holds
+# ceil(160 / 16) = 10 pages, so the contiguous capacity is 4 x 10 + 1
+# pages; the pool holds 31 (30 usable): three requests fit at first, the
+# fourth backs off until pages free up
+PAGE_SIZE = 16
+PAGED_SHARED, PAGED_OWN, PAGED_REQUESTS = 96, 32, 8
+PAGED_N_PAGES = 31
+
+
+def _predicted_reuse(trace, n_slots, max_len, chunk, page_size, n_pages):
+    """The prompt tokens the page table reuses on ``trace`` (no EOS), with
+    the engine's admission order: the scheduler and its page table driven
+    without a model, one row a decode step (a burst never outruns the
+    shortest request, so slots free, and admissions happen, at the same
+    model steps as one step at a time)."""
+    import numpy as np
+    from repro_torch.serving import PageTable, Request, Scheduler
+    pt = PageTable(n_pages, page_size, -(-max_len // page_size))
+    sch = Scheduler(n_slots, max_len, chunk, page_table=pt)
+    for r in trace:
+        sch.submit(Request(prompt=r.prompt, max_new_tokens=r.max_new_tokens,
+                           rid=r.rid))
+    while sch.has_work:
+        sch.admit()
+        sch.plan()
+        sch.commit(np.zeros((n_slots,), np.int32))
+    return pt.reused_tokens_total
+
+
+def _cache_gb(eng):
+    return sum(t.numel() * t.element_size() for c in eng._caches()
+               for t in (*c["layers"].values(), c["len"],
+                         *([c["pages"]] if "pages" in c else []))) / 1e9
+
+
+def _engine_pass(torch, eng, trace):
+    """One drained run of ``eng`` from a reset: (tokens by rid, stats, the
+    run's peak device memory above what was allocated at its start, GB)."""
+    eng.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    for r in trace:
+        eng.submit(r.prompt, r.max_new_tokens, rid=r.rid)
+    out = eng.run()
+    torch.cuda.synchronize()
+    return out, eng.stats, (torch.cuda.max_memory_allocated() - start) / 1e9
+
+
+def _built_engines(torch, make, trace):
+    """Engines from ``make`` ({name: constructor}), each built and run once
+    (the captures, the warm-up) before the next is built.  Returns
+    ({name: engine}, {name: first pass}, {name: the device memory the
+    engine holds after its first pass (caches, graph pool, staging),
+    allocated and reserved, GB})."""
+    engines, first, held = {}, {}, {}
+    for name, build in make.items():
+        torch.cuda.synchronize()
+        a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        engines[name] = build()
+        first[name] = _engine_pass(torch, engines[name], trace)
+        held[name] = {
+            "allocated_gb": (torch.cuda.memory_allocated() - a0) / 1e9,
+            "reserved_gb": (torch.cuda.memory_reserved() - r0) / 1e9}
+    return engines, first, held
+
+
+def _step_walls(st, chunk, n_requests):
+    """Decode ms a model step and a committed token, ragged ms a step."""
+    decode_steps = st.model_steps - chunk * st.ragged_dispatches
+    decode_ms = (st.seconds - st.ragged_seconds) * 1e3
+    return {"decode_ms_per_step": decode_ms / max(decode_steps, 1),
+            "decode_ms_per_token": decode_ms
+            / max(st.tokens_out - n_requests, 1),
+            "ragged_ms_per_step": st.ragged_seconds * 1e3
+            / max(st.ragged_dispatches, 1),
+            "wall_ms": st.seconds * 1e3}
+
+
+def phase_paged(torch, adapter_toks):
+    """The paged cache at full width and depth: the shared-prefix trace
+    through a graphed contiguous engine, a graphed paged one (a pool under
+    the contiguous capacity) and an eager paged one, under a
+    ``CompileGuard``; counts are reset just before the paged engine's
+    counted run and read just after.  Then the graphed engines in turns
+    for their step times, and phase adapters' tenants through
+    ``launch/serve.py --page-size``, whose tokens must be phase adapters'."""
+    from statistics import median
+    import numpy as np
+    import repro_torch.configs as C
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    from repro_torch.runtime.compile_guard import CompileGuard
+    from repro_torch.serving import ContinuousEngine, make_trace
+    t_phase = time.perf_counter()
+    cfg = C.get("llama7b-proxy")
+    lm, _, merged = serve.build_model(cfg, "cuda")
+    trace = make_trace(PAGED_REQUESTS, cfg.vocab, seed=0,
+                       prompt_lens=(PAGED_OWN,), gen_lens=(SERVE_GEN,),
+                       shared_prefix=PAGED_SHARED)
+    max_len = PAGED_SHARED + PAGED_OWN + SERVE_GEN
+    kw = dict(n_slots=RAGGED_SLOTS, max_len=max_len,
+              prefill_chunk=RAGGED_CHUNK, decode_burst=8)
+    predicted = _predicted_reuse(trace, RAGGED_SLOTS, max_len, RAGGED_CHUNK,
+                                 PAGE_SIZE, PAGED_N_PAGES)
+    paged = dict(page_size=PAGE_SIZE, n_pages=PAGED_N_PAGES, **kw)
+    with CompileGuard("chip_smoke paged") as guard:
+        engines, first, held = _built_engines(torch, {
+            "contiguous": lambda: ContinuousEngine(lm, merged, **kw),
+            "paged": lambda: ContinuousEngine(lm, merged, **paged),
+            "paged_eager": lambda: ContinuousEngine(lm, merged, eager=True,
+                                                    **paged)}, trace)
+        kernels.reset_launches()
+        out, st, _ = _engine_pass(torch, engines["paged"], trace)
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        pt = engines["paged"].page_table
+        pt.check_invariants()
+        runs = {"contiguous": [], "paged": []}
+        for order in (("contiguous", "paged"), ("paged", "contiguous")):
+            for name in order:
+                o, s, peak = _engine_pass(torch, engines[name], trace)
+                runs[name].append({"same": o == first["contiguous"][0],
+                                   "pass_peak_gb": peak,
+                                   "busy_slot_steps": s.busy_slot_steps,
+                                   **_step_walls(s, RAGGED_CHUNK,
+                                                 PAGED_REQUESTS)})
+        guard_counts = guard.counts()
+    captures = {name: {g.name: g._cache_size() for g in e.graphs.values()}
+                for name, e in engines.items()}
+    replays = _replay_profiles(torch, engines["paged"].graphs)
+    per_step = LAYER_LINEARS * cfg.n_layers
+    decode_steps = st.model_steps - RAGGED_CHUNK * st.ragged_dispatches
+    walls = {name: {key: median(r[key] for r in rs) for key in rs[0]
+                    if key != "same"} for name, rs in runs.items()}
+    cache_gb = {name: _cache_gb(e) for name, e in engines.items()}
+    del engines, lm, merged
+    _free(torch)
+
+    # phase adapters' tenants and requests on the paged layout, through
+    # the serve CLI, counted on their own
+    kernels.reset_launches()
+    with CompileGuard("chip_smoke paged adapters") as guard_t:
+        res = serve.main(ADAPTER_ARGV + ["--requests", "8", "--gen-len",
+                                         str(SERVE_GEN), "--page-size",
+                                         str(PAGE_SIZE)])
+        guard_t_counts = guard_t.counts()
+    tenant_toks = res.pop("tokens")
+    tenant_counts = res.pop("launches_engine")
+    res.pop("graphs")
+    _free(torch)
+    cont_toks = first["contiguous"][0]
+    checks = {
+        "tokens_equal_contiguous_graphed": out == cont_toks,
+        "tokens_equal_paged_eager": first["paged_eager"][0] == cont_toks,
+        "every_pass_same_tokens": all(first[n][0] == cont_toks
+                                      for n in first)
+        and all(r["same"] for rs in runs.values() for r in rs),
+        "tokens_in_vocab": all(0 <= t < cfg.vocab for v in out.values()
+                               for t in v),
+        "every_request_done": sorted(len(v) for v in out.values())
+        == [SERVE_GEN] * PAGED_REQUESTS,
+        "reused_tokens_as_predicted": pt.reused_tokens_total == predicted
+        and predicted > 0,
+        "admission_backed_off": pt.alloc_backoffs >= 1,
+        "pool_drained": pt.n_used == 0,
+        "fewer_rows_than_contiguous": walls["paged"]["busy_slot_steps"]
+        < walls["contiguous"]["busy_slot_steps"],
+        "tiled_launches_per_ragged_step":
+            counts["qmatmul"] == per_step * st.ragged_dispatches,
+        "gemv_launches_per_decode_step":
+            counts["qmatvec"] == per_step * decode_steps,
+        "only_path_kernels": all(v == 0 for k, v in counts.items()
+                                 if k not in PTQ_PATH),
+        "captures_within_budget": all(c <= b for c, b in
+                                      guard_counts.values())
+        and all(c <= b for c, b in guard_t_counts.values())
+        and all(c <= b for c, b in res["captures"].values()),
+        "replay_launches_match_profiler": bool(replays) and all(
+            r["match"] for r in replays.values()),
+        "tenants_paged_equal_contiguous": bool(np.array_equal(
+            tenant_toks, adapter_toks)),
+        "tenants_slot_launches_per_decode_step":
+            tenant_counts["qalora_slot_matvec"]
+            == tenant_counts["qalora_slot_rank_proj"]
+            == per_step * res["decode_steps"],
+        "tenants_tiled_launches_per_ragged_step":
+            tenant_counts["qmatmul"] == per_step * res["ragged_dispatches"],
+        "tenants_only_path_kernels": all(
+            v == 0 for k, v in tenant_counts.items()
+            if k not in ADAPTER_PATH),
+    }
+    out_rec = {
+        "phase": "paged", "arch": cfg.name, "n_layers": cfg.n_layers,
+        "requests": PAGED_REQUESTS,
+        "prompt": f"{PAGED_SHARED} shared + {PAGED_OWN} own tokens",
+        "gen_len": SERVE_GEN, "slots": RAGGED_SLOTS,
+        "prefill_chunk": RAGGED_CHUNK, "page_size": PAGE_SIZE,
+        "n_pages": PAGED_N_PAGES,
+        "contiguous_pages": RAGGED_SLOTS * -(-max_len // PAGE_SIZE) + 1,
+        "reused_tokens_total": pt.reused_tokens_total,
+        "reused_tokens_predicted": predicted,
+        "alloc_backoffs": pt.alloc_backoffs, "peak_pages_used": pt.peak_used,
+        "launches": counts, "decode_steps": decode_steps,
+        "ragged_dispatches": st.ragged_dispatches, "walls": walls,
+        "runs": runs, "cache_gb": cache_gb, "engine_memory": held,
+        "captures": captures,
+        "guard": {k: list(v) for k, v in guard_counts.items()},
+        "replay_profiles": replays,
+        "tenants": {"launches": tenant_counts, **{k: res[k] for k in (
+            "reused_tokens_total", "alloc_backoffs", "peak_pages_used",
+            "decode_steps", "ragged_dispatches", "captures")}},
+        "phase_s": time.perf_counter() - t_phase,
+        "depth_cut": "none (all 32 layers)", "checks": checks}
+    out_rec["ok"] = all(checks.values())
+    print(f"[chip_smoke] paged: ms a decode model step "
+          f"{walls['paged']['decode_ms_per_step']:.3f} (paged) / "
+          f"{walls['contiguous']['decode_ms_per_step']:.3f} (contiguous), "
+          f"ms a ragged step {walls['paged']['ragged_ms_per_step']:.3f} / "
+          f"{walls['contiguous']['ragged_ms_per_step']:.3f}; busy slot "
+          f"rows {walls['paged']['busy_slot_steps']:.0f} / "
+          f"{walls['contiguous']['busy_slot_steps']:.0f}; engine memory "
+          f"{held['paged']['allocated_gb']:.3f} / "
+          f"{held['contiguous']['allocated_gb']:.3f} GB (cache "
+          f"{cache_gb['paged']:.3f} / {cache_gb['contiguous']:.3f}); "
+          f"reused {pt.reused_tokens_total} (predicted {predicted}), "
+          f"backoffs {pt.alloc_backoffs}", flush=True)
+    emit(out_rec)
+    if not out_rec["ok"]:
+        raise AssertionError(f"paged checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return counts, tenant_counts
+
+
+# ---------------------------------------------------------------------------
+# phase spec: self-speculative decoding
+# ---------------------------------------------------------------------------
+
+SPEC_K = 3
+SPEC_DRAFTERS = ("*=intq8", "*=intq2")
+# on these random weights every stream soon cycles through two tokens, so
+# any copy of the model drafts them right; a drafter from another seed
+# drafts wrong, and its rounds reject and roll back
+SPEC_OTHER_SEED = 1
+SPEC_OTHER = f"seed-{SPEC_OTHER_SEED} model"
+SPEC_REQUESTS = 4
+SPEC_ARGV = ["--arch", "llama7b-proxy", "--engine", "continuous", "--slots",
+             "4", "--prefill-chunk", "64", "--prompt-len", "128",
+             "--requests", str(SPEC_REQUESTS), "--gen-len", str(SERVE_GEN),
+             "--speculate", str(SPEC_K), "--device", "cuda"]
+
+
+def phase_spec(torch):
+    """Self-speculation at full width and depth: ``launch/serve.py
+    --speculate 3 --draft-policy "*=intq8"`` counted (reset just before,
+    read just after) under a ``CompileGuard``, one replay of each graph
+    under ``torch.profiler``; then the same prompts through a plain graphed
+    engine (bursts of 8), a speculating engine per drafter and one on the
+    paged layout, in turns for their ms a committed token; kernel 1 at the
+    verify step's M and kernels 1 and 2 at each drafter's bits held
+    against their plain versions."""
+    from statistics import median
+    import numpy as np
+    import repro_torch.configs as C
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    from repro_torch.runtime.compile_guard import CompileGuard
+    from repro_torch.serving import ContinuousEngine, Request
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    with CompileGuard("chip_smoke spec") as guard:
+        res = serve.main(SPEC_ARGV + ["--draft-policy", SPEC_DRAFTERS[0]])
+        guard_counts = guard.counts()
+    torch.cuda.synchronize()
+    counts = res.pop("launches_engine")
+    spec_toks = res.pop("tokens")
+    replays = _replay_profiles(torch, res.pop("graphs"))
+    _free(torch)
+
+    cfg = C.get("llama7b-proxy")
+    lm, _, merged = serve.build_model(cfg, "cuda")
+    prompts = np.random.default_rng(0).integers(
+        4, cfg.vocab, size=(SPEC_REQUESTS, 128)).astype(np.int32)
+    trace = [Request(prompt=p, max_new_tokens=SERVE_GEN, rid=i)
+             for i, p in enumerate(prompts)]
+    kw = dict(n_slots=RAGGED_SLOTS, max_len=128 + SERVE_GEN + SPEC_K,
+              prefill_chunk=RAGGED_CHUNK)
+    spec = dict(decode_burst=1, speculate=SPEC_K, **kw)
+    other = serve.build_model(cfg, "cuda", seed=SPEC_OTHER_SEED)[2]
+    make = {"plain": lambda: ContinuousEngine(lm, merged, decode_burst=8,
+                                              **kw)}
+    for drafter in SPEC_DRAFTERS:
+        make[drafter] = (lambda d=drafter: ContinuousEngine(
+            lm, merged, drafter=d, **spec))
+    make["paged " + SPEC_DRAFTERS[0]] = lambda: ContinuousEngine(
+        lm, merged, drafter=SPEC_DRAFTERS[0], page_size=PAGE_SIZE, **spec)
+    make[SPEC_OTHER] = lambda: ContinuousEngine(lm, merged, drafter=other,
+                                                **spec)
+    with CompileGuard("chip_smoke spec engines") as guard_e:
+        engines, first, held_mem = _built_engines(torch, make, trace)
+        runs = {n: [] for n in engines}
+        for order in (list(engines), list(engines)[::-1]):
+            for name in order:
+                o, s, _ = _engine_pass(torch, engines[name], trace)
+                runs[name].append({
+                    "same": o == first["plain"][0],
+                    "acceptance_rate": s.acceptance_rate,
+                    "dispatches": s.dispatches,
+                    **_step_walls(s, RAGGED_CHUNK, SPEC_REQUESTS)})
+        guard_e_counts = guard_e.counts()
+    plain = np.asarray([first["plain"][0][i] for i in range(SPEC_REQUESTS)],
+                       np.int32)
+    walls = {n: {key: median(r[key] for r in rs) for key in rs[0]
+                 if key != "same"} for n, rs in runs.items()}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    held = {"target, verify M": _hold_intq_linears(
+        torch, merged.blocks[0], gen, tiled_m=RAGGED_SLOTS * (SPEC_K + 1))}
+    for drafter in SPEC_DRAFTERS:
+        held[drafter] = _hold_intq_linears(
+            torch, engines[drafter].draft_params.blocks[0], gen,
+            tiled_m=RAGGED_M)
+    stats = {n: {"acceptance_rate": e.stats.acceptance_rate,
+                 "proposed_tokens": e.stats.proposed_tokens,
+                 "accepted_tokens": e.stats.accepted_tokens}
+             for n, e in engines.items()}
+    del engines, lm, merged, other
+    _free(torch)
+    per_step = LAYER_LINEARS * cfg.n_layers
+    rounds = res["decode_steps"] // (SPEC_K + 1)
+    profiled = {key.split("[")[0]: r for key, r in replays.items()}
+    checks = {
+        "tokens_equal_plain_graphed": bool(np.array_equal(spec_toks, plain)),
+        "every_pass_same_tokens": all(first[n][0] == first["plain"][0]
+                                      for n in first)
+        and all(r["same"] for rs in runs.values() for r in rs),
+        "tokens_in_vocab": bool(((plain >= 0) & (plain < cfg.vocab)).all()),
+        "draft_proposed": res["proposed_tokens"] > 0,
+        # the verify step at M = 4 x (k + 1) = 16: kernel 1 once a linear;
+        # the target's and the drafter's ragged steps at M = 256 too
+        "tiled_launches": counts["qmatmul"]
+        == per_step * (2 * res["ragged_dispatches"] + rounds),
+        # k + 1 drafter steps a round, kernel 2 once a linear each
+        "gemv_launches_per_round": counts["qmatvec"]
+        == per_step * (SPEC_K + 1) * rounds,
+        "only_path_kernels": all(v == 0 for k, v in counts.items()
+                                 if k not in PTQ_PATH),
+        "verify_graph_runs_kernel_1": profiled.get("engine.verify", {}).get(
+            "profiler") == {"qmatmul": per_step},
+        "draft_graph_runs_kernel_2": profiled.get("engine.draft", {}).get(
+            "profiler") == {"qmatvec": per_step * (SPEC_K + 1)},
+        "replay_launches_match_profiler": bool(replays) and all(
+            r["match"] for r in replays.values()),
+        "captures_within_budget": all(c <= b for c, b in
+                                      guard_counts.values())
+        and all(c <= b for c, b in guard_e_counts.values())
+        and all(c <= b for c, b in res["captures"].values()),
+        "guard_declared": set(guard_counts) >= {
+            "engine.ragged", "engine.draft", "engine.verify"},
+        "kernels_held": all(r["ok"] for rows in held.values()
+                            for r in rows),
+        # the other seed's drafts: most rejected, rolled back, and the
+        # streams still plain decode's
+        "mismatched_drafter_rejects": stats[SPEC_OTHER]["accepted_tokens"]
+        < stats[SPEC_OTHER]["proposed_tokens"] / 2,
+    }
+    out = {"phase": "spec", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "speculate": SPEC_K, "requests": SPEC_REQUESTS,
+           "prompt_len": 128, "gen_len": SERVE_GEN, "slots": RAGGED_SLOTS,
+           "main_run": {k: res[k] for k in (
+               "drafter", "acceptance_rate", "proposed_tokens",
+               "accepted_tokens", "dispatches", "decode_steps",
+               "ragged_dispatches", "captures", "decode_ms_per_step",
+               "tokens_out")},
+           "launches": counts, "rounds": rounds, "walls": walls,
+           "runs": runs, "stats": stats, "engine_memory": held_mem,
+           "guard": {k: list(v) for k, v in guard_counts.items()},
+           "replay_profiles": replays, "held": held,
+           "phase_s": time.perf_counter() - t_phase,
+           "acceptance_note": "random weights: acceptance is a property "
+                              "of these weights, not of a trained model",
+           "depth_cut": "none (all 32 layers)", "checks": checks,
+           "sample_tokens": plain[0][:8].tolist()}
+    out["ok"] = all(checks.values())
+    print("[chip_smoke] spec: ms a committed token "
+          + ", ".join(f"{n} {w['decode_ms_per_token']:.3f}"
+                      + (f" (acceptance {stats[n]['acceptance_rate']:.2f})"
+                         if n != "plain" else "")
+                      for n, w in walls.items()), flush=True)
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"spec checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return counts, held
 
 
 # ---------------------------------------------------------------------------
@@ -1930,8 +2330,8 @@ def _serve_static(torch, lm, merged, prompts, params=None):
             "merge_check": check, "replay_profiles": replays}
 
 
-def _hold_intq_linears(torch, blk, gen):
-    """Kernels 1 (M = 512) and 2 (M = 4) on one layer's merged ``intq``
+def _hold_intq_linears(torch, blk, gen, tiled_m=TILED_M):
+    """Kernels 1 (M = ``tiled_m``) and 2 (M = 4) on one layer's ``intq``
     linears against their plain versions (two bf16 steps of the plain
     version's max)."""
     from repro_torch.core import schemes
@@ -1942,7 +2342,7 @@ def _hold_intq_linears(torch, blk, gen):
         qt = schemes.quantized_base(blk[grp][name])
         args = (qt.qweight, qt.scale, qt.zero)
         kw = dict(bits=qt.bits, group_size=qt.group_size)
-        for kern, plain, m in ((qmatmul_cuda, qmatmul_plain, TILED_M),
+        for kern, plain, m in ((qmatmul_cuda, qmatmul_plain, tiled_m),
                                (qmatvec_cuda, qmatvec_plain, GEMV_M)):
             x = torch.randn((m, qt.d_in), generator=gen, device="cuda") \
                 .to(torch.bfloat16)
@@ -1950,7 +2350,8 @@ def _hold_intq_linears(torch, blk, gen):
             err = (y - ref).abs().max().item()
             tol = 2.0 ** -6 * ref.abs().max().item()
             rows.append({"kernel": kern.__name__.replace("_cuda", ""),
-                         "linear": f"{grp}/{name}", "M": m, "K": qt.d_in,
+                         "linear": f"{grp}/{name}", "bits": qt.bits,
+                         "M": m, "K": qt.d_in,
                          "N": qt.d_out, "scale_dtype": str(qt.scale.dtype),
                          "max_abs_err": err, "tol": tol,
                          "ok": bool(torch.isfinite(y).all()) and err <= tol})
@@ -2331,8 +2732,16 @@ def main() -> int:
         phase_small(torch)
         counts = phase_serve(torch)
         counts = {k: counts[k] for k in STATIC_PATH}
-        counts.update({k: v for k, v in phase_adapters(torch).items()
+        adapter_counts, adapter_toks = phase_adapters(torch)
+        counts.update({k: v for k, v in adapter_counts.items()
                        if k not in STATIC_PATH})
+        paged_counts, paged_tenant_counts = phase_paged(torch, adapter_toks)
+        spec_counts, spec_held = phase_spec(torch)
+        serve_counts = {"paged serve (phase paged)": paged_counts,
+                        "paged multi-tenant serve (phase paged)":
+                            paged_tenant_counts,
+                        f"speculative serve, {SPEC_DRAFTERS[0]} drafter "
+                        f"(phase spec)": spec_counts}
         phase_train_small(torch)
         train_counts, train_errs = phase_train(torch)
         base_counts, head_rows = phase_baselines(torch)
@@ -2348,13 +2757,16 @@ def main() -> int:
     for name, (kind, m, source, replaces) in KERNELS.items():
         r = rows[name]
         head = head_rows.get(name)
+        held = [x for rs in spec_held.values() for x in rs
+                if x["kernel"] == name]
         summary.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": counts[name] + train_counts.get(name, 0)
-            + sum(c[name] for c in base_counts.values()),
+            + sum(c[name] for c in base_counts.values())
+            + sum(c[name] for c in serve_counts.values()),
             "max_abs_err": max([x["max_abs_err"]
-                                for x in r + ragged.get(name, [])]
+                                for x in r + ragged.get(name, []) + held]
                                + [train_errs.get(name, 0.0)]
                                + ([head["max_abs_err"]] if head else [])),
             "ms": _per_layer(r, "kernel_ms"),
@@ -2370,13 +2782,20 @@ def main() -> int:
                              "adapters)" if name not in STATIC_PATH
                              else "static serve (phase serve)",
             "status": "ported, checked"})
+        summary[-1]["launches_by_path"] = {
+            (("static serve (phase serve)" if name in STATIC_PATH
+              else "continuous multi-tenant serve (phase adapters)")):
+                counts[name],
+            **{path: c[name] for path, c in serve_counts.items()}}
         if name in STATIC_PATH:
-            summary[-1]["launches_by_path"] = {
-                "static serve (phase serve)": counts[name],
+            summary[-1]["launches_by_path"].update({
                 f"train, {TRAIN_STEPS} steps (phase train)":
                     train_counts[name],
                 **{f"{path} (phase baselines)": c[name]
-                   for path, c in base_counts.items()}}
+                   for path, c in base_counts.items()}})
+        if held:
+            summary[-1]["spec_shapes_held"] = sorted(
+                {f"M={x['M']} bits={x['bits']}" for x in held})
         if head:
             summary[-1]["lm_head"] = {
                 "work": f"the lm_head at M={m}, K={HEAD_K}, N={HEAD_N}, "
@@ -2407,7 +2826,8 @@ def main() -> int:
         "name": PROJ[0], "route": "cuda", "source": PROJ[1],
         "replaces": PROJ[2],
         "launches": counts[PROJ[0]] + train_counts[PROJ[0]]
-        + sum(c[PROJ[0]] for c in base_counts.values()),
+        + sum(c[PROJ[0]] for c in base_counts.values())
+        + sum(c[PROJ[0]] for c in serve_counts.values()),
         "launches_by_path": {
             "static serve (phase serve)": counts[PROJ[0]],
             f"train, {TRAIN_STEPS} steps (phase train)":
@@ -2439,7 +2859,8 @@ def main() -> int:
     r = rows[SLOT_PROJ[0]]
     summary.append({
         "name": SLOT_PROJ[0], "route": "cuda", "source": SLOT_PROJ[1],
-        "replaces": SLOT_PROJ[2], "launches": counts[SLOT_PROJ[0]],
+        "replaces": SLOT_PROJ[2], "launches": counts[SLOT_PROJ[0]]
+        + sum(c[SLOT_PROJ[0]] for c in serve_counts.values()),
         "max_abs_err": max(x["max_abs_err"] for x in r),
         **{f"{key}_ms": _per_layer(r, f"{key}_ms")
            for key in ("plain", "library")},

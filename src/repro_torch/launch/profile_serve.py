@@ -1,25 +1,33 @@
 """Where the serve path's time goes on the card: ``torch.profiler`` over
 one prefill and a window of decode steps of the merged model (static
 engine), or over one ragged step and one decode burst of the continuous
-engine serving demo tenants over one INT4 base.  The serve steps replay
-their captured CUDA graphs (captured by a warm-up first); ``--loop``
-profiles the same steps run op by op (the eager reference).
+engine serving demo tenants over one INT4 base (``--page-size``: on the
+paged cache), or over one ragged step and one draft-and-verify round of
+the continuous engine speculating on the merged model (``--speculate``,
+``--draft-policy``).  The serve steps replay their captured CUDA graphs
+(captured by a warm-up first); ``--loop`` profiles the same steps run op
+by op (the eager reference).
 
     python -m repro_torch.launch.profile_serve --arch llama7b-proxy \\
         --requests 4 --prompt-len 128 --steps 8 --out chiprun_out/profile
     python -m repro_torch.launch.profile_serve --arch llama7b-proxy \\
         --engine continuous --requests 4 --prompt-len 128 [--loop]
+    python -m repro_torch.launch.profile_serve --arch llama7b-proxy \
+        --engine continuous --speculate 3 --draft-policy "*=intq8" \
+        [--page-size 16]
 
 The continuous engine runs as ``chip_smoke.py``'s adapters phase does:
 one slot per request, 64-token prefill chunks, bursts of 8, 32 tokens
 per request, tenants alice, bob and carol (demo seeds 1-3) and the null
-adapter.
+adapter; speculating, it serves the merged model alone (speculation
+refuses an AdapterStore), with decode bursts of 1.
 
 The continuous engine serves the requests once to capture its steps, then
 once more without the profiler (phase ``run``: wall ms, tok/s, ms per
 ragged step and per decode model step, from ``EngineStats``), then profiles
-the first ragged step and the first burst of a third pass.  Prints one JSON line per
-profiled phase (prefill and decode, or ragged and burst):
+the first ragged step and the first burst (or speculative round) of a
+third pass.  Prints one JSON line per
+profiled phase (prefill and decode, or ragged and burst or round):
 wall ms (host clock around work ending in ``torch.cuda.synchronize()``),
 device-busy ms (the sum of the kernels' own device time), the device's
 idle share, the number of kernels the device ran, the device time and
@@ -136,20 +144,30 @@ def _static(lm, merged, toks, args, dev):
     return res
 
 
-def _continuous(lm, params, toks, args, dev):
+def _continuous(lm, params, merged, toks, args, dev):
     """One :class:`ContinuousEngine`, every request bound round-robin to
-    the tenants and the null adapter: a first pass captures its steps, a
-    second is timed without the profiler, and the first ragged step and
-    the first decode burst of a third are profiled."""
+    the tenants and the null adapter (speculating: the merged model, no
+    tenant): a first pass captures its steps, a second is timed without
+    the profiler, and the first ragged step and the first decode burst or
+    speculative round of a third are profiled."""
     from repro_torch.launch.serve import build_store
     from repro_torch.serving import ContinuousEngine
-    store, tenants = build_store(params, TENANTS)
+    if args.speculate:
+        base, store, tenants = merged, None, []
+    else:
+        store, tenants = build_store(params, TENANTS)
+        base = store.base
     cycle = [*tenants, None]
     prompts = toks.cpu().numpy()
     eng = ContinuousEngine(
-        lm, store.base, n_slots=toks.shape[0],
-        max_len=toks.shape[1] + GEN_LEN, prefill_chunk=PREFILL_CHUNK,
-        decode_burst=DECODE_BURST, adapters=store, eager=args.loop)
+        lm, base, n_slots=toks.shape[0],
+        max_len=toks.shape[1] + GEN_LEN + args.speculate,
+        prefill_chunk=PREFILL_CHUNK,
+        decode_burst=1 if args.speculate else DECODE_BURST, adapters=store,
+        eager=args.loop, page_size=args.page_size,
+        speculate=args.speculate,
+        drafter=(args.draft_policy or "*=intq8") if args.speculate
+        else None)
 
     def submit():
         eng.reset()
@@ -174,9 +192,13 @@ def _continuous(lm, params, toks, args, dev):
     while any(s is not None and s.prefilling for s in eng.sched.slots):
         eng.step_once()
     steps = eng.stats.model_steps
-    res["burst"] = _profile(eng.step_once, args.out, "burst")
-    res["burst"]["model_steps"] = eng.stats.model_steps - steps
+    decode = "round" if args.speculate else "burst"
+    res[decode] = _profile(eng.step_once, args.out, decode)
+    res[decode]["model_steps"] = eng.stats.model_steps - steps
     res["ragged"]["tenants"] = tenants
+    if args.speculate:
+        res["run"].update(acceptance_rate=st.acceptance_rate,
+                          drafter=args.draft_policy or "*=intq8")
     return res
 
 
@@ -192,8 +214,18 @@ def main(argv=None):
     ap.add_argument("--loop", action="store_true",
                     help="profile the steps run op by op (the eager "
                          "reference) instead of their CUDA-graph replays")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="continuous engine: the paged cache, pages of this "
+                         "many tokens")
+    ap.add_argument("--speculate", type=int, default=0,
+                    help="continuous engine: draft this many tokens a slot "
+                         "a round (on the merged model, no tenant)")
+    ap.add_argument("--draft-policy", default="",
+                    help="the drafter for --speculate (default '*=intq8')")
     ap.add_argument("--out", default="chiprun_out/profile")
     args = ap.parse_args(argv)
+    if (args.page_size or args.speculate) and args.engine != "continuous":
+        ap.error("--page-size and --speculate need --engine continuous")
 
     import repro_torch.configs as C
     from repro_torch.launch.serve import build_model
@@ -206,7 +238,7 @@ def main(argv=None):
     toks = torch.as_tensor(np.random.default_rng(0).integers(
         4, cfg.vocab, size=(b, s)).astype(np.int32), device=dev)
     res = (_static(lm, merged, toks, args, dev) if args.engine == "static"
-           else _continuous(lm, params, toks, args, dev))
+           else _continuous(lm, params, merged, toks, args, dev))
     for phase, r in res.items():
         steps = r.get("model_steps", 1)
         r["per_step_wall_ms"] = r["wall_ms"] / steps
@@ -214,6 +246,8 @@ def main(argv=None):
             r["per_step_busy_ms"] = r["device_busy_ms"] / steps
         print(json.dumps({"phase": phase, "engine": args.engine,
                           "path": "eager" if args.loop else "graphs",
+                          "page_size": args.page_size,
+                          "speculate": args.speculate,
                           "arch": cfg.name, "requests": b, "prompt_len": s,
                           "device": torch.cuda.get_device_name(0), **r}),
               flush=True)

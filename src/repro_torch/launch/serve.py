@@ -21,7 +21,10 @@ step, or one step's directory), whose adapters are served over the base
 they were trained on: the model built from ``--seed`` on this device, its
 adapters as initialised.  Decode steps then run the slot GEMV kernel (one
 adapter per row); ``--verify`` holds each tenant's slot-routed logits to
-its merged tree.
+its merged tree.  ``--page-size`` pages the continuous engine's cache
+(``--n-pages`` sizes the pool), and ``--speculate k`` drafts k tokens a
+slot per decode dispatch with a reduced-bits copy of the served model
+(``--draft-policy``, default ``*=intq8``) and verifies them in one step.
 
     python -m repro_torch.launch.serve --arch llama7b-proxy \\
         --requests 4 --prompt-len 128 --gen-len 32 --verify
@@ -29,6 +32,10 @@ its merged tree.
         --engine continuous --slots 4 --prefill-chunk 64 --decode-burst 8 \\
         --requests 8 --prompt-len 128 --gen-len 32 \\
         --adapters alice=demo:1,bob=demo:2,carol=demo:3 --verify
+    python -m repro_torch.launch.serve --arch llama7b-proxy \
+        --engine continuous --slots 4 --prefill-chunk 64 --requests 4 \
+        --prompt-len 128 --gen-len 32 --page-size 16 --speculate 3 \
+        --draft-policy "*=intq8"
     python -m repro_torch.launch.serve --arch gemma3-1b --reduced \\
         --device cpu --requests 2 --prompt-len 8 --gen-len 6 --verify
     python -m repro_torch.launch.serve --arch llama7b-proxy \\
@@ -42,8 +49,6 @@ import time
 
 import numpy as np
 import torch
-
-NOT_PORTED = ("speculate", "page_size")
 
 
 def merge_model(params):
@@ -354,17 +359,19 @@ def tenant_check(lm, store, tenants, prompts, max_len: int,
 
 def serve_continuous(lm, params, prompts, gen_len: int, max_len: int, *,
                      slots: int, prefill_chunk: int, decode_burst: int,
-                     store, who, device="cuda", eager: bool = False):
+                     store, who, device="cuda", eager: bool = False,
+                     **modes):
     """Serve every prompt through one :class:`ContinuousEngine` (request i
     bound to adapter ``who(i)``; ``eager`` selects the engine's eager
-    steps).  Returns (tokens [B, gen_len] numpy, the engine, the kernel
-    launch counts when the engine drained)."""
+    steps; ``modes`` are the engine's paging and speculation arguments).
+    Returns (tokens [B, gen_len] numpy, the engine, the kernel launch
+    counts when the engine drained)."""
     from repro_torch import kernels
     from repro_torch.serving import ContinuousEngine
     eng = ContinuousEngine(lm, params, n_slots=slots, max_len=max_len,
                            prefill_chunk=prefill_chunk,
                            decode_burst=decode_burst, adapters=store,
-                           eager=eager)
+                           eager=eager, **modes)
     rids = [eng.submit(p, gen_len, adapter_id=who(i))
             for i, p in enumerate(prompts)]
     outputs = eng.run()
@@ -402,7 +409,28 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=0,
                     help="continuous engine slots (default min(4, requests))")
     ap.add_argument("--prefill-chunk", type=int, default=8)
-    ap.add_argument("--decode-burst", type=int, default=8)
+    ap.add_argument("--decode-burst", type=int, default=None,
+                    help="continuous engine decode steps per burst (clamped "
+                         "down to a power of two; default 8, and 1 under "
+                         "--speculate)")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="continuous engine: page the KV cache into pages "
+                         "of this many tokens, pooled across slots with "
+                         "prefix reuse (0 = contiguous per-slot slabs)")
+    ap.add_argument("--n-pages", type=int, default=0,
+                    help="paged pool size, the null page included (0 = the "
+                         "contiguous capacity, slots x ceil(max_len / "
+                         "page_size) + 1; fewer oversubscribe the pool and "
+                         "admission backs off while it is dry)")
+    ap.add_argument("--speculate", type=int, default=0,
+                    help="continuous engine: draft this many tokens a slot "
+                         "per decode dispatch and verify them in one ragged "
+                         "step (greedy: the streams of plain decode); not "
+                         "with --decode-burst > 1")
+    ap.add_argument("--draft-policy", default="",
+                    help="the drafter for --speculate: a policy spec that "
+                         "re-quantizes the merged model (default "
+                         "'*=intq8')")
     ap.add_argument("--adapters", default="",
                     help="tenants name=<source>,... (continuous engine); a "
                          "source is demo:<seed> (the served adapters plus "
@@ -417,15 +445,7 @@ def main(argv=None):
                     help="seed of the model's random init; the server and "
                          "repro_torch.launch.train build the same base from "
                          "the same --seed on the same device")
-    # serving modes of the reference that the port does not have yet
-    ap.add_argument("--speculate", type=int, default=0)
-    ap.add_argument("--page-size", type=int, default=0)
     args = ap.parse_args(argv)
-    for name in NOT_PORTED:
-        val = getattr(args, name)
-        if val:
-            ap.error(f"--{name.replace('_', '-')} {val}: not yet ported, "
-                     f"see ROADMAP.md")
     if args.engine == "frontend":
         ap.error("--engine frontend: not yet ported, see ROADMAP.md (the "
                  "port serves the static and continuous engines)")
@@ -434,6 +454,19 @@ def main(argv=None):
                  "apply to slotted serving)")
     if args.engine == "continuous" and args.gen_len < 1:
         ap.error("--engine continuous needs --gen-len >= 1")
+    if args.page_size and args.engine != "continuous":
+        ap.error("--page-size needs --engine continuous (the static path "
+                 "has no slot scheduler to drive a page pool)")
+    if args.speculate and args.engine != "continuous":
+        ap.error("--speculate needs --engine continuous (draft and ragged "
+                 "verify run on the slot scheduler)")
+    if args.speculate and args.decode_burst is not None \
+            and args.decode_burst > 1:
+        ap.error("--speculate is incompatible with --decode-burst > 1: the "
+                 "one-step ragged verify IS the multi-token dispatch; drop "
+                 "--decode-burst (it is 1 when speculating)")
+    decode_burst = (1 if args.speculate else
+                    8 if args.decode_burst is None else args.decode_burst)
 
     import repro_torch.configs as C
     from repro_torch.core.schemes import PolicyTree
@@ -478,7 +511,9 @@ def main(argv=None):
     b = args.requests
     # an empty prompt still needs one token to condition on: feed BOS (=0)
     prompt_len = max(args.prompt_len, 1)
-    max_len = prompt_len + args.gen_len
+    # +speculate: the verify step writes up to k rows past the committed
+    # stream before the rejected tail rolls back
+    max_len = prompt_len + args.gen_len + args.speculate
     prompts = np.random.default_rng(0).integers(
         4, cfg.vocab, size=(b, prompt_len)).astype(np.int32)
     if args.prompt_len == 0:
@@ -495,18 +530,31 @@ def main(argv=None):
         # request in the mix
         cycle = [*tenants, None]
         slots = args.slots or min(4, b)
-        toks, eng, counts = serve_continuous(
-            lm, merged, prompts, args.gen_len, max_len, slots=slots,
-            prefill_chunk=args.prefill_chunk, decode_burst=args.decode_burst,
-            store=store, who=lambda i: cycle[i % len(cycle)], device=device,
-            eager=args.loop)
+        modes = dict(page_size=max(args.page_size, 0),
+                     n_pages=args.n_pages or None, speculate=args.speculate,
+                     drafter=(args.draft_policy or "*=intq8")
+                     if args.speculate else None)
+        try:
+            toks, eng, counts = serve_continuous(
+                lm, merged, prompts, args.gen_len, max_len, slots=slots,
+                prefill_chunk=args.prefill_chunk, decode_burst=decode_burst,
+                store=store, who=lambda i: cycle[i % len(cycle)],
+                device=device, eager=args.loop, **modes)
+        except (ValueError, NotImplementedError) as e:
+            # a degenerate pool, a request the pool can never cover, a
+            # drafter the port lacks, or adapters under speculation
+            flags = [f for f, v in (("--page-size", args.page_size),
+                                    ("--speculate", args.speculate)) if v]
+            if not flags:
+                raise
+            ap.error(f"{' '.join(flags)}: {e}")
         st = eng.stats
         graphs, budgets = eng.graphs, eng.budgets
         decode_steps = (st.model_steps
                         - args.prefill_chunk * st.ragged_dispatches)
         result.update(
             slots=slots, prefill_chunk=args.prefill_chunk,
-            decode_burst=args.decode_burst, tenants=tenants,
+            decode_burst=decode_burst, tenants=tenants,
             bank_bytes=store.bank_bytes if store else 0,
             total_s=st.seconds, ragged_s=st.ragged_seconds,
             burst_s=st.seconds - st.ragged_seconds,
@@ -516,11 +564,31 @@ def main(argv=None):
             tok_s=st.tok_per_s, launches_engine=counts,
             decode_ms_per_step=((st.seconds - st.ragged_seconds) * 1e3
                                 / max(decode_steps, 1)))
+        extra = ""
+        pt = eng.page_table
+        if pt is not None:
+            pt.check_invariants()
+            result.update(page_size=args.page_size, n_pages=eng.n_pages,
+                          reused_tokens_total=pt.reused_tokens_total,
+                          alloc_backoffs=pt.alloc_backoffs,
+                          peak_pages_used=pt.peak_used)
+            extra += (f", pages of {args.page_size}: {pt.peak_used} of "
+                      f"{pt.capacity} at peak, {pt.reused_tokens_total} "
+                      f"prompt tokens reused, {pt.alloc_backoffs} backoffs")
+        if args.speculate:
+            result.update(speculate=args.speculate,
+                          drafter=modes["drafter"],
+                          proposed_tokens=st.proposed_tokens,
+                          accepted_tokens=st.accepted_tokens,
+                          acceptance_rate=st.acceptance_rate)
+            extra += (f", speculate {args.speculate} with {modes['drafter']}"
+                      f": acceptance {st.acceptance_rate:.0%}")
         print(f"[serve] {b} requests x {toks.shape[1]} tokens in "
               f"{st.seconds:.3f}s ({st.tok_per_s:.1f} tok/s, continuous, "
               f"{slots} slots, occupancy {st.occupancy:.0%}, "
               f"{st.dispatches} dispatches ({st.ragged_dispatches} ragged), "
-              f"{len(tenants)}+null tenants, {result['path']}, {device})")
+              f"{len(tenants)}+null tenants{extra}, {result['path']}, "
+              f"{device})")
     else:
         gen = make_graph_generator(lm, merged, prompts.shape, args.gen_len,
                                    max_len, device=device, eager=args.loop)

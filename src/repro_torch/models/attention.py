@@ -1,6 +1,6 @@
 """GQA attention (+RoPE, sliding window, qk-norm): chunked flash-style
 attention for prefill and ragged-chunk attention against a slotted KV
-cache for decode.  Counterpart of the GQA part of
+cache for decode, contiguous or paged.  Counterpart of the GQA part of
 ``repro.models.attention``.
 
 Attention is plain PyTorch, as it is plain jnp in the reference (no model
@@ -20,6 +20,7 @@ from repro_torch.core.schemes import linear_apply, linear_init
 from .common import rmsnorm, rmsnorm_init, rope, rope_table
 
 NEG_INF = -1e30
+NULL_PAGE = 0  # repro_torch.serving.paging.NULL_PAGE
 
 
 # ---------------------------------------------------------------------------
@@ -222,16 +223,82 @@ def _insert_tokens(cache, new, cur_len, n_new, plan=None):
     return cache
 
 
+def paged_view(pool, pages):
+    """A slot-contiguous view of a paged cache pool, gathered.
+
+    pool: [n_pages, ps, ...]; pages: [B, P] page indices (entry k of slot b
+    maps positions [k*ps, (k+1)*ps); unmapped entries point at the null
+    page).  Returns [B, P*ps, ...], the slotted [B, S, ...] cache the
+    attention expects.  Null-page rows surface only at positions past the
+    slot's allocation, which the position mask excludes."""
+    b, p = pages.shape
+    ps = pool.shape[1]
+    return pool[pages.to(torch.int64)].reshape((b, p * ps) + pool.shape[2:])
+
+
+def paged_insert_plan(cur_len, n_new, c: int, pages, page_size: int):
+    """Where a ragged chunk of ``c`` rows lands in a paged pool: (page
+    [B, C], offset [B, C], write [B, C] bool).  Row i of slot b goes to
+    position cur_len[b] + i, i.e. page ``pages[b, pos // page_size]`` at
+    offset ``pos % page_size``; rows i >= n_new[b] go to the null page at
+    offset 0.  Live slots hold disjoint pages past their shared (read-only)
+    prefix, so written rows never collide across slots."""
+    i = torch.arange(c, device=cur_len.device)[None, :]
+    pos = cur_len.to(torch.int64)[:, None] + i
+    write = i < n_new.to(torch.int64)[:, None]
+    col = (pos // page_size).clamp(0, pages.shape[1] - 1)
+    page = torch.gather(pages.to(torch.int64), 1, col)
+    return (torch.where(write, page, NULL_PAGE),
+            torch.where(write, pos % page_size, 0), write)
+
+
+def _insert_tokens_paged(pool, new, cur_len, n_new, pages, plan=None):
+    """Paged counterpart of :func:`_insert_tokens`, in place: new[b, i]
+    goes into the pool page holding position cur_len[b] + i (i <
+    n_new[b]).  pool [n_pages, ps, ...], new [B, C, ...], pages [B, P].
+    A dropped row writes back the value the null page's first row holds,
+    so the null page never changes.  ``plan`` is a precomputed
+    :func:`paged_insert_plan`."""
+    page, off, write = plan if plan is not None else paged_insert_plan(
+        cur_len, n_new, new.shape[1], pages, pool.shape[1])
+    keep = write.reshape(write.shape + (1,) * (pool.dim() - 2))
+    pool[page, off] = torch.where(keep, new.to(pool.dtype), pool[page, off])
+    return pool
+
+
+def _cache_insert(leaf, new, cur_len, n_new, pages, plan=None):
+    """Insert into a contiguous slotted leaf when ``pages`` is None, into a
+    paged pool otherwise."""
+    if pages is None:
+        return _insert_tokens(leaf, new, cur_len, n_new, plan=plan)
+    return _insert_tokens_paged(leaf, new, cur_len, n_new, pages, plan=plan)
+
+
+def _cache_view(leaf, pages):
+    """The leaf itself when contiguous, its gathered view when paged."""
+    return leaf if pages is None else paged_view(leaf, pages)
+
+
 class StepPlan:
     """The tensors one ragged step shares across its layers: positions,
     the cache-insert plan, and (memoised per theta / window) rotary tables
     and attention masks.  Building them once per step rather than once per
-    layer keeps the host's per-step operation count down."""
+    layer keeps the host's per-step operation count down.
 
-    def __init__(self, cur_len, n_new, c: int, s: int, head_dim: int):
+    ``s`` is each slot's capacity; with ``pages`` ([B, P] page rows of a
+    paged cache of ``page_size``-token pages) the insert plan is the paged
+    one and ``s`` is P * page_size."""
+
+    def __init__(self, cur_len, n_new, c: int, s: int, head_dim: int,
+                 pages=None, page_size: int = 0):
         self.positions = (cur_len.to(torch.int64)[:, None]
                           + torch.arange(c, device=cur_len.device)[None, :])
-        self.insert = insert_plan(cur_len, n_new, c, s)
+        self.pages = pages
+        if pages is None:
+            self.insert = insert_plan(cur_len, n_new, c, s)
+        else:
+            self.insert = paged_insert_plan(cur_len, n_new, c, pages,
+                                            page_size)
         self.s, self.head_dim = s, head_dim
         self._tables, self._masks = {}, {}
 
@@ -249,22 +316,31 @@ class StepPlan:
 
 
 def gqa_prefill_chunk(p, x, cache, cur_len, n_new, cfg: AttnConfig,
-                      window=None, theta=None, plan=None):
+                      window=None, theta=None, plan=None, pages=None):
     """Ragged chunk step: x [B,C,d]; slot b consumes rows [:n_new[b]] at
     positions cur_len[b].., inserts their K/V into the slotted cache (in
-    place) and attends causally against it.  C == 1 is decode.  ``plan``
-    is the step's :class:`StepPlan` (built here when not given)."""
+    place) and attends causally against it.  C == 1 is decode.
+
+    ``pages`` ([B, P] int32) switches the cache leaves from per-slot
+    [B, S, ...] to paged pools [n_pages, ps, ...]: inserts go through the
+    page rows and the attention runs on the gathered per-slot view.
+    ``plan`` is the step's :class:`StepPlan` (built here from ``pages``
+    when not given; a given plan carries its own page rows)."""
     b, c, _ = x.shape
     if plan is None:
-        plan = StepPlan(cur_len, n_new, c, cache["k"].shape[1], cfg.head_dim)
+        ps = cache["k"].shape[1]
+        s = ps if pages is None else pages.shape[1] * ps
+        plan = StepPlan(cur_len, n_new, c, s, cfg.head_dim, pages=pages,
+                        page_size=ps)
+    pages = plan.pages
     theta = cfg.rope_theta if theta is None else theta
     window = cfg.window if window is None else window
     positions = plan.positions
     q, k, v = _qkv(p, x, cfg, positions, theta, table=plan.table(theta))
-    kc = _insert_tokens(cache["k"], k, cur_len, n_new, plan=plan.insert)
-    vc = _insert_tokens(cache["v"], v, cur_len, n_new, plan=plan.insert)
-    o = chunk_attention(q, kc, vc, positions, window=window,
-                        mask=plan.mask(window))
+    kc = _cache_insert(cache["k"], k, cur_len, n_new, pages, plan=plan.insert)
+    vc = _cache_insert(cache["v"], v, cur_len, n_new, pages, plan=plan.insert)
+    o = chunk_attention(q, _cache_view(kc, pages), _cache_view(vc, pages),
+                        positions, window=window, mask=plan.mask(window))
     out = linear_apply(p["wo"], o.reshape(b, c, -1))
     return out, {"k": kc, "v": vc}
 

@@ -228,8 +228,10 @@ class LM:
                             dtype=torch.int32, device=tokens.device)
         return logits, {"layers": cache, "len": length}
 
-    def slot_state(self) -> SlotState:
-        return SlotState(self.cfg)
+    def slot_state(self, page_size: int = 0, n_pages: int = 0) -> SlotState:
+        """The decode-cache layout and lifecycle; ``page_size > 0`` selects
+        the paged pools (``n_pages`` pages, the null page included)."""
+        return SlotState(self.cfg, page_size=page_size, n_pages=n_pages)
 
     def init_cache(self, batch: int, seq: int, dtype=torch.bfloat16,
                    device="cuda"):
@@ -256,13 +258,30 @@ class LM:
         logits = self._logits(params, h_last)[:, 0]
         return logits, self.slot_state().advance(cache, n_new)
 
+    @torch.no_grad()
+    def verify_ragged(self, params: LMParams, cache, tokens, n_new):
+        """The ragged step of draft-and-verify speculation: as
+        :meth:`step_ragged`, but with logits at EVERY row, ``logits[b, i]``
+        predicting the token after ``tokens[b, i]``; rows ``i >= n_new[b]``
+        are garbage (callers mask).  Returns (logits [B, C, V], cache).  The
+        cache advances by the full ``n_new``; a caller that rejects a draft
+        suffix rolls it back by shrinking ``len`` (sound since
+        ``SlotState.supports_rollback()``)."""
+        h, n_new = self._ragged_trunk(params, cache, tokens, n_new)
+        logits = self._logits(params, h)
+        return logits, self.slot_state().advance(cache, n_new)
+
     def _ragged_trunk(self, params: LMParams, cache, tokens, n_new):
+        """The layer stack of a ragged step, on a contiguous or paged cache
+        (a paged cache's capacity is its page rows' width)."""
         cur = cache["len"]
         n_new = n_new.to(torch.int32)
         x = self._embed(params, tokens)
         kc, vc = cache["layers"]["k"], cache["layers"]["v"]
-        plan = StepPlan(cur, n_new, tokens.shape[1], kc.shape[2],
-                        self.cfg.head_dim)
+        pages = cache.get("pages")
+        s = kc.shape[2] if pages is None else pages.shape[1] * kc.shape[2]
+        plan = StepPlan(cur, n_new, tokens.shape[1], s, self.cfg.head_dim,
+                        pages=pages, page_size=kc.shape[2])
         for layer, (blk, (window, theta)) in enumerate(
                 zip(params.blocks, self._layer_extras())):
             x, _ = _gqa_block_chunk(blk, x, {"k": kc[layer], "v": vc[layer]},

@@ -1,5 +1,6 @@
-"""Continuous-batching serving with multi-tenant QA-LoRA adapters
-(counterpart of ``repro.serving``: gqa, contiguous KV cache).
+"""Continuous-batching serving with multi-tenant QA-LoRA adapters, a
+paged KV cache and speculative decoding (counterpart of ``repro.serving``
+for gqa).
 
     from repro_torch.serving import AdapterStore, ContinuousEngine
     store = AdapterStore(base_params, capacity=8)
@@ -10,17 +11,26 @@
     outputs = eng.run()          # {rid: [tok, ...]}
     eng.stats.tok_per_s, eng.stats.occupancy
 
-``scheduler`` and ``trace`` are numpy only; the engine and the store hold
-torch tensors.
+    # paged cache with prefix reuse, and self-speculation at 8 bits
+    eng = ContinuousEngine(lm, merged, n_slots=4, max_len=64, page_size=16,
+                           decode_burst=1, speculate=3, drafter="*=intq8")
+
+``scheduler``, ``paging``, ``speculative`` and ``trace`` are numpy only; the
+engine and the store hold torch tensors.
 """
 
 from .adapters import AdapterStore, extract_pack
-from .engine import ContinuousEngine, EngineCorrupted, EngineStats
+from .engine import (ContinuousEngine, EngineCorrupted, EngineStats,
+                     make_self_drafter)
+from .paging import PageTable, pages_for
 from .scheduler import Request, Scheduler, Slot
+from .speculative import accept_drafts, rollback_counts
 from .trace import (bursty_arrivals, make_trace, poisson_arrivals, replay,
                     static_schedule)
 
 __all__ = ["AdapterStore", "ContinuousEngine", "EngineCorrupted",
-           "EngineStats", "Request", "Scheduler", "Slot", "bursty_arrivals",
-           "extract_pack", "make_trace", "poisson_arrivals", "replay",
+           "EngineStats", "PageTable", "Request", "Scheduler", "Slot",
+           "accept_drafts", "bursty_arrivals", "extract_pack",
+           "make_self_drafter", "make_trace", "pages_for",
+           "poisson_arrivals", "replay", "rollback_counts",
            "static_schedule"]

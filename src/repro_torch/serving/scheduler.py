@@ -1,5 +1,5 @@
 """Slot scheduler for the continuous-batching engine (counterpart of
-``repro.serving.scheduler``, contiguous KV cache, no speculation).
+``repro.serving.scheduler``).
 
 Pure host-side bookkeeping in numpy (neither torch nor jax), so slot
 lifecycle (queued -> prefill -> decode -> finished, eviction + refill) is
@@ -11,7 +11,10 @@ ragged step (``tokens [B, C]`` / ``n_new [B]`` for
 :meth:`repro_torch.models.lm.LM.step_ragged`), and commits the step's
 argmax tokens back into per-request outputs.  Prompts are consumed in
 chunks of ``prefill_chunk`` so a long prompt never stalls the in-flight
-decode batch for more than one chunk of rows.
+decode batch for more than one chunk of rows.  With a
+:class:`~repro_torch.serving.paging.PageTable` admission also secures the
+request's pages, and with speculative ``headroom`` every request reserves
+that many cache positions for the verify step's transient rows.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from collections import deque
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from .paging import PageTable
 
 
 @dataclasses.dataclass
@@ -49,6 +54,9 @@ class Slot:
     pp: int = 0                   # prompt tokens already fed to the model
     emitted: Optional[List[int]] = None
     last_tok: int = 0             # last generated token (decode input)
+    # a held draft for the token after last_tok (the reference's MTP
+    # drafter); -1 = none, and any plain commit drops it
+    spec_draft: int = -1
 
     def __post_init__(self):
         if self.emitted is None:
@@ -66,22 +74,31 @@ class Slot:
 class Scheduler:
     """FIFO admission into ``n_slots`` cache slots with per-slot eviction.
 
-    The reference's paged-cache accounting (``page_table``) and
-    speculative headroom (``headroom``) are not ported yet: passing either
-    raises."""
+    ``page_table`` switches admission to paged-cache accounting: a request
+    enters a free slot only when the page table can cover it; otherwise
+    admission backs off (the request stays queued, the table's
+    ``alloc_backoffs`` counts the stall).  A prefix hit at admission
+    advances the slot's prompt cursor past the reused tokens (their
+    prefill chunks never run); as prefill fills whole prompt pages,
+    :meth:`commit` registers them for reuse, and releasing a slot (finish
+    or eviction) returns its pages in the same call.
+
+    ``headroom`` (speculative decoding): a verify dispatch writes up to
+    that many cache rows past the committed stream before the rejected
+    tail rolls back, so every request reserves that many extra positions
+    (within ``max_len``, and within its pages)."""
 
     def __init__(self, n_slots: int, max_len: int, prefill_chunk: int = 8,
-                 page_table=None, headroom: int = 0):
-        if page_table is not None or headroom:
-            raise NotImplementedError(
-                "Scheduler: the paged cache (page_table) and speculative "
-                "headroom are not yet ported (see ROADMAP.md)")
-        if n_slots < 1 or prefill_chunk < 1:
-            raise ValueError(f"need n_slots >= 1 and prefill_chunk >= 1; "
-                             f"got {n_slots}, {prefill_chunk}")
+                 page_table: Optional[PageTable] = None, headroom: int = 0):
+        if n_slots < 1 or prefill_chunk < 1 or headroom < 0:
+            raise ValueError(f"need n_slots >= 1, prefill_chunk >= 1 and "
+                             f"headroom >= 0; got {n_slots}, "
+                             f"{prefill_chunk}, {headroom}")
         self.n_slots = n_slots
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
+        self.page_table = page_table
+        self.headroom = headroom
         self.queue: deque = deque()
         self.slots: List[Optional[Slot]] = [None] * n_slots
         self.outputs: Dict[int, List[int]] = {}
@@ -98,10 +115,20 @@ class Scheduler:
             raise ValueError("empty prompt: feed BOS explicitly")
         if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        if len(req.prompt) + req.max_new_tokens > self.max_len:
+        need = len(req.prompt) + req.max_new_tokens + self.headroom
+        extra = (f" (+{self.headroom} speculative headroom)"
+                 if self.headroom else "")
+        if need > self.max_len:
             raise ValueError(
-                f"request needs {len(req.prompt)} + {req.max_new_tokens} "
-                f"cache positions but slots hold {self.max_len}")
+                f"request needs {len(req.prompt)} + {req.max_new_tokens}"
+                f"{extra} cache positions but slots hold {self.max_len}")
+        if self.page_table is not None and not self.page_table.fits(need):
+            # waiting for pages that can never exist would stall the FIFO
+            raise ValueError(
+                f"request needs {len(req.prompt)} + {req.max_new_tokens}"
+                f"{extra} cache positions but the page pool can never "
+                f"cover it (capacity {self.page_table.capacity} pages of "
+                f"{self.page_table.page_size})")
         if req.rid < 0:
             req.rid = self._next_rid
         # auto-assignment always skips past pre-assigned rids, and a
@@ -118,22 +145,52 @@ class Scheduler:
         """Move queued requests into free slots; returns the refilled slot
         indices (the engine resets their cache lengths — the slot's stale
         KV from the previous occupant is never read because every
-        attention mask is bounded by the slot's own length)."""
+        attention mask is bounded by the slot's own length).
+
+        With a page table, each admission first secures its pages; when
+        the pool cannot cover the queue head, admission STOPS (FIFO order
+        holds: a later, smaller request does not jump a starved head) and
+        the head retries next step.  A prefix hit starts the slot's prompt
+        cursor past the reused tokens (the engine seeds the slot's cache
+        length to match)."""
         filled = []
         for i in range(self.n_slots):
             if not self.queue:
                 break
             if self.slots[i] is None:
-                self.slots[i] = Slot(req=self.queue.popleft())
+                req = self.queue[0]
+                reused = 0
+                if self.page_table is not None:
+                    # the adapter id salts the prefix hashes: a prompt's KV
+                    # depends on the adapter that computed it
+                    got = self.page_table.admit(
+                        i, req.prompt,
+                        len(req.prompt) + req.max_new_tokens + self.headroom,
+                        salt=req.adapter_id)
+                    if got is None:
+                        break          # backoff: the head stays queued
+                    _, reused = got
+                self.queue.popleft()
+                self.slots[i] = Slot(req=req, pp=reused)
                 filled.append(i)
         return filled
+
+    def _finish(self, i: int, s: Slot):
+        """Record slot ``i``'s output and free it (and its pages)."""
+        self.outputs[s.req.rid] = s.emitted
+        self.slots[i] = None
+        if self.page_table is not None:
+            self.page_table.release(i)
 
     def evict_slot(self, i: int) -> Optional[Slot]:
         """Free slot ``i`` WITHOUT recording an output (cancellation or
         deadline expiry).  Returns the evicted slot (partial ``emitted``
-        intact) or None if it was free."""
+        intact) or None if it was free.  The slot's pages are released in
+        the same call."""
         s = self.slots[i]
         self.slots[i] = None
+        if s is not None and self.page_table is not None:
+            self.page_table.release(i)
         return s
 
     def remove_queued(self, rid: int) -> bool:
@@ -211,20 +268,29 @@ class Scheduler:
     def commit(self, next_tokens: np.ndarray) -> List[int]:
         """Record the step's argmax tokens; returns rids finished (and
         evicted) this step.  A slot whose plan consumed its final prompt
-        token emits its FIRST generated token here."""
+        token emits its FIRST generated token here.
+
+        Paged: the step whose results arrive here has written its rows on
+        the device, so the prompt pages it completed become registrable
+        for reuse now (never earlier: a hit on an unwritten page would read
+        garbage), and before any release below, so a finishing request's
+        prompt pages park in the reusable cached pool."""
         done = []
+        pt = self.page_table
         for i, s in enumerate(self.slots):
             if s is None or self._planned[i] == 0:
                 continue  # free or idle
+            if pt is not None:
+                pt.register_filled(i, s.pp)
             if s.prefilling:
                 continue  # still mid-prompt: logits are noise
             tok = int(next_tokens[i])
             s.emitted.append(tok)
             s.last_tok = tok
+            s.spec_draft = -1   # the stream moved past the held draft
             if s.remaining <= 0 or (s.req.eos_id is not None
                                     and tok == s.req.eos_id):
-                self.outputs[s.req.rid] = s.emitted
-                self.slots[i] = None
+                self._finish(i, s)
                 done.append(s.req.rid)
         return done
 
@@ -245,6 +311,45 @@ class Scheduler:
                 eos[i] = s.req.eos_id
         return tok, remaining, eos
 
+    # ---------------- speculative-decode interface ----------------
+
+    def spec_drafts(self) -> np.ndarray:
+        """Per-slot held draft tokens ``[n_slots] int32`` (-1 = none: a
+        free or fresh slot, or a draft dropped by a plain commit)."""
+        d = np.full((self.n_slots,), -1, np.int32)
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                d[i] = s.spec_draft
+        return d
+
+    def set_spec_drafts(self, drafts: np.ndarray):
+        """Hold each live slot's draft for the next dispatch (free slots
+        are skipped; -1 clears)."""
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                s.spec_draft = int(drafts[i])
+
+    def commit_spec(self, emitted: np.ndarray, m: np.ndarray) -> List[int]:
+        """Fold one draft-and-verify dispatch back in.  ``emitted`` [B, C]
+        holds each slot's accepted greedy run left-aligned (-1 past
+        ``m[b]``; :func:`repro_torch.serving.speculative.accept_drafts`
+        has applied the remaining and EOS cuts, so every entry commits).  A
+        slot finishes when its allowance is spent or its run holds its EOS
+        (the stream keeps the EOS).  Valid once every slot is past its
+        prompt."""
+        done = []
+        for i, s in enumerate(self.slots):
+            if s is None or int(m[i]) <= 0:
+                continue
+            toks = [int(t) for t in emitted[i, :int(m[i])]]
+            s.emitted.extend(toks)
+            s.last_tok = toks[-1]
+            if s.remaining <= 0 or (s.req.eos_id is not None
+                                    and s.req.eos_id in toks):
+                self._finish(i, s)
+                done.append(s.req.rid)
+        return done
+
     def commit_burst(self, emitted: np.ndarray, tok: np.ndarray,
                      remaining: np.ndarray) -> List[int]:
         """Fold a K-step fused burst back in.  ``emitted`` [K, B] holds -1
@@ -258,7 +363,6 @@ class Scheduler:
             s.emitted.extend(toks)
             s.last_tok = int(tok[i])
             if int(remaining[i]) <= 0:
-                self.outputs[s.req.rid] = s.emitted
-                self.slots[i] = None
+                self._finish(i, s)
                 done.append(s.req.rid)
         return done

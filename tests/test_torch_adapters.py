@@ -257,10 +257,20 @@ def test_trace_helpers_match_reference():
 
 
 def test_scheduler_refuses_parts_not_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        serving.Scheduler(2, 16, 4, page_table=object())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        serving.Scheduler(2, 16, 4, headroom=2)
+    """What the scheduler still refuses (paging and headroom are ported): a
+    negative headroom, a request past the slots once its speculative
+    headroom counts, one the page pool can never cover, and one past the
+    slots."""
+    with pytest.raises(ValueError, match="headroom"):
+        serving.Scheduler(2, 16, 4, headroom=-1)
+    sch = serving.Scheduler(1, 8, 4, headroom=2)
+    with pytest.raises(ValueError, match=r"\+2 speculative headroom"):
+        sch.submit(serving.Request(prompt=np.ones(3, np.int32),
+                                   max_new_tokens=4))
+    sch = serving.Scheduler(2, 16, 4, page_table=serving.PageTable(3, 4, 4))
+    with pytest.raises(ValueError, match="page pool can never cover"):
+        sch.submit(serving.Request(prompt=np.ones(5, np.int32),
+                                   max_new_tokens=4))
     sch = serving.Scheduler(1, 8, 4)
     with pytest.raises(ValueError, match="cache positions"):
         sch.submit(serving.Request(prompt=np.ones(5, np.int32),
@@ -527,12 +537,29 @@ def test_poisoned_engine_raises_before_commit(served):
 
 
 def test_engine_refuses_modes_not_ported(served):
+    """What the engine still refuses (paging and self-speculation are
+    ported): encdec sources, the MTP drafter, speculation over an
+    AdapterStore, with a decode burst or without a drafter, and a request
+    the page pool can never cover."""
     base = served.tstore.base
-    for kw in ({"page_size": 4}, {"speculate": 2}, {"drafter": "*=intq8"},
-               {"max_src": 8}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    for kw, exc, match in (
+            ({"max_src": 8}, NotImplementedError, "not yet ported"),
+            ({"speculate": 1, "decode_burst": 1, "drafter": "mtp"},
+             NotImplementedError, "not yet ported"),
+            ({"speculate": 2, "decode_burst": 1, "drafter": "*=intq8",
+              "adapters": served.tstore}, NotImplementedError,
+             "AdapterStore"),
+            ({"speculate": 2, "drafter": "*=intq8"}, ValueError,
+             "decode_burst=1 when speculating"),
+            ({"speculate": 2, "decode_burst": 1}, ValueError,
+             "needs a drafter")):
+        with pytest.raises(exc, match=match):
             serving.ContinuousEngine(served.tlm, base, n_slots=2, max_len=8,
                                      **kw)
+    paged = serving.ContinuousEngine(served.tlm, base, n_slots=2, max_len=8,
+                                     page_size=2, n_pages=3)
+    with pytest.raises(ValueError, match="page pool can never cover"):
+        paged.submit([5, 6, 7], 2)
     eng = serving.ContinuousEngine(served.tlm, base, n_slots=2, max_len=8)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         eng.submit([5, 6], 2, src=np.zeros((2, 4), np.float32))

@@ -194,14 +194,24 @@ def test_serve_cli_cpu(argv):
         assert r["rel"] <= out["merge_bound_rel"]
 
 
-@pytest.mark.parametrize("flag", (["--engine", "frontend"],
-                                  ["--engine", "continuous", "--page-size",
-                                   "16"],
-                                  ["--speculate", "2"], ["--page-size", "4"]))
-def test_serve_cli_refuses_modes_not_ported(flag, capsys):
+@pytest.mark.parametrize("flag,message", (
+    (["--engine", "frontend"], "not yet ported"),
+    (["--page-size", "4"], "--page-size needs --engine continuous"),
+    (["--speculate", "2"], "--speculate needs --engine continuous"),
+    (["--engine", "continuous", "--speculate", "2", "--decode-burst", "4"],
+     "incompatible with --decode-burst > 1"),
+    (["--engine", "continuous", "--page-size", "4", "--n-pages", "3"],
+     "page pool can never cover"),
+    (["--engine", "continuous", "--speculate", "1", "--draft-policy",
+      "mtp"], "not yet ported")))
+def test_serve_cli_refuses_modes_not_ported(flag, message, capsys):
+    """What the CLI still refuses (paging and speculation are ported on
+    the continuous engine): the frontend, paging or speculation on the
+    static engine, speculation with decode bursts, a pool that can never
+    hold a request, and the MTP drafter."""
     with pytest.raises(SystemExit):
         tserve.main(["--reduced", "--device", "cpu"] + flag)
-    assert "not yet ported" in capsys.readouterr().err
+    assert message in capsys.readouterr().err
 
 
 def test_cuda_entry_points_raise_without_a_card():
