@@ -92,7 +92,46 @@ Phases, each printing one JSON line:
    op (``eager=True``), each captured or warmed by a first pass and then
    run in turns: streams identical to the main run's, and their ms a
    decode model step and a ragged step.
-8. train_small -- one QA-LoRA train step (``repro_torch.launch.steps``)
+8. paged   -- the continuous engine on the paged KV cache: 8 requests of a
+   shared 96-token prefix + 32 own tokens (32 generated) on 4 slots in
+   16-token pages from a 31-page pool (the contiguous capacity is 41)
+   through a graphed contiguous, a graphed paged and an eager paged
+   engine: tokens equal, the reused prompt tokens those a model-free run
+   of the scheduler and page table predicts, admission backed off at
+   least once, kernels 1 and 2 counted, the two graphed engines in turns
+   for their ms a step, each engine's memory; then phase adapters'
+   tenants through ``serve --page-size 16``, tokens phase adapters'.
+9. spec    -- self-speculation: ``serve --speculate 3 --draft-policy
+   "*=intq8"`` counted (kernel 1 at the verify step's M = 16 and in the
+   drafter's ride-along, kernel 2 in the draft steps) and one replay of
+   each graph profiled; then a plain graphed engine, the ``*=intq8`` and
+   ``*=intq2`` drafters, a paged one and a drafter from another seed (its
+   drafts rejected) in turns for their ms a committed token, tokens
+   plain decode's; kernels 1 and 2 held at the drafters' bits.
+10. frontend -- ``repro_torch.serving.ServingFrontend`` on the full
+   llama7b-proxy (4 slots, chunks of 64, bursts of 4), each frontend's
+   engine warmed (every step captured) before it serves.  (a) Recovery,
+   synchronous: 12 requests through a plain engine, a clean frontend
+   and one with a crash at dispatch 3 and a NaN poisoning at dispatch 7:
+   every ticket FINISHED, tokens identical to the clean run and the plain
+   engine's, exactly 2 recoveries whose log names only ``InjectedFault``
+   and ``EngineCorrupted``, no capture after the warm-up, and launches of
+   kernels 1 and 2 exactly 224 a committed model step plus the poisoned
+   dispatch's own (read at each iteration's start by a step hook); then
+   phase adapters' tenants on a paged engine with one crash, tokens equal
+   to the same engine unfaulted and to phase adapters', kernels 1, 5 and
+   5a counted.  (b) Live SLO runs on the serve thread, after the
+   reference's ``slo_bench``: 32 requests, queue cap 8, offered at 0.7 x
+   the capacity of a saturated calibration run, total deadline 3 x its
+   slowest latency; Poisson and bursty (6) arrivals, each clean and with a
+   crash at dispatch 8 and stragglers.  Prints each run's TTFT and TPOT
+   p50/p95/p99, timeout and reject rates, goodput and recoveries, the
+   frontend's own host ms a dispatch, and the device's idle share of a
+   fifth, clean Poisson run under ``torch.profiler``.  Gates: no FAILED
+   ticket, recoveries equal to the injected crashes, every ticket's tokens
+   a prefix of the plain engine's stream (the whole stream when
+   FINISHED), no capture inside a measured run, every serve thread ended.
+11. train_small -- one QA-LoRA train step (``repro_torch.launch.steps``)
    of llama7b-proxy at full width and 2 layers, bf16, remat on, on a
    batch of 2 x 128 tokens from the port's stream: on the card through
    kernel 3 and its projection (twice per linear: once more when remat
@@ -102,7 +141,7 @@ Phases, each printing one JSON line:
    updates of A and B and the updated B within bounds argued from bf16's
    8-bit significand; and, as the loss limit's measure, how far the card's
    loss moves with every B zeroed (the adapter term dropped).
-9. train    -- ``repro_torch.launch.train``'s own ``setup`` and ``run`` on
+12. train    -- ``repro_torch.launch.train``'s own ``setup`` and ``run`` on
    the full llama7b-proxy (int4 g32 r64, bf16, remat): 4 steps of 16 x 256
    tokens of alpaca, lr 2e-4, max grad norm 0.3, a checkpoint every 2 steps
    under ``build/`` (removed at the end); the codes, scales and zeros bit
@@ -114,7 +153,7 @@ Phases, each printing one JSON line:
    the plain backward's shares of a step; kernel 3 and its projection
    held against their plain versions at the step's M = 4096 on one
    layer's 7 linears.
-10. baselines -- the paper's contrast at full llama7b-proxy size, on a
+13. baselines -- the paper's contrast at full llama7b-proxy size, on a
    float stand-in base drawn from seed 0 (bf16), with calibration
    activations of 2048 rows a D_in (lognormal per-feature scales) and one
    f64 GPTQ Hessian per D_in built on the card: ``convert_tree`` with a
@@ -141,8 +180,8 @@ Phases, each printing one JSON line:
    four kernels held and timed at the head's shape (kernels 3 and 1 at
    M = 512: what a head over many rows, as training's xent, reaches).  Last, one lora and one
    qlora train step of 2-layer llama7b-proxy on the card against the CPU
-   (as phase 8).
-11. the ``kernels`` summary, and the final ``{"ok": true, ...}`` line.
+   (as phase 11).
+14. the ``kernels`` summary, and the final ``{"ok": true, ...}`` line.
 
 Any failed phase exits non-zero before the final line.  Without a card,
 or without the repository's ``src`` beside this file, it exits non-zero
@@ -255,6 +294,12 @@ SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 STATIC_PATH = ("qmatmul", "qmatvec", "qalora_matmul", "qalora_matvec",
                "qalora_rank_proj")
 ADAPTER_PATH = ("qmatmul", "qalora_slot_matvec", "qalora_slot_rank_proj")
+# which of phase frontend's counted runs launch each kernel: kernels 1 and
+# 2 on the merged model, kernels 1, 5 and 5a on the tenants
+FRONTEND_PATH = {
+    "qmatmul": "the frontend's recovery, tenants' recovery and SLO runs",
+    "qmatvec": "the frontend's recovery and SLO runs",
+    "qalora_slot_matvec": "the frontend's tenants' recovery"}
 LAYER_LINEARS = sum(c for _, _, c in SHAPES)  # 7 quantized linears a layer
 
 RECORD = {"phases": []}
@@ -1432,7 +1477,7 @@ def phase_adapters(torch):
 
 
 # ---------------------------------------------------------------------------
-# phase paged: the continuous engine on the paged KV cache
+# phase 8: the continuous engine on the paged KV cache
 # ---------------------------------------------------------------------------
 
 # 8 requests of a shared 96-token prefix plus 32 tokens of their own, each
@@ -1671,7 +1716,7 @@ def phase_paged(torch, adapter_toks):
 
 
 # ---------------------------------------------------------------------------
-# phase spec: self-speculative decoding
+# phase 9: self-speculative decoding
 # ---------------------------------------------------------------------------
 
 SPEC_K = 3
@@ -1832,7 +1877,534 @@ def phase_spec(torch):
 
 
 # ---------------------------------------------------------------------------
-# phases 8-9: QA-LoRA fine-tuning
+# phase 10: the fault-tolerant serving frontend
+# ---------------------------------------------------------------------------
+
+# the frontend's engine: 4 slots, prefill chunks of 64, decode bursts of 4
+FE_ENGINE = dict(n_slots=RAGGED_SLOTS, prefill_chunk=RAGGED_CHUNK,
+                 decode_burst=4)
+# (a) recovery: 12 requests, a crash at dispatch 3 (before its admission)
+# and a NaN poisoning at dispatch 7 (the step runs, its health bit trips)
+FE_TRACE = dict(seed=3, prompt_lens=(64, 96, 128), gen_lens=(16, 32, 24))
+FE_REQUESTS = 12
+FE_FAULTS = dict(seed=0, crash_steps=(3,), nan_steps=(7,))
+# phase adapters' tenants on the paged engine, one crash mid-decode
+FE_TENANT_FAULTS = dict(seed=0, crash_steps=(5,))
+# (b) the live SLO runs, after the reference's slo_bench
+# (benchmarks/run.py:715-797): 32 requests, queue cap 8, offered at 0.7 x
+# the saturated capacity, total deadline 3 x the saturated run's slowest
+# end-to-end latency; Poisson and bursty (6) arrivals, clean and faulty
+SLO_TRACE = dict(seed=0, prompt_lens=(32, 64, 128), gen_lens=(16, 32, 48))
+SLO_REQUESTS = 32
+SLO_QUEUE_CAP = 8
+SLO_LOAD = 0.7
+SLO_BURST = 6
+SLO_FAULTS = dict(seed=2, crash_steps=(8,), p_straggle=0.05, straggle_s=0.01)
+JOIN_S = 300.0  # a serve thread that outlives this fails the phase
+
+
+def _graph_captures(eng):
+    return {g.name: g._cache_size() for g in eng.graphs.values()}
+
+
+def _detached(eng, fn):
+    """``fn()`` with the engine's step hook detached (an injector's
+    schedule then starts at the measured run)."""
+    hook, eng.step_hook = eng.step_hook, None
+    try:
+        return fn()
+    finally:
+        eng.step_hook = hook
+
+
+def _warm(torch, fe):
+    """Capture every step the frontend's engine can replay before it
+    serves: a lone request of 32 tokens per burst length of the ladder
+    (generating 2**i + 1 tokens bursts 2**i at once after its prefill),
+    which also captures the ragged step; then ``reset()``, which keeps the
+    graphs.  Returns the captures, each at its budget."""
+    import numpy as np
+    eng = fe.engine
+
+    def passes():
+        for i in range(eng.decode_burst.bit_length()):
+            eng.submit(np.full(32, 5, np.int32), (1 << i) + 1)
+            eng.run()
+    _detached(eng, passes)
+    eng.reset()
+    torch.cuda.synchronize()
+    caps = _graph_captures(eng)
+    if caps != eng.budgets:
+        raise AssertionError(f"warm-up captured {caps}, budgets "
+                             f"{eng.budgets}")
+    return caps
+
+
+class _LaunchProbe:
+    """A step hook: the kernel launch counts at each engine iteration's
+    start, then the injector (if any).  ``per_dispatch(i)`` is what
+    iteration i launched."""
+
+    def __init__(self, injector=None):
+        self.injector = injector
+        self.snaps = []
+
+    def __call__(self, engine):
+        from repro_torch import kernels
+        self.snaps.append(kernels.launches())
+        if self.injector is not None:
+            self.injector(engine)
+
+    def per_dispatch(self, i, end):
+        nxt = self.snaps[i + 1] if i + 1 < len(self.snaps) else end
+        return {k: nxt[k] - self.snaps[i][k] for k in nxt
+                if nxt[k] != self.snaps[i][k]}
+
+
+def _engine_streams(lm, params, trace, **kw):
+    """The plain continuous engine's greedy stream per request."""
+    from repro_torch.serving import ContinuousEngine
+    eng = ContinuousEngine(lm, params, **kw)
+    for r in trace:
+        eng.submit(r.prompt, r.max_new_tokens, r.eos_id, rid=r.rid)
+    return eng.run()
+
+
+def _fault_kinds(fe):
+    return sorted({e.split("(")[0] for _, e in fe.fault_log})
+
+
+def _frontend_recovery(torch, cfg, lm, merged):
+    """(a): the trace through a plain engine, a clean frontend and one
+    with a crash and a NaN poisoning, synchronously; counts reset just
+    before each frontend's run and read just after."""
+    from repro_torch import kernels
+    from repro_torch.runtime import FaultInjector
+    from repro_torch.serving import ServingFrontend, make_trace
+    trace = make_trace(FE_REQUESTS, cfg.vocab, **FE_TRACE)
+    kw = dict(FE_ENGINE, max_len=max(FE_TRACE["prompt_lens"])
+              + max(FE_TRACE["gen_lens"]))
+    plain = _engine_streams(lm, merged, trace, **kw)
+    _free(torch)
+    per_step = LAYER_LINEARS * cfg.n_layers
+    runs = {}
+    for name, inj in (("clean", None),
+                      ("faulty", FaultInjector(**FE_FAULTS))):
+        probe = _LaunchProbe(inj)
+        fe = ServingFrontend(lm, merged, queue_cap=len(trace),
+                             injector=probe, **kw)
+        warm = _warm(torch, fe)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        for r in trace:
+            fe.submit(r.prompt, r.max_new_tokens, eos_id=r.eos_id, rid=r.rid)
+        fe.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launches()
+        est = fe.engine_stats
+        decode_steps = est.model_steps - RAGGED_CHUNK * est.ragged_dispatches
+        pred = {"qmatmul": per_step * est.ragged_dispatches,
+                "qmatvec": per_step * decode_steps}
+        run = {"statuses": fe.status_counts(),
+               "recoveries": fe.n_recoveries,
+               "fault_log": [e for _, e in fe.fault_log],
+               "fault_kinds": _fault_kinds(fe),
+               "injector_log": list(inj.log) if inj else [],
+               "tokens": {t.rid: list(t.tokens)
+                          for t in fe.tickets.values()},
+               "ticket_recoveries": sorted(t.n_recoveries
+                                           for t in fe.tickets.values()),
+               "launches": counts, "committed_launches": pred,
+               "ragged_dispatches": est.ragged_dispatches,
+               "decode_steps": decode_steps, "wall_ms": wall * 1e3,
+               "captures_warm": warm,
+               "captures_after": _graph_captures(fe.engine)}
+        if inj is not None:
+            (nan_at,) = FE_FAULTS["nan_steps"]
+            (crash_at,) = FE_FAULTS["crash_steps"]
+            run["crash_dispatch_launches"] = probe.per_dispatch(crash_at,
+                                                                counts)
+            run["poisoned_dispatch_launches"] = probe.per_dispatch(nan_at,
+                                                                   counts)
+        runs[name] = run
+        del fe
+        _free(torch)
+    return trace, plain, runs
+
+
+def _frontend_tenants(torch, cfg, adapter_toks):
+    """(a), tenants: phase adapters' requests through a paged frontend
+    (pages of 16) with one crash, against the same engine unfaulted and
+    against phase adapters' tokens; counts reset just before the faulty
+    run and read just after."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    from repro_torch.runtime import FaultInjector
+    from repro_torch.serving import ServingFrontend
+    lm, params, _ = serve.build_model(cfg, "cuda")
+    store, tenants = serve.build_store(params, ADAPTER_TENANTS)
+    cycle = [*tenants, None]
+    n = adapter_toks.shape[0]
+    prompts = np.random.default_rng(0).integers(
+        4, cfg.vocab, size=(n, 128)).astype(np.int32)
+    inj = FaultInjector(**FE_TENANT_FAULTS)
+    fe = ServingFrontend(lm, store.base, n_slots=RAGGED_SLOTS,
+                         max_len=128 + SERVE_GEN, prefill_chunk=RAGGED_CHUNK,
+                         decode_burst=8, page_size=PAGE_SIZE, adapters=store,
+                         queue_cap=n, injector=inj)
+    warm = _warm(torch, fe)
+    eng = fe.engine
+
+    def unfaulted():
+        rids = [eng.submit(p, SERVE_GEN, adapter_id=cycle[i % len(cycle)],
+                           rid=i) for i, p in enumerate(prompts)]
+        out = eng.run()
+        return np.asarray([out[r] for r in rids], np.int32)
+    clean = _detached(eng, unfaulted)
+    eng.reset()
+    kernels.reset_launches()
+    tickets = [fe.submit(p, SERVE_GEN, adapter_id=cycle[i % len(cycle)],
+                         rid=i) for i, p in enumerate(prompts)]
+    fe.run_until_drained()
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    est = fe.engine_stats
+    pt = eng.page_table
+    pt.check_invariants()
+    out = {"statuses": fe.status_counts(), "recoveries": fe.n_recoveries,
+           "fault_kinds": _fault_kinds(fe), "injector_log": list(inj.log),
+           "tokens": [list(t.tokens) for t in tickets],
+           "unfaulted": clean.tolist(), "launches": counts,
+           "ragged_dispatches": est.ragged_dispatches,
+           "decode_steps": est.model_steps
+           - RAGGED_CHUNK * est.ragged_dispatches,
+           "pool_drained": pt.n_used == 0,
+           "captures_warm": warm, "captures_after": _graph_captures(eng)}
+    del fe, eng, store, lm, params
+    _free(torch)
+    return out
+
+
+def _timed(fe):
+    """Wrap the frontend's ``step`` and its engine's ``step_once`` (on the
+    instances, for this run) to sum the wall of the frontend iterations
+    that stepped the engine and of those engine steps: their difference is
+    the frontend's own host cost."""
+    rec = {"frontend_s": 0.0, "engine_s": 0.0, "engine_steps": 0,
+           "stepped": False}
+    step, once = fe.step, fe.engine.step_once
+
+    def engine_step():
+        t0 = time.perf_counter()
+        rec["stepped"] = True
+        try:
+            once()
+        finally:
+            rec["engine_s"] += time.perf_counter() - t0
+            rec["engine_steps"] += 1
+
+    def frontend_step():
+        rec["stepped"] = False
+        t0 = time.perf_counter()
+        busy = step()
+        if rec["stepped"]:
+            rec["frontend_s"] += time.perf_counter() - t0
+        return busy
+    fe.step, fe.engine.step_once = frontend_step, engine_step
+    return rec
+
+
+def _busy_ms(prof):
+    """Device busy ms of a profiled window: the union of the intervals of
+    every device activity (kernels, copies, sets)."""
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type().name == "CUDA")
+    busy, end = 0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy / 1e6, len(spans)
+
+
+def _slo_run(torch, lm, merged, trace, arrivals, *, max_len, deadline,
+             injector=None, profiled=False):
+    """One live run: a warmed frontend's serve thread, the trace replayed
+    open-loop at ``arrivals`` from this thread, then ``stop()``; counts
+    reset just before ``start()`` and read after the join."""
+    from contextlib import nullcontext
+    from repro_torch import kernels
+    from repro_torch.serving import ServingFrontend, replay, slo_summary
+    fe = ServingFrontend(lm, merged, queue_cap=SLO_QUEUE_CAP,
+                         default_deadline_s=deadline, injector=injector,
+                         max_len=max_len, **FE_ENGINE)
+    warm = _warm(torch, fe)
+    rec = _timed(fe)
+    ctx = nullcontext()
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+        ctx = profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA])
+    kernels.reset_launches()
+    with ctx as prof:
+        t0 = time.perf_counter()
+        fe.start()
+        thread = fe._thread
+        due0 = time.monotonic()
+        replay(lambda r: fe.submit(r.prompt, r.max_new_tokens,
+                                   eos_id=r.eos_id, rid=r.rid),
+               trace, arrivals)
+        fe.stop(timeout=JOIN_S)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    s = slo_summary(fe)
+    late = [fe.tickets[r.rid].t_submit - (due0 + at)
+            for r, at in zip(trace, arrivals)]
+    out = {"slo": s, "statuses": fe.status_counts(),
+           "thread_ended": not thread.is_alive(),
+           "fault_kinds": _fault_kinds(fe),
+           "injector_log": list(injector.log) if injector else [],
+           "crashes": sum(k == "crash" for _, k in injector.log)
+           if injector else 0,
+           "tokens": {t.rid: (t.status.name, list(t.tokens))
+                      for t in fe.tickets.values()},
+           "launches": counts, "wall_ms": wall * 1e3,
+           "generator_late_ms_max": max(late) * 1e3,
+           "frontend_host_ms_per_dispatch":
+               (rec["frontend_s"] - rec["engine_s"]) * 1e3
+               / max(rec["engine_steps"], 1),
+           "engine_ms_per_dispatch": rec["engine_s"] * 1e3
+           / max(rec["engine_steps"], 1),
+           "engine_steps": rec["engine_steps"],
+           "captures_warm": warm,
+           "captures_after": _graph_captures(fe.engine)}
+    if prof is not None:
+        busy, n_events = _busy_ms(prof)
+        out.update(device_busy_ms=busy, device_events=n_events,
+                   device_idle_share=max(0.0, 1.0 - busy / (wall * 1e3)))
+    del fe, prof
+    _free(torch)
+    return out
+
+
+def _frontend_slo(torch, cfg, lm, merged):
+    """(b): calibration, then Poisson and bursty arrivals, each clean and
+    faulty, then one clean Poisson run under ``torch.profiler`` for the
+    device's idle share."""
+    from repro_torch.runtime import FaultInjector
+    from repro_torch.serving import (ServingFrontend, bursty_arrivals,
+                                     make_trace, poisson_arrivals,
+                                     slo_summary)
+    trace = make_trace(SLO_REQUESTS, cfg.vocab, **SLO_TRACE)
+    max_len = max(SLO_TRACE["prompt_lens"]) + max(SLO_TRACE["gen_lens"])
+    plain = _engine_streams(lm, merged, trace, max_len=max_len, **FE_ENGINE)
+    _free(torch)
+    # calibration: a saturated run, 2 x slots requests submitted at once
+    # to a started frontend
+    cal = ServingFrontend(lm, merged, queue_cap=SLO_REQUESTS,
+                          max_len=max_len, **FE_ENGINE)
+    cal_warm = _warm(torch, cal)
+    cal.start()
+    cal_thread = cal._thread
+    for r in make_trace(2 * RAGGED_SLOTS, cfg.vocab,
+                        **dict(SLO_TRACE, seed=7)):
+        cal.submit(r.prompt, r.max_new_tokens, eos_id=r.eos_id)
+    cal.stop(timeout=JOIN_S)
+    torch.cuda.synchronize()
+    cap = slo_summary(cal)
+    lat = [t.t_done - t.t_submit for t in cal.tickets.values()
+           if t.t_done is not None]
+    rate = SLO_LOAD * cap["finished"] / max(cal.wall_s, 1e-9)
+    deadline = max(3.0 * max(lat), 0.1)
+    calibration = {"slo": cap, "wall_ms": cal.wall_s * 1e3,
+                   "slowest_latency_ms": max(lat) * 1e3, "rate_req_s": rate,
+                   "deadline_ms": deadline * 1e3,
+                   "thread_ended": not cal_thread.is_alive(),
+                   "captures_warm": cal_warm,
+                   "captures_after": _graph_captures(cal.engine)}
+    del cal
+    _free(torch)
+    arrivals = {"poisson": poisson_arrivals(SLO_REQUESTS, rate, seed=1),
+                "bursty": bursty_arrivals(SLO_REQUESTS, rate,
+                                          burst=SLO_BURST, seed=1)}
+    runs = {}
+    for arr, at in arrivals.items():
+        for mode in ("clean", "faulty"):
+            inj = FaultInjector(**SLO_FAULTS) if mode == "faulty" else None
+            runs[f"{arr}-{mode}"] = _slo_run(
+                torch, lm, merged, trace, at, max_len=max_len,
+                deadline=deadline, injector=inj)
+            r = runs[f"{arr}-{mode}"]
+            s = r["slo"]
+            print(f"[chip_smoke] frontend SLO {arr}-{mode}: ttft p50/p95/p99 "
+                  f"{s['ttft_p50_s'] * 1e3:.1f}/{s['ttft_p95_s'] * 1e3:.1f}/"
+                  f"{s['ttft_p99_s'] * 1e3:.1f} ms, tpot p50/p95/p99 "
+                  f"{s['tpot_p50_s'] * 1e3:.2f}/{s['tpot_p95_s'] * 1e3:.2f}/"
+                  f"{s['tpot_p99_s'] * 1e3:.2f} ms, timeout rate "
+                  f"{s['timeout_rate']:.3f}, reject rate "
+                  f"{s['reject_rate']:.3f}, goodput "
+                  f"{s['goodput_tok_s']:.1f} tok/s, recoveries "
+                  f"{s['recoveries']}, {s['finished']}/{s['n_requests']} "
+                  f"finished; frontend host "
+                  f"{r['frontend_host_ms_per_dispatch']:.3f} ms a dispatch",
+                  flush=True)
+    traced = _slo_run(torch, lm, merged, trace, arrivals["poisson"],
+                      max_len=max_len, deadline=deadline, profiled=True)
+    print(f"[chip_smoke] frontend: device idle share of a clean Poisson run "
+          f"under torch.profiler {traced['device_idle_share']:.3f} "
+          f"({traced['device_busy_ms']:.1f} ms busy of "
+          f"{traced['wall_ms']:.1f})", flush=True)
+    return trace, plain, calibration, runs, traced
+
+
+def _prefix_ok(tokens, plain):
+    """Every ticket's tokens a prefix of the plain engine's stream for its
+    request, and every FINISHED ticket's the whole stream; no FAILED."""
+    return all(status != "FAILED" and toks == plain[rid][:len(toks)]
+               and (status != "FINISHED" or toks == plain[rid])
+               for rid, (status, toks) in tokens.items())
+
+
+def phase_frontend(torch, adapter_toks):
+    """The fault-tolerant frontend at full width and depth: (a) recovery,
+    synchronous, on the merged model and on phase adapters' tenants; (b)
+    four live SLO runs on the serve thread, and a fifth under the
+    profiler."""
+    import repro_torch.configs as C
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    cfg = C.get("llama7b-proxy")
+    lm, _, merged = serve.build_model(cfg, "cuda")
+    trace, plain, rec = _frontend_recovery(torch, cfg, lm, merged)
+    slo_trace, slo_plain, calibration, slo, traced = _frontend_slo(
+        torch, cfg, lm, merged)
+    del lm, merged
+    _free(torch)
+    tenants = _frontend_tenants(torch, cfg, adapter_toks)
+    per_step = LAYER_LINEARS * cfg.n_layers
+    clean, faulty = rec["clean"], rec["faulty"]
+    poisoned = faulty["poisoned_dispatch_launches"]
+    in_ragged = any("ragged step" in e for e in faulty["fault_log"])
+    # the poisoned dispatch ran whole (its graph replayed) before its
+    # health bit tripped: one ragged step's kernel 1, or a burst's kernel 2
+    poisoned_ok = (poisoned == {"qmatmul": per_step} if in_ragged else (
+        set(poisoned) == {"qmatvec"}
+        and poisoned["qmatvec"] // per_step in (1, 2, 4)
+        and poisoned["qmatvec"] % per_step == 0))
+
+    def predicted(run, extra=None):
+        want = dict(run["committed_launches"])
+        for k, v in (extra or {}).items():
+            want[k] = want.get(k, 0) + v
+        return all(run["launches"][k] == want.get(k, 0)
+                   for k in run["launches"])
+    faults_named = (set(faulty["fault_kinds"])
+                    <= {"InjectedFault", "EngineCorrupted"}
+                    and set(tenants["fault_kinds"]) <= {"InjectedFault"}
+                    and all(set(r["fault_kinds"]) <= {"InjectedFault"}
+                            for r in slo.values()))
+    checks = {
+        "recovery_all_finished": all(
+            r["statuses"] == {"FINISHED": FE_REQUESTS} for r in rec.values()),
+        "recovery_tokens_equal_clean_and_plain":
+            faulty["tokens"] == clean["tokens"] == plain,
+        "recovery_exactly_two": faulty["recoveries"] == 2
+        and clean["recoveries"] == 0
+        and faulty["injector_log"] == [(3, "crash"), (7, "nan")],
+        "recovery_fault_log_named": faulty["fault_kinds"]
+        == ["EngineCorrupted", "InjectedFault"] and faults_named,
+        "recovery_no_capture_after_first_pass": all(
+            r["captures_after"] == r["captures_warm"]
+            for r in (*rec.values(), tenants, calibration, *slo.values(),
+                      traced)),
+        "recovery_crash_launched_nothing":
+            faulty["crash_dispatch_launches"] == {},
+        "recovery_poisoned_dispatch_ran_whole": poisoned_ok,
+        "recovery_launches_as_predicted": predicted(clean)
+        and predicted(faulty, poisoned),
+        "tenants_all_finished": tenants["statuses"] == {
+            "FINISHED": adapter_toks.shape[0]},
+        "tenants_tokens_equal_unfaulted":
+            tenants["tokens"] == tenants["unfaulted"],
+        "tenants_tokens_equal_phase_adapters":
+            tenants["tokens"] == adapter_toks.tolist(),
+        "tenants_one_recovery": tenants["recoveries"] == 1
+        and tenants["injector_log"] == [(5, "crash")],
+        "tenants_launches_as_predicted": all(
+            tenants["launches"][k] == {
+                "qmatmul": per_step * tenants["ragged_dispatches"],
+                "qalora_slot_matvec": per_step * tenants["decode_steps"],
+                "qalora_slot_rank_proj": per_step * tenants["decode_steps"],
+            }.get(k, 0) for k in tenants["launches"]),
+        "tenants_pool_drained": tenants["pool_drained"],
+        "slo_threads_ended": calibration["thread_ended"] and all(
+            r["thread_ended"] for r in (*slo.values(), traced)),
+        "slo_no_failed_ticket": all(
+            "FAILED" not in r["statuses"] for r in (*slo.values(), traced)),
+        "slo_recoveries_equal_crashes": all(
+            r["slo"]["recoveries"] == r["crashes"]
+            for r in (*slo.values(), traced)),
+        "slo_faulty_runs_crashed": all(
+            r["crashes"] >= 1 for k, r in slo.items() if "faulty" in k),
+        "slo_tokens_prefix_of_plain": all(
+            _prefix_ok(r["tokens"], slo_plain)
+            for r in (*slo.values(), traced)),
+        "slo_some_finished": all(r["slo"]["finished"] > 0
+                                 for r in slo.values()),
+        "slo_only_path_kernels": all(
+            v == 0 for r in slo.values() for k, v in r["launches"].items()
+            if k not in PTQ_PATH),
+        "fault_logs_named": faults_named,
+    }
+    for r in rec.values():
+        r["tokens"] = {str(k): v for k, v in r["tokens"].items()}
+    for r in (*slo.values(), traced):
+        r["tokens"] = {str(k): v for k, v in r["tokens"].items()}
+    tenants["tokens"] = [t[:8] for t in tenants["tokens"]]
+    tenants["unfaulted"] = [t[:8] for t in tenants["unfaulted"]]
+    out = {"phase": "frontend", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "engine": dict(FE_ENGINE), "recovery": rec,
+           "recovery_trace": dict(FE_TRACE, requests=FE_REQUESTS),
+           "tenants": tenants, "slo_trace": dict(
+               SLO_TRACE, requests=SLO_REQUESTS, queue_cap=SLO_QUEUE_CAP,
+               load=SLO_LOAD, burst=SLO_BURST, faults=SLO_FAULTS),
+           "calibration": calibration, "slo": slo, "traced": traced,
+           "launches_per_step": per_step,
+           "phase_s": time.perf_counter() - t_phase,
+           "tokens_note": "random weights: streams fall into two-token "
+                          "cycles, so the prefix gate and the tenants' "
+                          "run are what make the token gates bite",
+           "depth_cut": "none (all 32 layers)", "checks": checks}
+    out["ok"] = all(checks.values())
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"frontend checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return {"frontend recovery, clean and faulted (phase frontend)":
+            _sum_counts(r["launches"] for r in rec.values()),
+            "frontend tenants' recovery (phase frontend)":
+            tenants["launches"],
+            "frontend SLO runs (phase frontend)":
+            _sum_counts(r["launches"] for r in slo.values())}
+
+
+def _sum_counts(dicts):
+    out = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 11-12: QA-LoRA fine-tuning
 # ---------------------------------------------------------------------------
 
 # bf16 keeps 8 significant bits: one rounding is off by at most u = 2**-8
@@ -2274,7 +2846,7 @@ def phase_train(torch, argv=None, steps=TRAIN_STEPS,
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the paper's quantizers and baselines
+# phase 13: the paper's quantizers and baselines
 # ---------------------------------------------------------------------------
 
 # calibration activations of each D_in (4096, 11008): 2048 rows, each
@@ -2737,11 +3309,12 @@ def main() -> int:
                        if k not in STATIC_PATH})
         paged_counts, paged_tenant_counts = phase_paged(torch, adapter_toks)
         spec_counts, spec_held = phase_spec(torch)
+        frontend_counts = phase_frontend(torch, adapter_toks)
         serve_counts = {"paged serve (phase paged)": paged_counts,
                         "paged multi-tenant serve (phase paged)":
                             paged_tenant_counts,
                         f"speculative serve, {SPEC_DRAFTERS[0]} drafter "
-                        f"(phase spec)": spec_counts}
+                        f"(phase spec)": spec_counts, **frontend_counts}
         phase_train_small(torch)
         train_counts, train_errs = phase_train(torch)
         base_counts, head_rows = phase_baselines(torch)
@@ -2778,9 +3351,11 @@ def main() -> int:
                     f"2x(4096,11008) + 1x(11008,4096), int4 g32, bf16"
                     + (f", ids {SLOT_IDS[m]} over a {SLOT_BANK_ROWS}-row "
                        f"bank" if kind == "slot" else ""),
-            "launches_path": "continuous multi-tenant serve (phase "
-                             "adapters)" if name not in STATIC_PATH
-                             else "static serve (phase serve)",
+            "launches_path": ("continuous multi-tenant serve (phase "
+                              "adapters)" if name not in STATIC_PATH
+                              else "static serve (phase serve)")
+            + (f"; {FRONTEND_PATH[name]} (phase frontend)"
+               if name in FRONTEND_PATH else ""),
             "status": "ported, checked"})
         summary[-1]["launches_by_path"] = {
             (("static serve (phase serve)" if name in STATIC_PATH
@@ -2870,8 +3445,9 @@ def main() -> int:
                 f"A[ids[i]]), for one layer's linears at M={GEMV_M}, ids "
                 f"{SLOT_IDS[GEMV_M]} over a {SLOT_BANK_ROWS}-row bank: 6 at "
                 f"K=4096, 1 at K=11008, r {RANK}",
-        "launches_path": "continuous multi-tenant serve (phase adapters): "
-                         "one per kernel 5 launch",
+        "launches_path": "continuous multi-tenant serve (phase adapters) "
+                         "and the frontend's tenants' recovery (phase "
+                         "frontend): one per kernel 5 launch",
         "status": "ported, checked (part of kernel 5)",
         "ptxas": _ptxas(SLOT_PROJ[0])})
     llama = flash_rows[0]

@@ -26,6 +26,17 @@ its merged tree.  ``--page-size`` pages the continuous engine's cache
 slot per decode dispatch with a reduced-bits copy of the served model
 (``--draft-policy``, default ``*=intq8``) and verifies them in one step.
 
+``--engine frontend`` serves the same engine behind
+:class:`repro_torch.serving.ServingFrontend`: submit-time admission bounded
+by ``--queue-cap`` (overload is REJECTED with the queue depth), deadlines
+(``--deadline-ms``, ``--ttft-deadline-ms``), and with ``--inject-faults`` a
+seeded :class:`~repro_torch.runtime.fault.FaultInjector` (a crash at
+dispatch 5, stragglers) whose crashes the frontend recovers token for
+token; the run sits inside a ``PreemptionGuard`` (SIGTERM drains it).  It
+takes the continuous engine's ``--adapters``, ``--page-size``,
+``--n-pages``, ``--speculate`` and ``--draft-policy``, and prints the status
+counts, the recoveries and the SLO line.
+
     python -m repro_torch.launch.serve --arch llama7b-proxy \\
         --requests 4 --prompt-len 128 --gen-len 32 --verify
     python -m repro_torch.launch.serve --arch llama7b-proxy \\
@@ -38,6 +49,9 @@ slot per decode dispatch with a reduced-bits copy of the served model
         --draft-policy "*=intq8"
     python -m repro_torch.launch.serve --arch gemma3-1b --reduced \\
         --device cpu --requests 2 --prompt-len 8 --gen-len 6 --verify
+    python -m repro_torch.launch.serve --arch gemma3-1b --reduced \\
+        --device cpu --engine frontend --requests 6 --slots 2 \\
+        --gen-len 8 --queue-cap 4 --inject-faults
     python -m repro_torch.launch.serve --arch llama7b-proxy \\
         --engine continuous --adapters tuned=build/ckpt --verify
 """
@@ -380,6 +394,65 @@ def serve_continuous(lm, params, prompts, gen_len: int, max_len: int, *,
     return gen, eng, kernels.launches()
 
 
+def serve_frontend(args, lm, params, prompts, max_len: int, result: dict, *,
+                   slots: int, prefill_chunk: int, decode_burst: int,
+                   store, who, device="cuda", eager: bool = False, **modes):
+    """``--engine frontend``: every prompt submitted to one
+    :class:`ServingFrontend` (request i bound to adapter ``who(i)``; the
+    queue cap, deadlines and ``--inject-faults``' injector from ``args``;
+    ``modes`` the engine's paging and speculation arguments), driven on
+    this thread inside a ``PreemptionGuard`` until it drains.  Prints the
+    status counts, the recoveries and the SLO line, and records them in
+    ``result``.  Returns (each request's committed tokens, the engine, the
+    launch counts when it drained, the engine's counters summed over its
+    recoveries)."""
+    from repro_torch import kernels
+    from repro_torch.runtime.fault import FaultInjector, PreemptionGuard
+    from repro_torch.serving import ServingFrontend, slo_summary
+    injector = None
+    if args.inject_faults:
+        # one crash once decode is under way, and some straggler latency
+        injector = FaultInjector(seed=0, crash_steps=(5,), p_straggle=0.1,
+                                 straggle_s=0.01)
+
+    def ms(v):
+        return v / 1e3 if v and v > 0 else None
+    with PreemptionGuard() as guard:
+        fe = ServingFrontend(
+            lm, params, n_slots=slots, max_len=max_len,
+            prefill_chunk=prefill_chunk, decode_burst=decode_burst,
+            queue_cap=args.queue_cap,
+            default_deadline_s=ms(args.deadline_ms),
+            default_ttft_deadline_s=ms(args.ttft_deadline_ms),
+            injector=injector, guard=guard, adapters=store, eager=eager,
+            **modes)
+        tickets = [fe.submit(p, args.gen_len, adapter_id=who(i))
+                   for i, p in enumerate(prompts)]
+        fe.run_until_drained()
+        _sync(device)
+    counts = kernels.launches()
+    statuses = fe.status_counts()
+    slo = slo_summary(fe)
+    est = fe.engine_stats
+    result.update(statuses=statuses, recoveries=fe.n_recoveries,
+                  fault_log=[e for _, e in fe.fault_log],
+                  injector_log=list(injector.log) if injector else [],
+                  slo=slo,
+                  ticket_status=[t.status.name for t in tickets],
+                  ticket_errors=[t.error for t in tickets])
+    print(f"[serve] frontend: {statuses} ({fe.n_recoveries} recoveries, "
+          f"occupancy {est.occupancy:.0%}, {est.dispatches} dispatches)")
+    print(f"[serve] SLO: ttft p50/p95 {slo['ttft_p50_s'] * 1e3:.0f}/"
+          f"{slo['ttft_p95_s'] * 1e3:.0f}ms, tpot p50 "
+          f"{slo['tpot_p50_s'] * 1e3:.1f}ms, goodput "
+          f"{slo['goodput_tok_s']:.1f} tok/s, timeout rate "
+          f"{slo['timeout_rate']:.0%}, reject rate {slo['reject_rate']:.0%}")
+    for t in tickets:
+        if t.error:
+            print(f"[serve]   rid {t.rid}: {t.status.name} - {t.error}")
+    return [list(t.tokens) for t in tickets], fe.engine, counts, est
+
+
 def merge_bound(cfg) -> float:
     """Bound on max|adapter - merged| / max|logit|.  In f32 the two
     models differ only in summation order (the reference asserts 5e-2 in
@@ -431,8 +504,24 @@ def main(argv=None):
                     help="the drafter for --speculate: a policy spec that "
                          "re-quantizes the merged model (default "
                          "'*=intq8')")
+    ap.add_argument("--queue-cap", type=int, default=64,
+                    help="frontend: submits past this many waiting "
+                         "requests are REJECTED with the queue depth in the "
+                         "error")
+    ap.add_argument("--deadline-ms", type=float, default=0,
+                    help="frontend: per-request total deadline (0 = none); "
+                         "an expired slot is evicted like EOS")
+    ap.add_argument("--ttft-deadline-ms", type=float, default=0,
+                    help="frontend: per-request time-to-first-token "
+                         "deadline (0 = none)")
+    ap.add_argument("--inject-faults", action="store_true",
+                    help="frontend: a seeded FaultInjector (one engine "
+                         "crash at dispatch 5 and straggler latency); "
+                         "recovery replays in-flight requests token for "
+                         "token")
     ap.add_argument("--adapters", default="",
-                    help="tenants name=<source>,... (continuous engine); a "
+                    help="tenants name=<source>,... (continuous engine or "
+                         "frontend); a "
                          "source is demo:<seed> (the served adapters plus "
                          "seeded noise) or a checkpoint written by "
                          "repro_torch.launch.train (its --ckpt-dir, or one "
@@ -446,20 +535,21 @@ def main(argv=None):
                          "repro_torch.launch.train build the same base from "
                          "the same --seed on the same device")
     args = ap.parse_args(argv)
-    if args.engine == "frontend":
-        ap.error("--engine frontend: not yet ported, see ROADMAP.md (the "
-                 "port serves the static and continuous engines)")
-    if args.adapters and args.engine != "continuous":
-        ap.error("--adapters needs --engine continuous (per-slot adapters "
-                 "apply to slotted serving)")
-    if args.engine == "continuous" and args.gen_len < 1:
-        ap.error("--engine continuous needs --gen-len >= 1")
-    if args.page_size and args.engine != "continuous":
-        ap.error("--page-size needs --engine continuous (the static path "
-                 "has no slot scheduler to drive a page pool)")
-    if args.speculate and args.engine != "continuous":
-        ap.error("--speculate needs --engine continuous (draft and ragged "
-                 "verify run on the slot scheduler)")
+    slotted = args.engine in ("continuous", "frontend")
+    if args.adapters and not slotted:
+        ap.error("--adapters needs --engine continuous|frontend (per-slot "
+                 "adapters apply to slotted serving)")
+    if slotted and args.gen_len < 1:
+        ap.error(f"--engine {args.engine} needs --gen-len >= 1")
+    if args.page_size and not slotted:
+        ap.error("--page-size needs --engine continuous|frontend (the "
+                 "static path has no slot scheduler to drive a page pool)")
+    if args.speculate and not slotted:
+        ap.error("--speculate needs --engine continuous|frontend (draft and "
+                 "ragged verify run on the slot scheduler)")
+    if args.inject_faults and args.engine != "frontend":
+        ap.error("--inject-faults needs --engine frontend (only the "
+                 "frontend recovers from an engine fault)")
     if args.speculate and args.decode_burst is not None \
             and args.decode_burst > 1:
         ap.error("--speculate is incompatible with --decode-burst > 1: the "
@@ -525,7 +615,7 @@ def main(argv=None):
                        else "eager"), "requests": b,
               "prompt_len": prompt_len, "gen_len": args.gen_len,
               "init_s": init_s}
-    if args.engine == "continuous":
+    if slotted:
         # requests cycle the tenants round-robin, with a null-adapter
         # request in the mix
         cycle = [*tenants, None]
@@ -534,12 +624,18 @@ def main(argv=None):
                      n_pages=args.n_pages or None, speculate=args.speculate,
                      drafter=(args.draft_policy or "*=intq8")
                      if args.speculate else None)
+        run = dict(slots=slots, prefill_chunk=args.prefill_chunk,
+                   decode_burst=decode_burst, store=store,
+                   who=lambda i: cycle[i % len(cycle)], device=device,
+                   eager=args.loop, **modes)
         try:
-            toks, eng, counts = serve_continuous(
-                lm, merged, prompts, args.gen_len, max_len, slots=slots,
-                prefill_chunk=args.prefill_chunk, decode_burst=decode_burst,
-                store=store, who=lambda i: cycle[i % len(cycle)],
-                device=device, eager=args.loop, **modes)
+            if args.engine == "frontend":
+                toks, eng, counts, st = serve_frontend(
+                    args, lm, merged, prompts, max_len, result, **run)
+            else:
+                toks, eng, counts = serve_continuous(
+                    lm, merged, prompts, args.gen_len, max_len, **run)
+                st = eng.stats
         except (ValueError, NotImplementedError) as e:
             # a degenerate pool, a request the pool can never cover, a
             # drafter the port lacks, or adapters under speculation
@@ -548,7 +644,6 @@ def main(argv=None):
             if not flags:
                 raise
             ap.error(f"{' '.join(flags)}: {e}")
-        st = eng.stats
         graphs, budgets = eng.graphs, eng.budgets
         decode_steps = (st.model_steps
                         - args.prefill_chunk * st.ragged_dispatches)
@@ -583,8 +678,8 @@ def main(argv=None):
                           acceptance_rate=st.acceptance_rate)
             extra += (f", speculate {args.speculate} with {modes['drafter']}"
                       f": acceptance {st.acceptance_rate:.0%}")
-        print(f"[serve] {b} requests x {toks.shape[1]} tokens in "
-              f"{st.seconds:.3f}s ({st.tok_per_s:.1f} tok/s, continuous, "
+        print(f"[serve] {b} requests, {st.tokens_out} tokens in "
+              f"{st.seconds:.3f}s ({st.tok_per_s:.1f} tok/s, {args.engine}, "
               f"{slots} slots, occupancy {st.occupancy:.0%}, "
               f"{st.dispatches} dispatches ({st.ragged_dispatches} ragged), "
               f"{len(tenants)}+null tenants{extra}, {result['path']}, "
@@ -606,8 +701,9 @@ def main(argv=None):
     result["captures"] = {g.name: [g._cache_size(), budgets[g.name]]
                           for g in graphs.values()}
     result["tokens"] = toks
-    print(f"[serve] sample generation: {toks[0][:8]}; captures (count, "
-          f"budget): {result['captures']}")
+    print(f"[serve] sample generation: "
+          f"{np.asarray(toks[0][:8], np.int32)}; captures (count, budget): "
+          f"{result['captures']}")
 
     if args.verify:
         # the adapter model against its merge, or each tenant's slot-routed

@@ -228,19 +228,26 @@ class ContinuousEngine:
     ``speculate = k > 0`` drafts k tokens a slot per decode dispatch; it
     needs ``decode_burst`` 1 and a ``drafter`` (a policy string such as
     ``"*=intq8"``, given to :func:`make_self_drafter` with the served
-    tree, or a drafter tree), and refuses an ``AdapterStore``."""
+    tree, or a drafter tree), and refuses an ``AdapterStore``.
+
+    ``step_hook(engine)`` is called once per :meth:`step_once`, before
+    admission and the dispatch: it may sleep (straggler injection), poison
+    the cache (:meth:`poison_cache`) or raise (crash injection), see
+    :class:`repro_torch.runtime.fault.FaultInjector`.  It survives
+    :meth:`reset`."""
 
     def __init__(self, lm, params, *, n_slots: int, max_len: int,
                  prefill_chunk: int = 8, decode_burst: int = 8,
-                 max_src: int = 0, adapters=None, page_size: int = 0,
-                 n_pages: Optional[int] = None, speculate: int = 0,
-                 drafter=None, eager: bool = False):
+                 max_src: int = 0, step_hook=None, adapters=None,
+                 page_size: int = 0, n_pages: Optional[int] = None,
+                 speculate: int = 0, drafter=None, eager: bool = False):
         if max_src:
             raise NotImplementedError(
                 "ContinuousEngine(max_src=...): encdec cross caches are not "
                 "yet ported (see ROADMAP.md); the port serves gqa")
         self.lm, self.params = lm, params
         self.n_slots, self.max_len = n_slots, max_len
+        self.step_hook = step_hook
         # multi-tenant serving: the store supplies the served tree (shared
         # INT-N base + per-slot adapter ids); `params` is then its base
         self.adapters = adapters
@@ -415,18 +422,22 @@ class ContinuousEngine:
 
     def poison_cache(self):
         """Overwrite every floating-point leaf of the decode state with NaN,
-        in place (fault injection): a slot whose state is read next produces
-        NaN logits and trips :class:`EngineCorrupted` before commit."""
+        in place (fault injection): the K/V rows of the contiguous cache,
+        or the whole page pool of a paged one.  A slot whose state is read
+        next produces NaN logits and trips :class:`EngineCorrupted` before
+        commit; :meth:`reset` zeroes the rows again."""
         for t in self.cache["layers"].values():
             t.fill_(float("nan"))
 
     # ---------------- one engine iteration ----------------
 
     def step_once(self):
-        """One iteration: admit + reset refilled slots ->
+        """One iteration: (step hook ->) admit + reset refilled slots ->
         one ragged step, burst or speculative round -> commit.  Raises
-        :class:`EngineCorrupted` (before commit) on non-finite logits.
-        Wall clock accrues to :attr:`stats` here."""
+        :class:`EngineCorrupted` (before commit) on non-finite logits, and
+        whatever the step hook raises (before admission, so the streams
+        stay as they were).  Wall clock accrues to :attr:`stats` here, the
+        hook's included."""
         t0 = time.perf_counter()
         ragged = False
         try:
@@ -443,6 +454,8 @@ class ContinuousEngine:
             guard.check()
 
     def _step_once_inner(self) -> bool:
+        if self.step_hook is not None:
+            self.step_hook(self)
         filled = self.sched.admit()
         if filled:
             mask = np.zeros((self.n_slots,), bool)

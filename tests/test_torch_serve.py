@@ -195,9 +195,10 @@ def test_serve_cli_cpu(argv):
 
 
 @pytest.mark.parametrize("flag,message", (
-    (["--engine", "frontend"], "not yet ported"),
     (["--page-size", "4"], "--page-size needs --engine continuous"),
     (["--speculate", "2"], "--speculate needs --engine continuous"),
+    (["--engine", "continuous", "--inject-faults"],
+     "--inject-faults needs --engine frontend"),
     (["--engine", "continuous", "--speculate", "2", "--decode-burst", "4"],
      "incompatible with --decode-burst > 1"),
     (["--engine", "continuous", "--page-size", "4", "--n-pages", "3"],
@@ -206,12 +207,76 @@ def test_serve_cli_cpu(argv):
       "mtp"], "not yet ported")))
 def test_serve_cli_refuses_modes_not_ported(flag, message, capsys):
     """What the CLI still refuses (paging and speculation are ported on
-    the continuous engine): the frontend, paging or speculation on the
-    static engine, speculation with decode bursts, a pool that can never
-    hold a request, and the MTP drafter."""
+    the continuous engine and the frontend): paging or speculation on the
+    static engine, injected faults without the frontend, speculation with
+    decode bursts, a pool that can never hold a request, and the MTP
+    drafter."""
     with pytest.raises(SystemExit):
         tserve.main(["--reduced", "--device", "cpu"] + flag)
     assert message in capsys.readouterr().err
+
+
+FRONTEND_ARGV = ["--arch", "gemma3-1b", "--reduced", "--device", "cpu",
+                 "--requests", "6", "--slots", "2", "--prompt-len", "5",
+                 "--gen-len", "6", "--prefill-chunk", "4"]
+
+
+def _finished(res):
+    return {i: t for i, (t, s) in enumerate(zip(res["tokens"],
+                                                 res["ticket_status"]))
+            if s == "FINISHED"}
+
+
+def test_serve_cli_frontend_backpressure_names_the_depth(capsys):
+    """``--queue-cap 4`` with 6 requests: the last two are REJECTED at
+    submit time with the queue depth in the error; the rest finish."""
+    res = tserve.main(FRONTEND_ARGV + ["--engine", "frontend",
+                                       "--queue-cap", "4"])
+    assert res["statuses"] == {"FINISHED": 4, "REJECTED": 2}
+    assert res["ticket_status"][4:] == ["REJECTED", "REJECTED"]
+    for err in res["ticket_errors"][4:]:
+        assert "backpressure" in err and "depth 4/4" in err
+    out = capsys.readouterr().out
+    assert "depth 4/4" in out and "SLO: ttft" in out
+    assert "0 recoveries" in out
+
+
+def test_serve_cli_frontend_recovers_and_matches_continuous():
+    """``--inject-faults``: at least one recovery (the crash at dispatch
+    5), every request FINISHED, and the tokens ``--engine continuous``
+    gives on the same prompts."""
+    plain = tserve.main(FRONTEND_ARGV + ["--engine", "continuous"])
+    res = tserve.main(FRONTEND_ARGV + ["--engine", "frontend",
+                                       "--inject-faults"])
+    assert res["recoveries"] >= 1
+    assert (5, "crash") in res["injector_log"]
+    assert all(e.startswith("InjectedFault") for e in res["fault_log"])
+    assert res["statuses"] == {"FINISHED": 6}
+    assert _finished(res) == {i: list(t) for i, t in
+                              enumerate(plain["tokens"].tolist())}
+
+
+@pytest.mark.parametrize("extra", (
+    ["--adapters", "alice=demo:1,bob=demo:2", "--verify"],
+    ["--page-size", "4", "--n-pages", "12"],
+    ["--page-size", "4", "--speculate", "2", "--loop"]))
+def test_serve_cli_frontend_takes_the_engine_modes(extra):
+    """The frontend serves tenants, the paged cache (a pool under the
+    contiguous capacity) and speculation, eager with ``--loop``, with the
+    continuous engine's tokens."""
+    plain = tserve.main(FRONTEND_ARGV + ["--engine", "continuous"] + extra)
+    res = tserve.main(FRONTEND_ARGV + ["--engine", "frontend"] + extra)
+    assert res["statuses"] == {"FINISHED": 6}
+    assert _finished(res) == {i: list(t) for i, t in
+                              enumerate(plain["tokens"].tolist())}
+    if "--adapters" in extra:
+        assert res["tenants"] == ["alice", "bob"]
+        assert all(c["decode"]["rel"] <= res["merge_bound_rel"]
+                   for c in res["tenant_check"].values())
+    if "--page-size" in extra:
+        assert res["page_size"] == 4 and 0 < res["peak_pages_used"] <= 11
+    if "--loop" in extra:
+        assert res["path"] == "eager" and res["proposed_tokens"] > 0
 
 
 def test_cuda_entry_points_raise_without_a_card():
