@@ -54,7 +54,11 @@ Phases, each printing one JSON line:
    not, window 0 or 16, Sq != Sk both ways, ragged lengths, and rows that
    see no key.  No served path calls it, as in the JAX package.
 5. small   -- a reduced model on the card (kernels) against the same
-   weights on the CPU (plain versions).
+   weights on the CPU (plain versions); then a reduced mixtral-8x22b (4
+   experts, top-2, a prompt of two 16-position routing chunks) the same
+   way, its prefill logits at every position compared over the tokens
+   routed alike at every layer on both sides, with the share of flipped
+   (token, layer) routings.
 6. serve   -- ``repro_torch.launch.serve`` on the full llama7b-proxy
    (32 layers, d 4096, d_ff 11008, vocab 32000, int4 g32 r64, bf16):
    4 requests x 128 prompt + 32 generated tokens, decoded by replaying
@@ -181,7 +185,41 @@ Phases, each printing one JSON line:
    M = 512: what a head over many rows, as training's xent, reaches).  Last, one lora and one
    qlora train step of 2-layer llama7b-proxy on the card against the CPU
    (as phase 11).
-14. the ``kernels`` summary, and the final ``{"ok": true, ...}`` line.
+14. families -- the other dense gqa configs and the gqa_moe family at
+   their published widths, random weights from seed 0, bf16, int4 g32
+   r64: h2o-danube-1.8b (24 layers, head_dim 80, window 4096) and
+   starcoder2-7b (32 layers, non-gated GELU MLP) at full depth,
+   deepseek-67b at 16 of 95 layers and mixtral-8x22b (8 experts top-2,
+   moe_d_ff 16384) at 16 of 56.  Each served statically, 4 x (128 + 32),
+   the decode step replayed (one capture within its budget, under a
+   ``CompileGuard``), a counted pass with the merge check and then
+   further passes for the medians of decode ms a token and prefill ms,
+   beside their floors (the bytes of every linear and of the cache over
+   3.35 TB/s; the prefill's operations, mixtral's experts at their
+   capacity buffers, over 989 TFLOP/s).  Kernels 1-4 launch exactly
+   linears a layer (from the config: 7, 6, 7, 28) x layers x steps, and
+   each held against its plain version on block 0 at the rows the path
+   gives it (attention and the dense MLP at every token of the step,
+   mixtral's expert 0 at its capacity: 160 in prefill, 80 in a ragged
+   step, 2 in decode); the merge check within ``serve.merge_bound``
+   (mixtral: over the tokens whose routing agreed at every layer in both
+   models, at least ``FAMILY_AGREE_MIN`` of them with at most
+   ``FAMILY_FLIP_MAX`` of the (token, layer) routings flipped; the
+   largest flipped gap reported; and a negative control, the merge check
+   again with the merged experts' outputs times (1 + f x seeded noise)
+   for f of 2^-8 to 2^-2, which the same rule must reject from
+   ``FAMILY_FAULT_REJECT`` up).  For
+   h2o-danube-1.8b and mixtral, the continuous engine on 8 requests of
+   64/96/128 + 16/32/24 tokens over 4 slots (chunks of 64, bursts of 8),
+   contiguous and paged in 16-token pages: each graphed engine warmed
+   then counted (kernel 1 linears x ragged steps, kernel 2 linears x
+   decode steps, captures within budget), an eager engine of each layout
+   with the graphed streams; mixtral's dropped share of routed
+   assignments a step over all routed rows and over the real ones, the
+   padding rows' share of the kept capacity, a per-expert histogram and
+   the share of real rows routed as another of their step, from the
+   eager run's routing.
+15. the ``kernels`` summary, and the final ``{"ok": true, ...}`` line.
 
 Any failed phase exits non-zero before the final line.  Without a card,
 or without the repository's ``src`` beside this file, it exits non-zero
@@ -191,6 +229,7 @@ and prints no result.  Writes everything also to
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -300,7 +339,6 @@ FRONTEND_PATH = {
     "qmatmul": "the frontend's recovery, tenants' recovery and SLO runs",
     "qmatvec": "the frontend's recovery and SLO runs",
     "qalora_slot_matvec": "the frontend's tenants' recovery"}
-LAYER_LINEARS = sum(c for _, _, c in SHAPES)  # 7 quantized linears a layer
 
 RECORD = {"phases": []}
 
@@ -322,6 +360,15 @@ def save():
 # ---------------------------------------------------------------------------
 # phase 1-2: device and build
 # ---------------------------------------------------------------------------
+
+
+def _step_linears(cfg) -> int:
+    """Quantized linears a model step of ``cfg`` launches a kernel for,
+    counted from the config (``LM.layer_linears``: 7 a gated dense layer,
+    6 with starcoder2's non-gated MLP, 4 + 3 x 8 for mixtral, whose
+    router is fp) times its layers."""
+    from repro_torch.models.lm import LM
+    return LM(cfg).layer_linears() * cfg.n_layers
 
 
 def _smi(fields: str) -> str:
@@ -1129,7 +1176,46 @@ def phase_small(torch):
         if not rel <= 5e-2:
             emit({**out, "ok": False})
             raise AssertionError(f"small {which}: card vs CPU rel {rel}")
+    out["moe"] = _small_moe(torch, pol)
+    if not out["moe"]["ok"]:
+        emit({**out, "ok": False})
+        raise AssertionError(f"small gqa_moe: {out['moe']}")
     emit({**out, "ok": True, "bound_rel": 5e-2})
+
+
+def _small_moe(torch, pol):
+    """Reduced mixtral-8x22b (4 experts, top-2, two routing chunks of 16)
+    in bf16: the card's prefill logits at every position against the
+    CPU's, over the tokens routed alike at every layer on both sides (the
+    two sides round differently, which may flip a near tie of the router),
+    with the share of flipped (token, layer) routings."""
+    import numpy as np
+    import repro_torch.configs as C
+    from repro_torch.launch.serve import (bump_adapters, compare_routed,
+                                          merge_model, routing_agreement)
+    from repro_torch.models.lm import LM
+    from repro_torch.models.moe import record_routing
+    cfg = C.reduced("mixtral-8x22b", quant=pol)
+    lm = LM(cfg)
+    params = bump_adapters(lm.init(torch.Generator().manual_seed(0), "cpu"))
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        4, cfg.vocab, size=(2, 32)).astype(np.int32))
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "n_experts": cfg.n_experts, "moe_chunk": cfg.moe_chunk,
+           "bound_rel": 5e-2}
+    for which, p in (("adapter", params), ("merged", merge_model(params))):
+        with record_routing() as cpu_routes:
+            cpu_logits, _ = lm.prefill_all(p, {"tokens": prompts})
+        gpu = copy.deepcopy(p).to("cuda")
+        with record_routing() as gpu_routes:
+            gpu_logits, _ = lm.prefill_all(gpu, {"tokens": prompts.cuda()})
+        gpu_routes = [{k: v.cpu() for k, v in r.items()} for r in gpu_routes]
+        same = routing_agreement(gpu_routes, cpu_routes)
+        out[which] = compare_routed(gpu_logits.cpu(), cpu_logits, same)
+        del gpu
+    out["ok"] = all(out[w]["rel"] <= 5e-2 and _routed_alike(out[w])
+                    for w in ("adapter", "merged"))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1166,6 +1252,7 @@ def _replay_profiles(torch, graphs):
     counter, beside the launches the graph cache adds a replay.  The
     replays re-run steps whose results are no longer read."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile_serve import _device_us, _kind
     out = {}
     for step in graphs.values():
         for key, g in step.graphs.items():
@@ -1174,17 +1261,21 @@ def _replay_profiles(torch, graphs):
                                      ProfilerActivity.CUDA]) as prof:
                 g.replay()
                 torch.cuda.synchronize()
-            seen, kernels_run = {}, 0
+            seen, kernels_run, by_kind = {}, 0, {}
             for evt in prof.key_averages():
                 if evt.device_type.name != "CUDA":
                     continue
                 kernels_run += evt.count
+                kind = _kind(evt.key)
+                by_kind[kind] = by_kind.get(kind, 0.0) + _device_us(evt) / 1e3
                 name = _counter_of(evt.key)
                 if name is not None:
                     seen[name] = seen.get(name, 0) + evt.count
             out[f"{step.name}{list(key[:2])}"] = {
                 "launches": dict(g.launches), "profiler": seen,
                 "device_kernels": kernels_run,
+                "device_ms_by_kind": by_kind,
+                "device_busy_ms": sum(by_kind.values()),
                 "match": seen == dict(g.launches)}
     return out
 
@@ -1264,7 +1355,7 @@ def phase_serve(torch):
     _free(torch)
     walls, same = _static_walls(torch, toks)
     n_layers = res["n_layers"]
-    per_step = LAYER_LINEARS * n_layers
+    per_step = res["linears_per_layer"] * n_layers
     checks = {
         "tokens_shape": list(toks.shape) == [4, 32],
         "tokens_in_vocab": bool(((toks >= 0) & (toks < 32000)).all()),
@@ -1274,9 +1365,9 @@ def phase_serve(torch):
         # the merge check's one unmerged prefill and decode step: kernel 3
         # and kernel 4 once per linear, each launch with its rank projection
         "qalora_matmul_per_unmerged_prefill":
-            counts["qalora_matmul"] == LAYER_LINEARS * n_layers,
+            counts["qalora_matmul"] == per_step,
         "qalora_matvec_per_unmerged_decode_step":
-            counts["qalora_matvec"] == LAYER_LINEARS * n_layers,
+            counts["qalora_matvec"] == per_step,
         "rank_proj_per_unmerged_linear":
             counts["qalora_rank_proj"]
             == counts["qalora_matmul"] + counts["qalora_matvec"],
@@ -1398,7 +1489,7 @@ def phase_adapters(torch):
     checks_raw = res.pop("tenant_check")
     cross = {name: {ph: r["rel"] for ph, r in c.items()}
              for name, c in res.pop("tenant_cross_check").items()}
-    per_step = LAYER_LINEARS * res["n_layers"]
+    per_step = res["linears_per_layer"] * res["n_layers"]
     mixed = res.pop("mixed_check")
     streams = {name: tuple(c["prefill"]["argmax"] + c["decode"]["argmax"])
                for name, c in checks_raw.items()}
@@ -1612,7 +1703,7 @@ def phase_paged(torch, adapter_toks):
     captures = {name: {g.name: g._cache_size() for g in e.graphs.values()}
                 for name, e in engines.items()}
     replays = _replay_profiles(torch, engines["paged"].graphs)
-    per_step = LAYER_LINEARS * cfg.n_layers
+    per_step = _step_linears(cfg)
     decode_steps = st.model_steps - RAGGED_CHUNK * st.ragged_dispatches
     walls = {name: {key: median(r[key] for r in rs) for key in rs[0]
                     if key != "same"} for name, rs in runs.items()}
@@ -1808,7 +1899,7 @@ def phase_spec(torch):
              for n, e in engines.items()}
     del engines, lm, merged, other
     _free(torch)
-    per_step = LAYER_LINEARS * cfg.n_layers
+    per_step = _step_linears(cfg)
     rounds = res["decode_steps"] // (SPEC_K + 1)
     profiled = {key.split("[")[0]: r for key, r in replays.items()}
     checks = {
@@ -1986,7 +2077,7 @@ def _frontend_recovery(torch, cfg, lm, merged):
               + max(FE_TRACE["gen_lens"]))
     plain = _engine_streams(lm, merged, trace, **kw)
     _free(torch)
-    per_step = LAYER_LINEARS * cfg.n_layers
+    per_step = _step_linears(cfg)
     runs = {}
     for name, inj in (("clean", None),
                       ("faulty", FaultInjector(**FE_FAULTS))):
@@ -2288,7 +2379,7 @@ def phase_frontend(torch, adapter_toks):
     del lm, merged
     _free(torch)
     tenants = _frontend_tenants(torch, cfg, adapter_toks)
-    per_step = LAYER_LINEARS * cfg.n_layers
+    per_step = _step_linears(cfg)
     clean, faulty = rec["clean"], rec["faulty"]
     poisoned = faulty["poisoned_dispatch_launches"]
     in_ragged = any("ragged step" in e for e in faulty["fault_log"])
@@ -2543,7 +2634,7 @@ def phase_train_small(torch, device="cuda", n_layers=2, seq=128, batch=2,
     a_total = sum(c["tr"][k].numel() for k in a_names)
     b_moved = sum(int((c["tr"][k] != c["before"][k]).sum()) for k in b_names)
     b_total = sum(c["tr"][k].numel() for k in b_names)
-    per_step = LAYER_LINEARS * n_layers * (2 if cfg.remat else 1) \
+    per_step = _step_linears(cfg) * (2 if cfg.remat else 1) \
         if mode == "qalora" else 0
     loss_rel = abs(c["loss"] - p["loss"]) / abs(p["loss"])
     launches = c["launches"]
@@ -2744,7 +2835,8 @@ def phase_train(torch, argv=None, steps=TRAIN_STEPS,
         base_same = all(torch.equal(frozen_before[k], v)
                         for k, v in st.params.named_buffers())
         del frozen_before
-        per_step = LAYER_LINEARS * st.cfg.n_layers * (
+        per_layer = _step_linears(st.cfg) // st.cfg.n_layers
+        per_step = _step_linears(st.cfg) * (
             2 if st.cfg.remat else 1)
         step_launches = res["launches"]
         # the merged model against the trained adapter model
@@ -2784,7 +2876,7 @@ def phase_train(torch, argv=None, steps=TRAIN_STEPS,
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     median = res["step_ms_median"]
     layers = res["n_layers"]
-    remat = per_step // (LAYER_LINEARS * layers)
+    remat = per_step // (per_layer * layers)
     out = {"phase": "train",
            "card": _smi("name,power.limit") if dev.type == "cuda" else "cpu",
            "arch": res["arch"], "n_layers": layers,
@@ -3000,7 +3092,7 @@ def phase_baselines(torch):
     cfg = C.get("llama7b-proxy")
     pol = cfg.quant
     lm = LM(cfg)
-    n_lin = LAYER_LINEARS * cfg.n_layers
+    n_lin = _step_linears(cfg)
     walls, checks = {}, {}
     out = {"phase": "baselines",
            "card": _smi("name,power.limit"), "arch": cfg.name,
@@ -3281,6 +3373,512 @@ def phase_baselines(torch):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the other dense gqa configs and mixtral (gqa_moe) at full width
+# ---------------------------------------------------------------------------
+
+# (arch, layers served: None = the config's own depth).  Widths are the
+# published ones; deepseek-67b (0.43 GB a layer at int4 g32) and
+# mixtral-8x22b (1.57 GB a layer: 4 + 24 expert linears) are cut in depth
+# so the adapter model and its merge fit the card's 80 GB beside each
+# other
+FAMILY_CUTS = (("h2o-danube-1.8b", None), ("starcoder2-7b", None),
+               ("deepseek-67b", 16), ("mixtral-8x22b", 16))
+# the continuous engine (contiguous and paged, graphed and eager) runs on
+# these: the dense config with head_dim 80, and the MoE
+FAMILY_ENGINES = ("h2o-danube-1.8b", "mixtral-8x22b")
+FAMILY_TRACE = dict(seed=3, prompt_lens=(64, 96, 128), gen_lens=(16, 32, 24))
+FAMILY_REQUESTS = 8
+FAMILY_TIMED = 3  # static passes after the capturing one; medians
+# an MoE merge check (and phase small's card-vs-CPU check) needs at least
+# this share of its tokens routed alike at every layer, and at most this
+# share of its (token, layer) routings flipped: sound runs read 0.990 and
+# 0.061 % (mixtral prefill), 1.0 and 0 (its decode step, phase small)
+FAMILY_AGREE_MIN, FAMILY_FLIP_MAX = 0.95, 0.01
+# the negative control: the merge check with the merged experts' outputs
+# times (1 + f x normal noise), seeded, for each f; the rule must reject
+# every f from FAMILY_FAULT_REJECT up
+FAMILY_FAULTS = (2.0 ** -8, 2.0 ** -6, 2.0 ** -4, 2.0 ** -2)
+FAMILY_FAULT_REJECT = 2.0 ** -4
+
+
+def _linear_bytes(params):
+    """Bytes of every linear's stored tensors (codes, scales, zeros,
+    adapters, fp weights): what a decode step must read once."""
+    from repro_torch.core import schemes
+    return sum(b.numel() * b.element_size() for m in params.modules()
+               if schemes.is_linear(m) for b in m.buffers())
+
+
+def _prefill_flops(cfg, b, s):
+    """Operations of a prefill of b x s tokens: every linear at the rows it
+    computes (an MoE's experts at their capacity buffers), the attention
+    scores and values over the causal half, the head on the last token."""
+    d, hd = cfg.d_model, cfg.head_dim
+    attn = 2 * b * s * d * hd * 2 * (cfg.n_heads + cfg.n_kv_heads)
+    scores = 2 * b * cfg.n_heads * s * min(s, cfg.window or s) * hd
+    if cfg.family == "gqa_moe":
+        chunk = cfg.moe_chunk if 0 < cfg.moe_chunk < s else s
+        cap = _moe_capacity(cfg, b * chunk) * (s // chunk)
+        ffn = 2 * cap * d * cfg.moe_d_ff * 3 * cfg.n_experts
+        ffn += 2 * b * s * d * cfg.n_experts  # the router
+    else:
+        ffn = 2 * b * s * d * cfg.d_ff * (3 if cfg.gated_mlp else 2)
+    return cfg.n_layers * (attn + scores + ffn) + 2 * b * d * cfg.vocab
+
+
+def _routed_alike(r) -> bool:
+    """An MoE comparison (``serve.compare_routed``) routed enough tokens
+    alike to hold its logits over them."""
+    return (r["agreeing_tokens"] >= FAMILY_AGREE_MIN * r["tokens"]
+            and r["flip_share"] <= FAMILY_FLIP_MAX)
+
+
+def _moe_merge_ok(check, bound) -> bool:
+    """An MoE merge check (``serve.merge_check``) passes: each pass routed
+    alike and within ``bound`` over the tokens routed alike."""
+    return all(_routed_alike(r) and r["rel"] <= bound
+               for r in check.values())
+
+
+def _moe_capacity(cfg, tokens: int) -> int:
+    """An MoE layer's expert capacity C for one routing group of
+    ``tokens`` rows (``repro_torch.models.moe``)."""
+    return max(math.ceil(cfg.top_k * tokens / cfg.n_experts
+                         * cfg.capacity_factor), 1)
+
+
+@contextlib.contextmanager
+def _record_rows(lm):
+    """The ``n_new`` [B] of every ``lm.step_ragged`` call made in the
+    context, a copy each (eager runs: one entry a model step)."""
+    rows, step = [], lm.step_ragged
+
+    def counted(params, cache, tokens, n_new):
+        rows.append(n_new.detach().to("cpu", copy=True))
+        return step(params, cache, tokens, n_new)
+    object.__setattr__(lm, "step_ragged", counted)  # LM is frozen
+    try:
+        yield rows
+    finally:
+        object.__delattr__(lm, "step_ragged")
+
+
+def _drop_shares(torch, rec, rows, n_layers, n_experts):
+    """Routing of an eager engine run, by kind of model step (ragged or
+    decode): ``rec`` the ``record_routing`` entries (``n_layers`` a step),
+    ``rows`` each step's ``n_new``.  A row at or past its slot's
+    ``n_new`` (an idle slot's, or a chunk's tail) is padding, and takes
+    capacity as in the reference.  Reports the share of routed (row, k)
+    assignments that capacity dropped, a step over all rows and pooled
+    over the real rows (what served requests lose); the padding rows'
+    share of the kept assignments; per expert the real assignments routed
+    to it and dropped there; and the share of real rows (a layer) routed
+    to the same experts as another real row of the step."""
+    if len(rec) != n_layers * len(rows):
+        raise AssertionError(f"{len(rec)} routings for {len(rows)} steps of "
+                             f"{n_layers} layers")
+    kinds = {}
+    for j, n_new in enumerate(rows):
+        step = rec[j * n_layers:(j + 1) * n_layers]
+        keep = torch.stack([r["keep"].cpu() for r in step])  # [L, B, S, k]
+        idx = torch.stack([r["idx"].cpu() for r in step])
+        real = (torch.arange(keep.shape[2])[None, :] < n_new[:, None])[
+            None, :, :, None].expand_as(keep)
+        k = kinds.setdefault("ragged" if keep.shape[2] > 1 else "decode", {
+            "all": [], "real": 0, "real_dropped": 0, "kept": 0,
+            "kept_padding": 0, "rows": 0, "rows_shared": 0,
+            "routed": torch.zeros(n_experts, dtype=torch.int64),
+            "dropped": torch.zeros(n_experts, dtype=torch.int64)})
+        k["all"].append(float((~keep).float().mean()))
+        k["real"] += int(real.sum())
+        k["real_dropped"] += int((real & ~keep).sum())
+        k["kept"] += int(keep.sum())
+        k["kept_padding"] += int((keep & ~real).sum())
+        k["routed"] += torch.bincount(idx[real], minlength=n_experts)
+        k["dropped"] += torch.bincount(idx[real & ~keep],
+                                       minlength=n_experts)
+        pairs = idx.sort(dim=-1).values[real[..., 0]]  # [rows x layers, k]
+        for lay in range(n_layers):
+            sel = pairs.view(n_layers, -1, pairs.shape[-1])[lay]
+            _, counts = torch.unique(sel, dim=0, return_counts=True)
+            k["rows"] += int(sel.shape[0])
+            k["rows_shared"] += int(counts[counts > 1].sum())
+    return {kind: {
+        "steps": len(k["all"]),
+        "all_rows_mean": sum(k["all"]) / len(k["all"]),
+        "all_rows_max": max(k["all"]),
+        "real_assignments": k["real"], "real_dropped": k["real_dropped"],
+        "real_rows": k["real_dropped"] / max(k["real"], 1),
+        "padding_share_of_kept": k["kept_padding"] / max(k["kept"], 1),
+        "real_rows_sharing_routing": k["rows_shared"] / max(k["rows"], 1),
+        "routed_by_expert": k["routed"].tolist(),
+        "dropped_by_expert": k["dropped"].tolist()}
+        for kind, k in kinds.items()}
+
+
+def _profile_prefill(torch, lm, merged, prompts):
+    """One merged prefill of ``prompts`` under ``torch.profiler``: wall
+    ms (host clock, ending in a sync), device busy ms and device ms by
+    kind of kernel (the port's tiled kernel, PyTorch's matmuls, the
+    rest)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile_serve import _device_us, _kind
+    toks = torch.as_tensor(prompts, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lm.prefill(merged, {"tokens": toks})
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_kind = {}
+    for evt in prof.key_averages():
+        if evt.device_type.name == "CUDA":
+            kind = _kind(evt.key)
+            by_kind[kind] = by_kind.get(kind, 0.0) + _device_us(evt) / 1e3
+    return {"wall_ms": wall, "device_busy_ms": sum(by_kind.values()),
+            "device_ms_by_kind": by_kind}
+
+
+def _hold_family_linears(torch, cfg, params, merged, prefill_rows: int,
+                         engine: bool):
+    """Kernels 1-4 on block 0 of one family config, at the rows the served
+    path gives each linear, against their plain versions (two bf16 steps
+    of the plain version's max, as :func:`_hold_intq_linears`): the merged
+    block through kernel 1 at the prefill's rows (and a ragged step's,
+    with ``engine``) and kernel 2 at a decode step's, the adapter block
+    through kernels 3 and 4 (each after 3a) at the prefill's and the
+    decode step's, as the merge check runs them.  Attention and a dense
+    MLP see every row of the step; an MoE's experts (expert 0's gate, up
+    and down) see their capacity buffer: for mixtral 160 rows at a 4 x
+    128 prefill, 80 at a 4 x 64 ragged step, 2 at a 4-slot decode step."""
+    from repro_torch.core import schemes
+    from repro_torch.kernels.qalora_fused import (qalora_matmul_cuda,
+                                                  qalora_matmul_plain)
+    from repro_torch.kernels.qmatmul import qmatmul_cuda, qmatmul_plain
+    from repro_torch.kernels.qmatvec import (qalora_matvec_cuda,
+                                             qalora_matvec_plain,
+                                             qmatvec_cuda, qmatvec_plain)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    steps = {"prefill": prefill_rows, "decode": GEMV_M}
+    if engine:
+        steps["ragged"] = RAGGED_M
+    names = [("attn", n, None) for n in ("wq", "wk", "wv", "wo")]
+    if cfg.family == "gqa_moe":
+        names += [("moe", n, 0) for n in ("gate", "up", "down")]
+    else:
+        names += [("mlp", n, None) for n in ("gate", "up", "down")
+                  if n != "gate" or cfg.gated_mlp]
+    rows = []
+    for grp, name, expert in names:
+        lps = [blk[grp][name] if expert is None
+               else getattr(blk[grp], name)[expert]
+               for blk in (merged.blocks[0], params.blocks[0])]
+        (qm, qa), ad = (schemes.quantized_base(lp) for lp in lps), \
+            schemes.adapter_params(lps[1])
+        kw = dict(bits=qm.bits, group_size=qm.group_size)
+        for step, t in steps.items():
+            m = t if expert is None else _moe_capacity(cfg, t)
+            x = torch.randn((m, qm.d_in), generator=gen, device="cuda") \
+                .to(torch.bfloat16)
+            gemv = m <= GEMV_MAX_M
+            calls = [((qmatvec_cuda, qmatvec_plain) if gemv
+                      else (qmatmul_cuda, qmatmul_plain),
+                      (x, qm.qweight, qm.scale, qm.zero), kw)]
+            if step != "ragged":  # the merge check's unmerged passes
+                calls.append(((qalora_matvec_cuda, qalora_matvec_plain)
+                              if gemv else (qalora_matmul_cuda,
+                                            qalora_matmul_plain),
+                              (x, qa.qweight, qa.scale, qa.zero, ad.a,
+                               ad.b), dict(s=lps[1].policy.s, **kw)))
+            for (kern, plain), args, kargs in calls:
+                y = kern(*args, **kargs).float()
+                ref = plain(*args, **kargs).float()
+                err = (y - ref).abs().max().item()
+                tol = 2.0 ** -6 * ref.abs().max().item()
+                rows.append({
+                    "kernel": kern.__name__.replace("_cuda", ""),
+                    "linear": f"{grp}/{name}" + (
+                        "" if expert is None else f"/{expert}"),
+                    "step": step, "M": m, "K": qm.d_in, "N": qm.d_out,
+                    "bits": qm.bits,
+                    "max_abs_err": err, "tol": tol,
+                    "ok": bool(torch.isfinite(y).all()) and err <= tol})
+                del y, ref
+    return rows
+
+
+def _faulty_merge_check(torch, lm, params, merged, prompts, max_len,
+                        fault: float):
+    """The negative control of an MoE merge check: ``serve.merge_check``
+    again with every merged expert's output times (1 + ``fault`` x normal
+    noise) from a seeded generator, a stand-in for a kernel that goes
+    wrong on the experts' rows; the adapter model is left sound."""
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    sound = moe._expert_ffn
+
+    def faulty(p, e, xb, act):
+        y = sound(p, e, xb, act)
+        if p.gate[e].scheme != "intq":
+            return y
+        noise = torch.randn(y.shape, generator=gen, device=y.device)
+        return (y.float() * (1.0 + fault * noise)).to(y.dtype)
+    moe._expert_ffn = faulty
+    try:
+        return serve.merge_check(lm, params, merged, prompts, max_len,
+                                 device="cuda")
+    finally:
+        moe._expert_ffn = sound
+
+
+def _family_engines(torch, cfg, lm, merged, n_lin):
+    """The continuous engine on ``FAMILY_REQUESTS`` requests over 4 slots
+    (chunks of 64, bursts of 8), contiguous and paged: each graphed engine
+    warmed by a first pass and then counted, and an eager one of each
+    layout, whose streams must equal the graphed one's (for an MoE the
+    contiguous eager run records the routing: the dropped share a step).
+    The paged streams equal the contiguous ones for a dense model; for an
+    MoE that is a reading, since a padding row reads stale rows in one
+    layout and the null page in the other, and padding rows take
+    capacity."""
+    from repro_torch import kernels
+    from repro_torch.models.moe import record_routing
+    from repro_torch.runtime.compile_guard import CompileGuard
+    from repro_torch.serving import ContinuousEngine, make_trace
+    trace = make_trace(FAMILY_REQUESTS, cfg.vocab, **FAMILY_TRACE)
+    kw = dict(n_slots=RAGGED_SLOTS, prefill_chunk=RAGGED_CHUNK,
+              decode_burst=8, max_len=max(FAMILY_TRACE["prompt_lens"])
+              + max(FAMILY_TRACE["gen_lens"]))
+    layouts = {"contiguous": kw, "paged": dict(page_size=PAGE_SIZE, **kw)}
+    moe = cfg.family == "gqa_moe"
+    out, streams = {}, {}
+    with CompileGuard(f"chip_smoke families {cfg.name}") as guard:
+        for name, lkw in layouts.items():
+            eng = ContinuousEngine(lm, merged, **lkw)
+            _engine_pass(torch, eng, trace)  # captures every step it meets
+            kernels.reset_launches()
+            got, st, peak = _engine_pass(torch, eng, trace)
+            counts = kernels.launches()
+            captures, budgets = _graph_captures(eng), dict(eng.budgets)
+            del eng
+            _free(torch)
+            eager = ContinuousEngine(lm, merged, eager=True, **lkw)
+            recording = moe and name == "contiguous"
+            with (record_routing() if recording
+                  else contextlib.nullcontext([])) as rec, \
+                    (_record_rows(lm) if recording
+                     else contextlib.nullcontext([])) as rows:
+                got_e, st_e, _ = _engine_pass(torch, eager, trace)
+            del eager
+            _free(torch)
+            decode_steps = st.model_steps - RAGGED_CHUNK * st.ragged_dispatches
+            streams[name] = got
+            out[name] = {
+                "launches": counts, "captures": captures,
+                "budgets": budgets,
+                "ragged_dispatches": st.ragged_dispatches,
+                "decode_steps": decode_steps, "tokens_out": st.tokens_out,
+                "occupancy": st.occupancy, "pass_peak_gb": peak,
+                "graphed": _step_walls(st, RAGGED_CHUNK, FAMILY_REQUESTS),
+                "eager": _step_walls(st_e, RAGGED_CHUNK, FAMILY_REQUESTS),
+                "checks": {
+                    "graphed_and_eager_streams_identical": got == got_e,
+                    "all_requests_served": sorted(got) == sorted(
+                        r.rid for r in trace),
+                    "tiled_per_ragged_step":
+                        counts["qmatmul"] == n_lin * st.ragged_dispatches,
+                    "gemv_per_decode_step":
+                        counts["qmatvec"] == n_lin * decode_steps,
+                    "no_adapter_kernel": all(
+                        v == 0 for k, v in counts.items()
+                        if k not in ("qmatmul", "qmatvec")),
+                    "captures_within_budget": all(
+                        1 <= captures[k] <= b for k, b in budgets.items())}}
+            if recording:
+                out[name]["dropped_share"] = _drop_shares(
+                    torch, rec, rows, cfg.n_layers, cfg.n_experts)
+        guard_counts = guard.counts()
+        guard.check()
+    same = streams["paged"] == streams["contiguous"]
+    out["paged_streams_equal_contiguous"] = same
+    if not moe:
+        out["paged"]["checks"]["paged_streams_equal_contiguous"] = same
+    out["guard_counts"] = {k: list(v) for k, v in guard_counts.items()}
+    return out
+
+
+def _family(torch, arch, layers):
+    """One config at full width (``layers`` cuts the depth): built from
+    seed 0 (adapters nudged, then merged), served statically, 4 x (128 +
+    32), the decode step replayed (one capture, within the budget of a
+    ``CompileGuard``), the counted pass with the merge check, then
+    ``FAMILY_TIMED`` passes for medians; kernels 1-4 counted against
+    linears a layer (from the config) x layers x steps; the floors of a
+    decode step and of the prefill; then, for ``FAMILY_ENGINES``, the
+    continuous engine."""
+    from statistics import median
+    import numpy as np
+    import repro_torch.configs as C
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    from repro_torch.runtime.compile_guard import CompileGuard
+    t_cfg = time.perf_counter()
+    full = C.get(arch)
+    cfg = full if layers is None else full.scaled(n_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    lm, params, merged = serve.build_model(cfg, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_cfg
+    n_lin = _step_linears(cfg)
+    prompts = np.random.default_rng(0).integers(
+        4, cfg.vocab, size=(4, 128)).astype(np.int32)
+    max_len = prompts.shape[1] + SERVE_GEN
+    bound = serve.merge_bound(cfg)
+    with CompileGuard(f"chip_smoke families static {arch}") as guard:
+        gen = serve.make_graph_generator(lm, merged, prompts.shape, SERVE_GEN,
+                                         max_len, device="cuda")
+        first, _ = gen(prompts)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        toks, times = gen(prompts)
+        mcheck = serve.merge_check(lm, params, merged, prompts, max_len,
+                                   device="cuda")
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        passes = [times]
+        same = [bool(np.array_equal(first, toks))]
+        for _ in range(FAMILY_TIMED - 1):
+            t2, w = gen(prompts)
+            passes.append(w)
+            same.append(bool(np.array_equal(t2, toks)))
+        captures = gen.graphs._cache_size()
+        guard.check()
+    replays = _replay_profiles(torch, {"decode": gen.graphs})
+    del gen
+    _free(torch)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prefill_profile = _profile_prefill(torch, lm, merged, prompts)
+    moe = cfg.family == "gqa_moe"
+    held = _hold_family_linears(torch, cfg, params, merged, prompts.size,
+                                arch in FAMILY_ENGINES)
+    control = {f: _faulty_merge_check(torch, lm, params, merged, prompts,
+                                      max_len, f)
+               for f in (FAMILY_FAULTS if moe else ())}
+    decode_bytes = _linear_bytes(merged) + (
+        2 * cfg.n_layers * 4 * max_len * cfg.n_kv_heads * cfg.head_dim * 4)
+    flops = _prefill_flops(cfg, *prompts.shape)
+    floors = {"decode_step_ms": decode_bytes / PEAK_BYTES_S * 1e3,
+              "decode_bound_by": "bytes", "decode_gb": decode_bytes / 1e9,
+              "prefill_ms": max(flops / PEAK_BF16_FLOP_S,
+                                decode_bytes / PEAK_BYTES_S) * 1e3,
+              "prefill_bound_by": "operations"
+              if flops / PEAK_BF16_FLOP_S > decode_bytes / PEAK_BYTES_S
+              else "bytes", "prefill_tflop": flops / 1e12}
+    decode_ms = median(w["decode_s"] * 1e3 / (SERVE_GEN - 1) for w in passes)
+    prefill_ms = median(w["prefill_s"] * 1e3 for w in passes)
+    checks = {
+        "tokens_shape": list(toks.shape) == [4, SERVE_GEN],
+        "tokens_in_vocab": bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+        "same_tokens_every_pass": all(same),
+        "merge_finite": all(math.isfinite(r["max_abs_diff"])
+                            for r in mcheck.values()),
+        "merge_within_bound": all(r["rel"] <= bound
+                                  for r in mcheck.values()),
+        "decode_captured_once": captures == 1,
+        "replay_launches_match_profiler": bool(replays) and all(
+            r["match"] for r in replays.values()),
+        "kernels_held_against_plain": bool(held) and all(
+            r["ok"] for r in held),
+        **_window_checks(counts, n_lin)}
+    if moe:
+        checks["merge_tokens_routed_alike"] = all(
+            _routed_alike(r) for r in mcheck.values())
+        checks["faulty_merge_rejected"] = not any(
+            _moe_merge_ok(c, bound) for f, c in control.items()
+            if f >= FAMILY_FAULT_REJECT)
+    out = {"arch": arch, "family": cfg.family, "n_layers": cfg.n_layers,
+           "depth_cut": (f"{cfg.n_layers} of {full.n_layers} layers"
+                         if layers is not None else "none"),
+           "widths": {k: getattr(cfg, k) for k in (
+               "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
+               "vocab", "window", "gated_mlp", "act", "n_experts", "top_k",
+               "moe_d_ff")},
+           "linears_per_layer": n_lin // cfg.n_layers,
+           "linears_per_step": n_lin, "init_s": init_s,
+           "peak_mem_gb": peak, "launches": counts,
+           "decode_ms_per_token": decode_ms, "prefill_ms": prefill_ms,
+           "passes": passes, "floors": floors,
+           "decode_over_floor": decode_ms / floors["decode_step_ms"],
+           "prefill_over_floor": prefill_ms / floors["prefill_ms"],
+           "merge_check": mcheck, "merge_bound_rel": bound,
+           "routing_rule": {"agree_min": FAMILY_AGREE_MIN,
+                            "flip_max": FAMILY_FLIP_MAX},
+           "faulty_merge_checks": [
+               {"fault": f, "passes": _moe_merge_ok(c, bound), **c}
+               for f, c in control.items()],
+           "held": held,
+           "replay_profiles": replays, "prefill_profile": prefill_profile,
+           "sample_tokens": toks[0][:8].tolist()}
+    del params
+    _free(torch)
+    if arch in FAMILY_ENGINES:
+        out["engine"] = _family_engines(torch, cfg, lm, merged, n_lin)
+        for layout in ("contiguous", "paged"):
+            checks.update({f"engine_{layout}_{k}": v for k, v in
+                           out["engine"][layout]["checks"].items()})
+    del lm, merged
+    _free(torch)
+    out["checks"] = checks
+    out["ok"] = all(checks.values())
+    out["seconds"] = time.perf_counter() - t_cfg
+    return out
+
+
+def phase_families(torch):
+    """The three dense gqa configs and mixtral-8x22b (gqa_moe) served at
+    their published widths on the card (depth cuts in ``FAMILY_CUTS``):
+    see :func:`_family`.  Returns the launch counts of each config's
+    static window (and its engines' counted passes), and the rows of
+    kernels 1-4 held against their plain versions."""
+    t_phase = time.perf_counter()
+    rows, counts, held = [], {}, []
+    for arch, layers in FAMILY_CUTS:
+        res = _family(torch, arch, layers)
+        rows.append(res)
+        held += res["held"]
+        counts[f"{arch} static serve + merge check (phase families)"] = \
+            res["launches"]
+        for layout in ("contiguous", "paged"):
+            if "engine" in res:
+                counts[f"{arch} {layout} engine (phase families)"] = \
+                    res["engine"][layout]["launches"]
+        worst = max(r["max_abs_err"] / max(r["tol"], 1e-30)
+                    for r in res["held"])
+        mc = res["merge_check"]
+        print(f"[chip_smoke] families: {arch} ({res['depth_cut']}): decode "
+              f"{res['decode_ms_per_token']:.3f} ms a token "
+              f"({res['decode_over_floor']:.2f}x its floor), prefill "
+              f"{res['prefill_ms']:.2f} ms ({res['prefill_over_floor']:.2f}x)"
+              f", merge rel {max(r['rel'] for r in mc.values()):.2e}"
+              + (f", flipped {max(r['flip_share'] for r in mc.values()):.3%}"
+                 if "flip_share" in mc["prefill"] else "")
+              + f", {len(res['held'])} kernel holds, worst err/tol "
+              f"{worst:.3f}"
+              + f", ok {res['ok']}", flush=True)
+    out = {"phase": "families", "configs": rows,
+           "seconds": time.perf_counter() - t_phase,
+           "ok": all(r["ok"] for r in rows)}
+    emit(out)
+    if not out["ok"]:
+        bad = {r["arch"]: [k for k, v in r["checks"].items() if not v]
+               for r in rows if not r["ok"]}
+        raise AssertionError(f"families checks failed: {bad}")
+    return counts, held
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print(f"[chip_smoke] {SRC}/repro_torch not found: run from a checkout "
@@ -3318,6 +3916,8 @@ def main() -> int:
         phase_train_small(torch)
         train_counts, train_errs = phase_train(torch)
         base_counts, head_rows = phase_baselines(torch)
+        family_counts, family_held = phase_families(torch)
+        serve_counts.update(family_counts)
     except Exception as e:  # report, save and fail: no result line
         import traceback
         traceback.print_exc()
@@ -3330,8 +3930,10 @@ def main() -> int:
     for name, (kind, m, source, replaces) in KERNELS.items():
         r = rows[name]
         head = head_rows.get(name)
-        held = [x for rs in spec_held.values() for x in rs
+        spec = [x for rs in spec_held.values() for x in rs
                 if x["kernel"] == name]
+        fam = [x for x in family_held if x["kernel"] == name]
+        held = spec + fam
         summary.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -3368,9 +3970,12 @@ def main() -> int:
                     train_counts[name],
                 **{f"{path} (phase baselines)": c[name]
                    for path, c in base_counts.items()}})
-        if held:
+        if spec:
             summary[-1]["spec_shapes_held"] = sorted(
-                {f"M={x['M']} bits={x['bits']}" for x in held})
+                {f"M={x['M']} bits={x['bits']}" for x in spec})
+        if fam:
+            summary[-1]["families_shapes_held"] = sorted(
+                {f"M={x['M']} K={x['K']} N={x['N']}" for x in fam})
         if head:
             summary[-1]["lm_head"] = {
                 "work": f"the lm_head at M={m}, K={HEAD_K}, N={HEAD_N}, "
@@ -3408,7 +4013,8 @@ def main() -> int:
             f"train, {TRAIN_STEPS} steps (phase train)":
                 train_counts[PROJ[0]],
             **{f"{path} (phase baselines)": c[PROJ[0]]
-               for path, c in base_counts.items()}},
+               for path, c in base_counts.items()},
+            **{path: c[PROJ[0]] for path, c in serve_counts.items()}},
         "max_abs_err": max([x["max_abs_err"] for x in r + ragged[PROJ[0]]]
                            + [train_errs[PROJ[0]]]),
         **{f"{key}_ms": _per_layer(r, f"{key}_ms")

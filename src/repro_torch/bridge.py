@@ -12,10 +12,17 @@ on their leading axis (the loader slices them into per-layer modules)::
                          "qn": {"g": [L, hd]}, "kn": ...},   # qk-norm only
                 "mlp": {"gate": <linear>, "up": ..., "down": ...}}}
 
-and a linear is a dict of tags and arrays (a leading ``[L]`` axis inside
-``blocks``)::
+where a gqa_moe block has ``"moe"`` in place of ``"mlp"``::
 
-    {"scheme": "fp", "weight": [D_in, D_out]}
+    "moe": {"router": <linear>,                      # fp, exempt
+            "gate": <linear>, "up": ..., "down": ...,  # experts: [L, E, ...]
+            "bias": [L, E],                          # sigmoid routing only
+            "shared": {"gate": ..., "up": ..., "down": ...}}  # shared experts
+
+and a linear is a dict of tags and arrays (a leading ``[L]`` axis inside
+``blocks``, ``[L, E]`` for an expert stack)::
+
+    {"scheme": "fp", "weight": [D_in, D_out]}     # + "exempt": True (router)
     {"scheme": "intq", "bits": 4, "group_size": 32,
      "qweight": uint8 [D_in/cpb, D_out], "scale": [L_g, D_out], "zero": ...}
     {"scheme": "qalora", ... as intq ..., "s": 2.0, "a": [L_g, r], "b": [r, D_out]}
@@ -28,8 +35,8 @@ The head is a linear of any of these schemes (a quantized one under an
 explicit ``lm_head`` policy rule).
 
 The reverse direction (:func:`numpy_tree`, :func:`adapters_numpy`) stacks
-per-layer tensors back on a leading ``[L]`` axis; bf16 tensors come back
-as f32 (exact), since numpy has no bf16.
+per-layer (and per-expert) tensors back on leading ``[L]`` (``[L, E]``)
+axes; bf16 tensors come back as f32 (exact), since numpy has no bf16.
 """
 
 from __future__ import annotations
@@ -50,9 +57,12 @@ from repro_torch.core.qalora import QALoRAParams
 from repro_torch.core.quant import QuantizedLinear
 from repro_torch.models.common import RMSNorm
 from repro_torch.models.lm import LMParams, resolve_device
+from repro_torch.models.moe import MoEParams
 
 
 def _tensor(a, device, layer=None):
+    """``a`` (at index ``layer``: a layer, or a (layer, expert) pair) as a
+    tensor on ``device``."""
     a = np.asarray(a)
     if layer is not None:
         a = a[layer]
@@ -68,7 +78,9 @@ def _linear(d, cfg: ArchConfig, path: str, device, layer=None):
     pol = schemes.resolve_path(cfg.quant, path)
     if scheme == "fp":
         w = _tensor(d["weight"], device, layer)
-        return schemes.dense_linear(w, dataclasses.replace(pol, dtype=w.dtype))
+        lp = schemes.dense_linear(w, dataclasses.replace(pol, dtype=w.dtype))
+        lp.exempt = bool(d.get("exempt", False))
+        return lp
     if scheme in ("lora", "qlora"):
         ad = LoRAParams(_tensor(d["a"], device, layer),
                         _tensor(d["b"], device, layer))
@@ -102,20 +114,40 @@ def _linear(d, cfg: ArchConfig, path: str, device, layer=None):
     return schemes.LinearParams(data, scheme=scheme, policy=pol)
 
 
+def _mlp(tree, cfg: ArchConfig, path: str, device, layer) -> nn.ModuleDict:
+    return nn.ModuleDict({
+        name: _linear(tree[name], cfg, f"{path}/{name}", device, layer)
+        for name in ("gate", "up", "down") if name in tree})
+
+
+def _moe(tree, cfg: ArchConfig, device, layer: int) -> MoEParams:
+    experts = {name: [_linear(tree[name], cfg, f"blocks/moe/{name}", device,
+                              (layer, e)) for e in range(cfg.n_experts)]
+               for name in ("gate", "up", "down")}
+    return MoEParams(
+        _linear(tree["router"], cfg, "blocks/moe/router", device, layer),
+        experts["gate"], experts["up"], experts["down"],
+        _tensor(tree["bias"], device, layer) if "bias" in tree else None,
+        _mlp(tree["shared"], cfg, "blocks/moe/shared", device, layer)
+        if "shared" in tree else None)
+
+
 def _block(tree, cfg: ArchConfig, device, layer: int) -> nn.ModuleDict:
-    attn_t, mlp_t = tree["attn"], tree["mlp"]
+    attn_t = tree["attn"]
     attn = nn.ModuleDict({
         name: _linear(attn_t[name], cfg, f"blocks/attn/{name}", device, layer)
         for name in ("wq", "wk", "wv", "wo")})
     for name in ("qn", "kn"):
         if name in attn_t:
             attn[name] = _norm(attn_t[name], device, layer)
-    mlp = nn.ModuleDict({
-        name: _linear(mlp_t[name], cfg, f"blocks/mlp/{name}", device, layer)
-        for name in ("gate", "up", "down") if name in mlp_t})
-    return nn.ModuleDict({"ln1": _norm(tree["ln1"], device, layer),
-                          "ln2": _norm(tree["ln2"], device, layer),
-                          "attn": attn, "mlp": mlp})
+    out = nn.ModuleDict({"ln1": _norm(tree["ln1"], device, layer),
+                         "ln2": _norm(tree["ln2"], device, layer),
+                         "attn": attn})
+    if "moe" in tree:
+        out["moe"] = _moe(tree["moe"], cfg, device, layer)
+    else:
+        out["mlp"] = _mlp(tree["mlp"], cfg, "blocks/mlp", device, layer)
+    return out
 
 
 def load_numpy_tree(tree, cfg: ArchConfig, device="cuda") -> LMParams:
@@ -141,23 +173,29 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
+def _stack(path, by_index: dict):
+    """``{index tuple: array or scalar}`` -> one leaf, stacked on a leading
+    axis per index position (a scalar must agree across indices)."""
+    if () in by_index:
+        return by_index[()]
+    groups: dict = {}
+    for ix, v in by_index.items():
+        groups.setdefault(ix[0], {})[ix[1:]] = v
+    vals = [_stack(path, groups[i]) for i in sorted(groups)]
+    if isinstance(vals[0], np.ndarray):
+        return np.stack(vals)
+    if any(v != vals[0] for v in vals):
+        raise ValueError(f"{'/'.join(path)} differs across layers or "
+                         f"experts: {vals}")
+    return vals[0]
+
+
 def _nest(flat: Dict[tuple, dict]):
-    """``{path: {layer or None: array or scalar}}`` -> the nested layout,
-    layers stacked on a leading axis (a per-layer scalar must agree
-    across layers)."""
+    """``{path: {index tuple: array or scalar}}`` -> the nested layout,
+    layers (and experts) stacked on leading axes."""
     out: dict = {}
-    for path, by_layer in flat.items():
-        if None in by_layer:
-            leaf = by_layer[None]
-        else:
-            vals = [by_layer[i] for i in sorted(by_layer)]
-            if isinstance(vals[0], np.ndarray):
-                leaf = np.stack(vals)
-            elif any(v != vals[0] for v in vals):
-                raise ValueError(f"{'/'.join(path)} differs across layers: "
-                                 f"{vals}")
-            else:
-                leaf = vals[0]
+    for path, by_index in flat.items():
+        leaf = _stack(path, by_index)
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
@@ -166,12 +204,13 @@ def _nest(flat: Dict[tuple, dict]):
 
 
 def _where(name: str):
-    """A module name's layout path and layer (``blocks.3.attn.wq`` ->
-    (("blocks", "attn", "wq"), 3))."""
-    parts = tuple(name.split("."))
-    if parts[0] == "blocks":
-        return ("blocks",) + parts[2:], int(parts[1])
-    return parts, None
+    """A module name's layout path and index: its layer, and its expert
+    for an expert linear (``blocks.3.attn.wq`` -> (("blocks", "attn",
+    "wq"), (3,)), ``blocks.3.moe.up.5`` -> (("blocks", "moe", "up"),
+    (3, 5)), ``head`` -> (("head",), ()))."""
+    parts = name.split(".")
+    return (tuple(p for p in parts if not p.isdigit()),
+            tuple(int(p) for p in parts if p.isdigit()))
 
 
 def adapters_numpy(params: LMParams,
@@ -187,17 +226,18 @@ def adapters_numpy(params: LMParams,
     for mname, lp in params.named_modules():
         if not schemes.is_linear(lp):
             continue
-        path, layer = _where(mname)
+        path, index = _where(mname)
         for pname, _ in lp.named_parameters():
             key = path + (pname.rsplit(".", 1)[-1],)
-            flat.setdefault(key, {})[layer] = _np(values[f"{mname}.{pname}"])
+            flat.setdefault(key, {})[index] = _np(values[f"{mname}.{pname}"])
     return _nest(flat)
 
 
 def linear_numpy(lp: schemes.LinearParams) -> dict:
     """One tagged linear in the numpy layout of the module docstring."""
     if lp.scheme == "fp":
-        return {"scheme": "fp", "weight": _np(schemes.dense_view(lp))}
+        return {"scheme": "fp", "weight": _np(schemes.dense_view(lp)),
+                **({"exempt": True} if lp.exempt else {})}
     if lp.scheme not in ("lora", "qlora", "intq", "qalora"):
         raise NotImplementedError(f"scheme {lp.scheme!r} has no numpy "
                                   f"layout")
@@ -223,15 +263,17 @@ def numpy_tree(params: LMParams):
     reads (the reference's ``LM.init`` tree, layers stacked)."""
     flat: Dict[tuple, dict] = {}
 
-    def put(path, layer, **leaves):
+    def put(path, index, **leaves):
         for k, v in leaves.items():
-            flat.setdefault(path + (k,), {})[layer] = v
+            flat.setdefault(path + (k,), {})[index] = v
 
     for mname, mod in params.named_modules():
         if isinstance(mod, RMSNorm):
             put(*_where(mname), g=_np(mod.g))
         elif schemes.is_linear(mod):
             put(*_where(mname), **linear_numpy(mod))
+        elif isinstance(mod, MoEParams) and mod.bias is not None:
+            put(*_where(mname), bias=_np(mod.bias))
     tree = _nest(flat)
     tree["embed"] = _np(params.embed)
     return tree

@@ -11,7 +11,7 @@ from repro_torch.core.schemes import PolicyTree, QuantPolicy
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # only gqa is ported so far
+    family: str  # gqa | gqa_moe (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -25,6 +25,15 @@ class ArchConfig:
     global_every: int = 0                 # gemma3: every Nth layer is global
     global_rope_theta: float = 1e6
     qk_norm: bool = False
+    # moe (n_dense_layers and aux_coef wait for the slices that read them:
+    # mla_moe and MoE training)
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    n_shared_experts: int = 0
+    routing: str = "softmax"              # softmax | sigmoid (aux-free)
+    capacity_factor: float = 1.25
+    moe_chunk: int = 512                  # prefill positions a routing chunk
     gated_mlp: bool = True
     act: str = "silu"
     # policy: uniform QuantPolicy or per-layer PolicyTree

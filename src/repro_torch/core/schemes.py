@@ -513,13 +513,16 @@ class IntQScheme(LinearScheme):
 
 
 def linear_init(generator, d_in: int, d_out: int, pol,
-                device="cuda") -> LinearParams:
+                device="cuda", exempt: bool = False) -> LinearParams:
     """Init one projection under ``pol`` (a QuantPolicy or a scoped
-    PolicyTree)."""
+    PolicyTree).  ``exempt=True`` forces fp and tags the layer exempt
+    (routers: the reference's ``quantize_policy=False``)."""
     rp = pol.resolve()
+    if exempt:
+        rp = dataclasses.replace(rp, mode="fp")
     scheme = get_scheme(rp.mode)
     return LinearParams(scheme.init(generator, d_in, d_out, rp, device),
-                        scheme=rp.mode, policy=rp)
+                        scheme=rp.mode, policy=rp, exempt=exempt)
 
 
 def from_dense_linear(generator, w, pol, quantizer=None,

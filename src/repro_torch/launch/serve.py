@@ -300,23 +300,45 @@ def merge_check(lm, params, merged, prompts, max_len: int,
                 cache_dtype=torch.float32, device="cuda"):
     """The adapter model against the merged model: prefill logits, then one
     decode step on the merged model's greedy token.  Returns max|delta|
-    and max|logits| of each."""
+    and max|logits| of each.
+
+    A gqa_moe model is compared token by token over the tokens whose
+    routing agreed (:func:`compare_routed`): the two models differ by
+    rounding, which may flip a token's top-k choice where two router
+    probabilities nearly tie, and a flipped token's logits move by far
+    more than rounding.  Its prefill is compared at every position."""
     toks = torch.as_tensor(prompts, dtype=torch.int32, device=device)
     nxt = lm.prefill(merged, {"tokens": toks})[0].argmax(-1).to(torch.int32)
-    a, m = (_two_steps(lm, p, toks, nxt, max_len, cache_dtype, device)
-            for p in (params, merged))
-    return {ph: _compare(a[ph], m[ph]) for ph in a}
+    routed = lm.cfg.family == "gqa_moe"
+    a, m = (_two_steps(lm, p, toks, nxt, max_len, cache_dtype, device,
+                       routed) for p in (params, merged))
+    if not routed:
+        return {ph: _compare(a[ph], m[ph]) for ph in a}
+    out = {}
+    for ph in ("prefill", "decode"):
+        same = routing_agreement(a["routes"][ph], m["routes"][ph])
+        out[ph] = compare_routed(a[ph], m[ph], same)
+    return out
 
 
-def _two_steps(lm, params, toks, nxt, max_len: int, cache_dtype, device):
+def _two_steps(lm, params, toks, nxt, max_len: int, cache_dtype, device,
+               routed: bool = False):
     """Prefill logits of ``toks``, then the logits of one decode step on
-    the tokens ``nxt`` [B]."""
-    logits, pre = lm.prefill(params, {"tokens": toks})
+    the tokens ``nxt`` [B].  ``routed``: the prefill's logits at every
+    position, and each pass's routing under ``"routes"``."""
+    from repro_torch.models.moe import record_routing
+    with record_routing() as pre_routes:
+        logits, pre = (lm.prefill_all if routed else lm.prefill)(
+            params, {"tokens": toks})
     cache = lm.merge_prefill_cache(
         pre, lm.init_cache(toks.shape[0], max_len, dtype=cache_dtype,
                            device=device))
-    step = lm.decode_step(params, cache, nxt[:, None])[0]
-    return {"prefill": logits, "decode": step}
+    with record_routing() as step_routes:
+        step = lm.decode_step(params, cache, nxt[:, None])[0]
+    out = {"prefill": logits, "decode": step}
+    if routed:
+        out["routes"] = {"prefill": pre_routes, "decode": step_routes}
+    return out
 
 
 def _compare(got, ref):
@@ -324,6 +346,38 @@ def _compare(got, ref):
     diff, top = float((got - ref).abs().max()), float(ref.abs().max())
     return {"max_abs_diff": diff, "max_abs_logit": top,
             "rel": diff / max(top, 1e-30), "argmax": got.argmax(-1).tolist()}
+
+
+def routing_agreement(routes_a, routes_b):
+    """[L, B, S] bool: token (b, s) was routed alike at layer l by two runs
+    (the ``record_routing`` lists of one forward each): the same experts
+    kept and the same dropped, in any order of the top-k."""
+    same = []
+    for ra, rb in zip(routes_a, routes_b, strict=True):
+        (ia, oa), (ib, ob) = (r["idx"].sort(dim=-1) for r in (ra, rb))
+        ka, kb = ra["keep"].gather(-1, oa), rb["keep"].gather(-1, ob)
+        same.append(((ia == ib) & (ka == kb)).all(dim=-1))
+    return torch.stack(same)
+
+
+def compare_routed(got, ref, same):
+    """:func:`_compare` over the tokens whose routing agreed at every
+    layer.  ``got``/``ref``: logits [B, S, V] or [B, V]; ``same``:
+    :func:`routing_agreement`, [L, B, S] (S = 1 for [B, V] logits).
+    Adds the share of (token, layer) pairs that flipped, the tokens and
+    the agreeing tokens, and the largest gap on a flipped token over
+    max|ref| (None when none flipped)."""
+    agree = same.all(dim=0).reshape(got.shape[:-1])
+    err = (got - ref).abs().amax(dim=-1)
+    top = float(ref.abs().max())
+    ok = float(err[agree].max()) if bool(agree.any()) else 0.0
+    bad = float(err[~agree].max()) if not bool(agree.all()) else None
+    last = got[:, -1] if got.dim() == 3 else got
+    return {"max_abs_diff": ok, "max_abs_logit": top,
+            "rel": ok / max(top, 1e-30), "argmax": last.argmax(-1).tolist(),
+            "tokens": agree.numel(), "agreeing_tokens": int(agree.sum()),
+            "flip_share": float(1.0 - same.float().mean()),
+            "max_flipped_rel": None if bad is None else bad / max(top, 1e-30)}
 
 
 NULL_TENANT = "<null>"
@@ -570,6 +624,10 @@ def main(argv=None):
         except ValueError as e:
             ap.error(f"--policy: {e}")
         cfg = cfg.scaled(quant=pol)
+    if cfg.family == "gqa_moe" and (args.adapters or args.speculate):
+        ap.error(f"--arch {args.arch}: a gqa_moe model serves merged, "
+                 f"without --adapters or --speculate, for now (ROADMAP.md, "
+                 f"Queue 1, 'MoE behind the frontend')")
     specs = [s for s in args.adapters.split(",") if s]
     # a trained checkpoint is served over the base it was trained on, its
     # adapters as initialised; a demo tenant is a nudge of the nudged base,
@@ -610,6 +668,7 @@ def main(argv=None):
         prompts[:] = 0
 
     result = {"arch": cfg.name, "n_layers": cfg.n_layers,
+              "linears_per_layer": lm.layer_linears(),
               "device": str(device), "engine": args.engine,
               "path": ("graphs" if device.type == "cuda" and not args.loop
                        else "eager"), "requests": b,
@@ -740,6 +799,10 @@ def main(argv=None):
                 print(f"[serve] {name} vs merged, {phase}: max|diff| = "
                       f"{r['max_abs_diff']:.3e} ({r['rel']:.2e} of "
                       f"max|logit|, bound {bound:.0e}"
+                      + (f"; over {r['agreeing_tokens']} of {r['tokens']} "
+                         f"tokens routed alike, {r['flip_share']:.2%} of "
+                         f"(token, layer) routings flipped"
+                         if "flip_share" in r else "")
                       + (f"; vs the next tenant's merged tree {far:.2e}"
                          if far is not None else "")
                       + f"; argmax {r['argmax'][:4]})")

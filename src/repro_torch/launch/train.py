@@ -111,6 +111,7 @@ def build_config(args):
     """The config the flags ask for; raises on what is not ported."""
     import repro_torch.configs as C
     from repro_torch.core.schemes import PolicyTree
+    from repro_torch.models.lm import MOE_TRAINING
     if args.mesh != "cpu":
         raise NotImplementedError(f"--mesh {args.mesh}: {NOT_PORTED}; the "
                                   f"port trains on one device")
@@ -118,6 +119,8 @@ def build_config(args):
         raise NotImplementedError(f"--sync-every {args.sync_every}: "
                                   f"{NOT_PORTED} (cross-pod adapter sync)")
     cfg = C.reduced(args.arch) if args.reduced else C.get(args.arch)
+    if cfg.family == "gqa_moe":
+        raise NotImplementedError(f"--arch {args.arch}: {MOE_TRAINING}")
     q = dataclasses.replace(
         cfg.quant.default, mode=args.mode, bits=args.bits,
         **({"group_size": args.group_size} if args.group_size else {}))

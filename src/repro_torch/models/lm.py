@@ -1,6 +1,7 @@
-"""The gqa decoder LM: init, the training loss, prefill, ragged decode step
-and greedy generation.  Counterpart of the gqa family of
-``repro.models.lm``.
+"""The gqa and gqa_moe decoder LMs: init, the training loss (gqa),
+prefill, ragged decode step and greedy generation.  Counterpart of those
+families of ``repro.models.lm``: a gqa_moe block has an ``moe`` FFN
+(:mod:`repro_torch.models.moe`) where a gqa block has its ``mlp``.
 
 Parameters are an :class:`LMParams` module: the embedding, the final norm,
 the head (fp, or under an explicit ``lm_head`` policy rule any scheme,
@@ -35,7 +36,13 @@ from repro_torch.runtime.graphs import StepGraphs
 from .attention import StepPlan, gqa_apply, gqa_init, gqa_prefill_chunk
 from .common import rmsnorm, rmsnorm_init
 from .mlp import mlp_apply, mlp_init
-from .slot_state import SlotState, attn_cfg as _attn_cfg
+from .moe import moe_apply, moe_init
+from .slot_state import SlotState, attn_cfg as _attn_cfg, check_family
+
+# what LM.loss and launch/train.py say for an MoE model
+MOE_TRAINING = ("training a gqa_moe model (LM.loss with aux_coef * aux, "
+                "kernel 3's backward per expert) is not ported yet: "
+                "ROADMAP.md, Queue 1, 'MoE training'")
 
 
 class LMParams(nn.Module):
@@ -52,13 +59,33 @@ class LMParams(nn.Module):
 
 
 def _gqa_block_init(generator, cfg: ArchConfig, pol, device) -> nn.ModuleDict:
-    return nn.ModuleDict({
+    p = nn.ModuleDict({
         "ln1": rmsnorm_init(cfg.d_model, device=device),
         "ln2": rmsnorm_init(cfg.d_model, device=device),
         "attn": gqa_init(generator, _attn_cfg(cfg), pol.at("attn"), device),
-        "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, pol.at("mlp"),
-                        cfg.gated_mlp, device),
     })
+    if cfg.family == "gqa_moe":
+        p["moe"] = moe_init(generator, cfg.d_model, cfg.moe_d_ff or cfg.d_ff,
+                            cfg.n_experts, pol.at("moe"),
+                            n_shared=cfg.n_shared_experts,
+                            shared_d_ff=cfg.moe_d_ff or cfg.d_ff,
+                            routing=cfg.routing, device=device)
+    else:
+        p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, pol.at("mlp"),
+                            cfg.gated_mlp, device)
+    return p
+
+
+def _ffn(p, h, cfg: ArchConfig, moe_chunk: int):
+    """The block's FFN on h: the MLP, or the MoE routed ``moe_chunk``
+    positions at a time (0: all at once; its aux loss is dropped)."""
+    if "moe" in p:
+        return moe_apply(p["moe"], h, n_experts=cfg.n_experts,
+                         top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor,
+                         routing=cfg.routing, act=cfg.act,
+                         moe_chunk=moe_chunk)[0]
+    return mlp_apply(p["mlp"], h, cfg.act)
 
 
 def _gqa_block(p, x, cfg: ArchConfig, *, window=None, theta=None):
@@ -66,7 +93,7 @@ def _gqa_block(p, x, cfg: ArchConfig, *, window=None, theta=None):
                       _attn_cfg(cfg), window=window, theta=theta,
                       chunk_q=cfg.chunk_q, chunk_k=cfg.chunk_k)
     x = x + a
-    m = mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.act)
+    m = _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, cfg.moe_chunk)
     return x + m, kv
 
 
@@ -89,7 +116,9 @@ def _gqa_block_chunk(p, x, cache, cur_len, n_new, cfg: ArchConfig, *,
                                  cache, cur_len, n_new, _attn_cfg(cfg),
                                  window=window, theta=theta, plan=plan)
     x = x + a
-    m = mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.act)
+    # a ragged, decode, burst or verify step routes all its B x C rows at
+    # once, padding rows included, as the reference does
+    m = _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, 0)
     return x + m, cache
 
 
@@ -108,10 +137,17 @@ class LM:
     cfg: ArchConfig
 
     def __post_init__(self):
-        if self.cfg.family != "gqa":
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} is not ported yet (see "
-                f"ROADMAP.md); the port serves gqa")
+        check_family(self.cfg)
+
+    def layer_linears(self) -> int:
+        """Quantized linears of one block under a policy that quantizes
+        every block linear: attention's 4, then the gated MLP's 3 (2 when
+        not gated), or each expert's gate, up and down plus the shared
+        experts' MLP (the router stays fp)."""
+        cfg = self.cfg
+        if cfg.family == "gqa_moe":
+            return 4 + 3 * cfg.n_experts + (3 if cfg.n_shared_experts else 0)
+        return 4 + (3 if cfg.gated_mlp else 2)
 
     # ---------------- init ----------------
 
@@ -205,7 +241,10 @@ class LM:
     def loss(self, params: LMParams, batch: Dict[str, Any]):
         """Mean next-token cross-entropy of ``batch`` (``tokens`` and
         ``labels``, [B, S]), with autograd on.  Returns (loss, {"xent",
-        "aux"}); gqa has no auxiliary loss, so aux is 0."""
+        "aux"}); gqa has no auxiliary loss, so aux is 0.  A gqa_moe model
+        raises (:data:`MOE_TRAINING`)."""
+        if self.cfg.family == "gqa_moe":
+            raise NotImplementedError(MOE_TRAINING)
         x = self._embed(params, batch["tokens"])
         for blk, (window, theta) in zip(params.blocks, self._layer_extras()):
             block = functools.partial(_gqa_block_train, cfg=self.cfg,
@@ -216,17 +255,28 @@ class LM:
         aux = torch.zeros((), dtype=torch.float32, device=xent.device)
         return xent, {"xent": xent, "aux": aux}
 
+    def _prefill(self, params: LMParams, tokens):
+        """The final-normed hidden states of every position, and the
+        prefill cache."""
+        x = self._embed(params, tokens)
+        h, cache = self._trunk(params, x, collect_cache=True)
+        length = torch.full((tokens.shape[0],), tokens.shape[1],
+                            dtype=torch.int32, device=tokens.device)
+        return (rmsnorm(params.final_ln, h, self.cfg.norm_eps),
+                {"layers": cache, "len": length})
+
     @torch.no_grad()
     def prefill(self, params: LMParams, batch: Dict[str, Any]):
         """Returns (last-token logits [B, V] f32, cache dict)."""
-        tokens = batch["tokens"]
-        x = self._embed(params, tokens)
-        h, cache = self._trunk(params, x, collect_cache=True)
-        h = rmsnorm(params.final_ln, h[:, -1:], self.cfg.norm_eps)
-        logits = self._logits(params, h)[:, 0]
-        length = torch.full((tokens.shape[0],), tokens.shape[1],
-                            dtype=torch.int32, device=tokens.device)
-        return logits, {"layers": cache, "len": length}
+        h, cache = self._prefill(params, batch["tokens"])
+        return self._logits(params, h[:, -1:])[:, 0], cache
+
+    @torch.no_grad()
+    def prefill_all(self, params: LMParams, batch: Dict[str, Any]):
+        """:meth:`prefill` with the logits of every position, [B, S, V]
+        f32 (the MoE merge check compares token by token)."""
+        h, cache = self._prefill(params, batch["tokens"])
+        return self._logits(params, h), cache
 
     def slot_state(self, page_size: int = 0, n_pages: int = 0) -> SlotState:
         """The decode-cache layout and lifecycle; ``page_size > 0`` selects

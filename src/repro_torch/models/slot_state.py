@@ -1,5 +1,5 @@
-"""Per-slot decode state for the gqa layout, contiguous or paged
-(counterpart of the gqa part of ``repro.models.slot_state``).
+"""Per-slot decode state for the gqa layout (gqa and gqa_moe), contiguous
+or paged (counterpart of the gqa part of ``repro.models.slot_state``).
 
 A contiguous decode cache is ``{"layers": {"k": [L, B, S, KvH, hd], "v":
 ...}, "len": [B] int32}``: KV rows past a slot's ``len`` are never read
@@ -22,6 +22,19 @@ from repro_torch.configs.base import ArchConfig
 from .attention import AttnConfig
 
 
+# the families the port serves: LM and SlotState refuse the rest through
+# check_family
+FAMILIES = ("gqa", "gqa_moe")
+
+
+def check_family(cfg: ArchConfig):
+    """Raise NotImplementedError for a family the port does not serve."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (see ROADMAP.md); "
+            f"the port serves {', '.join(FAMILIES)}")
+
+
 def attn_cfg(cfg: ArchConfig) -> AttnConfig:
     return AttnConfig(d_model=cfg.d_model, n_heads=cfg.n_heads,
                       n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
@@ -40,10 +53,7 @@ class SlotState:
     n_pages: int = 0
 
     def __post_init__(self):
-        if self.cfg.family != "gqa":
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} is not ported yet (see "
-                f"ROADMAP.md); the port serves gqa")
+        check_family(self.cfg)
         if self.page_size > 0 and self.n_pages < 2:
             raise ValueError(
                 f"paged mode needs n_pages >= 2 (page 0 is the reserved "

@@ -1,5 +1,5 @@
 """Continuous-batching serving engine over the ragged step (counterpart of
-``repro.serving.engine`` for the gqa family).
+``repro.serving.engine`` for the gqa and gqa_moe families).
 
 The engine drives :meth:`repro_torch.models.lm.LM.step_ragged` — one
 step in which every cache slot advances by its own number of tokens —
@@ -49,7 +49,8 @@ fixed addresses; the captures are budgeted as the reference budgets its
 compiles (:mod:`repro_torch.runtime.compile_guard`, checked after every
 iteration).  ``eager=True`` runs the same steps op by op (the oracle
 runs); it is never chosen implicitly.  On the CPU the steps run eagerly.
-Encdec sources, the MTP drafter and the other families raise.
+Encdec sources, the MTP drafter and the other families raise, and so do
+tenants and speculation over a gqa_moe model.
 """
 
 from __future__ import annotations
@@ -245,6 +246,13 @@ class ContinuousEngine:
             raise NotImplementedError(
                 "ContinuousEngine(max_src=...): encdec cross caches are not "
                 "yet ported (see ROADMAP.md); the port serves gqa")
+        if lm.cfg.family == "gqa_moe" and (adapters is not None
+                                           or speculate > 0):
+            raise NotImplementedError(
+                "a gqa_moe model serves merged, without speculation, for "
+                "now: tenants over its experts (an AdapterStore over the "
+                "expert stacks) and speculation are not ported yet "
+                "(ROADMAP.md, Queue 1, 'MoE behind the frontend')")
         self.lm, self.params = lm, params
         self.n_slots, self.max_len = n_slots, max_len
         self.step_hook = step_hook

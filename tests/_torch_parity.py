@@ -19,7 +19,8 @@ def numpy_tree(params):
     """A reference params tree as the bridge's numpy layout."""
     def lin(lp):
         if lp.scheme == "fp":
-            return {"scheme": "fp", "weight": np.asarray(RS.dense_view(lp))}
+            return {"scheme": "fp", "weight": np.asarray(RS.dense_view(lp)),
+                    **({"exempt": True} if lp.exempt else {})}
         if lp.scheme in ("lora", "qlora"):
             ad = RS.adapter_params(lp)
             d = {"scheme": lp.scheme, "s": lp.policy.s, "a": np.asarray(ad.a),
