@@ -37,6 +37,8 @@ explicit ``lm_head`` policy rule).
 The reverse direction (:func:`numpy_tree`, :func:`adapters_numpy`) stacks
 per-layer (and per-expert) tensors back on leading ``[L]`` (``[L, E]``)
 axes; bf16 tensors come back as f32 (exact), since numpy has no bf16.
+:func:`load_adapters` reads adapters of that layout (a reference run's)
+back into a model's trainable tensors.
 """
 
 from __future__ import annotations
@@ -231,6 +233,29 @@ def adapters_numpy(params: LMParams,
             key = path + (pname.rsplit(".", 1)[-1],)
             flat.setdefault(key, {})[index] = _np(values[f"{mname}.{pname}"])
     return _nest(flat)
+
+
+@torch.no_grad()
+def load_adapters(params: LMParams, adapters) -> LMParams:
+    """Copy adapters given in the :func:`adapters_numpy` layout (e.g. a
+    reference run's trained ones, layers and experts stacked on leading
+    axes) into ``params``' trainable tensors, in place, each cast to its
+    tensor's dtype.  Every adapter of ``params`` must be in the tree, at
+    its tensor's shape.  Returns ``params``."""
+    for mname, lp in params.named_modules():
+        if not schemes.is_linear(lp):
+            continue
+        path, index = _where(mname)
+        for pname, t in lp.named_parameters():
+            node = adapters
+            for k in path + (pname.rsplit(".", 1)[-1],):
+                node = node[k]
+            a = np.asarray(node)[index]
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(f"{mname}.{pname}: adapter "
+                                 f"{tuple(a.shape)}, model {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.array(a)).to(t.device, t.dtype))
+    return params
 
 
 def linear_numpy(lp: schemes.LinearParams) -> dict:

@@ -25,14 +25,14 @@ class ArchConfig:
     global_every: int = 0                 # gemma3: every Nth layer is global
     global_rope_theta: float = 1e6
     qk_norm: bool = False
-    # moe (n_dense_layers and aux_coef wait for the slices that read them:
-    # mla_moe and MoE training)
+    # moe (n_dense_layers waits for the slice that reads it: mla_moe)
     n_experts: int = 0
     top_k: int = 0
     moe_d_ff: int = 0
     n_shared_experts: int = 0
     routing: str = "softmax"              # softmax | sigmoid (aux-free)
     capacity_factor: float = 1.25
+    aux_coef: float = 0.01                # weight of the MoE aux in the loss
     moe_chunk: int = 512                  # prefill positions a routing chunk
     gated_mlp: bool = True
     act: str = "silu"

@@ -13,7 +13,10 @@ outside any Pallas kernel.
 
 :func:`qalora_matmul` is differentiable in x, A and B (the Pallas kernels
 have no VJP, so the backward is plain PyTorch); the quantized base gets no
-gradient.  The other entry points serve only.
+gradient.  It is the training forward of every adapter linear, an MoE
+expert's at its capacity buffer's M = C rows (kernel 4 when C <= 8), where
+the buffer's empty slots are zero rows of x with zero dY and so add
+nothing to dA or dB.  The other entry points serve only.
 """
 
 from __future__ import annotations

@@ -624,10 +624,9 @@ def main(argv=None):
         except ValueError as e:
             ap.error(f"--policy: {e}")
         cfg = cfg.scaled(quant=pol)
-    if cfg.family == "gqa_moe" and (args.adapters or args.speculate):
-        ap.error(f"--arch {args.arch}: a gqa_moe model serves merged, "
-                 f"without --adapters or --speculate, for now (ROADMAP.md, "
-                 f"Queue 1, 'MoE behind the frontend')")
+    if cfg.family == "gqa_moe" and args.adapters:
+        from repro_torch.serving.engine import MOE_TENANTS
+        ap.error(f"--arch {args.arch} --adapters: {MOE_TENANTS}")
     specs = [s for s in args.adapters.split(",") if s]
     # a trained checkpoint is served over the base it was trained on, its
     # adapters as initialised; a demo tenant is a nudge of the nudged base,

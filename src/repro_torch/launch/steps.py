@@ -6,7 +6,9 @@ buffers, so autograd builds no gradient for it and the optimizer keeps no
 state for it.  On CUDA every ``qalora`` linear's forward is kernel 3
 (with its rank projection) through ``ops._QALoRAMatmul``, launched again
 in the backward when ``cfg.remat`` recomputes the block; the backward
-itself is plain PyTorch.
+itself is plain PyTorch.  A gqa_moe model's loss carries ``cfg.aux_coef``
+times the router's load-balance term, and its expert adapters train with
+the rest.
 """
 
 from __future__ import annotations

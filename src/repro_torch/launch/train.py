@@ -5,10 +5,11 @@ config -> model (quantized init from ``--seed``) -> adapter-only AdamW ->
 train step -> data stream -> async checkpoints -> restartable loop
 (straggler detection, a final save on SIGTERM, O(1) data skip-ahead).  On
 the card every ``qalora`` linear's forward is kernel 3 with its rank
-projection; the backward is plain PyTorch.  ``--mode lora`` and ``--mode
-qlora`` train the baselines' adapters (plain PyTorch products over a
-float or NF4 base); ``--mode fp`` declares no trainable tensor and is
-refused.
+projection (a gqa_moe model's experts each at its capacity buffer's
+rows, the loss with the router's aux term); the backward is plain
+PyTorch.  ``--mode lora`` and ``--mode qlora`` train the baselines'
+adapters (plain PyTorch products over a float or NF4 base); ``--mode fp``
+declares no trainable tensor and is refused.
 
 It resumes from the newest complete checkpoint in ``--ckpt-dir`` (refusing
 one written for another model, seed or device), and writes the frozen base
@@ -19,6 +20,8 @@ serves the result over the same base.
         --seq-len 256 --global-batch 16 --ckpt-dir build/ckpt --ckpt-every 2
     python -m repro_torch.launch.train --arch gemma3-1b --reduced \\
         --device cpu --steps 20 --seq-len 64 --global-batch 8
+    python -m repro_torch.launch.train --arch mixtral-8x22b --reduced \\
+        --device cpu --steps 4 --seq-len 32 --global-batch 4
 """
 
 from __future__ import annotations
@@ -42,6 +45,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="llama7b-proxy")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="train the first N layers of the config at its "
+                         "widths (0 = all); a depth cut for smoke runs")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--global-batch", type=int, default=8)
@@ -111,7 +117,6 @@ def build_config(args):
     """The config the flags ask for; raises on what is not ported."""
     import repro_torch.configs as C
     from repro_torch.core.schemes import PolicyTree
-    from repro_torch.models.lm import MOE_TRAINING
     if args.mesh != "cpu":
         raise NotImplementedError(f"--mesh {args.mesh}: {NOT_PORTED}; the "
                                   f"port trains on one device")
@@ -119,8 +124,8 @@ def build_config(args):
         raise NotImplementedError(f"--sync-every {args.sync_every}: "
                                   f"{NOT_PORTED} (cross-pod adapter sync)")
     cfg = C.reduced(args.arch) if args.reduced else C.get(args.arch)
-    if cfg.family == "gqa_moe":
-        raise NotImplementedError(f"--arch {args.arch}: {MOE_TRAINING}")
+    if args.n_layers:
+        cfg = cfg.scaled(n_layers=args.n_layers)
     q = dataclasses.replace(
         cfg.quant.default, mode=args.mode, bits=args.bits,
         **({"group_size": args.group_size} if args.group_size else {}))
@@ -202,15 +207,15 @@ def _sync(device):
 
 def run(st: SimpleNamespace, args) -> dict:
     """Runs the restartable loop from ``st.start`` to ``--steps``.  Returns
-    the per-step losses, grad norms, wall times and kernel launches, and
-    the end-to-end numbers (median step wall after the first step,
-    tokens/s, peak device memory)."""
+    the per-step losses (and their xent and aux terms), grad norms, wall
+    times and kernel launches, and the end-to-end numbers (median step
+    wall after the first step, tokens/s, peak device memory)."""
     from repro_torch import kernels
     from repro_torch.runtime import PreemptionGuard, RestartableLoop
 
     dev = st.device
-    rec = {"step": [], "loss": [], "grad_norm": [], "step_ms": [],
-           "launches": [], "ckpt_snapshot_ms": []}
+    rec = {"step": [], "loss": [], "xent": [], "aux": [], "grad_norm": [],
+           "step_ms": [], "launches": [], "ckpt_snapshot_ms": []}
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -236,6 +241,8 @@ def run(st: SimpleNamespace, args) -> dict:
         rec["launches"].append({k: after[k] - before[k] for k in after})
         rec["step"].append(step)
         rec["loss"].append(loss)
+        rec["xent"].append(float(metrics["xent"]))
+        rec["aux"].append(float(metrics["aux"]))
         rec["grad_norm"].append(gnorm)
         rec["step_ms"].append(ms)
         if step % args.log_every == 0:
@@ -270,7 +277,8 @@ def run(st: SimpleNamespace, args) -> dict:
         "tokens_per_s": tokens / (median / 1e3) if median else None,
         "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
                            if dev.type == "cuda" else None),
-        "loss": rec["loss"], "grad_norm": rec["grad_norm"],
+        "loss": rec["loss"], "xent": rec["xent"], "aux": rec["aux"],
+        "grad_norm": rec["grad_norm"],
         "step_ms": rec["step_ms"], "stragglers": len(loop.stragglers),
         # checkpoints: the base written once (setup), each step's snapshot
         # to host memory on this thread, and the writer's tail after the

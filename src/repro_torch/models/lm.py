@@ -1,6 +1,6 @@
-"""The gqa and gqa_moe decoder LMs: init, the training loss (gqa),
-prefill, ragged decode step and greedy generation.  Counterpart of those
-families of ``repro.models.lm``: a gqa_moe block has an ``moe`` FFN
+"""The gqa and gqa_moe decoder LMs: init, the training loss, prefill,
+ragged decode step and greedy generation.  Counterpart of those families
+of ``repro.models.lm``: a gqa_moe block has an ``moe`` FFN
 (:mod:`repro_torch.models.moe`) where a gqa block has its ``mlp``.
 
 Parameters are an :class:`LMParams` module: the embedding, the final norm,
@@ -13,7 +13,8 @@ policy switches.
 
 Batch format: ``{"tokens": [B, S] int}``, plus ``"labels"`` ([B, S] int,
 -1 = not supervised) for :meth:`LM.loss`, which runs with autograd on and
-recomputes each block in the backward when ``cfg.remat``; prefill and
+recomputes each block in the backward when ``cfg.remat`` (a gqa_moe
+block's routing is recorded once, in the forward); prefill and
 decode run under ``torch.no_grad``.  Decode caches follow
 :class:`repro_torch.models.slot_state.SlotState`; decode steps write their
 K/V and lengths into the cache they are given, in place, and return it.
@@ -21,6 +22,7 @@ K/V and lengths into the cache they are given, in place, and return it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Dict, List, Optional
@@ -36,13 +38,8 @@ from repro_torch.runtime.graphs import StepGraphs
 from .attention import StepPlan, gqa_apply, gqa_init, gqa_prefill_chunk
 from .common import rmsnorm, rmsnorm_init
 from .mlp import mlp_apply, mlp_init
-from .moe import moe_apply, moe_init
+from .moe import moe_apply, moe_init, suspend_recording
 from .slot_state import SlotState, attn_cfg as _attn_cfg, check_family
-
-# what LM.loss and launch/train.py say for an MoE model
-MOE_TRAINING = ("training a gqa_moe model (LM.loss with aux_coef * aux, "
-                "kernel 3's backward per expert) is not ported yet: "
-                "ROADMAP.md, Queue 1, 'MoE training'")
 
 
 class LMParams(nn.Module):
@@ -77,24 +74,32 @@ def _gqa_block_init(generator, cfg: ArchConfig, pol, device) -> nn.ModuleDict:
 
 
 def _ffn(p, h, cfg: ArchConfig, moe_chunk: int):
-    """The block's FFN on h: the MLP, or the MoE routed ``moe_chunk``
-    positions at a time (0: all at once; its aux loss is dropped)."""
+    """The block's FFN on h -> (y, aux): the MoE routed ``moe_chunk``
+    positions at a time (0: all at once) with its load-balance aux loss,
+    or the MLP and None."""
     if "moe" in p:
         return moe_apply(p["moe"], h, n_experts=cfg.n_experts,
                          top_k=cfg.top_k,
                          capacity_factor=cfg.capacity_factor,
                          routing=cfg.routing, act=cfg.act,
-                         moe_chunk=moe_chunk)[0]
-    return mlp_apply(p["mlp"], h, cfg.act)
+                         moe_chunk=moe_chunk)
+    return mlp_apply(p["mlp"], h, cfg.act), None
 
 
 def _gqa_block(p, x, cfg: ArchConfig, *, window=None, theta=None):
+    """One block -> (x, (k, v), aux or None)."""
     a, kv = gqa_apply(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
                       _attn_cfg(cfg), window=window, theta=theta,
                       chunk_q=cfg.chunk_q, chunk_k=cfg.chunk_k)
     x = x + a
-    m = _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, cfg.moe_chunk)
-    return x + m, kv
+    m, aux = _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, cfg.moe_chunk)
+    return x + m, kv, aux
+
+
+def _recompute_contexts():
+    """checkpoint's ``context_fn``: nothing around the forward, and no
+    routing recorded in the backward's recompute."""
+    return contextlib.nullcontext(), suspend_recording()
 
 
 def _maybe_remat(fn, cfg: ArchConfig):
@@ -102,11 +107,14 @@ def _maybe_remat(fn, cfg: ArchConfig):
     activations (``jax.checkpoint`` in the reference) when ``cfg.remat``."""
     if not cfg.remat:
         return fn
-    return functools.partial(checkpoint, fn, use_reentrant=False)
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             context_fn=_recompute_contexts)
 
 
 def _gqa_block_train(p, x, cfg: ArchConfig, window, theta):
-    return _gqa_block(p, x, cfg, window=window, theta=theta)[0]
+    """One block in training -> (x, aux or None)."""
+    y, _, aux = _gqa_block(p, x, cfg, window=window, theta=theta)
+    return y, aux
 
 
 def _gqa_block_chunk(p, x, cache, cur_len, n_new, cfg: ArchConfig, *,
@@ -118,7 +126,7 @@ def _gqa_block_chunk(p, x, cache, cur_len, n_new, cfg: ArchConfig, *,
     x = x + a
     # a ragged, decode, burst or verify step routes all its B x C rows at
     # once, padding rows included, as the reference does
-    m = _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, 0)
+    m, _ = _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, 0)
     return x + m, cache
 
 
@@ -228,7 +236,8 @@ class LM:
         """Runs the layer stack.  Returns (h, cache or None)."""
         ks, vs = [], []
         for blk, (window, theta) in zip(params.blocks, self._layer_extras()):
-            x, (k, v) = _gqa_block(blk, x, self.cfg, window=window, theta=theta)
+            x, (k, v), _ = _gqa_block(blk, x, self.cfg, window=window,
+                                      theta=theta)
             if collect_cache:
                 ks.append(k)
                 vs.append(v)
@@ -240,20 +249,21 @@ class LM:
 
     def loss(self, params: LMParams, batch: Dict[str, Any]):
         """Mean next-token cross-entropy of ``batch`` (``tokens`` and
-        ``labels``, [B, S]), with autograd on.  Returns (loss, {"xent",
-        "aux"}); gqa has no auxiliary loss, so aux is 0.  A gqa_moe model
-        raises (:data:`MOE_TRAINING`)."""
-        if self.cfg.family == "gqa_moe":
-            raise NotImplementedError(MOE_TRAINING)
+        ``labels``, [B, S]) plus ``cfg.aux_coef`` times the MoE's
+        load-balance loss summed over the layers (0 for gqa), with autograd
+        on.  Returns (loss, {"xent", "aux"}), xent before the aux term, as
+        the reference does."""
         x = self._embed(params, batch["tokens"])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk, (window, theta) in zip(params.blocks, self._layer_extras()):
             block = functools.partial(_gqa_block_train, cfg=self.cfg,
                                       window=window, theta=theta)
-            x = _maybe_remat(block, self.cfg)(blk, x)
+            x, a = _maybe_remat(block, self.cfg)(blk, x)
+            if a is not None:
+                aux = aux + a
         h = rmsnorm(params.final_ln, x, self.cfg.norm_eps)
         xent = self._xent(params, h, batch["labels"])
-        aux = torch.zeros((), dtype=torch.float32, device=xent.device)
-        return xent, {"xent": xent, "aux": aux}
+        return xent + self.cfg.aux_coef * aux, {"xent": xent, "aux": aux}
 
     def _prefill(self, params: LMParams, tokens):
         """The final-normed hidden states of every position, and the

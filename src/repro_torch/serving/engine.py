@@ -50,7 +50,7 @@ compiles (:mod:`repro_torch.runtime.compile_guard`, checked after every
 iteration).  ``eager=True`` runs the same steps op by op (the oracle
 runs); it is never chosen implicitly.  On the CPU the steps run eagerly.
 Encdec sources, the MTP drafter and the other families raise, and so do
-tenants and speculation over a gqa_moe model.
+tenants over a gqa_moe model (:data:`MOE_TENANTS`).
 """
 
 from __future__ import annotations
@@ -69,6 +69,16 @@ from repro_torch.runtime.graphs import StepGraphs, captures
 from .paging import PageTable, pages_for
 from .scheduler import Request, Scheduler
 from .speculative import accept_drafts, rollback_counts
+
+
+# what the engine and the serve CLI say to tenants over a gqa_moe model
+MOE_TENANTS = (
+    "a gqa_moe model serves no tenants: an expert's linears run on its "
+    "[C, d] capacity buffer, whose rows carry no slot id, so a per-slot "
+    "adapter cannot be picked there; the JAX package's slot scheme has no "
+    "per-row ids inside a capacity buffer either (its bank delta gets the "
+    "buffer and the [B] slot ids and raises), so there is no reference to "
+    "port (ROADMAP.md, faults of the reference)")
 
 
 def _ragged_step(lm, params, cache, tokens, n_new):
@@ -246,13 +256,8 @@ class ContinuousEngine:
             raise NotImplementedError(
                 "ContinuousEngine(max_src=...): encdec cross caches are not "
                 "yet ported (see ROADMAP.md); the port serves gqa")
-        if lm.cfg.family == "gqa_moe" and (adapters is not None
-                                           or speculate > 0):
-            raise NotImplementedError(
-                "a gqa_moe model serves merged, without speculation, for "
-                "now: tenants over its experts (an AdapterStore over the "
-                "expert stacks) and speculation are not ported yet "
-                "(ROADMAP.md, Queue 1, 'MoE behind the frontend')")
+        if lm.cfg.family == "gqa_moe" and adapters is not None:
+            raise NotImplementedError(MOE_TENANTS)
         self.lm, self.params = lm, params
         self.n_slots, self.max_len = n_slots, max_len
         self.step_hook = step_hook

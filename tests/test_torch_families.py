@@ -4,8 +4,8 @@ package, on the CPU at ``reduced()`` sizes in f32: configs, prefill
 logits, static greedy tokens, the continuous engine's streams
 (contiguous and paged; for mixtral at two chunk and burst settings, batch
 for batch, since capacity routing makes a token's experts depend on the
-rest of its batch), the merge check, the refusals, and the captures of
-mixtral's serve steps within their budgets.
+rest of its batch), the merge check, the tenants' refusal, and the
+captures of mixtral's serve steps within their budgets.
 
 The reference tree from ``LM.init`` (adapters nudged by +0.01, as its
 serve CLI nudges them) goes to the port through numpy and
@@ -29,7 +29,6 @@ from repro import serving as rserving  # noqa: E402
 import repro_torch.configs as TC  # noqa: E402
 from repro_torch import bridge, serving  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
-from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models.lm import LM as TLM  # noqa: E402
 from repro_torch.runtime import compile_guard as port_guard  # noqa: E402
 from _torch_parity import bump, numpy_tree  # noqa: E402
@@ -214,36 +213,31 @@ def test_routing_agreement_and_compare_routed():
     assert r["max_flipped_rel"] == pytest.approx(0.5)
 
 
-def test_moe_training_is_refused(moe):
-    """LM.loss and the train CLI refuse gqa_moe, naming the ROADMAP
-    item."""
-    batch = {"tokens": torch.from_numpy(moe.prompts),
-             "labels": torch.from_numpy(moe.prompts)}
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        moe.tlm.loss(moe.tparams, batch)
-    with pytest.raises(SystemExit):
-        ttrain.main(["--arch", MOE, "--reduced", "--device", "cpu",
-                     "--steps", "1"])
-    args = SimpleNamespace(mesh="cpu", sync_every=0, arch=MOE, reduced=True,
-                           mode="qalora", bits=4, group_size=0, policy="")
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        ttrain.build_config(args)
-
-
 @pytest.mark.parametrize("kw", (dict(speculate=1, drafter="*=intq8",
                                      decode_burst=1),
                                 dict(adapters=object())))
 def test_moe_tenants_and_speculation_are_refused(moe, kw):
-    """Tenants over the experts and speculation wait (ROADMAP.md): the
-    engine raises, and so does the serve CLI."""
-    with pytest.raises(NotImplementedError, match="MoE behind"):
-        serving.ContinuousEngine(moe.tlm, moe.tmerged, n_slots=2,
-                                 max_len=16, **kw)
+    """Tenants over the experts stay refused, naming the reason (a
+    capacity buffer's rows carry no slot id, in the reference too): the
+    engine raises, and so does the serve CLI.  Speculation is served: the
+    engine builds its drafter and the CLI runs (tests/test_torch_spec.py
+    holds its streams to the reference's)."""
     flag = (["--speculate", "1"] if "speculate" in kw
             else ["--adapters", "a=demo:1"])
+    argv = ["--arch", MOE, "--reduced", "--device", "cpu", "--engine",
+            "continuous", "--requests", "2", "--prompt-len", "4",
+            "--gen-len", "3", *flag]
+    if "speculate" in kw:
+        eng = serving.ContinuousEngine(moe.tlm, moe.tmerged, n_slots=2,
+                                       max_len=16, **kw)
+        assert eng.speculate == 1 and eng.draft_params is not None
+        assert tserve.main(argv)["proposed_tokens"] > 0
+        return
+    with pytest.raises(NotImplementedError, match="no slot id.*per-row ids"):
+        serving.ContinuousEngine(moe.tlm, moe.tmerged, n_slots=2,
+                                 max_len=16, **kw)
     with pytest.raises(SystemExit):
-        tserve.main(["--arch", MOE, "--reduced", "--device", "cpu",
-                     "--engine", "continuous", *flag])
+        tserve.main(argv)
 
 
 def _replay_by_call(fn, pool):

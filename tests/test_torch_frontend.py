@@ -7,9 +7,10 @@ seeded ``FaultInjector`` schedules and the same injected clock.
 Held equal: the FINISHED tokens, every ticket's status, error and
 recovery count, the frontend's recoveries, the injector's log and the
 integer ``EngineStats`` counters; on a contiguous, a paged and a
-speculating engine.  Then the lifecycle the reference's own tests pin
-(backpressure, deadlines, cancellation, the recovery cap, drains, the
-threaded serve loop), each scenario run through both packages.
+speculating engine, over reduced gemma3-1b and reduced mixtral-8x22b.
+Then the lifecycle the reference's own tests pin (backpressure,
+deadlines, cancellation, the recovery cap, drains, the threaded serve
+loop), each scenario run through both packages.
 """
 
 import threading
@@ -150,6 +151,55 @@ def test_frontend_matches_reference(served, mode, faults):
     # the counters of the engine before each reset survive it
     assert fe.engine_stats.ragged_dispatches \
         > fe.engine.stats.ragged_dispatches
+    if MODES[mode].get("page_size"):
+        fe.engine.page_table.check_invariants()
+        assert fe.engine.page_table.n_used == 0
+
+
+@pytest.fixture(scope="module")
+def moe_served():
+    rcfg, tcfg = RC.reduced("mixtral-8x22b"), TC.reduced("mixtral-8x22b")
+    rlm = RLM(rcfg)
+    merged = merge_model(rlm.init(jax.random.PRNGKey(0)), rcfg.quant)
+    return types.SimpleNamespace(
+        rcfg=rcfg, rlm=rlm, merged=merged, tlm=TLM(tcfg),
+        tmerged=bridge.load_numpy_tree(numpy_tree(merged), tcfg, "cpu"))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("faults", ("clean", "crash+nan", "crashes"))
+def test_moe_frontend_matches_reference(moe_served, mode, faults):
+    """Both frontends over a reduced mixtral engine (contiguous, paged,
+    speculating): tickets, recoveries, the injector's log, the fault log's
+    kinds and the engines' counters equal.  The clean run gives the plain
+    engine's streams; a recovered request is prefilled again in another
+    batch, and capacity routing makes its experts depend on that batch,
+    so its later tokens may differ from the clean run's, in both packages
+    alike."""
+    trace = _trace(moe_served)
+    got = {}
+    for side, (mod, rt, lm, tree) in _sides(moe_served).items():
+        inj = _injectors(rt)[faults]
+        got[side] = (_drain(mod, lm, tree, trace, injector=inj,
+                            **MODES[mode]), inj)
+    (fe, inj), (rfe, rinj) = got["port"], got["ref"]
+    assert _tickets(fe) == _tickets(rfe)
+    assert fe.n_recoveries == rfe.n_recoveries
+    assert [e.split("(")[0] for _, e in fe.fault_log] \
+        == [e.split("(")[0] for _, e in rfe.fault_log]
+    assert _counters(fe.engine_stats) == _counters(rfe.engine_stats)
+    assert fe.status_counts() == {"FINISHED": len(trace)}
+    if faults == "clean":
+        eng = serving.ContinuousEngine(moe_served.tlm, moe_served.tmerged,
+                                       **{**ENGINE, **MODES[mode]})
+        for r in trace:
+            eng.submit(r.prompt, r.max_new_tokens, r.eos_id, rid=r.rid)
+        assert _finished(fe) == eng.run()
+        assert fe.n_recoveries == 0
+        return
+    assert inj.log == rinj.log
+    assert fe.n_recoveries == len([k for _, k in inj.log
+                                   if k in ("crash", "nan")])
     if MODES[mode].get("page_size"):
         fe.engine.page_table.check_invariants()
         assert fe.engine.page_table.n_used == 0

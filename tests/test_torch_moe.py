@@ -249,8 +249,9 @@ def test_layer_linears_count_from_the_config():
 
 def test_reduced_moe_config_matches_reference():
     """reduced('mixtral-8x22b') and the full config carry the reference's
-    MoE fields (4 experts, top-2, moe_d_ff 32, moe_chunk 16 reduced); the
-    fields no port code reads yet are left out."""
+    MoE fields (4 experts, top-2, moe_d_ff 32, moe_chunk 16 reduced, the
+    aux loss's weight 0.01, which ``LM.loss`` reads); the fields no port
+    code reads yet are left out."""
     fields = [f.name for f in dataclasses.fields(TC.ArchConfig)
               if f.name != "quant"]
     for r, t in ((RC.get("mixtral-8x22b"), TC.get("mixtral-8x22b")),
@@ -258,7 +259,7 @@ def test_reduced_moe_config_matches_reference():
         for name in fields:
             assert getattr(t, name) == getattr(r, name), name
     red = TC.reduced("mixtral-8x22b")
-    assert (red.n_experts, red.top_k, red.moe_d_ff, red.moe_chunk) == (
-        4, 2, 32, 16)
-    for unread in ("seq_parallel", "n_dense_layers", "aux_coef"):
+    assert (red.n_experts, red.top_k, red.moe_d_ff, red.moe_chunk,
+            red.aux_coef) == (4, 2, 32, 16, 0.01)
+    for unread in ("seq_parallel", "n_dense_layers"):
         assert not hasattr(red, unread), unread

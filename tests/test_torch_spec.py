@@ -418,3 +418,121 @@ def test_serve_cli_speculative_gives_the_plain_tokens(extra):
     assert set(spec["captures"]) >= {"engine.draft", "engine.verify"}
     for r in spec["merge_check"].values():
         assert r["rel"] <= spec["merge_bound_rel"]
+
+
+# ---------------------------------------------------------------------------
+# gqa_moe: self-speculation over the experts (reduced mixtral-8x22b)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def moe_served():
+    arch = "mixtral-8x22b"
+    rcfg, tcfg = RC.reduced(arch), TC.reduced(arch)
+    rlm = RLM(rcfg)
+    merged = merge_model(rlm.init(jax.random.PRNGKey(0)), rcfg.quant)
+    return SimpleNamespace(
+        arch=arch, rcfg=rcfg, tcfg=tcfg, rlm=rlm, tlm=TLM(tcfg),
+        merged=merged,
+        tmerged=bridge.load_numpy_tree(numpy_tree(merged), tcfg, "cpu"))
+
+
+MOE_SPEC_TRACE = dict(seed=3, prompt_lens=(3, 6, 11), gen_lens=(2, 9, 4))
+# 12 usable pages of 4 hold two requests' prompt, gen and headroom of 3
+# at once, so admission backs off (the contiguous capacity is 21 + 1)
+MOE_PAGED = dict(page_size=4, n_pages=13)
+
+
+@pytest.mark.parametrize("layout", ("contiguous", "paged"))
+@pytest.mark.parametrize("drafter", ("*=intq8", "*=intq2"))
+def test_moe_spec_engine_matches_reference(moe_served, drafter, layout):
+    """Self-speculation over the experts: a verify step routes B (k + 1)
+    rows and each drafter step its own, so an MoE's speculating streams
+    are the reference speculating engine's (no mesh), not the plain
+    engine's (capacity makes a row's experts depend on its batch).
+    Streams, proposed and accepted drafts, tokens out and the paged
+    pool's backoffs equal the reference's; the pool drains."""
+    s = moe_served
+    trace = serving.make_trace(7, s.rcfg.vocab, **MOE_SPEC_TRACE)
+    kw = dict(n_slots=3, max_len=27, prefill_chunk=4, decode_burst=1,
+              speculate=3, drafter=drafter,
+              **(MOE_PAGED if layout == "paged" else {}))
+    reng, ref = _run(rserving, s.rlm, s.merged, trace, **kw)
+    eng, got = _run(serving, s.tlm, s.tmerged, trace, **kw)
+    assert got == ref
+    st, rst = eng.stats, reng.stats
+    assert st.proposed_tokens > 0
+    assert (st.proposed_tokens, st.accepted_tokens, st.tokens_out) == (
+        rst.proposed_tokens, rst.accepted_tokens, rst.tokens_out)
+    if layout == "paged":
+        assert eng.page_table.alloc_backoffs \
+            == reng.page_table.alloc_backoffs > 0
+        eng.page_table.check_invariants()
+        assert eng.page_table.n_used == 0
+
+
+def test_moe_self_drafter_converts_every_expert_and_keeps_the_router(
+        moe_served):
+    """``make_self_drafter`` over mixtral re-quantizes every expert's gate,
+    up and down at the policy's bits with the reference's codes; the
+    router stays an exempt fp linear."""
+    from repro.core import schemes as RS
+    from repro.serving.engine import make_self_drafter as ref_drafter
+    s = moe_served
+    got = serving.make_self_drafter(s.tmerged, "*=intq2",
+                                    base=s.tlm.cfg.quant.default)
+    ref = ref_drafter(s.merged, "*=intq2", base=s.rcfg.quant)
+    for blk, served_blk in zip(got.blocks, s.tmerged.blocks):
+        moe = blk["moe"]
+        assert moe.router.scheme == "fp" and moe.router.exempt
+        assert torch.equal(TS.dense_view(moe.router),
+                           TS.dense_view(served_blk["moe"].router))
+        for name in ("gate", "up", "down"):
+            for lp in getattr(moe, name):
+                assert lp.scheme == "intq" and lp.policy.bits == 2
+    for name in ("gate", "up", "down"):
+        np.testing.assert_array_equal(
+            TS.quantized_base(getattr(got.blocks[1]["moe"], name)[3])
+            .qweight.numpy(),
+            np.asarray(RS.quantized_base(ref["blocks"]["moe"][name])
+                       .qweight)[1, 3])
+
+
+@pytest.mark.parametrize("page_size", (0, 4))
+def test_moe_spec_engine_captures_within_budget(moe_served, page_size):
+    """mixtral's speculating engine under a ``CompileGuard`` with a
+    stand-in capture: the speculating dense model's budgets (the ragged
+    steps 2, one draft scan, one verify width), and the eager engine's
+    streams."""
+    s = moe_served
+    trace = serving.make_trace(7, s.rcfg.vocab, **MOE_SPEC_TRACE)
+    kw = dict(n_slots=3, max_len=27, prefill_chunk=4, decode_burst=1,
+              page_size=page_size, speculate=3, drafter="*=intq8")
+    _, eager = _run(serving, s.tlm, s.tmerged, trace, **kw)
+    with port_guard.CompileGuard("moe spec") as guard:
+        eng = serving.ContinuousEngine(s.tlm, s.tmerged, **kw)
+        _stand_in(eng)
+        for r in trace:
+            eng.submit(r.prompt, r.max_new_tokens, r.eos_id, rid=r.rid)
+        assert eng.run() == eager
+        counts = guard.counts()
+        assert {k: counts[k] for k in ("engine.ragged", "engine.draft",
+                                       "engine.verify")} == {
+            "engine.ragged": (2, 2), "engine.draft": (1, 1),
+            "engine.verify": (1, 1)}
+        guard.check()
+    del eng
+
+
+def test_serve_cli_speculates_mixtral():
+    """``serve --arch mixtral-8x22b --speculate 3`` is accepted: drafts are
+    proposed, and the tokens are the speculating engine's."""
+    argv = ["--arch", "mixtral-8x22b", "--reduced", "--device", "cpu",
+            "--engine", "continuous", "--requests", "3", "--slots", "2",
+            "--prompt-len", "6", "--gen-len", "7", "--prefill-chunk", "4",
+            "--speculate", "3", "--draft-policy", "*=intq2"]
+    spec = tserve.main(argv)
+    assert spec["drafter"] == "*=intq2" and spec["decode_burst"] == 1
+    assert spec["proposed_tokens"] > 0
+    assert set(spec["captures"]) >= {"engine.draft", "engine.verify"}
+    assert np.asarray(spec["tokens"]).shape == (3, 7)
