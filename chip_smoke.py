@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line (its record gets ``phase_s``, its
+wall seconds, and a ``[chip_smoke] phase`` line follows it; the first
+line after the build names the seconds each phase is expected to take,
+and the line before the card's names what each took):
 
 1. device  -- requires CUDA; prints the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` does,
@@ -105,6 +108,15 @@ Phases, each printing one JSON line:
    least once, kernels 1 and 2 counted, the two graphed engines in turns
    for their ms a step, each engine's memory; then phase adapters'
    tenants through ``serve --page-size 16``, tokens phase adapters'.
+   Then (record ``cache_bf16``) the engine's ``cache_dtype`` at bf16 on
+   the same trace: graphed and eager engines, contiguous and paged
+   (streams identical, captures within their budgets, kernels 1 and 2
+   counted), the f32 and bf16 graphed engines in turns for their ms a
+   decode model step and a ragged step, each cache's GB, the share of
+   requests whose stream equals the f32 cache's, max|delta logit| /
+   max|logit| of one ragged and one decode step against the f32 cache
+   (within ``CACHE_BF16_BOUND``), and phase adapters' tenants through a
+   bf16-cache engine (kernels 1, 5 and 5a counted).
 9. spec    -- self-speculation: ``serve --speculate 3 --draft-policy
    "*=intq8"`` counted (kernel 1 at the verify step's M = 16 and in the
    drafter's ride-along, kernel 2 in the draft steps) and one replay of
@@ -157,11 +169,12 @@ Phases, each printing one JSON line:
    the plain backward's shares of a step; kernel 3 and its projection
    held against their plain versions at the step's M = 4096 on one
    layer's 7 linears.
-13. baselines -- the paper's contrast at full llama7b-proxy size, on a
-   float stand-in base drawn from seed 0 (bf16), with calibration
-   activations of 2048 rows a D_in (lognormal per-feature scales) and one
-   f64 GPTQ Hessian per D_in built on the card: ``convert_tree`` with a
-   GPTQ closure over all 224 linears into int4 g32 r64 ``qalora`` (wall
+13. baselines -- the paper's contrast at llama7b-proxy's widths and 16
+   of its 32 layers, on a float stand-in base drawn from seed 0 (bf16),
+   with calibration activations of 2048 rows a D_in (lognormal
+   per-feature scales) and one f64 GPTQ Hessian per D_in built on the
+   card: ``convert_tree`` with a GPTQ closure over all 112 linears into
+   int4 g32 r64 ``qalora`` (wall
    time); GPTQ's output MSE at or below RTN's on each of layer 0's 7
    linears; GPTQ on the card against the CPU on ``W[:, :256]`` of layer
    0's wq (at least 99.99 % identical codes, none more than one level
@@ -177,7 +190,7 @@ Phases, each printing one JSON line:
    and 2; each PTQ model's max|logit gap| / max|logit| against the 4+16
    model beside the QA-LoRA merge's (the paper's contrast: it must be
    larger).  Then ``launch/serve.py --policy "*=int4,lm_head=int4"
-   --verify``: 225 linears a step, the head (K = 4096, N = 32000)
+   --verify`` at all 32 layers: 225 linears a step, the head (K = 4096, N = 32000)
    through kernel 4 unmerged and kernel 2 merged (a prefill's logits are
    its last token's, so the head sees M = 4 rows there too), launch counts
    exact and against the profiler, the decode step's replay time, and the
@@ -220,8 +233,20 @@ Phases, each printing one JSON line:
    padding rows' share of the kept capacity, a per-expert histogram and
    the share of real rows routed as another of their step, from the
    eager run's routing.
-15. moe_train -- mixtral-8x22b fine-tuned at its published widths and 16
-   of 56 layers through ``launch/train.py``'s ``setup`` and ``run`` (bf16,
+15. vision -- pixtral-12b (40 layers, d 5120, 32 heads over 8 KV heads,
+   d_ff 14336, vocab 131072) with its vision stub: the merged model at
+   all 40 layers served as phase families serves a config, each prompt
+   of 256 tokens after 256 seeded patch rows (the merge check given the
+   same patches; kernel 1 at the prefill's M = 2048, kernel 2 at M = 4;
+   kernels 1-4 held at K 5120 / N 14336 and K 14336 / N 5120); then
+   ``train --arch pixtral-12b --n-layers 8`` through ``launch/train.py``'s
+   ``setup`` and ``run``: 3 steps of 4 x 512 positions (the driver's 256
+   zero patch rows + 256 tokens), lr 2e-5, remat, from the nudged
+   adapters, kernel 3 and 3a 2 x 56 times a step and no other kernel, and
+   the trained merge checked with patches, kernels 1-4 counted exactly.
+16. moe_train -- mixtral-8x22b fine-tuned at its published widths and 16
+   of 56 layers (built once, and reused merged by phase moe_serve)
+   through ``launch/train.py``'s ``setup`` and ``run`` (bf16,
    int4 g32 r64, remat, ``--n-layers 16``): 4 steps of 8 x 256 tokens of
    alpaca at lr 2e-5, one routing group of 2048 rows a step, so each
    expert's capacity is C = 640; kernel 3 and its projection 2 x 448
@@ -236,18 +261,22 @@ Phases, each printing one JSON line:
    adapters dropped must fail (phase families' flip limit of 1 % a
    reading, and the untrained adapters' merge); kernels 3 and 3a held
    against their plain versions and timed at the step's shapes (the
-   experts at M = 640, K x N = 6144 x 16384 and 16384 x 6144); a fifth
-   step under ``torch.profiler`` (device busy, idle share,
-   kernel 3 / 3a / PyTorch matmuls / the rest).  Then phase train's
-   cut-and-resume at 2 layers from the trainer's own start (B = 0; steps
+   experts at M = 640, K x N = 6144 x 16384 and 16384 x 6144); the last
+   of the 4 steps under ``torch.profiler`` (device busy, idle share,
+   kernel 3 / 3a / PyTorch matmuls / the rest; the step median is of
+   steps 2-3).  Then phase train's
+   cut-and-resume at 1 layer, each expert's d_ff cut to 2048, from the
+   trainer's own start (B = 0; steps
    3-4 from the step-2 checkpoint bit for bit, the base identical; the
    card's merge check a reading, the same merge in f32 on the CPU routed
    alike and within 1e-2 of the adapter term), and phase train_small's
-   card-vs-CPU step on a 2-layer mixtral, the CPU routing each token as
+   card-vs-CPU step on a 1-layer mixtral with each expert's d_ff cut to
+   2048 (the CPU's side is the slow one), the CPU routing each token as
    the card did (``moe.choose_experts``; its own top-2 recorded: where it
    differs, a near tie, a limit that a planted misrouting must exceed),
    gradients, loss, xent and aux at phase train_small's bounds.
-16. moe_serve -- mixtral at 16 layers self-speculating (k = 3, one
+17. moe_serve -- phase moe_train's trained mixtral at 16 layers, merged,
+   self-speculating (k = 3, one
    ``*=intq2`` drafter tree): a plain graphed engine and speculating ones,
    contiguous and paged, 8 requests of 64/96/128 + 16/32/24 tokens on 4
    slots, the contiguous one counted against the launches its stats
@@ -257,8 +286,8 @@ Phases, each printing one JSON line:
    token and acceptance, each speculating layout again eager with equal
    streams, paged equal to contiguous unless the pool backed off;
    kernel 2 held at M = 5 (4 bits) and M = 2 (2 bits) on expert 0.  Then
-   mixtral (16 layers) and h2o-danube-1.8b (whole) behind
-   ``ServingFrontend``: phase frontend's recovery runs (a crash at dispatch
+   mixtral (16 layers), h2o-danube-1.8b (whole), and starcoder2-7b and
+   deepseek-67b (8 layers each) behind ``ServingFrontend``: phase frontend's recovery runs (a crash at dispatch
    3, a NaN at 7; exact launch counts; h2o's tokens equal to the clean run
    and the plain engine, mixtral's clean run equal to the plain engine and
    its recovered run equal to the clean one up to what each request had
@@ -266,7 +295,7 @@ Phases, each printing one JSON line:
    again in another batch, and capacity routing depends on the batch),
    then the calibration and one clean Poisson SLO run at 0.7 x capacity
    under ``torch.profiler`` (TTFT and TPOT p50/p99, goodput, idle share).
-17. the ``kernels`` summary, and the final ``{"ok": true, ...}`` line.
+18. the ``kernels`` summary, and the final ``{"ok": true, ...}`` line.
 
 Any failed phase exits non-zero before the final line.  Without a card,
 or without the repository's ``src`` beside this file, it exits non-zero
@@ -393,6 +422,35 @@ RECORD = {"phases": []}
 def emit(obj):
     RECORD["phases"].append(obj)
     print(json.dumps(obj), flush=True)
+
+
+# seconds each phase is expected to take on one H100 80GB HBM3 at 700 W
+# (this script's own runs, PERF.md section 5), printed after the build;
+# moe_train includes building the 16-layer mixtral that moe_serve reuses
+EXPECTED_S = {"device": 1, "build": 22, "kernels": 7, "flash": 6,
+              "small": 1, "serve": 16, "adapters": 43, "paged": 59,
+              "spec": 31, "frontend": 110, "train_small": 3, "train": 35,
+              "baselines": 60, "families": 49, "vision": 15,
+              "moe_train": 80, "moe_serve": 195}
+
+
+def _phase(name, fn, *args):
+    """Runs phase ``name`` (``fn(*args)``): its wall seconds go into
+    ``RECORD["phase_s"]``, into each record of that phase it emitted as
+    ``phase_s`` (where the phase did not time itself), and onto a line,
+    also when it fails."""
+    n0 = len(RECORD["phases"])
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        secs = time.perf_counter() - t0
+        RECORD.setdefault("phase_s", {})[name] = secs
+        for rec in RECORD["phases"][n0:]:
+            if rec.get("phase") == name:
+                rec.setdefault("phase_s", secs)
+        print(f"[chip_smoke] phase {name}: {secs:.1f} s (expected "
+              f"{EXPECTED_S.get(name, 0)} s)", flush=True)
 
 
 def save():
@@ -1698,6 +1756,178 @@ def _step_walls(st, chunk, n_requests):
             "wall_ms": st.seconds * 1e3}
 
 
+# the bf16 cache's logits against the f32 cache's, max|delta| /
+# max|logit| of one ragged and one decode step: one bf16 rounding of a
+# K/V element is 2^-8 of it (PERF.md section 2)
+CACHE_BF16_BOUND = 2.0 ** -8
+
+
+def _cache_logits(torch, lm, merged, trace, dtype):
+    """One ragged step (4 slots x 64 prompt tokens of ``trace``) and one
+    decode step on a fresh cache of ``dtype``: their logits [4, V]."""
+    import numpy as np
+    # the prompts' last 64 tokens: their own 32 after 32 shared ones
+    toks = torch.as_tensor(np.stack(
+        [r.prompt[-RAGGED_CHUNK:] for r in trace[:RAGGED_SLOTS]]),
+        dtype=torch.int32, device="cuda")
+    cache = lm.slot_state().init(RAGGED_SLOTS, RAGGED_CHUNK + 1,
+                                 dtype=dtype, device="cuda")
+    n_new = torch.full((RAGGED_SLOTS,), RAGGED_CHUNK, dtype=torch.int32,
+                       device="cuda")
+    ragged, _ = lm.step_ragged(merged, cache, toks, n_new)
+    decode, _ = lm.decode_step(merged, cache,
+                               ragged.argmax(-1).to(torch.int32)[:, None])
+    return {"ragged": ragged.float(), "decode": decode.float()}
+
+
+def _cache_bf16(torch, cfg, lm, params, merged, trace, kw, paged, f32_engine,
+                f32_first, adapter_toks):
+    """The engine's ``cache_dtype`` at bf16 beside phase paged's f32 runs:
+    the shared-prefix trace through graphed and eager engines, contiguous
+    and paged (a ``CompileGuard`` around them), the contiguous one
+    counted (kernel 1 a ragged step, kernel 2 a decode step); the f32 and
+    bf16 graphed engines in turns for their ms a decode model step and a
+    ragged step; each cache's GB; the share of requests whose stream
+    equals the f32 cache's; the logits of one ragged and one decode step
+    against the f32 cache's (``CACHE_BF16_BOUND``); then phase adapters'
+    three tenants and the null adapter through a bf16-cache engine
+    (kernels 1, 5 and 5a counted), their tokens beside phase adapters'."""
+    from statistics import median
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    from repro_torch.runtime.compile_guard import CompileGuard
+    from repro_torch.serving import ContinuousEngine
+    bf = torch.bfloat16
+    n = len(trace)
+    with CompileGuard("chip_smoke cache bf16") as guard:
+        engines, first, held = _built_engines(torch, {
+            "contiguous": lambda: ContinuousEngine(lm, merged,
+                                                   cache_dtype=bf, **kw),
+            "paged": lambda: ContinuousEngine(lm, merged, cache_dtype=bf,
+                                              **paged),
+            "contiguous_eager": lambda: ContinuousEngine(
+                lm, merged, cache_dtype=bf, eager=True, **kw),
+            "paged_eager": lambda: ContinuousEngine(
+                lm, merged, cache_dtype=bf, eager=True, **paged)}, trace)
+        kernels.reset_launches()
+        out, st, _ = _engine_pass(torch, engines["contiguous"], trace)
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        turns = {"f32": f32_engine, "bf16": engines["contiguous"],
+                 "bf16_paged": engines["paged"]}
+        runs = {name: [] for name in turns}
+        for order in (list(turns), list(turns)[::-1]):
+            for name in order:
+                o, s_, _ = _engine_pass(torch, turns[name], trace)
+                runs[name].append({"same": o == (
+                    f32_first["contiguous"][0] if name == "f32" else out),
+                    **_step_walls(s_, RAGGED_CHUNK, n)})
+        guard_counts = guard.counts()
+    captures = {name: {g.name: g._cache_size() for g in e.graphs.values()}
+                for name, e in engines.items()}
+    budgets = {name: dict(e.budgets) for name, e in engines.items()}
+    cache_gb = {"f32": _cache_gb(f32_engine),
+                **{name: _cache_gb(e) for name, e in engines.items()}}
+    del engines, turns
+    _free(torch)
+    walls = {name: {key: median(r[key] for r in rs) for key in rs[0]
+                    if key != "same"} for name, rs in runs.items()}
+    f32_out = f32_first["contiguous"][0]
+    same_share = sum(out[r] == f32_out[r] for r in f32_out) / len(f32_out)
+    with torch.no_grad():
+        ref = _cache_logits(torch, lm, merged, trace, torch.float32)
+        got = _cache_logits(torch, lm, merged, trace, bf)
+    logit_ratio = {k: float((got[k] - ref[k]).abs().max()
+                            / ref[k].abs().max()) for k in ref}
+    del ref, got
+    # phase adapters' tenants and requests through a bf16-cache engine
+    store, tenants = serve.build_store(params, list(ADAPTER_TENANTS))
+    cycle = [*tenants, None]
+    prompts = np.random.default_rng(0).integers(
+        4, cfg.vocab, size=adapter_toks.shape[:1] + (128,)).astype(np.int32)
+    kernels.reset_launches()
+    with CompileGuard("chip_smoke cache bf16 tenants") as guard_t:
+        toks, eng, tenant_counts = serve.serve_continuous(
+            lm, store.base, prompts, SERVE_GEN, prompts.shape[1] + SERVE_GEN,
+            slots=RAGGED_SLOTS, prefill_chunk=RAGGED_CHUNK, decode_burst=8,
+            store=store, who=lambda i: cycle[i % len(cycle)], device="cuda",
+            cache_dtype=bf)
+        guard_t_counts = guard_t.counts()
+    tst = eng.stats
+    t_decode = tst.model_steps - RAGGED_CHUNK * tst.ragged_dispatches
+    t_cache_dtype = str(eng.cache["layers"]["k"].dtype)
+    del eng, store
+    _free(torch)
+    per_step = _step_linears(cfg)
+    decode_steps = st.model_steps - RAGGED_CHUNK * st.ragged_dispatches
+    tenant_same = float((toks == adapter_toks).all(axis=1).mean())
+    checks = {
+        "graphed_and_eager_streams_identical": all(
+            first[name][0] == out for name in first),
+        "every_pass_same_streams": all(r["same"] for rs in runs.values()
+                                       for r in rs),
+        "every_request_done": sorted(len(v) for v in out.values())
+        == [SERVE_GEN] * n,
+        "logits_within_bound": all(v <= CACHE_BF16_BOUND
+                                   for v in logit_ratio.values()),
+        "cache_half_the_f32_bytes": cache_gb["contiguous"]
+        < 0.51 * cache_gb["f32"],
+        "tiled_launches_per_ragged_step":
+            counts["qmatmul"] == per_step * st.ragged_dispatches,
+        "gemv_launches_per_decode_step":
+            counts["qmatvec"] == per_step * decode_steps,
+        "only_path_kernels": all(v == 0 for k, v in counts.items()
+                                 if k not in PTQ_PATH),
+        "captures_within_budget": all(
+            1 <= captures[e][g] <= budgets[e][g]
+            for e in captures if not e.endswith("_eager")
+            for g in budgets[e])
+        and all(c <= b for c, b in guard_counts.values())
+        and all(c <= b for c, b in guard_t_counts.values()),
+        "eager_engines_capture_nothing": all(
+            c == 0 for e in captures if e.endswith("_eager")
+            for c in captures[e].values()),
+        "tenants_cache_is_bf16": t_cache_dtype == str(bf),
+        "tenants_slot_launches_per_decode_step":
+            tenant_counts["qalora_slot_matvec"]
+            == tenant_counts["qalora_slot_rank_proj"] == per_step * t_decode,
+        "tenants_tiled_launches_per_ragged_step":
+            tenant_counts["qmatmul"] == per_step * tst.ragged_dispatches,
+        "tenants_only_path_kernels": all(
+            v == 0 for k, v in tenant_counts.items()
+            if k not in ADAPTER_PATH)}
+    rec = {"phase": "cache_bf16", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "depth_cut": "none (all 32 layers)", "trace": "phase paged's",
+           "cache_dtype": str(bf), "launches": counts,
+           "decode_steps": decode_steps,
+           "ragged_dispatches": st.ragged_dispatches, "walls": walls,
+           "runs": runs, "cache_gb": cache_gb, "engine_memory": held,
+           "share_of_requests_equal_to_f32": same_share,
+           "logit_ratio_vs_f32": logit_ratio,
+           "logit_bound": CACHE_BF16_BOUND, "captures": captures,
+           "budgets": budgets,
+           "guard": {k: list(v) for k, v in guard_counts.items()},
+           "tenants": {"launches": tenant_counts, "decode_steps": t_decode,
+                       "ragged_dispatches": tst.ragged_dispatches,
+                       "share_equal_to_f32_tenants": tenant_same,
+                       "guard": {k: list(v)
+                                 for k, v in guard_t_counts.items()}},
+           "checks": checks}
+    rec["ok"] = all(checks.values())
+    w = walls
+    print(f"[chip_smoke] cache_bf16: ms a decode model step "
+          f"{w['bf16']['decode_ms_per_step']:.3f} (bf16) / "
+          f"{w['f32']['decode_ms_per_step']:.3f} (f32) / "
+          f"{w['bf16_paged']['decode_ms_per_step']:.3f} (bf16 paged), "
+          f"ms a ragged step {w['bf16']['ragged_ms_per_step']:.3f} / "
+          f"{w['f32']['ragged_ms_per_step']:.3f}; cache "
+          f"{cache_gb['contiguous']:.3f} / {cache_gb['f32']:.3f} GB; "
+          f"streams equal to f32 {same_share:.3f}, tenants "
+          f"{tenant_same:.3f}; logit ratio {logit_ratio}", flush=True)
+    return rec
+
+
 def phase_paged(torch, adapter_toks):
     """The paged cache at full width and depth: the shared-prefix trace
     through a graphed contiguous engine, a graphed paged one (a pool under
@@ -1715,7 +1945,7 @@ def phase_paged(torch, adapter_toks):
     from repro_torch.serving import ContinuousEngine, make_trace
     t_phase = time.perf_counter()
     cfg = C.get("llama7b-proxy")
-    lm, _, merged = serve.build_model(cfg, "cuda")
+    lm, params, merged = serve.build_model(cfg, "cuda")
     trace = make_trace(PAGED_REQUESTS, cfg.vocab, seed=0,
                        prompt_lens=(PAGED_OWN,), gen_lens=(SERVE_GEN,),
                        shared_prefix=PAGED_SHARED)
@@ -1755,7 +1985,14 @@ def phase_paged(torch, adapter_toks):
     walls = {name: {key: median(r[key] for r in rs) for key in rs[0]
                     if key != "same"} for name, rs in runs.items()}
     cache_gb = {name: _cache_gb(e) for name, e in engines.items()}
-    del engines, lm, merged
+    f32_engine = engines["contiguous"]
+    del engines
+    _free(torch)
+    t_bf16 = time.perf_counter()
+    bf16 = _cache_bf16(torch, cfg, lm, params, merged, trace, kw, paged,
+                       f32_engine, first, adapter_toks)
+    bf16["phase_s"] = time.perf_counter() - t_bf16
+    del f32_engine, lm, params, merged
     _free(torch)
 
     # phase adapters' tenants and requests on the paged layout, through
@@ -1850,7 +2087,11 @@ def phase_paged(torch, adapter_toks):
     if not out_rec["ok"]:
         raise AssertionError(f"paged checks failed: "
                              f"{[k for k, v in checks.items() if not v]}")
-    return counts, tenant_counts
+    emit(bf16)
+    if not bf16["ok"]:
+        raise AssertionError(f"cache_bf16 checks failed: "
+                             f"{[k for k, v in bf16['checks'].items() if not v]}")
+    return counts, tenant_counts, bf16["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -2723,7 +2964,7 @@ def _planted_misrouting(torch, own0, every=16):
 
 def phase_train_small(torch, device="cuda", n_layers=2, seq=128, batch=2,
                       mode="qalora", arch="llama7b-proxy",
-                      phase="train_small"):
+                      phase="train_small", over=None):
     """One train step of ``arch`` at full width and ``n_layers``
     layers (bf16, remat as the config says; the adapters are a seeded demo
     tenant's, so B is nonzero and every gradient is too, where an
@@ -2745,7 +2986,8 @@ def phase_train_small(torch, device="cuda", n_layers=2, seq=128, batch=2,
     be a near tie (``MOE_TIE_GAP``), and a planted misrouting must not
     be (:func:`_planted_misrouting`).  The share that differs is a
     reading beside ``MOE_FLIP_LIMIT``, the share a comparison with free
-    routing on both sides was meant to allow (exceeded: 2.9 %)."""
+    routing on both sides was meant to allow (exceeded: 2.9 %).  ``over``
+    narrows the config's widths (a smaller shape for the CPU's side)."""
     import repro_torch.configs as C
     from repro_torch import kernels
     from repro_torch.data import make_stream
@@ -2756,7 +2998,7 @@ def phase_train_small(torch, device="cuda", n_layers=2, seq=128, batch=2,
     from repro_torch.optim import AdamWConfig, adamw_init, trainable_tensors
     cfg = C.get(arch)
     cfg = cfg.scaled(n_layers=n_layers, quant=dataclasses.replace(
-        cfg.quant, mode=mode))
+        cfg.quant, mode=mode), **(over or {}))
     moe = cfg.family == "gqa_moe"
     lm = LM(cfg)
     card = demo_tenant(lm.init(torch.Generator(device=device).manual_seed(0),
@@ -2852,6 +3094,7 @@ def phase_train_small(torch, device="cuda", n_layers=2, seq=128, batch=2,
            == "cuda" else "cpu",
            "arch": cfg.name, "n_layers": n_layers,
            "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "widths_narrowed": over or {},
            "remat": cfg.remat, "batch": [batch, seq],
            "loss": {"card": c["loss"], "cpu": p["loss"], "rel": loss_rel,
                     "bound": TRAIN_LOSS_TOL,
@@ -3041,7 +3284,7 @@ def _link_tree(src, dst):
 
 def phase_train(torch, argv=None, steps=TRAIN_STEPS,
                 resume_at=TRAIN_RESUME_AT, prompt_len=128, phase="train",
-                hold_kernels=True):
+                hold_kernels=True, over=None):
     """``repro_torch.launch.train`` on the full llama7b-proxy (or the model
     ``argv`` names) through its own ``setup`` and ``run``: ``steps``
     steps with a checkpoint every ``resume_at``, counts reset just before
@@ -3054,7 +3297,9 @@ def phase_train(torch, argv=None, steps=TRAIN_STEPS,
     a second run resumed from the step-``resume_at`` checkpoint (hard-link
     copies in a directory of its own), whose losses and adapters must equal
     the uninterrupted run's bit for bit (the same kernels and cuBLAS calls
-    at the same shapes, in the same order, on the same values)."""
+    at the same shapes, in the same order, on the same values).  ``over``
+    narrows the config's widths (a smaller shape for the CPU's f32
+    merge)."""
     import shutil
     import numpy as np
     import repro_torch.configs as C
@@ -3069,8 +3314,10 @@ def phase_train(torch, argv=None, steps=TRAIN_STEPS,
         ap = train.build_parser()
         args = ap.parse_args(argv + ["--steps", str(steps), "--ckpt-dir",
                                      run_a])
+        narrowed = (train.build_config(args).scaled(**over) if over
+                    else None)
         t0 = time.perf_counter()
-        st = train.setup(args)
+        st = train.setup(args, cfg=narrowed)
         setup_s = time.perf_counter() - t0
         dev = st.device
         frozen_before = {k: v.clone() for k, v in st.params.named_buffers()}
@@ -3132,7 +3379,7 @@ def phase_train(torch, argv=None, steps=TRAIN_STEPS,
             _link_tree(os.path.join(run_a, d), os.path.join(run_b, d))
         args_b = ap.parse_args(argv + ["--steps", str(steps), "--ckpt-dir",
                                        run_b])
-        st_b = train.setup(args_b)
+        st_b = train.setup(args_b, cfg=narrowed)
         kernels.reset_launches()
         res_b = train.run(st_b, args_b)
         counts_b = kernels.launches()
@@ -3155,6 +3402,7 @@ def phase_train(torch, argv=None, steps=TRAIN_STEPS,
            "depth_cut": (f"none (all {layers} layers)"
                          if layers == full_layers
                          else f"{layers} of {full_layers} layers"),
+           "widths_narrowed": over or {},
            "batch": [args.global_batch, args.seq_len], "dataset": args.dataset,
            "lr": args.lr, "steps": steps, "setup_s": setup_s,
            "loss": res["loss"], "xent": res["xent"], "aux": res["aux"],
@@ -3239,9 +3487,16 @@ GPTQ_CPU_COLS = 256
 GPTQ_SAME_SHARE = 0.9999
 # QLoRA's fine-tune: launch/train.py on the converted model, 2 steps of
 # 4 x 256 tokens
+# the float stand-in base, its GPTQ and NF4 conversions, QLoRA's training
+# and the PTQ models at 16 of llama7b-proxy's 32 layers (widths as
+# published): the two GPTQ passes over all 224 linears took 63 s of the
+# phase's 95 (H100 80GB HBM3, 700 W); the lm_head=int4 model is served
+# whole through launch/serve.py
+BASELINE_LAYERS = 16
 QLORA_ARGV = ["--arch", "llama7b-proxy", "--mode", "qlora", "--seq-len",
               "256", "--global-batch", "4", "--dataset", "alpaca", "--lr",
-              "2e-4", "--steps", "2", "--log-every", "1", "--device", "cuda"]
+              "2e-4", "--steps", "2", "--log-every", "1", "--device", "cuda",
+              "--n-layers", str(BASELINE_LAYERS)]
 HEAD_POLICY = "*=int4,lm_head=int4"
 HEAD_K, HEAD_N = 4096, 32000
 # the kernels of a served PTQ model (merged: no adapter)
@@ -3357,15 +3612,17 @@ def _window_checks(counts, n_lin, head=False, merge_check=True):
 
 
 def phase_baselines(torch):
-    """The paper's contrast at full llama7b-proxy size (32 layers, int4
-    g32 r64, bf16), on a float stand-in base drawn from seed 0: GPTQ over
-    all 224 linears into a QA-LoRA model, served with its merge check;
+    """The paper's contrast at llama7b-proxy's widths and
+    ``BASELINE_LAYERS`` of its 32 layers (int4 g32 r64, bf16), on a float
+    stand-in base drawn from seed 0: GPTQ over all 112 linears into a
+    QA-LoRA model, served with its merge check;
     the same base converted to QLoRA (NF4), fine-tuned 2 steps by
     ``launch/train.py``, merged to a float model (the '4+16' row) and
     post-training quantized (RTN and GPTQ) into an INT4 model served
     through kernels 1 and 2, its logits held beside the QA-LoRA merge's;
     a model with a quantized ``lm_head`` (``--policy "*=int4,lm_head=int4"``)
-    served through ``launch/serve.py``; one lora and one qlora train step
+    served through ``launch/serve.py`` at all 32 layers; one lora and one
+    qlora train step
     of 2-layer llama7b-proxy on the card against the CPU.  Returns the
     launch counts of its three serve windows and the kernel rows at the
     head's shape."""
@@ -3376,14 +3633,17 @@ def phase_baselines(torch):
     from repro_torch.launch import serve, train
     from repro_torch.models.lm import LM
     t_phase = time.perf_counter()
-    cfg = C.get("llama7b-proxy")
+    full = C.get("llama7b-proxy")
+    cfg = full.scaled(n_layers=BASELINE_LAYERS)
     pol = cfg.quant
     lm = LM(cfg)
     n_lin = _step_linears(cfg)
     walls, checks = {}, {}
     out = {"phase": "baselines",
            "card": _smi("name,power.limit"), "arch": cfg.name,
-           "n_layers": cfg.n_layers, "depth_cut": "none (all 32 layers)",
+           "n_layers": cfg.n_layers,
+           "depth_cut": f"{cfg.n_layers} of {full.n_layers} layers (the "
+                        f"lm_head=int4 model: none)",
            "policy": f"int{pol.bits} g{pol.group_size} r{pol.rank}, "
                      f"{str(pol.dtype).replace('torch.', '')} scales"}
 
@@ -3546,13 +3806,13 @@ def phase_baselines(torch):
     gptq.release_graphs()
     del hess
     max_len = prompts.shape[1] + SERVE_GEN
-    toks = torch.as_tensor(prompts, dtype=torch.int32, device="cuda")
-    nxt = lm.prefill(m416, {"tokens": toks})[0].argmax(-1).to(torch.int32)
-    ref = serve._two_steps(lm, m416, toks, nxt, max_len, torch.float32,
+    batch = serve.prompt_batch(prompts, "cuda")
+    nxt = lm.prefill(m416, batch)[0].argmax(-1).to(torch.int32)
+    ref = serve._two_steps(lm, m416, batch, nxt, max_len, torch.float32,
                            "cuda")
     gap = {}
     for key, tree in (("rtn", ptq_rtn), ("gptq", ptq_gptq)):
-        got = serve._two_steps(lm, tree, toks, nxt, max_len, torch.float32,
+        got = serve._two_steps(lm, tree, batch, nxt, max_len, torch.float32,
                                "cuda")
         gap[key] = {ph: serve._compare(got[ph], ref[ph]) for ph in ref}
     del ref, m416, ptq_rtn
@@ -3599,7 +3859,8 @@ def phase_baselines(torch):
     head_ms = _replay_ms(torch, next(iter(graphs["decode"].graphs.values())))
     del graphs
     _free(torch)
-    head_per_step = n_lin + 1
+    head_lin = _step_linears(full)
+    head_per_step = head_lin + 1
     head_rel = max(r["rel"] for r in res["merge_check"].values())
     gen = torch.Generator(device="cuda").manual_seed(13)
     head_rows = {name: _check_one(torch, name, KERNELS[name][1], HEAD_K,
@@ -3614,7 +3875,7 @@ def phase_baselines(torch):
               f"{r['bound_ms']:.3f}" for n, r in head_rows.items()),
           flush=True)
     checks.update({f"head_serve_{k}": v for k, v in _window_checks(
-        head_launches, n_lin, head=True).items()})
+        head_launches, head_lin, head=True).items()})
     checks.update({
         "head_merge_within_bound": head_rel <= res["merge_bound_rel"],
         "head_decode_captured_once": res["captures"]["serve.decode"][0] == 1,
@@ -3813,19 +4074,20 @@ def _drop_shares(torch, rec, rows, n_layers, n_experts):
         for kind, k in kinds.items()}
 
 
-def _profile_prefill(torch, lm, merged, prompts):
-    """One merged prefill of ``prompts`` under ``torch.profiler``: wall
-    ms (host clock, ending in a sync), device busy ms and device ms by
-    kind of kernel (the port's tiled kernel, PyTorch's matmuls, the
-    rest)."""
+def _profile_prefill(torch, lm, merged, prompts, frontend=None):
+    """One merged prefill of ``prompts`` (and a vision config's patches
+    ``frontend``) under ``torch.profiler``: wall ms (host clock, ending in
+    a sync), device busy ms and device ms by kind of kernel (the port's
+    tiled kernel, PyTorch's matmuls, the rest)."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve
     from repro_torch.launch.profile_serve import _device_us, _kind
-    toks = torch.as_tensor(prompts, device="cuda")
+    batch = serve.prompt_batch(prompts, "cuda", frontend)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        lm.prefill(merged, {"tokens": toks})
+        lm.prefill(merged, batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by_kind = {}
@@ -4006,15 +4268,28 @@ def _family_engines(torch, cfg, lm, merged, n_lin):
     return out
 
 
-def _family(torch, arch, layers):
+def _patches(torch, cfg, b):
+    """A vision config's ``frontend_len`` patch embeddings for ``b``
+    prompts, seeded, at the token embeddings' scale (0.02) in the
+    policy's dtype; None for a config without a frontend."""
+    if cfg.frontend != "vision":
+        return None
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return (torch.randn((b, cfg.frontend_len, cfg.d_model), generator=gen,
+                        device="cuda") * 0.02).to(cfg.quant.default.dtype)
+
+
+def _family(torch, arch, layers, prompt_len=128):
     """One config at full width (``layers`` cuts the depth): built from
-    seed 0 (adapters nudged, then merged), served statically, 4 x (128 +
-    32), the decode step replayed (one capture, within the budget of a
-    ``CompileGuard``), the counted pass with the merge check, then
-    ``FAMILY_TIMED`` passes for medians; kernels 1-4 counted against
-    linears a layer (from the config) x layers x steps; the floors of a
-    decode step and of the prefill; then, for ``FAMILY_ENGINES``, the
-    continuous engine."""
+    seed 0 (adapters nudged, then merged), served statically, 4 x
+    (``prompt_len`` + 32) (a vision config's prompts after its
+    ``frontend_len`` seeded patch rows, the same patches in the merge
+    check), the decode step
+    replayed (one capture, within the budget of a ``CompileGuard``), the
+    counted pass with the merge check, then ``FAMILY_TIMED`` passes for
+    medians; kernels 1-4 counted against linears a layer (from the
+    config) x layers x steps; the floors of a decode step and of the
+    prefill; then, for ``FAMILY_ENGINES``, the continuous engine."""
     from statistics import median
     import numpy as np
     import repro_torch.configs as C
@@ -4030,24 +4305,26 @@ def _family(torch, arch, layers):
     init_s = time.perf_counter() - t_cfg
     n_lin = _step_linears(cfg)
     prompts = np.random.default_rng(0).integers(
-        4, cfg.vocab, size=(4, 128)).astype(np.int32)
-    max_len = prompts.shape[1] + SERVE_GEN
+        4, cfg.vocab, size=(4, prompt_len)).astype(np.int32)
+    patches = _patches(torch, cfg, prompts.shape[0])
+    n_patch = 0 if patches is None else patches.shape[1]
+    max_len = n_patch + prompts.shape[1] + SERVE_GEN
     bound = serve.merge_bound(cfg)
     with CompileGuard(f"chip_smoke families static {arch}") as guard:
         gen = serve.make_graph_generator(lm, merged, prompts.shape, SERVE_GEN,
                                          max_len, device="cuda")
-        first, _ = gen(prompts)
+        first, _ = gen(prompts, patches)
         torch.cuda.synchronize()
         kernels.reset_launches()
-        toks, times = gen(prompts)
+        toks, times = gen(prompts, patches)
         mcheck = serve.merge_check(lm, params, merged, prompts, max_len,
-                                   device="cuda")
+                                   device="cuda", frontend=patches)
         torch.cuda.synchronize()
         counts = kernels.launches()
         passes = [times]
         same = [bool(np.array_equal(first, toks))]
         for _ in range(FAMILY_TIMED - 1):
-            t2, w = gen(prompts)
+            t2, w = gen(prompts, patches)
             passes.append(w)
             same.append(bool(np.array_equal(t2, toks)))
         captures = gen.graphs._cache_size()
@@ -4056,16 +4333,17 @@ def _family(torch, arch, layers):
     del gen
     _free(torch)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    prefill_profile = _profile_prefill(torch, lm, merged, prompts)
+    prefill_profile = _profile_prefill(torch, lm, merged, prompts, patches)
     moe = cfg.family == "gqa_moe"
-    held = _hold_family_linears(torch, cfg, params, merged, prompts.size,
+    prefill_rows = prompts.shape[0] * (n_patch + prompts.shape[1])
+    held = _hold_family_linears(torch, cfg, params, merged, prefill_rows,
                                 arch in FAMILY_ENGINES)
     control = {f: _faulty_merge_check(torch, lm, params, merged, prompts,
                                       max_len, f)
                for f in (FAMILY_FAULTS if moe else ())}
     decode_bytes = _linear_bytes(merged) + (
         2 * cfg.n_layers * 4 * max_len * cfg.n_kv_heads * cfg.head_dim * 4)
-    flops = _prefill_flops(cfg, *prompts.shape)
+    flops = _prefill_flops(cfg, prompts.shape[0], n_patch + prompts.shape[1])
     floors = {"decode_step_ms": decode_bytes / PEAK_BYTES_S * 1e3,
               "decode_bound_by": "bytes", "decode_gb": decode_bytes / 1e9,
               "prefill_ms": max(flops / PEAK_BF16_FLOP_S,
@@ -4104,6 +4382,9 @@ def _family(torch, arch, layers):
                "moe_d_ff")},
            "linears_per_layer": n_lin // cfg.n_layers,
            "linears_per_step": n_lin, "init_s": init_s,
+           "prompt": {"requests": prompts.shape[0], "patch_rows": n_patch,
+                      "tokens": prompts.shape[1], "generated": SERVE_GEN,
+                      "prefill_rows": prefill_rows},
            "peak_mem_gb": peak, "launches": counts,
            "decode_ms_per_token": decode_ms, "prefill_ms": prefill_ms,
            "passes": passes, "floors": floors,
@@ -4175,6 +4456,147 @@ def phase_families(torch):
     return counts, held
 
 # ---------------------------------------------------------------------------
+# phase vision: pixtral-12b and its vision stub
+# ---------------------------------------------------------------------------
+
+VISION_ARCH = "pixtral-12b"
+# tokens after the 256 patch rows of a served prompt: 256 + 128 = 384
+# positions are not a multiple of the config's chunk_q (256), which the
+# prefill's flash attention needs in both packages, so 256 + 256
+VISION_PROMPT = 256
+# train --arch pixtral-12b at its published widths, cut to 8 of 40 layers:
+# 3 steps of 4 x 512 positions (the driver's 256 zero patch rows + 256
+# tokens a sequence), lr 2e-5, remat
+VISION_TRAIN_LAYERS = 8
+VISION_TRAIN_STEPS = 3
+VISION_TRAIN_ARGV = ["--arch", VISION_ARCH, "--seq-len", "512",
+                     "--global-batch", "4", "--dataset", "alpaca", "--lr",
+                     "2e-5", "--log-every", "1", "--device", "cuda",
+                     "--n-layers", str(VISION_TRAIN_LAYERS), "--steps",
+                     str(VISION_TRAIN_STEPS)]
+
+
+def _vision_train(torch):
+    """``launch/train.py``'s ``setup`` and ``run`` for pixtral-12b at
+    ``VISION_TRAIN_LAYERS`` layers, from the adapters nudged as phase
+    families serves them (a merge that is not trivial), counts reset just
+    before the loop and read just after: kernel 3 and 3a 2 x 56 times a
+    step (remat) and no other kernel; then the merge of the trained
+    adapters and ``serve.merge_check`` with seeded patches, kernels 1-4
+    counted exactly."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.launch import serve, train
+    t0 = time.perf_counter()
+    args = train.build_parser().parse_args(VISION_TRAIN_ARGV)
+    st = train.setup(args)
+    with torch.no_grad():
+        serve.bump_adapters(st.params)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg = st.cfg
+    kernels.reset_launches()
+    res = train.run(st, args)
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    n_lin = _step_linears(cfg)
+    per_step = n_lin * 2
+    prompts = np.random.default_rng(0).integers(
+        4, cfg.vocab, size=(4, VISION_PROMPT)).astype(np.int32)
+    patches = _patches(torch, cfg, prompts.shape[0])
+    merged = serve.merge_model(st.params)
+    kernels.reset_launches()
+    mcheck = serve.merge_check(st.lm, st.params, merged, prompts,
+                               cfg.frontend_len + prompts.shape[1] + 1,
+                               device="cuda", frontend=patches)
+    torch.cuda.synchronize()
+    merge_counts = kernels.launches()
+    bound = serve.merge_bound(cfg)
+    b_nonzero = all(bool((t != 0).any()) for k, t in st.trainable.items()
+                    if k.endswith(".b"))
+    del st, res["state"], merged, patches
+    _free(torch)
+    # the merge check: the merged model's prefill for the next token, then
+    # each model's prefill and one decode step
+    want = {"qmatmul": 2 * n_lin, "qmatvec": n_lin, "qalora_matmul": n_lin,
+            "qalora_matvec": n_lin, "qalora_rank_proj": 2 * n_lin}
+    checks = {
+        "losses_finite": all(math.isfinite(x) for x in res["loss"]),
+        "b_nonzero_after_training": b_nonzero,
+        "kernel3_and_3a_per_step": all(
+            s[k] == per_step for s in res["launches"] for k in TRAIN_PATH),
+        "no_other_kernel_in_a_step": all(
+            v == 0 for s in res["launches"] for k, v in s.items()
+            if k not in TRAIN_PATH),
+        "merge_within_bound": all(r["rel"] <= bound
+                                  for r in mcheck.values()),
+        "merge_launches_exact": all(merge_counts[k] == want.get(k, 0)
+                                    for k in merge_counts)}
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "depth_cut": f"{cfg.n_layers} of 40 layers",
+            "batch": [args.global_batch, args.seq_len],
+            "split": f"{cfg.frontend_len} zero patch rows + "
+                     f"{args.seq_len - cfg.frontend_len} tokens a sequence",
+            "start": "adapters nudged by +0.01 (serve.bump_adapters)",
+            "lr": args.lr, "steps": VISION_TRAIN_STEPS, "setup_s": setup_s,
+            "loss": res["loss"], "grad_norm": res["grad_norm"],
+            "step_ms": res["step_ms"],
+            "step_ms_median_after_first": res["step_ms_median"],
+            "tokens_per_s": res["tokens_per_s"],
+            "peak_mem_gb": (res["peak_mem_bytes"] or 0) / 1e9,
+            "launches": counts, "launches_per_step": res["launches"],
+            "launches_expected_per_step": per_step,
+            "merge_check": mcheck, "merge_bound_rel": bound,
+            "merge_launches": merge_counts,
+            "merge_launches_expected": want,
+            "seconds": time.perf_counter() - t0, "checks": checks}
+
+
+def phase_vision(torch):
+    """pixtral-12b at its published widths: the merged model at all 40
+    layers served statically with 256 seeded patch rows before each
+    prompt of ``VISION_PROMPT`` tokens (:func:`_family`: the merge check
+    with the same patches, exact launch counts, kernels 1-4 held at the
+    prefill's M = 2048 and the decode step's M = 4, the medians beside
+    the floors), then
+    :func:`_vision_train`.  Returns the launch counts of its counted
+    windows and the kernel rows held."""
+    t_phase = time.perf_counter()
+    static = _family(torch, VISION_ARCH, None, VISION_PROMPT)
+    trained = _vision_train(torch)
+    checks = {**{f"static_{k}": v for k, v in static["checks"].items()},
+              **{f"train_{k}": v for k, v in trained["checks"].items()}}
+    out = {"phase": "vision", "card": _smi("name,power.limit"),
+           "static": static, "train": trained, "checks": checks,
+           "phase_s": time.perf_counter() - t_phase}
+    out["ok"] = all(checks.values())
+    mc = static["merge_check"]
+    print(f"[chip_smoke] vision: {VISION_ARCH} (all 40 layers, "
+          f"{static['prompt']['patch_rows']} patch rows + {VISION_PROMPT} "
+          f"tokens): "
+          f"decode {static['decode_ms_per_token']:.3f} ms a token "
+          f"(floor {static['floors']['decode_step_ms']:.3f}), prefill "
+          f"{static['prefill_ms']:.2f} ms (floor "
+          f"{static['floors']['prefill_ms']:.2f}), merge rel "
+          f"{max(r['rel'] for r in mc.values()):.2e}; train "
+          f"{trained['depth_cut']}: "
+          f"{trained['step_ms_median_after_first']:.1f} ms a step, loss "
+          f"{trained['loss']}; ok {out['ok']}", flush=True)
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"vision checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    counts = {
+        f"{VISION_ARCH} static serve + merge check (phase vision)":
+            static["launches"],
+        f"{VISION_ARCH} train, {VISION_TRAIN_STEPS} steps (phase vision)":
+            trained["launches"],
+        f"{VISION_ARCH} merge check after training (phase vision)":
+            trained["merge_launches"]}
+    return counts, static["held"]
+
+
+# ---------------------------------------------------------------------------
 # phases 15-16: mixtral-8x22b trained, speculated and behind the frontend
 # ---------------------------------------------------------------------------
 
@@ -4190,16 +4612,25 @@ MOE_TRAIN_ARGV = ["--arch", MOE_ARCH, "--seq-len", "256", "--global-batch",
                   "8", "--dataset", "alpaca", "--lr", "2e-5", "--log-every",
                   "1", "--device", "cuda"]
 MOE_TRAIN_STEPS = 4
-# cut and resumed (phase_train) at 2 layers, whose base/ is ~3 GB
-MOE_RESUME_LAYERS = 2
+# cut and resumed (phase_train) and the card-vs-CPU step
+# (phase_train_small) at 1 layer with each expert's d_ff cut to 2048: the
+# CPU's plain versions dequantise every expert in f32 each call, so the
+# CPU's side takes time with the expert weights (at 2 layers and the
+# published widths the resumed run's f32 merge and the step took 65.2 and
+# 41.4 s of CPU on the host of an H100 80GB HBM3)
+MOE_CPU_LAYERS = 1
+MOE_CPU_OVER = {"moe_d_ff": 2048}
 # speculation over the experts: k = 3 with a 2-bit drafter (an 8-bit one
 # beside the int4 base would hold ~75 GB at 16 layers); 8 requests on 4
 # slots; the verify step's experts see C = ceil(2 x 16 / 8 x 1.25) = 5
 # rows and a drafter step's C = 2, so both run kernel 2
 MOE_SPEC_DRAFTER = "*=intq2"
 MOE_SPEC_REQUESTS = 8
-# behind the frontend: the MoE and a dense config at full depth
-MOE_FRONTEND_ARCHS = ((MOE_ARCH, MOE_LAYERS), ("h2o-danube-1.8b", None))
+# behind the frontend: the MoE (the model phase moe_train trained), a
+# dense config at full depth, and the two dense configs with no other
+# frontend run, at 8 layers each
+FRONTEND_ARCHS = ((MOE_ARCH, MOE_LAYERS), ("h2o-danube-1.8b", None),
+                  ("starcoder2-7b", 8), ("deepseek-67b", 8))
 
 
 def _train_flops(cfg, b, s):
@@ -4348,25 +4779,31 @@ def _fingerprint(torch, params):
     return torch.stack(sums).tolist()
 
 
-def _profile_train_step(torch, st):
-    """One more train step of ``st`` under ``torch.profiler``: wall ms
-    (host clock, ending in a sync), device busy ms (the union of the
-    device activities), the idle share and device ms by kind: kernel 3's
-    tiled part, its rank projection 3a, PyTorch's matmuls (the plain
-    backward's products, attention's, the router's) and everything
-    else."""
+def _profiled_step(torch, step):
+    """``step()`` (a train step, returning its metrics) under
+    ``torch.profiler``: (its metrics, the profiler, wall ms on the host
+    clock ending in a sync).  :func:`_step_profile` reads the profiler
+    later, outside the step's timing."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch.profile_serve import _device_us, _kind
-    toks, labs = st.stream.next_batch()
-    batch = {"tokens": torch.as_tensor(toks).to(st.device),
-             "labels": torch.as_tensor(labs).to(st.device)}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loss = float(st.step_fn(st.params, st.opt_state, batch)["loss"])
+        metrics = step()
+        loss = float(metrics["loss"])
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    return metrics, (prof, loss, wall)
+
+
+def _step_profile(torch, profiled):
+    """A profiled train step (:func:`_profiled_step`): wall ms, device busy
+    ms (the union of the device activities), the idle share and device
+    ms by kind: kernel 3's tiled part, its rank projection 3a, PyTorch's
+    matmuls (the plain backward's products, attention's, the router's)
+    and everything else."""
+    from repro_torch.launch.profile_serve import _device_us, _kind
+    prof, loss, wall = profiled
     names = {"qalora_matmul": "kernel 3", "qalora_rank_proj": "kernel 3a"}
     by_kind, n_kind = {}, {}
     for evt in prof.key_averages():
@@ -4383,7 +4820,26 @@ def _profile_train_step(torch, st):
             "device_ms_by_kind": by_kind, "device_kernels_by_kind": n_kind}
 
 
-def phase_moe_train(torch):
+def _moe_model(torch):
+    """mixtral-8x22b at ``MOE_LAYERS`` layers, built once for phases
+    moe_train and moe_serve: the trainer's config and seed
+    (``MOE_TRAIN_ARGV``), its adapters nudged as phase families serves
+    them.  Returns (the trainer's arguments, lm, params, build seconds)."""
+    from repro_torch.launch import serve, train
+    from repro_torch.models.lm import LM
+    t0 = time.perf_counter()
+    args = train.build_parser().parse_args(MOE_TRAIN_ARGV + [
+        "--n-layers", str(MOE_LAYERS), "--steps", str(MOE_TRAIN_STEPS)])
+    lm = LM(train.build_config(args))
+    params = lm.init(torch.Generator(device="cuda").manual_seed(args.seed),
+                     "cuda")
+    with torch.no_grad():
+        serve.bump_adapters(params)
+    torch.cuda.synchronize()
+    return args, lm, params, time.perf_counter() - t0
+
+
+def phase_moe_train(torch, model):
     """mixtral-8x22b fine-tuned on the card at its published widths:
     ``launch/train.py``'s ``setup`` and ``run`` at ``MOE_LAYERS`` of 56
     layers (bf16, int4 g32 r64, remat), ``MOE_TRAIN_STEPS`` steps of 8 x
@@ -4403,11 +4859,14 @@ def phase_moe_train(torch):
     the merge of the adapters as they were before training (what the
     gate sees of 4 steps); kernels 3 and 3a held against their plain
     versions at the step's shapes (the experts' M = 640, K x N = 6144 x
-    16384 and 16384 x 6144);
-    a fifth step under ``torch.profiler``.  Then the cut-and-resume run of
-    phase train at ``MOE_RESUME_LAYERS`` layers, and one step of a 2-layer
-    mixtral on the card against the CPU in f32 (phase train_small, with
-    the routing of both sides)."""
+    16384 and 16384 x 6144); the last step under ``torch.profiler`` (the
+    step wall's median is the two steps between the first and the
+    profiled one).  Then, each at 1 layer with each expert's d_ff cut to
+    2048 (``MOE_CPU_OVER``), the cut-and-resume run of phase train and
+    one step on the card against the CPU in f32 (phase train_small, with
+    the routing of both sides).  ``model`` is :func:`_moe_model`'s; the
+    trained merge is returned for phase moe_serve."""
+    import statistics
     import numpy as np
     import repro_torch.configs as C
     from repro_torch import kernels
@@ -4415,16 +4874,13 @@ def phase_moe_train(torch):
     from repro_torch.models.moe import record_routing
     from repro_torch.optim import trainable_tensors
     t_phase = time.perf_counter()
-    ap = train.build_parser()
-    args = ap.parse_args(MOE_TRAIN_ARGV + [
-        "--n-layers", str(MOE_LAYERS), "--steps", str(MOE_TRAIN_STEPS)])
+    args, _, params, build_s = model
     t0 = time.perf_counter()
-    st = train.setup(args)
+    st = train.setup(args, params=params)
+    del params
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     cfg, dev = st.cfg, st.device
-    with torch.no_grad():
-        serve.bump_adapters(st.params)
     untrained = {k: t.detach().clone()
                  for k, t in trainable_tensors(st.params).items()}
     # a copy of the base would double its ~25 GB (and the step's peak)
@@ -4432,11 +4888,17 @@ def phase_moe_train(torch):
     inner, recorded = st.step_fn, {}
 
     def step_fn(params, opt_state, batch):
-        if recorded:
+        # the first step's routing is recorded, the last step profiled
+        if "route" not in recorded:
+            with record_routing() as route:
+                metrics = inner(params, opt_state, batch)
+            recorded["route"] = route
+            return metrics
+        recorded["steps"] = recorded.get("steps", 1) + 1
+        if recorded["steps"] < MOE_TRAIN_STEPS:
             return inner(params, opt_state, batch)
-        with record_routing() as route:
-            metrics = inner(params, opt_state, batch)
-        recorded["route"] = route
+        metrics, recorded["profiled"] = _profiled_step(
+            torch, lambda: inner(params, opt_state, batch))
         return metrics
     st.step_fn = step_fn
     torch.cuda.synchronize()
@@ -4459,7 +4921,6 @@ def phase_moe_train(torch):
     merge_counts = kernels.launches()
     merge_flips = _merge_routing(torch, st.lm, st.params, merged, prompts)
     precision = _merge_precision(torch, st.params, merged)
-    del merged
     controls = {}
     for name, tensors in (("adapters_dropped", None),
                           ("untrained_adapters", untrained)):
@@ -4476,14 +4937,18 @@ def phase_moe_train(torch):
           f"controls {json.dumps(controls)}; {json.dumps(precision)}",
           flush=True)
     timing, at_m = _train_linears_at_m(torch, cfg, st.params, tokens)
-    profile = _profile_train_step(torch, st)
+    profiled = recorded.pop("profiled")
+    profile = _step_profile(torch, profiled)
+    del profiled
     flops = _train_flops(cfg, args.global_batch, args.seq_len)
-    med = res["step_ms_median"]
+    med = statistics.median(res["step_ms"][1:-1])
+    tokens_per_s = tokens / (med / 1e3)
+    lm = st.lm
     del st, res["state"], inner, step_fn
     _free(torch)
     print(f"[chip_smoke] moe_train: {MOE_ARCH} ({MOE_LAYERS} layers) "
           f"{tokens} tokens a step: {med:.1f} ms median, "
-          f"{res['tokens_per_s']:.0f} tokens/s, peak "
+          f"{tokens_per_s:.0f} tokens/s, peak "
           f"{(res['peak_mem_bytes'] or 0) / 1e9:.2f} GB, loss {res['loss']}, "
           f"aux {res['aux']}, dropped {routing['dropped_share']:.3f}, idle "
           f"{profile['device_idle_share']:.3f}", flush=True)
@@ -4493,13 +4958,14 @@ def phase_moe_train(torch):
     try:
         resume_counts, resume_errs = phase_train(
             torch, argv=MOE_TRAIN_ARGV + [
-                "--n-layers", str(MOE_RESUME_LAYERS), "--ckpt-every", "2"],
+                "--n-layers", str(MOE_CPU_LAYERS), "--ckpt-every", "2"],
             steps=4, resume_at=2, phase="moe_train_resume",
-            hold_kernels=False)
+            hold_kernels=False, over=MOE_CPU_OVER)
     except AssertionError as e:
         failed.append(str(e))
     try:
-        phase_train_small(torch, arch=MOE_ARCH, phase="moe_train_small")
+        phase_train_small(torch, arch=MOE_ARCH, phase="moe_train_small",
+                          n_layers=MOE_CPU_LAYERS, over=MOE_CPU_OVER)
     except AssertionError as e:
         failed.append(str(e))
     layer = {k: v for k, v in timing.items() if k != "per_linear"}
@@ -4535,11 +5001,14 @@ def phase_moe_train(torch):
                         f"layers",
            "batch": [args.global_batch, args.seq_len],
            "dataset": args.dataset, "lr": args.lr, "steps": MOE_TRAIN_STEPS,
-           "capacity": _moe_capacity(cfg, tokens), "setup_s": setup_s,
+           "capacity": _moe_capacity(cfg, tokens), "build_s": build_s,
+           "setup_s": setup_s,
            "loss": res["loss"], "xent": res["xent"], "aux": res["aux"],
            "grad_norm": res["grad_norm"], "step_ms": res["step_ms"],
            "step_ms_median_after_first": med,
-           "tokens_per_s": res["tokens_per_s"],
+           "step_ms_median_of": "steps 2-3 (step 1 records the routing, "
+                                "step 4 is profiled)",
+           "tokens_per_s": tokens_per_s,
            "peak_mem_gb": (res["peak_mem_bytes"] or 0) / 1e9,
            "step_tflop": flops / 1e12,
            "step_floor_ms": flops / PEAK_BF16_FLOP_S * 1e3,
@@ -4573,7 +5042,8 @@ def phase_moe_train(torch):
                              + "".join(f"; {f}" for f in failed))
     errs = {k: max([r["max_abs_err"] for r in at_m if r["kernel"] == k]
                    + [resume_errs.get(k, 0.0)]) for k in TRAIN_PATH}
-    return _sum_counts([counts, merge_counts, resume_counts]), errs
+    return (_sum_counts([counts, merge_counts, resume_counts]), errs,
+            (lm, merged))
 
 
 def _hold_gemv_experts(torch, blk, m, gen):
@@ -4732,21 +5202,27 @@ def _moe_spec(torch, cfg, lm, merged):
             "checks": checks}
 
 
-def _moe_frontend(torch, arch, layers):
+def _moe_frontend(torch, arch, layers, model=None):
     """One config behind ``ServingFrontend``: phase frontend's (a), a
     plain engine, a clean and a faulty frontend (a crash at dispatch 3, a
     NaN at 7), gated by :func:`_recovery_checks` (``routed`` for an MoE);
     then the calibration and one clean Poisson SLO run at 0.7 x capacity
-    under ``torch.profiler`` (TTFT, TPOT, goodput, the idle share)."""
+    under ``torch.profiler`` (TTFT, TPOT, goodput, the idle share).
+    ``model`` is a built (lm, merged) of the config, else it is built
+    from seed 0."""
     import repro_torch.configs as C
     from repro_torch.launch import serve
     from repro_torch.serving import make_trace, poisson_arrivals
     t0 = time.perf_counter()
     full = C.get(arch)
     cfg = full if layers is None else full.scaled(n_layers=layers)
-    lm, params, merged = serve.build_model(cfg, "cuda")
-    del params
-    _free(torch)
+    if model is None:
+        lm, params, merged = serve.build_model(cfg, "cuda")
+        del params
+        _free(torch)
+    else:
+        lm, merged = model
+        del model
     routed = cfg.family == "gqa_moe"
     per_step = _step_linears(cfg)
     trace, plain, rec = _frontend_recovery(torch, cfg, lm, merged)
@@ -4802,29 +5278,29 @@ def _moe_frontend(torch, arch, layers):
             "seconds": time.perf_counter() - t0, "checks": checks}
 
 
-def phase_moe_serve(torch):
+def phase_moe_serve(torch, holder):
     """mixtral-8x22b at ``MOE_LAYERS`` layers speculated (:func:`_moe_spec`)
-    and, with h2o-danube-1.8b whole, behind the frontend
-    (:func:`_moe_frontend`).  Returns the launch counts of each counted
-    window and the kernel rows held."""
+    and behind the frontend, then ``FRONTEND_ARCHS``' dense configs behind
+    it (:func:`_moe_frontend`).  ``holder`` is a list holding phase
+    moe_train's (lm, trained merge); it is emptied here, so the model is
+    freed before the dense configs are built.  Returns the launch counts
+    of each counted window and the kernel rows held."""
     import repro_torch.configs as C
-    from repro_torch.launch import serve
     t_phase = time.perf_counter()
-    cfg = C.get(MOE_ARCH).scaled(n_layers=MOE_LAYERS)
-    lm, params, merged = serve.build_model(cfg, "cuda")
-    del params
-    _free(torch)
+    lm, merged = holder.pop()
+    cfg = lm.cfg
     spec = _moe_spec(torch, cfg, lm, merged)
-    del lm, merged
-    _free(torch)
     w = spec["walls"]
     print(f"[chip_smoke] moe_serve spec: ms a committed token plain "
           f"{w['plain']['decode_ms_per_token']:.3f}, "
           + ", ".join(f"{n} {w[n]['decode_ms_per_token']:.3f} (acceptance "
                       f"{spec['stats'][n]['acceptance_rate']:.3f})"
                       for n in ("contiguous", "paged")), flush=True)
-    fronts = [_moe_frontend(torch, arch, layers)
-              for arch, layers in MOE_FRONTEND_ARCHS]
+    fronts = [_moe_frontend(torch, MOE_ARCH, MOE_LAYERS, (lm, merged))]
+    del lm, merged
+    _free(torch)
+    fronts += [_moe_frontend(torch, arch, layers)
+               for arch, layers in FRONTEND_ARCHS[1:]]
     out = {"phase": "moe_serve", "card": _smi("name,power.limit"),
            "arch": MOE_ARCH, "n_layers": MOE_LAYERS,
            "depth_cut": f"{MOE_LAYERS} of {C.get(MOE_ARCH).n_layers} layers",
@@ -4865,31 +5341,44 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     try:
-        smi_line = phase_device(torch)
-        phase_build()
-        rows, ragged = phase_kernels(torch)
-        flash_rows, flash_launches = phase_flash(torch)
-        phase_small(torch)
-        counts = phase_serve(torch)
+        smi_line = _phase("device", phase_device, torch)
+        _phase("build", phase_build)
+        print(f"[chip_smoke] expected: {sum(EXPECTED_S.values())} s in "
+              f"all, by phase {json.dumps(EXPECTED_S)}", flush=True)
+        rows, ragged = _phase("kernels", phase_kernels, torch)
+        flash_rows, flash_launches = _phase("flash", phase_flash, torch)
+        _phase("small", phase_small, torch)
+        counts = _phase("serve", phase_serve, torch)
         counts = {k: counts[k] for k in STATIC_PATH}
-        adapter_counts, adapter_toks = phase_adapters(torch)
+        adapter_counts, adapter_toks = _phase("adapters", phase_adapters,
+                                              torch)
         counts.update({k: v for k, v in adapter_counts.items()
                        if k not in STATIC_PATH})
-        paged_counts, paged_tenant_counts = phase_paged(torch, adapter_toks)
-        spec_counts, spec_held = phase_spec(torch)
-        frontend_counts = phase_frontend(torch, adapter_toks)
+        paged_counts, paged_tenant_counts, bf16_counts = _phase(
+            "paged", phase_paged, torch, adapter_toks)
+        spec_counts, spec_held = _phase("spec", phase_spec, torch)
+        frontend_counts = _phase("frontend", phase_frontend, torch,
+                                 adapter_toks)
         serve_counts = {"paged serve (phase paged)": paged_counts,
                         "paged multi-tenant serve (phase paged)":
                             paged_tenant_counts,
+                        "bf16-cache serve (phase paged)": bf16_counts,
                         f"speculative serve, {SPEC_DRAFTERS[0]} drafter "
                         f"(phase spec)": spec_counts, **frontend_counts}
-        phase_train_small(torch)
-        train_counts, train_errs = phase_train(torch)
-        base_counts, head_rows = phase_baselines(torch)
-        family_counts, family_held = phase_families(torch)
+        _phase("train_small", phase_train_small, torch)
+        train_counts, train_errs = _phase("train", phase_train, torch)
+        base_counts, head_rows = _phase("baselines", phase_baselines, torch)
+        family_counts, family_held = _phase("families", phase_families,
+                                            torch)
         serve_counts.update(family_counts)
-        moe_train_counts, moe_train_errs = phase_moe_train(torch)
-        moe_serve_counts, moe_held = phase_moe_serve(torch)
+        vision_counts, vision_held = _phase("vision", phase_vision, torch)
+        serve_counts.update(vision_counts)
+        moe_train_counts, moe_train_errs, moe_model = _phase(
+            "moe_train", lambda: phase_moe_train(torch, _moe_model(torch)))
+        holder = [moe_model]
+        del moe_model
+        moe_serve_counts, moe_held = _phase("moe_serve", phase_moe_serve,
+                                            torch, holder)
         serve_counts.update(moe_serve_counts)
     except Exception as e:  # report, save and fail: no result line
         import traceback
@@ -4905,7 +5394,8 @@ def main() -> int:
         head = head_rows.get(name)
         spec = [x for rs in spec_held.values() for x in rs
                 if x["kernel"] == name]
-        fam = [x for x in family_held + moe_held if x["kernel"] == name]
+        fam = [x for x in family_held + vision_held + moe_held
+               if x["kernel"] == name]
         held = spec + fam
         summary.append({
             "name": name, "route": "cuda", "source": source,
@@ -5059,6 +5549,9 @@ def main() -> int:
             "library_backend", "library_default_ms", "bound_ms", "bound_by",
             "max_abs_err", "row_err_ratio")} for r in flash_rows}})
     RECORD["seconds"] = time.perf_counter() - t0
+    print(f"[chip_smoke] seconds: {RECORD['seconds']:.1f} in all; by phase "
+          f"{json.dumps({k: round(v, 1) for k, v in RECORD['phase_s'].items()})}",
+          flush=True)
     RECORD["card"] = smi_line
     save()
     print(smi_line, flush=True)

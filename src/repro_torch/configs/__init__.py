@@ -10,11 +10,11 @@ from repro_torch.core.schemes import QuantPolicy
 from .base import ArchConfig
 
 from . import (deepseek_67b, gemma3_1b, h2o_danube_1_8b, llama7b_proxy,
-               mixtral_8x22b, starcoder2_7b)
+               mixtral_8x22b, pixtral_12b, starcoder2_7b)
 
 REGISTRY = {m.CONFIG.name: m.CONFIG for m in (
-    gemma3_1b, starcoder2_7b, h2o_danube_1_8b, deepseek_67b, mixtral_8x22b,
-    llama7b_proxy)}
+    pixtral_12b, gemma3_1b, starcoder2_7b, h2o_danube_1_8b, deepseek_67b,
+    mixtral_8x22b, llama7b_proxy)}
 
 
 def get(name: str) -> ArchConfig:
@@ -31,14 +31,14 @@ SMOKE_QUANT = QuantPolicy(bits=4, group_size=16, rank=4, dtype=torch.float32,
 
 def reduced(name: str, **over) -> ArchConfig:
     """Same-family tiny config for CPU smoke tests, with the reference's
-    reductions (layers, width, experts, vocab, window, chunks, no
-    remat)."""
+    reductions (layers, width, experts, vocab, window, frontend length,
+    chunks, no remat)."""
     cfg = get(name)
     kw = dict(
         n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=max(1, min(cfg.n_kv_heads, 2)), head_dim=16, d_ff=96,
-        vocab=256, window=min(cfg.window or 0, 8) or None, chunk_q=16,
-        chunk_k=16, xent_chunk=16, moe_chunk=16, quant=SMOKE_QUANT,
+        vocab=256, window=min(cfg.window or 0, 8) or None, frontend_len=8,
+        chunk_q=16, chunk_k=16, xent_chunk=16, moe_chunk=16, quant=SMOKE_QUANT,
         remat=False,
     )
     if cfg.family == "gqa_moe":

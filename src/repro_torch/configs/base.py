@@ -36,6 +36,11 @@ class ArchConfig:
     moe_chunk: int = 512                  # prefill positions a routing chunk
     gated_mlp: bool = True
     act: str = "silu"
+    # frontend stub ("vision" or None): precomputed patch embeddings given
+    # as batch["frontend"] [B, frontend_len, d_model] and prepended to the
+    # token embeddings (pixtral-12b)
+    frontend: Optional[str] = None
+    frontend_len: int = 256
     # policy: uniform QuantPolicy or per-layer PolicyTree
     quant: Union[QuantPolicy, PolicyTree] = QuantPolicy()
     norm_eps: float = 1e-5

@@ -39,9 +39,8 @@ def main(argv=None):
     st = train.setup(targs)
 
     def step():
-        toks, labs = st.stream.next_batch()
-        batch = {"tokens": torch.as_tensor(toks).to(st.device),
-                 "labels": torch.as_tensor(labs).to(st.device)}
+        batch = train.train_batch(st.cfg, *st.stream.next_batch(),
+                                  st.device)
         return float(st.step_fn(st.params, st.opt_state, batch)["loss"])
 
     step()              # warm-up: first-call set-up

@@ -209,14 +209,27 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def prompt_batch(prompts, device, frontend=None) -> dict:
+    """The prefill batch of ``prompts`` [B, S]: its tokens on ``device``
+    and, for a vision config, the patch embeddings ``frontend`` [B, F,
+    d_model] the model prepends (the cache then holds F + S rows)."""
+    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int32,
+                                       device=device)}
+    if frontend is not None:
+        batch["frontend"] = torch.as_tensor(frontend, device=device)
+    return batch
+
+
 def make_graph_generator(lm, params, batch_shape, gen_len: int,
                          max_len: int, cache_dtype=torch.float32,
                          device="cuda", eager: bool = False):
     """Build the static serve path ONCE for a prompt shape (the counterpart
     of ``make_scan_generator``): a full-capacity decode cache and the
     :class:`~repro_torch.runtime.graphs.StepGraphs` of its decode step,
-    both kept for every call.  Returns ``run(prompts) -> (tokens
-    [B, gen_len] numpy, timings)``; ``run.graphs`` is the step's graph
+    both kept for every call.  Returns ``run(prompts, frontend=None) ->
+    (tokens [B, gen_len] numpy, timings)`` (``frontend``: a vision
+    config's patch embeddings, see :func:`prompt_batch`; ``max_len`` then
+    counts their rows); ``run.graphs`` is the step's graph
     cache and ``run.budgets`` its capture budget, declared to the active
     :class:`~repro_torch.runtime.compile_guard.CompileGuard` if any when
     the step is captured (the eager and CPU routes capture nothing).
@@ -234,14 +247,14 @@ def make_graph_generator(lm, params, batch_shape, gen_len: int,
     cache = lm.init_cache(b, max_len, dtype=cache_dtype, device=device)
     graphs = StepGraphs("serve.decode", device, eager=eager)
 
-    def run(prompts):
+    def run(prompts, frontend=None):
         if tuple(prompts.shape) != tuple(batch_shape):
             raise ValueError(f"prompts {tuple(prompts.shape)}: this "
                              f"generator serves {tuple(batch_shape)}")
-        toks = torch.as_tensor(prompts, dtype=torch.int32, device=device)
+        batch = prompt_batch(prompts, device, frontend)
         _sync(device)
         t0 = time.perf_counter()
-        logits, pre = lm.prefill(params, {"tokens": toks})
+        logits, pre = lm.prefill(params, batch)
         lm.merge_prefill_cache(pre, cache)
         _sync(device)
         t1 = time.perf_counter()
@@ -297,20 +310,21 @@ def generate_loop_reference(lm, params, prompts, gen_len: int, max_len: int,
 
 
 def merge_check(lm, params, merged, prompts, max_len: int,
-                cache_dtype=torch.float32, device="cuda"):
+                cache_dtype=torch.float32, device="cuda", frontend=None):
     """The adapter model against the merged model: prefill logits, then one
-    decode step on the merged model's greedy token.  Returns max|delta|
-    and max|logits| of each.
+    decode step on the merged model's greedy token, both given the same
+    batch (:func:`prompt_batch`, a vision config's patches too).  Returns
+    max|delta| and max|logits| of each.
 
     A gqa_moe model is compared token by token over the tokens whose
     routing agreed (:func:`compare_routed`): the two models differ by
     rounding, which may flip a token's top-k choice where two router
     probabilities nearly tie, and a flipped token's logits move by far
     more than rounding.  Its prefill is compared at every position."""
-    toks = torch.as_tensor(prompts, dtype=torch.int32, device=device)
-    nxt = lm.prefill(merged, {"tokens": toks})[0].argmax(-1).to(torch.int32)
+    batch = prompt_batch(prompts, device, frontend)
+    nxt = lm.prefill(merged, batch)[0].argmax(-1).to(torch.int32)
     routed = lm.cfg.family == "gqa_moe"
-    a, m = (_two_steps(lm, p, toks, nxt, max_len, cache_dtype, device,
+    a, m = (_two_steps(lm, p, batch, nxt, max_len, cache_dtype, device,
                        routed) for p in (params, merged))
     if not routed:
         return {ph: _compare(a[ph], m[ph]) for ph in a}
@@ -321,17 +335,17 @@ def merge_check(lm, params, merged, prompts, max_len: int,
     return out
 
 
-def _two_steps(lm, params, toks, nxt, max_len: int, cache_dtype, device,
+def _two_steps(lm, params, batch, nxt, max_len: int, cache_dtype, device,
                routed: bool = False):
-    """Prefill logits of ``toks``, then the logits of one decode step on
+    """Prefill logits of ``batch``, then the logits of one decode step on
     the tokens ``nxt`` [B].  ``routed``: the prefill's logits at every
     position, and each pass's routing under ``"routes"``."""
     from repro_torch.models.moe import record_routing
     with record_routing() as pre_routes:
         logits, pre = (lm.prefill_all if routed else lm.prefill)(
-            params, {"tokens": toks})
+            params, batch)
     cache = lm.merge_prefill_cache(
-        pre, lm.init_cache(toks.shape[0], max_len, dtype=cache_dtype,
+        pre, lm.init_cache(nxt.shape[0], max_len, dtype=cache_dtype,
                            device=device))
     with record_routing() as step_routes:
         step = lm.decode_step(params, cache, nxt[:, None])[0]
@@ -395,14 +409,13 @@ def tenant_check(lm, store, tenants, prompts, max_len: int,
     against row i of its tenant's merged tree and of the next one's.
     Returns ({tenant: own check}, {tenant: check against the next
     tenant}, mixed check)."""
-    toks = torch.as_tensor(prompts, dtype=torch.int32, device=device)
-    b = toks.shape[0]
+    batch = prompt_batch(prompts, device)
+    b = batch["tokens"].shape[0]
     names = [*tenants, None]
-    nxt = lm.prefill(store.base, {"tokens": toks})[0].argmax(-1) \
-        .to(torch.int32)
+    nxt = lm.prefill(store.base, batch)[0].argmax(-1).to(torch.int32)
 
     def run(tree):
-        return _two_steps(lm, tree, toks, nxt, max_len, cache_dtype, device)
+        return _two_steps(lm, tree, batch, nxt, max_len, cache_dtype, device)
     merged = [run(store.merged(name)) for name in names]
     own, other = {}, {}
     for i, name in enumerate(names):

@@ -22,6 +22,12 @@ serves the result over the same base.
         --device cpu --steps 20 --seq-len 64 --global-batch 8
     python -m repro_torch.launch.train --arch mixtral-8x22b --reduced \\
         --device cpu --steps 4 --seq-len 32 --global-batch 4
+    python -m repro_torch.launch.train --arch pixtral-12b --reduced \\
+        --device cpu --steps 2 --seq-len 32 --global-batch 2
+
+pixtral-12b's vision stub is fed as the reference feeds it: zero patch
+embeddings in place of each sequence's first ``frontend_len`` positions
+(``--seq-len`` must exceed it).
 """
 
 from __future__ import annotations
@@ -76,10 +82,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def train_meta(cfg, params, seed: int, device) -> dict:
     """What a checkpoint's adapters were trained against: the model's
-    shape, the seed and device type its base was built from, and every
-    adapter linear's policy: (bits, group size, rank, s, dtype) for a
-    ``qalora`` linear, (scheme, rank, s, dtype) for ``lora`` and
-    ``qlora``."""
+    shape and frontend stub, the seed and device type its base was built
+    from, and every adapter linear's policy: (bits, group size, rank, s,
+    dtype) for a ``qalora`` linear, (scheme, rank, s, dtype) for ``lora``
+    and ``qlora``."""
     from repro_torch.core import schemes
     policy = {}
     for name, lp in params.named_modules():
@@ -93,6 +99,7 @@ def train_meta(cfg, params, seed: int, device) -> dict:
                         else [lp.scheme]) + tail
     return {"arch": cfg.name, "n_layers": cfg.n_layers,
             "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+            "frontend": cfg.frontend, "frontend_len": cfg.frontend_len,
             "seed": int(seed), "device": torch.device(device).type,
             "policy": policy}
 
@@ -126,6 +133,12 @@ def build_config(args):
     cfg = C.reduced(args.arch) if args.reduced else C.get(args.arch)
     if args.n_layers:
         cfg = cfg.scaled(n_layers=args.n_layers)
+    if cfg.frontend == "vision" and args.seq_len <= cfg.frontend_len:
+        raise ValueError(
+            f"--seq-len {args.seq_len}: {cfg.name}'s batch gives its first "
+            f"frontend_len = {cfg.frontend_len} positions to patch "
+            f"embeddings, so --seq-len must exceed it (else no token "
+            f"would be trained)")
     q = dataclasses.replace(
         cfg.quant.default, mode=args.mode, bits=args.bits,
         **({"group_size": args.group_size} if args.group_size else {}))
@@ -134,12 +147,14 @@ def build_config(args):
     return cfg.scaled(quant=q)
 
 
-def setup(args, params=None) -> SimpleNamespace:
+def setup(args, params=None, cfg=None) -> SimpleNamespace:
     """Model, optimizer state, data stream and checkpoint manager, resumed
     from the newest complete checkpoint in ``--ckpt-dir`` if there is
     one (the base is written there once).  ``params`` trains a given model
     of the config (e.g. :func:`repro_torch.core.schemes.convert_tree` of a
-    float base) in place of the one drawn from ``--seed``."""
+    float base) in place of the one drawn from ``--seed``; ``cfg`` a given
+    config (e.g. :func:`build_config`'s with narrower widths) in place of
+    the one the flags ask for."""
     from repro_torch.checkpoint import CheckpointManager, read_meta
     from repro_torch.data import make_stream
     from repro_torch.launch.steps import make_train_fn
@@ -148,7 +163,7 @@ def setup(args, params=None) -> SimpleNamespace:
                                    split_params)
 
     device = resolve_device(args.device)
-    cfg = build_config(args)
+    cfg = build_config(args) if cfg is None else cfg
     lm = LM(cfg)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -205,6 +220,23 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def train_batch(cfg, toks, labs, device) -> dict:
+    """The step's batch from one stream batch [B, S]: tokens and labels on
+    ``device``; for a vision config, as the reference's driver builds it,
+    zero patch embeddings [B, frontend_len, d_model] in the policy's dtype
+    in place of the first ``frontend_len`` positions (their tokens and
+    labels dropped)."""
+    toks = torch.as_tensor(toks).to(device)
+    labs = torch.as_tensor(labs).to(device)
+    if cfg.frontend != "vision":
+        return {"tokens": toks, "labels": labs}
+    f = cfg.frontend_len
+    return {"tokens": toks[:, f:], "labels": labs[:, f:],
+            "frontend": torch.zeros((toks.shape[0], f, cfg.d_model),
+                                    dtype=cfg.quant.default.dtype,
+                                    device=device)}
+
+
 def run(st: SimpleNamespace, args) -> dict:
     """Runs the restartable loop from ``st.start`` to ``--steps``.  Returns
     the per-step losses (and their xent and aux terms), grad norms, wall
@@ -230,9 +262,7 @@ def run(st: SimpleNamespace, args) -> dict:
         _sync(dev)
         before = kernels.launches()
         t0 = time.perf_counter()
-        toks, labs = st.stream.next_batch()
-        batch = {"tokens": torch.as_tensor(toks).to(dev),
-                 "labels": torch.as_tensor(labs).to(dev)}
+        batch = train_batch(st.cfg, *st.stream.next_batch(), dev)
         metrics = st.step_fn(st.params, st.opt_state, batch)
         loss = float(metrics["loss"])  # waits for the step's last kernel
         ms = (time.perf_counter() - t0) * 1e3

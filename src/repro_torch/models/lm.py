@@ -12,10 +12,14 @@ scans; here a Python loop walks the list).  Every projection routes through the 
 policy switches.
 
 Batch format: ``{"tokens": [B, S] int}``, plus ``"labels"`` ([B, S] int,
--1 = not supervised) for :meth:`LM.loss`, which runs with autograd on and
-recomputes each block in the backward when ``cfg.remat`` (a gqa_moe
-block's routing is recorded once, in the forward); prefill and
-decode run under ``torch.no_grad``.  Decode caches follow
+-1 = not supervised) for :meth:`LM.loss`, and for a config with
+``frontend="vision"`` (pixtral-12b's stub) optionally ``"frontend"`` ([B,
+F, d_model] patch embeddings), prepended to the token embeddings by
+:meth:`LM._inputs_to_x` for the loss (its F positions carry no label) and
+the prefill (the cache holds F + S rows).  :meth:`LM.loss` runs with
+autograd on and recomputes each block in the backward when ``cfg.remat``
+(a gqa_moe block's routing is recorded once, in the forward); prefill
+and decode run under ``torch.no_grad``.  Decode caches follow
 :class:`repro_torch.models.slot_state.SlotState`; decode steps write their
 K/V and lengths into the cache they are given, in place, and return it.
 """
@@ -203,6 +207,22 @@ class LM:
     def _embed(self, params: LMParams, tokens):
         return params.embed[tokens.to(torch.int64)]
 
+    def _patches(self, batch):
+        """The vision stub's patch embeddings [B, F, d] of ``batch``, or
+        None (no frontend, or none given: text-only prompts)."""
+        if self.cfg.frontend == "vision":
+            return batch.get("frontend")
+        return None
+
+    def _inputs_to_x(self, params: LMParams, batch):
+        """Token embeds, with the patch embeds (cast to their dtype)
+        prepended: the one place a batch becomes the trunk's input."""
+        x = self._embed(params, batch["tokens"])
+        f = self._patches(batch)
+        if f is not None:
+            x = torch.cat([f.to(x.dtype), x], dim=1)
+        return x
+
     def _logits(self, params: LMParams, h):
         if self.cfg.tie_embeddings:
             return (h @ params.embed.T.to(h.dtype)).to(torch.float32)
@@ -252,8 +272,8 @@ class LM:
         ``labels``, [B, S]) plus ``cfg.aux_coef`` times the MoE's
         load-balance loss summed over the layers (0 for gqa), with autograd
         on.  Returns (loss, {"xent", "aux"}), xent before the aux term, as
-        the reference does."""
-        x = self._embed(params, batch["tokens"])
+        the reference does.  Patch positions carry no label."""
+        x = self._inputs_to_x(params, batch)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk, (window, theta) in zip(params.blocks, self._layer_extras()):
             block = functools.partial(_gqa_block_train, cfg=self.cfg,
@@ -262,30 +282,37 @@ class LM:
             if a is not None:
                 aux = aux + a
         h = rmsnorm(params.final_ln, x, self.cfg.norm_eps)
-        xent = self._xent(params, h, batch["labels"])
+        labels = batch["labels"]
+        f = self._patches(batch)
+        if f is not None:
+            labels = torch.cat([labels.new_full((labels.shape[0],
+                                                 f.shape[1]), -1), labels],
+                               dim=1)
+        xent = self._xent(params, h, labels)
         return xent + self.cfg.aux_coef * aux, {"xent": xent, "aux": aux}
 
-    def _prefill(self, params: LMParams, tokens):
-        """The final-normed hidden states of every position, and the
-        prefill cache."""
-        x = self._embed(params, tokens)
+    def _prefill(self, params: LMParams, batch: Dict[str, Any]):
+        """The final-normed hidden states of every position (patches
+        first), and the prefill cache, whose length counts the patch
+        rows."""
+        x = self._inputs_to_x(params, batch)
         h, cache = self._trunk(params, x, collect_cache=True)
-        length = torch.full((tokens.shape[0],), tokens.shape[1],
-                            dtype=torch.int32, device=tokens.device)
+        length = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
+                            device=x.device)
         return (rmsnorm(params.final_ln, h, self.cfg.norm_eps),
                 {"layers": cache, "len": length})
 
     @torch.no_grad()
     def prefill(self, params: LMParams, batch: Dict[str, Any]):
         """Returns (last-token logits [B, V] f32, cache dict)."""
-        h, cache = self._prefill(params, batch["tokens"])
+        h, cache = self._prefill(params, batch)
         return self._logits(params, h[:, -1:])[:, 0], cache
 
     @torch.no_grad()
     def prefill_all(self, params: LMParams, batch: Dict[str, Any]):
-        """:meth:`prefill` with the logits of every position, [B, S, V]
-        f32 (the MoE merge check compares token by token)."""
-        h, cache = self._prefill(params, batch["tokens"])
+        """:meth:`prefill` with the logits of every position, [B, F + S,
+        V] f32 (the MoE merge check compares token by token)."""
+        h, cache = self._prefill(params, batch)
         return self._logits(params, h), cache
 
     def slot_state(self, page_size: int = 0, n_pages: int = 0) -> SlotState:

@@ -245,13 +245,19 @@ class ContinuousEngine:
     admission and the dispatch: it may sleep (straggler injection), poison
     the cache (:meth:`poison_cache`) or raise (crash injection), see
     :class:`repro_torch.runtime.fault.FaultInjector`.  It survives
-    :meth:`reset`."""
+    :meth:`reset`.
+
+    ``cache_dtype`` is the dtype of the target's and the drafter's K/V
+    (f32 by default, as in the reference; bf16 halves the bytes a decode
+    step reads there): the steps write their rows cast to it and the
+    attention reads them in f32."""
 
     def __init__(self, lm, params, *, n_slots: int, max_len: int,
                  prefill_chunk: int = 8, decode_burst: int = 8,
                  max_src: int = 0, step_hook=None, adapters=None,
                  page_size: int = 0, n_pages: Optional[int] = None,
-                 speculate: int = 0, drafter=None, eager: bool = False):
+                 speculate: int = 0, drafter=None, eager: bool = False,
+                 cache_dtype=torch.float32):
         if max_src:
             raise NotImplementedError(
                 "ContinuousEngine(max_src=...): encdec cross caches are not "
@@ -299,8 +305,9 @@ class ContinuousEngine:
         # the served tree's slot -> adapter ids, at a fixed address
         self._slot_ids = torch.zeros((n_slots,), dtype=torch.int32,
                                      device=self.device)
+        self.cache_dtype = cache_dtype
         self.cache = self.slot_state.init(n_slots, max_len,
-                                          dtype=torch.float32,
+                                          dtype=cache_dtype,
                                           device=self.device)
         # the drafter's cache mirrors the target's (paged: a second pool
         # addressed by the same page rows), so its rows land at the same
@@ -308,7 +315,7 @@ class ContinuousEngine:
         self.draft_cache = None
         if self.draft_params is not None:
             self.draft_cache = self.slot_state.init(
-                n_slots, max_len, dtype=torch.float32, device=self.device)
+                n_slots, max_len, dtype=cache_dtype, device=self.device)
         self.reset()
         self._declare_budgets()
 

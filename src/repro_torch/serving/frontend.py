@@ -63,7 +63,6 @@ from collections import Counter, deque
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
-import torch
 
 from .engine import ContinuousEngine, EngineStats
 
@@ -131,8 +130,8 @@ class ServingFrontend:
     :class:`ContinuousEngine` (see the module docstring).
 
     The arguments are the reference's, plus the engine's ``eager``.
-    ``cache_dtype`` may only be f32 (the port's caches are f32, the
-    reference's default), and ``max_src`` raises as the port's engine does.
+    ``cache_dtype`` (None: the engine's default, f32) goes to the engine,
+    and ``max_src`` raises as the port's engine does.
     ``clock`` is injectable (``time.monotonic`` by default), so deadline
     behaviour is deterministic under test.  Every engine and scheduler
     mutation happens on the thread that drives ``step()``; ``submit`` and
@@ -149,16 +148,13 @@ class ServingFrontend:
                  cache_dtype=None, max_src: int = 0, adapters=None,
                  page_size: int = 0, n_pages=None, speculate: int = 0,
                  drafter=None, eager: bool = False):
-        if cache_dtype not in (None, torch.float32):
-            raise NotImplementedError(
-                f"ServingFrontend(cache_dtype={cache_dtype}): the port's "
-                f"engine keeps its caches in f32 (the reference's default)")
+        kw = {} if cache_dtype is None else {"cache_dtype": cache_dtype}
         self.engine = ContinuousEngine(
             lm, params, n_slots=n_slots, max_len=max_len,
             prefill_chunk=prefill_chunk, decode_burst=decode_burst,
             max_src=max_src, step_hook=injector, adapters=adapters,
             page_size=page_size, n_pages=n_pages, speculate=speculate,
-            drafter=drafter, eager=eager)
+            drafter=drafter, eager=eager, **kw)
         self.queue_cap = queue_cap
         self.max_recoveries = max_recoveries
         self.default_deadline_s = default_deadline_s

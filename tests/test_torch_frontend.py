@@ -463,14 +463,17 @@ def test_slo_summary_matches_reference_on_hand_built_tickets():
 
 
 def test_frontend_refuses_what_the_port_does_not_serve(served):
-    with pytest.raises(NotImplementedError, match="cache_dtype"):
-        serving.ServingFrontend(served.tlm, served.tmerged, **ENGINE,
-                                cache_dtype=torch.bfloat16)
+    """``max_src`` (encdec) is refused; ``cache_dtype`` goes to the engine
+    (f32 by default, bf16 when asked), and a bf16-cache frontend serves;
+    a request with encdec source frames comes back REJECTED."""
     with pytest.raises(NotImplementedError, match="max_src"):
         serving.ServingFrontend(served.tlm, served.tmerged, **ENGINE,
                                 max_src=8)
+    plain = serving.ServingFrontend(served.tlm, served.tmerged, **ENGINE)
+    assert plain.engine.cache["layers"]["k"].dtype == torch.float32
     fe = serving.ServingFrontend(served.tlm, served.tmerged, **ENGINE,
-                                 cache_dtype=torch.float32)
+                                 cache_dtype=torch.bfloat16)
+    assert fe.engine.cache["layers"]["k"].dtype == torch.bfloat16
     t = fe.submit(np.array([5, 6], np.int32), 2,
                   src=np.zeros((2, 4), np.float32))
     ok = fe.submit(np.array([5, 6], np.int32), 2)
