@@ -12,14 +12,19 @@ on their leading axis (the loader slices them into per-layer modules)::
                          "qn": {"g": [L, hd]}, "kn": ...},   # qk-norm only
                 "mlp": {"gate": <linear>, "up": ..., "down": ...}}}
 
-where a gqa_moe block has ``"moe"`` in place of ``"mlp"``::
+where a gqa_moe block has ``"moe"`` in place of ``"mlp"``,
 
     "moe": {"router": <linear>,                      # fp, exempt
             "gate": <linear>, "up": ..., "down": ...,  # experts: [L, E, ...]
             "bias": [L, E],                          # sigmoid routing only
             "shared": {"gate": ..., "up": ..., "down": ...}}  # shared experts
 
-and a linear is a dict of tags and arrays (a leading ``[L]`` axis inside
+and an mla_moe model has, in place of ``blocks``, ``dense_blocks`` (an
+``"mlp"`` each) and ``moe_blocks`` (an ``"moe"`` each), whose ``"attn"``
+is MLA's ``{"q_down", "q_up", "kv_down", "kv_up", "wo": <linear>, "qn",
+"kvn": {"g"}}``, and with an MTP head ``"mtp_proj"`` (an exempt fp
+linear), ``"mtp_block"`` (one dense MLA block, no layer axis) and
+``"mtp_ln"``.  A linear is a dict of tags and arrays (a leading ``[L]`` axis inside
 ``blocks``, ``[L, E]`` for an expert stack)::
 
     {"scheme": "fp", "weight": [D_in, D_out]}     # + "exempt": True (router)
@@ -122,33 +127,60 @@ def _mlp(tree, cfg: ArchConfig, path: str, device, layer) -> nn.ModuleDict:
         for name in ("gate", "up", "down") if name in tree})
 
 
-def _moe(tree, cfg: ArchConfig, device, layer: int) -> MoEParams:
-    experts = {name: [_linear(tree[name], cfg, f"blocks/moe/{name}", device,
+def _moe(tree, cfg: ArchConfig, device, layer: int,
+         path: str = "blocks/moe") -> MoEParams:
+    experts = {name: [_linear(tree[name], cfg, f"{path}/{name}", device,
                               (layer, e)) for e in range(cfg.n_experts)]
                for name in ("gate", "up", "down")}
     return MoEParams(
-        _linear(tree["router"], cfg, "blocks/moe/router", device, layer),
+        _linear(tree["router"], cfg, f"{path}/router", device, layer),
         experts["gate"], experts["up"], experts["down"],
         _tensor(tree["bias"], device, layer) if "bias" in tree else None,
-        _mlp(tree["shared"], cfg, "blocks/moe/shared", device, layer)
+        _mlp(tree["shared"], cfg, f"{path}/shared", device, layer)
         if "shared" in tree else None)
 
 
-def _block(tree, cfg: ArchConfig, device, layer: int) -> nn.ModuleDict:
+# an attention's linears and norms, in the order the port's init makes them
+_ATTN = {"gqa": (("wq", "wk", "wv", "wo"), ("qn", "kn")),
+         "mla": (("q_down", "q_up", "kv_down", "kv_up", "wo"), ("qn", "kvn"))}
+
+
+def _block(tree, cfg: ArchConfig, device, layer, path="blocks") \
+        -> nn.ModuleDict:
+    """Block ``layer`` of the stack at ``path`` (layer None: an unstacked
+    block, the MTP head's)."""
     attn_t = tree["attn"]
+    linears, norms = _ATTN["mla" if "kv_up" in attn_t else "gqa"]
     attn = nn.ModuleDict({
-        name: _linear(attn_t[name], cfg, f"blocks/attn/{name}", device, layer)
-        for name in ("wq", "wk", "wv", "wo")})
-    for name in ("qn", "kn"):
+        name: _linear(attn_t[name], cfg, f"{path}/attn/{name}", device, layer)
+        for name in linears})
+    for name in norms:
         if name in attn_t:
             attn[name] = _norm(attn_t[name], device, layer)
     out = nn.ModuleDict({"ln1": _norm(tree["ln1"], device, layer),
                          "ln2": _norm(tree["ln2"], device, layer),
                          "attn": attn})
     if "moe" in tree:
-        out["moe"] = _moe(tree["moe"], cfg, device, layer)
+        out["moe"] = _moe(tree["moe"], cfg, device, layer, f"{path}/moe")
     else:
-        out["mlp"] = _mlp(tree["mlp"], cfg, "blocks/mlp", device, layer)
+        out["mlp"] = _mlp(tree["mlp"], cfg, f"{path}/mlp", device, layer)
+    return out
+
+
+def _n_layers(stack) -> int:
+    """Layers of a stacked block tree (its first norm's leading axis)."""
+    return int(np.shape(stack["ln1"]["g"])[0])
+
+
+def _mla_parts(tree, cfg: ArchConfig, device) -> dict:
+    out = {name: [_block(tree[name], cfg, device, layer, name)
+                  for layer in range(_n_layers(tree[name]))]
+           for name in ("dense_blocks", "moe_blocks")}
+    if "mtp_block" in tree:
+        out["mtp_proj"] = _linear(tree["mtp_proj"], cfg, "mtp_proj", device)
+        out["mtp_block"] = _block(tree["mtp_block"], cfg, device, None,
+                                  "mtp_block")
+        out["mtp_ln"] = _norm(tree["mtp_ln"], device)
     return out
 
 
@@ -159,6 +191,10 @@ def load_numpy_tree(tree, cfg: ArchConfig, device="cuda") -> LMParams:
     head = None
     if not cfg.tie_embeddings:
         head = _linear(tree["head"], cfg, "lm_head", dev)
+    if cfg.family == "mla_moe":
+        return LMParams(_tensor(tree["embed"], dev),
+                        _norm(tree["final_ln"], dev), head, [],
+                        mla=_mla_parts(tree, cfg, dev))
     blocks = [_block(tree["blocks"], cfg, dev, layer)
               for layer in range(cfg.n_layers)]
     return LMParams(_tensor(tree["embed"], dev), _norm(tree["final_ln"], dev),

@@ -9,12 +9,12 @@ import torch
 from repro_torch.core.schemes import QuantPolicy
 from .base import ArchConfig
 
-from . import (deepseek_67b, gemma3_1b, h2o_danube_1_8b, llama7b_proxy,
-               mixtral_8x22b, pixtral_12b, starcoder2_7b)
+from . import (deepseek_67b, deepseek_v3_671b, gemma3_1b, h2o_danube_1_8b,
+               llama7b_proxy, mixtral_8x22b, pixtral_12b, starcoder2_7b)
 
 REGISTRY = {m.CONFIG.name: m.CONFIG for m in (
     pixtral_12b, gemma3_1b, starcoder2_7b, h2o_danube_1_8b, deepseek_67b,
-    mixtral_8x22b, llama7b_proxy)}
+    mixtral_8x22b, deepseek_v3_671b, llama7b_proxy)}
 
 
 def get(name: str) -> ArchConfig:
@@ -32,7 +32,7 @@ SMOKE_QUANT = QuantPolicy(bits=4, group_size=16, rank=4, dtype=torch.float32,
 def reduced(name: str, **over) -> ArchConfig:
     """Same-family tiny config for CPU smoke tests, with the reference's
     reductions (layers, width, experts, vocab, window, frontend length,
-    chunks, no remat)."""
+    chunks, the MLA ranks and dims, no remat)."""
     cfg = get(name)
     kw = dict(
         n_layers=2, d_model=64, n_heads=4,
@@ -41,9 +41,13 @@ def reduced(name: str, **over) -> ArchConfig:
         chunk_q=16, chunk_k=16, xent_chunk=16, moe_chunk=16, quant=SMOKE_QUANT,
         remat=False,
     )
-    if cfg.family == "gqa_moe":
+    if cfg.family in ("gqa_moe", "mla_moe"):
         kw.update(n_experts=4, top_k=2, moe_d_ff=32,
                   n_shared_experts=cfg.n_shared_experts)
+    if cfg.family == "mla_moe":
+        kw.update(n_layers=3, n_dense_layers=1, q_lora_rank=32,
+                  kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=16,
+                  v_head_dim=16)
     if cfg.global_every:
         kw.update(global_every=2)
     kw.update(over)

@@ -11,7 +11,7 @@ from repro_torch.core.schemes import PolicyTree, QuantPolicy
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # gqa | gqa_moe (the families ported so far)
+    family: str  # gqa | gqa_moe | mla_moe (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -25,15 +25,23 @@ class ArchConfig:
     global_every: int = 0                 # gemma3: every Nth layer is global
     global_rope_theta: float = 1e6
     qk_norm: bool = False
-    # moe (n_dense_layers waits for the slice that reads it: mla_moe)
+    # moe (n_dense_layers: mla_moe's leading layers with a dense MLP)
     n_experts: int = 0
     top_k: int = 0
     moe_d_ff: int = 0
     n_shared_experts: int = 0
+    n_dense_layers: int = 0
     routing: str = "softmax"              # softmax | sigmoid (aux-free)
     capacity_factor: float = 1.25
     aux_coef: float = 0.01                # weight of the MoE aux in the loss
     moe_chunk: int = 512                  # prefill positions a routing chunk
+    # mla (DeepSeek multi-head latent attention) and its MTP head
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+    mtp: bool = False
     gated_mlp: bool = True
     act: str = "silu"
     # frontend stub ("vision" or None): precomputed patch embeddings given

@@ -24,7 +24,9 @@ adapter per row); ``--verify`` holds each tenant's slot-routed logits to
 its merged tree.  ``--page-size`` pages the continuous engine's cache
 (``--n-pages`` sizes the pool), and ``--speculate k`` drafts k tokens a
 slot per decode dispatch with a reduced-bits copy of the served model
-(``--draft-policy``, default ``*=intq8``) and verifies them in one step.
+(``--draft-policy``, default ``*=intq8``) and verifies them in one step;
+on an arch with an MTP head (deepseek-v3-671b) the default drafter is
+the head itself (``mtp``, ``--speculate 1``).
 
 ``--engine frontend`` serves the same engine behind
 :class:`repro_torch.serving.ServingFrontend`: submit-time admission bounded
@@ -49,6 +51,9 @@ counts, the recoveries and the SLO line.
         --draft-policy "*=intq8"
     python -m repro_torch.launch.serve --arch gemma3-1b --reduced \\
         --device cpu --requests 2 --prompt-len 8 --gen-len 6 --verify
+    python -m repro_torch.launch.serve --arch deepseek-v3-671b --n-layers 5 \\
+        --engine continuous --slots 4 --prefill-chunk 64 --requests 8 \\
+        --prompt-len 128 --gen-len 32 --speculate 1   # the MTP drafter
     python -m repro_torch.launch.serve --arch gemma3-1b --reduced \\
         --device cpu --engine frontend --requests 6 --slots 2 \\
         --gen-len 8 --queue-cap 4 --inject-faults
@@ -316,14 +321,15 @@ def merge_check(lm, params, merged, prompts, max_len: int,
     batch (:func:`prompt_batch`, a vision config's patches too).  Returns
     max|delta| and max|logits| of each.
 
-    A gqa_moe model is compared token by token over the tokens whose
+    An MoE model (gqa_moe, mla_moe) is compared token by token over the
+    tokens whose
     routing agreed (:func:`compare_routed`): the two models differ by
     rounding, which may flip a token's top-k choice where two router
     probabilities nearly tie, and a flipped token's logits move by far
     more than rounding.  Its prefill is compared at every position."""
     batch = prompt_batch(prompts, device, frontend)
     nxt = lm.prefill(merged, batch)[0].argmax(-1).to(torch.int32)
-    routed = lm.cfg.family == "gqa_moe"
+    routed = lm.cfg.family in ("gqa_moe", "mla_moe")
     a, m = (_two_steps(lm, p, batch, nxt, max_len, cache_dtype, device,
                        routed) for p in (params, merged))
     if not routed:
@@ -533,6 +539,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="gemma3-1b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="serve only the first N layers of the config "
+                         "(0 = all), as the trainer's --n-layers cuts them; "
+                         "deepseek-v3-671b keeps its dense layers first")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen-len", type=int, default=8)
@@ -568,9 +578,10 @@ def main(argv=None):
                          "step (greedy: the streams of plain decode); not "
                          "with --decode-burst > 1")
     ap.add_argument("--draft-policy", default="",
-                    help="the drafter for --speculate: a policy spec that "
-                         "re-quantizes the merged model (default "
-                         "'*=intq8')")
+                    help="the drafter for --speculate: 'mtp' (mla_moe's "
+                         "multi-token-prediction head, k=1 only) or a policy "
+                         "spec that re-quantizes the merged model (default: "
+                         "mtp when the arch has an MTP head, else '*=intq8')")
     ap.add_argument("--queue-cap", type=int, default=64,
                     help="frontend: submits past this many waiting "
                          "requests are REJECTED with the queue depth in the "
@@ -631,6 +642,8 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = C.reduced(args.arch) if args.reduced else C.get(args.arch)
+    if args.n_layers:
+        cfg = cfg.scaled(n_layers=args.n_layers)
     if args.policy:
         try:
             pol = PolicyTree.parse(args.policy, base=cfg.quant.default)
@@ -640,6 +653,9 @@ def main(argv=None):
     if cfg.family == "gqa_moe" and args.adapters:
         from repro_torch.serving.engine import MOE_TENANTS
         ap.error(f"--arch {args.arch} --adapters: {MOE_TENANTS}")
+    if cfg.family == "mla_moe" and args.adapters:
+        from repro_torch.serving.engine import ABSORBED_TENANTS
+        ap.error(f"--arch {args.arch} --adapters: {ABSORBED_TENANTS}")
     specs = [s for s in args.adapters.split(",") if s]
     # a trained checkpoint is served over the base it was trained on, its
     # adapters as initialised; a demo tenant is a nudge of the nudged base,
@@ -681,6 +697,7 @@ def main(argv=None):
 
     result = {"arch": cfg.name, "n_layers": cfg.n_layers,
               "linears_per_layer": lm.layer_linears(),
+              "linears_per_step": lm.step_linears(),
               "device": str(device), "engine": args.engine,
               "path": ("graphs" if device.type == "cuda" and not args.loop
                        else "eager"), "requests": b,
@@ -693,7 +710,8 @@ def main(argv=None):
         slots = args.slots or min(4, b)
         modes = dict(page_size=max(args.page_size, 0),
                      n_pages=args.n_pages or None, speculate=args.speculate,
-                     drafter=(args.draft_policy or "*=intq8")
+                     drafter=(args.draft_policy
+                              or ("mtp" if cfg.mtp else "*=intq8"))
                      if args.speculate else None)
         run = dict(slots=slots, prefill_chunk=args.prefill_chunk,
                    decode_burst=decode_burst, store=store,

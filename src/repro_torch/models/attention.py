@@ -1,7 +1,9 @@
 """GQA attention (+RoPE, sliding window, qk-norm): chunked flash-style
 attention for prefill and ragged-chunk attention against a slotted KV
-cache for decode, contiguous or paged.  Counterpart of the GQA part of
-``repro.models.attention``.
+cache for decode, contiguous or paged; and DeepSeek's MLA, whose decode
+attends over the compressed cache with the absorbed ``kv_up``.
+Counterpart of ``repro.models.attention`` (its cross-attention waits for
+the encdec family).
 
 Attention is plain PyTorch, as it is plain jnp in the reference (no model
 there calls the Pallas flash kernel).  Scores and softmax run in f32.
@@ -16,7 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.core.schemes import linear_apply, linear_init
+from repro_torch.core.schemes import dense_view, linear_apply, linear_init
 from .common import rmsnorm, rmsnorm_init, rope, rope_table
 
 NEG_INF = -1e30
@@ -352,3 +354,167 @@ def gqa_init_cache(batch: int, seq: int, cfg: AttnConfig,
     shape = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2/V3 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 1e4
+
+
+def mla_init(generator, cfg: MLAConfig, pol, device="cuda") -> nn.ModuleDict:
+    h = cfg.n_heads
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return nn.ModuleDict({
+        "q_down": linear_init(generator, cfg.d_model, cfg.q_lora_rank,
+                              pol.at("q_down"), device),
+        "q_up": linear_init(generator, cfg.q_lora_rank, h * qk,
+                            pol.at("q_up"), device),
+        "kv_down": linear_init(generator, cfg.d_model,
+                               cfg.kv_lora_rank + cfg.qk_rope_dim,
+                               pol.at("kv_down"), device),
+        "kv_up": linear_init(generator, cfg.kv_lora_rank,
+                             h * (cfg.qk_nope_dim + cfg.v_head_dim),
+                             pol.at("kv_up"), device),
+        "wo": linear_init(generator, h * cfg.v_head_dim, cfg.d_model,
+                          pol.at("wo"), device),
+        "qn": rmsnorm_init(cfg.q_lora_rank, device=device),
+        "kvn": rmsnorm_init(cfg.kv_lora_rank, device=device),
+    })
+
+
+def _mla_q(p, x, cfg: MLAConfig, positions, table=None):
+    b, s, _ = x.shape
+    qc = rmsnorm(p["qn"], linear_apply(p["q_down"], x))
+    q = linear_apply(p["q_up"], qc).reshape(
+        b, s, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q_nope, q_rope = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+    return q_nope, rope(q_rope, positions, cfg.rope_theta, table=table)
+
+
+def _mla_ckv(p, x, cfg: MLAConfig, positions, table=None):
+    """The compressed latent [B,S,rank] (normed) and the shared rope key
+    [B,S,rope] of ``x``: what the decode cache holds."""
+    ckv = linear_apply(p["kv_down"], x)
+    c, k_rope = ckv[..., :cfg.kv_lora_rank], ckv[..., cfg.kv_lora_rank:]
+    c = rmsnorm(p["kvn"], c)
+    k_rope = rope(k_rope[:, :, None, :], positions, cfg.rope_theta,
+                  table=table)[:, :, 0]
+    return c, k_rope
+
+
+def mla_apply(p, x, cfg: MLAConfig, positions=None):
+    """Training / prefill: per-head K/V materialised through ``kv_up``,
+    flash-style attention.  Returns (out, (c, k_rope)), the compressed
+    cache of ``x``."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c, k_rope = _mla_ckv(p, x, cfg, positions)
+    kv = linear_apply(p["kv_up"], c).reshape(
+        b, s, h, cfg.qk_nope_dim + cfg.v_head_dim)
+    k_nope, v = kv[..., :cfg.qk_nope_dim], kv[..., cfg.qk_nope_dim:]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, h, cfg.qk_rope_dim)], dim=-1)
+    o = flash_attention(q, k, v, causal=True)
+    out = linear_apply(p["wo"], o.reshape(b, s, -1))
+    return out, (c, k_rope)
+
+
+def mla_chunk_attention(q_c, q_rope, c_cache, kr_cache, qpos, *, scale,
+                        mask=None):
+    """Absorbed ragged-chunk attention over the slotted compressed cache,
+    in f32: ``q_c`` [B,C,H,rank] (the nope query absorbed through W_uk),
+    ``q_rope`` [B,C,H,rope], caches [B,S,rank] and [B,S,rope], ``qpos``
+    [B,C] (row i of slot b attends to positions <= qpos[b, i]).  Returns
+    the context in the rank space, [B,C,H,rank] f32.  Masked entries hit
+    exp(NEG_INF) == 0 exactly; a fully masked row (qpos < 0, an idle
+    slot) is a uniform average: garbage, but finite.  ``mask`` is a
+    precomputed :func:`chunk_mask` for these arguments."""
+    s_c = torch.einsum("bqhr,bkr->bhqk", q_c.to(torch.float32),
+                       c_cache.to(torch.float32))
+    s_r = torch.einsum("bqhd,bkd->bhqk", q_rope.to(torch.float32),
+                       kr_cache.to(torch.float32))
+    scores = (s_c + s_r) * scale
+    if mask is None:
+        mask = chunk_mask(qpos, c_cache.shape[1])
+    scores = torch.where(mask[:, 0], scores, NEG_INF)   # [B, 1, C, S]
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkr->bqhr", p, c_cache.to(torch.float32))
+
+
+def mla_prefill_chunk(p, x, cache, cur_len, n_new, cfg: MLAConfig,
+                      w_kv=None, plan=None, pages=None):
+    """Ragged chunk step through MLA: x [B,C,d]; slot b consumes rows
+    [:n_new[b]] at positions cur_len[b].., inserts their latent and rope
+    key into the slotted (or, with ``pages``, paged) cache, in place, and
+    attends in the rank space: the nope query absorbed through W_uk, the
+    context up-projected through W_uv, both in f32.  C == 1 is decode.
+
+    ``w_kv`` is the layer's precomputed (W_uk [rank,H,nope], W_uv
+    [rank,H,vdim]) (:func:`kv_up_split`, which runs here when it is None);
+    ``plan`` the step's :class:`StepPlan` (its head_dim the rope dim)."""
+    b, c, _ = x.shape
+    if plan is None:
+        ps = cache["c"].shape[1]
+        s = ps if pages is None else pages.shape[1] * ps
+        plan = StepPlan(cur_len, n_new, c, s, cfg.qk_rope_dim, pages=pages,
+                        page_size=ps)
+    pages = plan.pages
+    positions = plan.positions
+    table = plan.table(cfg.rope_theta)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions, table=table)
+    c_new, kr_new = _mla_ckv(p, x, cfg, positions, table=table)
+    cc = _cache_insert(cache["c"], c_new, cur_len, n_new, pages,
+                       plan=plan.insert)
+    krc = _cache_insert(cache["kr"], kr_new, cur_len, n_new, pages,
+                        plan=plan.insert)
+    w_uk, w_uv = w_kv if w_kv is not None else kv_up_split(p, cfg, x.dtype)
+    q_c = torch.einsum("bqhn,rhn->bqhr", q_nope.to(torch.float32),
+                       w_uk.to(torch.float32))
+    ctx_c = mla_chunk_attention(
+        q_c, q_rope, _cache_view(cc, pages), _cache_view(krc, pages),
+        positions, scale=1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim),
+        mask=plan.mask(0))
+    o = torch.einsum("bqhr,rhv->bqhv", ctx_c, w_uv.to(torch.float32))
+    out = linear_apply(p["wo"], o.reshape(b, c, -1).to(x.dtype))
+    return out, {"c": cc, "kr": krc}
+
+
+def mla_decode(p, x, cache, cur_len, cfg: MLAConfig, w_kv=None):
+    """Absorbed one-token decode: the C=1 always-active case of
+    :func:`mla_prefill_chunk`."""
+    return mla_prefill_chunk(p, x, cache, cur_len, torch.ones_like(cur_len),
+                             cfg, w_kv=w_kv)
+
+
+def kv_up_split(p, cfg: MLAConfig, dtype):
+    """The effective (adapter-included) ``kv_up`` weight, dequantised in
+    ``dtype``, split into its K half W_uk [rank,H,nope] and V half W_uv
+    [rank,H,vdim]."""
+    w = dense_view(p["kv_up"], dtype=dtype)
+    w = w.reshape(cfg.kv_lora_rank, cfg.n_heads,
+                  cfg.qk_nope_dim + cfg.v_head_dim)
+    return w[..., :cfg.qk_nope_dim], w[..., cfg.qk_nope_dim:]
+
+
+def mla_init_cache(batch: int, seq: int, cfg: MLAConfig,
+                   dtype=torch.bfloat16, device="cuda"):
+    return {"c": torch.zeros((batch, seq, cfg.kv_lora_rank), dtype=dtype,
+                             device=device),
+            "kr": torch.zeros((batch, seq, cfg.qk_rope_dim), dtype=dtype,
+                              device=device)}

@@ -1,13 +1,20 @@
-"""The gqa and gqa_moe decoder LMs: init, the training loss, prefill,
-ragged decode step and greedy generation.  Counterpart of those families
-of ``repro.models.lm``: a gqa_moe block has an ``moe`` FFN
-(:mod:`repro_torch.models.moe`) where a gqa block has its ``mlp``.
+"""The gqa, gqa_moe and mla_moe decoder LMs: init, the training loss,
+prefill, ragged decode step and greedy generation.  Counterpart of those
+families of ``repro.models.lm``: a gqa_moe block has an ``moe`` FFN
+(:mod:`repro_torch.models.moe`) where a gqa block has its ``mlp``; an
+mla_moe model (DeepSeek-V3) has MLA attention
+(:func:`repro_torch.models.attention.mla_apply`), ``n_dense_layers``
+dense blocks then MoE blocks with sigmoid routing and a shared expert,
+and an MTP head (one extra dense MLA block predicting two tokens ahead:
+a loss term in training, a one-token drafter in serving).
 
 Parameters are an :class:`LMParams` module: the embedding, the final norm,
 the head (fp, or under an explicit ``lm_head`` policy rule any scheme,
 through the same kernels as the blocks' linears) and one block per layer
-in a ``ModuleList`` (the reference stacks layers on a leading axis and
-scans; here a Python loop walks the list).  Every projection routes through the linear-scheme API, so a
+in a ``ModuleList`` (``blocks``; mla_moe's ``dense_blocks`` and
+``moe_blocks``, as the reference names its two stacks; the reference
+stacks layers on a leading axis and scans, here a Python loop walks the
+list).  Every projection routes through the linear-scheme API, so a
 ``qalora`` model, its merged ``intq`` model and the kernel routing are
 policy switches.
 
@@ -18,10 +25,13 @@ F, d_model] patch embeddings), prepended to the token embeddings by
 :meth:`LM._inputs_to_x` for the loss (its F positions carry no label) and
 the prefill (the cache holds F + S rows).  :meth:`LM.loss` runs with
 autograd on and recomputes each block in the backward when ``cfg.remat``
-(a gqa_moe block's routing is recorded once, in the forward); prefill
-and decode run under ``torch.no_grad``.  Decode caches follow
+(an MoE block's routing is recorded once, in the forward); prefill and
+decode run under ``torch.no_grad``.  Decode caches follow
 :class:`repro_torch.models.slot_state.SlotState`; decode steps write their
-K/V and lengths into the cache they are given, in place, and return it.
+cache rows and lengths into the cache they are given, in place, and
+return it.  An mla_moe decode step attends in the compressed space
+through each layer's absorbed ``kv_up`` halves (:meth:`LM.absorbed_weights`),
+which a serving loop computes once and passes to every step.
 """
 
 from __future__ import annotations
@@ -39,24 +49,40 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import schemes
 from repro_torch.runtime.graphs import StepGraphs
-from .attention import StepPlan, gqa_apply, gqa_init, gqa_prefill_chunk
+from .attention import (StepPlan, gqa_apply, gqa_init, gqa_prefill_chunk,
+                        kv_up_split, mla_apply, mla_init, mla_prefill_chunk)
 from .common import rmsnorm, rmsnorm_init
 from .mlp import mlp_apply, mlp_init
 from .moe import moe_apply, moe_init, suspend_recording
-from .slot_state import SlotState, attn_cfg as _attn_cfg, check_family
+from .slot_state import (SlotState, attn_cfg as _attn_cfg, cache_leaves,
+                         check_family, mla_cfg as _mla_cfg)
 
 
 class LMParams(nn.Module):
     """Model parameters: buffer ``embed [V, d]``, ``final_ln``, ``head``
-    (a tagged linear ``[d, V]``, None when tied) and ``blocks``."""
+    (a tagged linear ``[d, V]``, None when tied) and ``blocks``.  An
+    mla_moe model gives ``mla``: ``dense_blocks`` and ``moe_blocks`` (lists
+    of blocks; ``blocks`` is then empty) and, with an MTP head,
+    ``mtp_proj`` (an exempt fp linear ``[2d, d]``), ``mtp_block`` and
+    ``mtp_ln``."""
 
     def __init__(self, embed: torch.Tensor, final_ln: nn.Module,
-                 head: Optional[schemes.LinearParams], blocks: List[nn.Module]):
+                 head: Optional[schemes.LinearParams], blocks: List[nn.Module],
+                 mla: Optional[Dict[str, Any]] = None):
         super().__init__()
         self.register_buffer("embed", embed)
         self.final_ln = final_ln
         self.head = head
         self.blocks = nn.ModuleList(blocks)
+        for name, part in (mla or {}).items():
+            setattr(self, name, nn.ModuleList(part)
+                    if isinstance(part, list) else part)
+
+    def layer_blocks(self) -> List[nn.Module]:
+        """Every layer's block in order (mla_moe: the dense ones first)."""
+        if hasattr(self, "dense_blocks"):
+            return [*self.dense_blocks, *self.moe_blocks]
+        return list(self.blocks)
 
 
 def _gqa_block_init(generator, cfg: ArchConfig, pol, device) -> nn.ModuleDict:
@@ -71,6 +97,28 @@ def _gqa_block_init(generator, cfg: ArchConfig, pol, device) -> nn.ModuleDict:
                             n_shared=cfg.n_shared_experts,
                             shared_d_ff=cfg.moe_d_ff or cfg.d_ff,
                             routing=cfg.routing, device=device)
+    else:
+        p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, pol.at("mlp"),
+                            cfg.gated_mlp, device)
+    return p
+
+
+def _mla_block_init(generator, cfg: ArchConfig, pol, moe: bool,
+                    device) -> nn.ModuleDict:
+    """An MLA block: the routed experts with ``moe``, each of d_ff
+    ``moe_d_ff``, and a shared expert of that width (the reference's
+    ``shared_d_ff=cfg.moe_d_ff``), or the dense MLP."""
+    p = nn.ModuleDict({
+        "ln1": rmsnorm_init(cfg.d_model, device=device),
+        "ln2": rmsnorm_init(cfg.d_model, device=device),
+        "attn": mla_init(generator, _mla_cfg(cfg), pol.at("attn"), device),
+    })
+    if moe:
+        p["moe"] = moe_init(generator, cfg.d_model, cfg.moe_d_ff,
+                            cfg.n_experts, pol.at("moe"),
+                            n_shared=cfg.n_shared_experts,
+                            shared_d_ff=cfg.moe_d_ff, routing=cfg.routing,
+                            device=device)
     else:
         p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, pol.at("mlp"),
                             cfg.gated_mlp, device)
@@ -98,6 +146,33 @@ def _gqa_block(p, x, cfg: ArchConfig, *, window=None, theta=None):
     x = x + a
     m, aux = _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, cfg.moe_chunk)
     return x + m, kv, aux
+
+
+def _mla_block(p, x, cfg: ArchConfig):
+    """One MLA block over whole sequences -> (x, (c, k_rope), aux or
+    None)."""
+    a, ckv = mla_apply(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                       _mla_cfg(cfg))
+    x = x + a
+    m, aux = _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, cfg.moe_chunk)
+    return x + m, ckv, aux
+
+
+def _mla_block_train(p, x, cfg: ArchConfig):
+    y, _, aux = _mla_block(p, x, cfg)
+    return y, aux
+
+
+def _mla_block_chunk(p, x, cache, cur_len, n_new, cfg: ArchConfig, *,
+                     w_kv=None, plan=None):
+    """Ragged chunk through one MLA block (``w_kv``: the layer's absorbed
+    weights, derived per step when None)."""
+    a, cache = mla_prefill_chunk(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                                 cache, cur_len, n_new, _mla_cfg(cfg),
+                                 w_kv=w_kv, plan=plan)
+    x = x + a
+    m, _ = _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, 0)
+    return x + m, cache
 
 
 def _recompute_contexts():
@@ -134,6 +209,14 @@ def _gqa_block_chunk(p, x, cache, cur_len, n_new, cfg: ArchConfig, *,
     return x + m, cache
 
 
+def _stack_layers(ts, x, dim: int):
+    """Per-layer cache rows [B, S, dim] stacked on a leading layer axis (an
+    empty stack ``[0, B, S, dim]``, as a config without dense layers has)."""
+    if ts:
+        return torch.stack(ts)
+    return x.new_zeros((0,) + tuple(x.shape[:2]) + (dim,))
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; raises when CUDA is asked for and
     there is none (never falls back to the CPU)."""
@@ -150,16 +233,32 @@ class LM:
 
     def __post_init__(self):
         check_family(self.cfg)
-
-    def layer_linears(self) -> int:
-        """Quantized linears of one block under a policy that quantizes
-        every block linear: attention's 4, then the gated MLP's 3 (2 when
-        not gated), or each expert's gate, up and down plus the shared
-        experts' MLP (the router stays fp)."""
         cfg = self.cfg
+        if cfg.family == "mla_moe" and not 0 <= cfg.n_dense_layers \
+                <= cfg.n_layers:
+            raise ValueError(f"n_dense_layers {cfg.n_dense_layers} is not "
+                             f"within the {cfg.n_layers} layers")
+
+    def layer_linears(self, layer: int = 0) -> int:
+        """Quantized linears of block ``layer`` under a policy that
+        quantizes every block linear: attention's 4 (MLA's 5: q_down, q_up,
+        kv_down, kv_up, wo), then the gated MLP's 3 (2 when not gated), or
+        each expert's gate, up and down plus the shared experts' MLP (the
+        router stays fp).  Only mla_moe's blocks differ by layer: its first
+        ``n_dense_layers`` have the MLP."""
+        cfg = self.cfg
+        mlp = 3 if cfg.gated_mlp else 2
+        experts = 3 * cfg.n_experts + (3 if cfg.n_shared_experts else 0)
+        if cfg.family == "mla_moe":
+            return 5 + (mlp if layer < cfg.n_dense_layers else experts)
         if cfg.family == "gqa_moe":
-            return 4 + 3 * cfg.n_experts + (3 if cfg.n_shared_experts else 0)
-        return 4 + (3 if cfg.gated_mlp else 2)
+            return 4 + experts
+        return 4 + mlp
+
+    def step_linears(self) -> int:
+        """Quantized linears of one pass through the layer stack (the MTP
+        head runs only in the loss and the MTP drafter)."""
+        return sum(self.layer_linears(i) for i in range(self.cfg.n_layers))
 
     # ---------------- init ----------------
 
@@ -184,10 +283,34 @@ class LM:
             head = (schemes.dense_linear(w, hpol) if hpol.mode == "fp"
                     else schemes.from_dense_linear(generator, w, hpol))
             del w
+        if cfg.family == "mla_moe":
+            return LMParams(embed, rmsnorm_init(d, device=dev), head, [],
+                            mla=self._mla_init(generator, dev))
         bpol = pol.at("blocks")
         blocks = [_gqa_block_init(generator, cfg, bpol, dev)
                   for _ in range(cfg.n_layers)]
         return LMParams(embed, rmsnorm_init(d, device=dev), head, blocks)
+
+    def _mla_init(self, generator, dev) -> Dict[str, Any]:
+        """mla_moe's parts: the dense and MoE stacks, and with ``cfg.mtp``
+        the MTP head, whose ``mtp_proj`` is an exempt fp linear (never
+        quantized or converted, as in the reference)."""
+        cfg, pol = self.cfg, self.cfg.quant
+        nd, d = cfg.n_dense_layers, cfg.d_model
+        dpol, mpol = pol.at("dense_blocks"), pol.at("moe_blocks")
+        out: Dict[str, Any] = {
+            "dense_blocks": [_mla_block_init(generator, cfg, dpol, False, dev)
+                             for _ in range(nd)],
+            "moe_blocks": [_mla_block_init(generator, cfg, mpol, True, dev)
+                           for _ in range(cfg.n_layers - nd)]}
+        if cfg.mtp:
+            out["mtp_proj"] = schemes.linear_init(
+                generator, 2 * d, d, pol.at("mtp_proj"), dev, exempt=True)
+            out["mtp_block"] = _mla_block_init(generator, cfg,
+                                               pol.at("mtp_block"), False,
+                                               dev)
+            out["mtp_ln"] = rmsnorm_init(d, device=dev)
+        return out
 
     # ---------------- shared pieces ----------------
 
@@ -254,6 +377,8 @@ class LM:
 
     def _trunk(self, params: LMParams, x, collect_cache: bool = False):
         """Runs the layer stack.  Returns (h, cache or None)."""
+        if self.cfg.family == "mla_moe":
+            return self._mla_trunk(params, x, collect_cache)
         ks, vs = [], []
         for blk, (window, theta) in zip(params.blocks, self._layer_extras()):
             x, (k, v), _ = _gqa_block(blk, x, self.cfg, window=window,
@@ -265,19 +390,43 @@ class LM:
             if collect_cache else None
         return x, cache
 
+    def _mla_trunk(self, params: LMParams, x, collect_cache: bool):
+        """mla_moe's stack: the compressed cache of the dense and the MoE
+        layers."""
+        cache = {}
+        for part in ("dense", "moe"):
+            cs, krs = [], []
+            for blk in getattr(params, f"{part}_blocks"):
+                x, (c, kr), _ = _mla_block(blk, x, self.cfg)
+                cs.append(c)
+                krs.append(kr)
+            if collect_cache:
+                cache[part] = {"c": _stack_layers(cs, x, self.cfg.kv_lora_rank),
+                               "kr": _stack_layers(krs, x,
+                                                   self.cfg.qk_rope_dim)}
+        return x, cache if collect_cache else None
+
     # ---------------- public API ----------------
 
     def loss(self, params: LMParams, batch: Dict[str, Any]):
         """Mean next-token cross-entropy of ``batch`` (``tokens`` and
-        ``labels``, [B, S]) plus ``cfg.aux_coef`` times the MoE's
-        load-balance loss summed over the layers (0 for gqa), with autograd
-        on.  Returns (loss, {"xent", "aux"}), xent before the aux term, as
-        the reference does.  Patch positions carry no label."""
+        ``labels``, [B, S]), plus 0.3 times the MTP head's (mla_moe with
+        its head: :meth:`_mtp_loss`), plus ``cfg.aux_coef`` times the
+        MoE's load-balance loss summed over the layers (0 for gqa), with
+        autograd on.  Returns (loss, {"xent", "aux"}), xent before the MTP
+        and aux terms, as the reference does.  Patch positions carry no
+        label."""
         x = self._inputs_to_x(params, batch)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for blk, (window, theta) in zip(params.blocks, self._layer_extras()):
-            block = functools.partial(_gqa_block_train, cfg=self.cfg,
-                                      window=window, theta=theta)
+        if self.cfg.family == "mla_moe":
+            blocks = [(blk, functools.partial(_mla_block_train, cfg=self.cfg))
+                      for blk in params.layer_blocks()]
+        else:
+            blocks = [(blk, functools.partial(_gqa_block_train, cfg=self.cfg,
+                                              window=window, theta=theta))
+                      for blk, (window, theta) in zip(params.blocks,
+                                                      self._layer_extras())]
+        for blk, block in blocks:
             x, a = _maybe_remat(block, self.cfg)(blk, x)
             if a is not None:
                 aux = aux + a
@@ -289,7 +438,42 @@ class LM:
                                                  f.shape[1]), -1), labels],
                                dim=1)
         xent = self._xent(params, h, labels)
-        return xent + self.cfg.aux_coef * aux, {"xent": xent, "aux": aux}
+        loss = xent
+        if self._has_mtp(params):
+            loss = loss + 0.3 * self._mtp_loss(params, h, batch, labels)
+        return loss + self.cfg.aux_coef * aux, {"xent": xent, "aux": aux}
+
+    def _has_mtp(self, params: LMParams) -> bool:
+        return (self.cfg.family == "mla_moe" and self.cfg.mtp
+                and hasattr(params, "mtp_block"))
+
+    def _mtp_head(self, params: LMParams, h, next_emb):
+        """The MTP block on the final-normed states ``h`` [B, C, d] and the
+        next tokens' embeddings: mtp_ln(h) beside them -> ``mtp_proj`` ->
+        one dense MLA block (its own positions 0..C-1, as the reference's).
+        Returns its output [B, C, d], not normed (the reference feeds it to
+        the head as it is)."""
+        cat = torch.cat([rmsnorm(params.mtp_ln, h), next_emb.to(h.dtype)],
+                        dim=-1)
+        x = schemes.linear_apply(params.mtp_proj, cat)
+        return _mla_block(params.mtp_block, x, self.cfg)[0]
+
+    def _mtp_loss(self, params: LMParams, h, batch, labels):
+        """DeepSeek-V3's multi-token prediction: one extra depth predicting
+        token t+2 from position t (the last position unsupervised)."""
+        emb_next = torch.roll(self._inputs_to_x(params, batch), -1, dims=1)
+        x = self._mtp_head(params, h, emb_next)
+        labels2 = torch.roll(labels, -1, dims=1)
+        labels2[:, -1] = -1
+        return self._xent(params, x, labels2)
+
+    def mtp_draft_logits(self, params: LMParams, h, next_tokens):
+        """The MTP head as a drafter: from :meth:`verify_ragged`'s hidden
+        states ``h`` [B, C, d] and the next token at each position (the
+        verify argmax), ``logits[b, i]`` [B, C, V] f32 drafts the token
+        after that one, as :meth:`_mtp_loss` predicts it in training."""
+        return self._logits(params, self._mtp_head(
+            params, h, self._embed(params, next_tokens)))
 
     def _prefill(self, params: LMParams, batch: Dict[str, Any]):
         """The final-normed hidden states of every position (patches
@@ -326,19 +510,35 @@ class LM:
         return self.slot_state().init(batch, seq, dtype=dtype,
                                       device=resolve_device(device))
 
-    def decode_step(self, params: LMParams, cache, tokens):
+    def decode_step(self, params: LMParams, cache, tokens, aux=None):
         """tokens: [B, 1] -> (logits [B, V], updated cache): the C=1
         always-active case of :meth:`step_ragged`."""
         return self.step_ragged(params, cache, tokens,
-                                torch.ones_like(cache["len"]))
+                                torch.ones_like(cache["len"]), aux=aux)
 
     @torch.no_grad()
-    def step_ragged(self, params: LMParams, cache, tokens, n_new):
+    def absorbed_weights(self, params: LMParams):
+        """The step-invariant part of mla_moe's absorbed decode: every
+        layer's effective (adapter-included) ``kv_up`` dequantised in the
+        config's dtype and split into (W_uk, W_uv), ``{"dense": [(W_uk,
+        W_uv), ...], "moe": [...]}``; None for the other families.  A
+        serving loop computes it once and passes it to every step as
+        ``aux``, so no step dequantises ``kv_up``."""
+        if self.cfg.family != "mla_moe":
+            return None
+        mcfg, dt = _mla_cfg(self.cfg), self.cfg.quant.dtype
+        return {part: [kv_up_split(blk["attn"], mcfg, dt)
+                       for blk in getattr(params, f"{part}_blocks")]
+                for part in ("dense", "moe")}
+
+    @torch.no_grad()
+    def step_ragged(self, params: LMParams, cache, tokens, n_new, aux=None):
         """Ragged serve step: slot b consumes ``tokens[b, :n_new[b]]`` at
         positions ``len[b]..`` and advances by ``n_new[b]``, writing the
-        cache in place.  Returns (logits [B, V] at each slot's last consumed
-        row, cache)."""
-        h, n_new = self._ragged_trunk(params, cache, tokens, n_new)
+        cache in place.  ``aux`` is :meth:`absorbed_weights` of ``params``
+        (mla_moe; derived inside the step when None).  Returns (logits
+        [B, V] at each slot's last consumed row, cache)."""
+        h, n_new = self._ragged_trunk(params, cache, tokens, n_new, aux)
         last = (n_new.to(torch.int64) - 1).clamp(0, tokens.shape[1] - 1)
         idx = last[:, None, None].expand(h.shape[0], 1, h.shape[2])
         h_last = torch.gather(h, 1, idx)
@@ -346,26 +546,46 @@ class LM:
         return logits, self.slot_state().advance(cache, n_new)
 
     @torch.no_grad()
-    def verify_ragged(self, params: LMParams, cache, tokens, n_new):
+    def verify_ragged(self, params: LMParams, cache, tokens, n_new,
+                      aux=None):
         """The ragged step of draft-and-verify speculation: as
         :meth:`step_ragged`, but with logits at EVERY row, ``logits[b, i]``
-        predicting the token after ``tokens[b, i]``; rows ``i >= n_new[b]``
-        are garbage (callers mask).  Returns (logits [B, C, V], cache).  The
-        cache advances by the full ``n_new``; a caller that rejects a draft
-        suffix rolls it back by shrinking ``len`` (sound since
-        ``SlotState.supports_rollback()``)."""
-        h, n_new = self._ragged_trunk(params, cache, tokens, n_new)
+        predicting the token after ``tokens[b, i]``, and the final-normed
+        hidden states (the MTP drafter's input); rows ``i >= n_new[b]``
+        are garbage (callers mask).  Returns (logits [B, C, V], h [B, C,
+        d], cache).  The cache advances by the full ``n_new``; a caller
+        that rejects a draft suffix rolls it back by shrinking ``len``
+        (sound since ``SlotState.supports_rollback()``)."""
+        h, n_new = self._ragged_trunk(params, cache, tokens, n_new, aux)
         logits = self._logits(params, h)
-        return logits, self.slot_state().advance(cache, n_new)
+        return logits, h, self.slot_state().advance(cache, n_new)
 
-    def _ragged_trunk(self, params: LMParams, cache, tokens, n_new):
+    def _ragged_trunk(self, params: LMParams, cache, tokens, n_new,
+                      aux=None):
         """The layer stack of a ragged step, on a contiguous or paged cache
         (a paged cache's capacity is its page rows' width)."""
         cur = cache["len"]
         n_new = n_new.to(torch.int32)
         x = self._embed(params, tokens)
-        kc, vc = cache["layers"]["k"], cache["layers"]["v"]
         pages = cache.get("pages")
+        if self.cfg.family == "mla_moe":
+            lay = cache["layers"]
+            leaf = cache_leaves(lay)[0]
+            s = leaf.shape[2] if pages is None \
+                else pages.shape[1] * leaf.shape[2]
+            plan = StepPlan(cur, n_new, tokens.shape[1], s,
+                            self.cfg.qk_rope_dim, pages=pages,
+                            page_size=leaf.shape[2])
+            for part in ("dense", "moe"):
+                c, kr = lay[part]["c"], lay[part]["kr"]
+                for layer, blk in enumerate(getattr(params,
+                                                    f"{part}_blocks")):
+                    x, _ = _mla_block_chunk(
+                        blk, x, {"c": c[layer], "kr": kr[layer]}, cur,
+                        n_new, self.cfg, plan=plan,
+                        w_kv=None if aux is None else aux[part][layer])
+            return rmsnorm(params.final_ln, x, self.cfg.norm_eps), n_new
+        kc, vc = cache["layers"]["k"], cache["layers"]["v"]
         s = kc.shape[2] if pages is None else pages.shape[1] * kc.shape[2]
         plan = StepPlan(cur, n_new, tokens.shape[1], s, self.cfg.head_dim,
                         pages=pages, page_size=kc.shape[2])
@@ -423,12 +643,15 @@ class LM:
         if gen_len <= 0:
             return torch.zeros((tok.shape[0], 0), dtype=torch.int32,
                                device=tok.device), cache
-        kc = cache["layers"]["k"]
+        leaves = cache_leaves(cache["layers"])
         # the cache's addresses are part of the key: a graph replays on the
         # tensors it was captured on
-        key = ("decode", tuple(kc.shape), kc.dtype, gen_len,
-               *(t.data_ptr() for t in (kc, cache["layers"]["v"],
-                                        cache["len"])))
+        key = ("decode", *(tuple(t.shape) for t in leaves), leaves[0].dtype,
+               gen_len, *(t.data_ptr() for t in (*leaves, cache["len"])))
+        # mla_moe's absorbed weights, once per captured key (the graph
+        # reads the tensors it was captured with) or, eager, once a call
+        aux = graphs.held(("aux",) + key,
+                          lambda: self.absorbed_weights(params))
         b = tok.shape[0]
         st = graphs.buffers(key, tok=np.zeros((b,), np.int32),
                             pos=np.zeros((1,), np.int64),
@@ -438,7 +661,8 @@ class LM:
         st["pos"].fill_(1)
 
         def step():
-            lg, _ = self.decode_step(params, cache, st["tok"][:, None])
+            lg, _ = self.decode_step(params, cache, st["tok"][:, None],
+                                     aux=aux)
             nxt = lg.argmax(dim=-1).to(torch.int32)
             st["tok"].copy_(nxt)
             # clamped: a replay past the last column (a profiler's)

@@ -1,10 +1,15 @@
-"""Per-slot decode state for the gqa layout (gqa and gqa_moe), contiguous
-or paged (counterpart of the gqa part of ``repro.models.slot_state``).
+"""Per-slot decode state for the gqa layout (gqa and gqa_moe) and the
+mla layout (mla_moe), contiguous or paged (counterpart of those layouts
+of ``repro.models.slot_state``).
 
-A contiguous decode cache is ``{"layers": {"k": [L, B, S, KvH, hd], "v":
-...}, "len": [B] int32}``: KV rows past a slot's ``len`` are never read
-(every attention mask is bounded by it).  With ``page_size > 0`` the K/V
-leaves are pools ``[L, n_pages, page_size, KvH, hd]`` shared by every
+A contiguous gqa decode cache is ``{"layers": {"k": [L, B, S, KvH, hd],
+"v": ...}, "len": [B] int32}``; an mla_moe one holds the compressed
+latent and the rope key of its dense and its MoE layers, ``{"layers":
+{"dense": {"c": [L_d, B, S, rank], "kr": [L_d, B, S, rope]}, "moe":
+{"c": [L_m, ...], "kr": ...}}, "len": ...}``.  Rows past a slot's
+``len`` are never read (every attention mask is bounded by it).  With
+``page_size > 0`` each leaf's (slot, position) axes become the pool's
+(page, offset) axes, ``[L, n_pages, page_size, ...]``, shared by every
 slot (page 0 the reserved null page, see
 :mod:`repro_torch.serving.paging`), and ``"pages": [B, slot_pages]``
 int32 maps each slot's positions to pool pages.  Every step writes the
@@ -19,12 +24,12 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from .attention import AttnConfig
+from .attention import AttnConfig, MLAConfig
 
 
 # the families the port serves: LM and SlotState refuse the rest through
 # check_family
-FAMILIES = ("gqa", "gqa_moe")
+FAMILIES = ("gqa", "gqa_moe", "mla_moe")
 
 
 def check_family(cfg: ArchConfig):
@@ -40,6 +45,14 @@ def attn_cfg(cfg: ArchConfig) -> AttnConfig:
                       n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
                       rope_theta=cfg.rope_theta, window=cfg.window,
                       qk_norm=cfg.qk_norm)
+
+
+def mla_cfg(cfg: ArchConfig) -> MLAConfig:
+    return MLAConfig(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                     q_lora_rank=cfg.q_lora_rank,
+                     kv_lora_rank=cfg.kv_lora_rank,
+                     qk_nope_dim=cfg.qk_nope_dim, qk_rope_dim=cfg.qk_rope_dim,
+                     v_head_dim=cfg.v_head_dim, rope_theta=cfg.rope_theta)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,25 +78,41 @@ class SlotState:
 
     def supports_rollback(self) -> bool:
         """Whether a step can be partly undone by shrinking ``len`` (what
-        speculative decoding's rollback needs).  True for this layout: a
-        step writes only length-indexed K/V rows and ``len``, and every
+        speculative decoding's rollback needs).  True for both layouts: a
+        step writes only length-indexed cache rows and ``len``, and every
         read is bounded by ``len``; the page map changes only at admission
-        and eviction."""
+        and eviction.  (The reference derives it from its leaf kinds: no
+        state leaf here advances inside a step.)"""
         return True
+
+    def _leaf_shapes(self) -> dict:
+        """The per-layer-stack cache leaves: ``{path: (layers, feature
+        dims)}``, ``path`` a key tuple into ``cache["layers"]``."""
+        cfg = self.cfg
+        if cfg.family == "mla_moe":
+            nd = cfg.n_dense_layers
+            out = {}
+            for part, n in (("dense", nd), ("moe", cfg.n_layers - nd)):
+                out[(part, "c")] = (n, (cfg.kv_lora_rank,))
+                out[(part, "kr")] = (n, (cfg.qk_rope_dim,))
+            return out
+        kv = (cfg.n_layers, (cfg.n_kv_heads, cfg.head_dim))
+        return {("k",): kv, ("v",): kv}
 
     def init(self, n_slots: int, max_len: int, dtype=torch.bfloat16,
              device="cuda") -> dict:
         """Fresh all-slots-empty decode cache."""
-        cfg = self.cfg
-        kv = (cfg.n_kv_heads, cfg.head_dim)
-        if self.page_size > 0:
-            shape = (cfg.n_layers, self.n_pages, self.page_size) + kv
-        else:
-            shape = (cfg.n_layers, n_slots, max_len) + kv
-        cache = {"layers": {"k": torch.zeros(shape, dtype=dtype,
-                                             device=device),
-                            "v": torch.zeros(shape, dtype=dtype,
-                                             device=device)},
+        layers: dict = {}
+        for path, (n, feat) in self._leaf_shapes().items():
+            if self.page_size > 0:
+                shape = (n, self.n_pages, self.page_size) + feat
+            else:
+                shape = (n, n_slots, max_len) + feat
+            node = layers
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = torch.zeros(shape, dtype=dtype, device=device)
+        cache = {"layers": layers,
                  "len": torch.zeros((n_slots,), dtype=torch.int32,
                                     device=device)}
         if self.page_size > 0:
@@ -110,10 +139,17 @@ class SlotState:
         return cache
 
     def clear(self, cache) -> dict:
-        """Every slot empty, every page row null and every K/V row zero, in
+        """Every slot empty, every page row null and every cache row zero, in
         place (an engine reset: stale rows of a poisoned cache would reach
         the attention's products)."""
-        for t in (*cache["layers"].values(), cache["len"],
+        for t in (*cache_leaves(cache["layers"]), cache["len"],
                   *([cache["pages"]] if "pages" in cache else [])):
             t.zero_()
         return cache
+
+
+def cache_leaves(layers) -> list:
+    """The tensors of a decode cache's ``layers`` tree, in key order."""
+    if isinstance(layers, torch.Tensor):
+        return [layers]
+    return [t for k in sorted(layers) for t in cache_leaves(layers[k])]

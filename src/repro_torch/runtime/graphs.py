@@ -125,6 +125,7 @@ class StepGraphs:
         self.graphs: Dict[Hashable, Graph] = {}
         self._buffers: Dict[Hashable, Dict[str, torch.Tensor]] = {}
         self._pinned: Dict[Hashable, Dict[str, torch.Tensor]] = {}
+        self._held: Dict[Hashable, Any] = {}
         self._staged = None  # event after the last copies out of _pinned
 
     def _cache_size(self) -> int:
@@ -142,6 +143,17 @@ class StepGraphs:
                     for n, a in like.items()}
             self._buffers[key] = bufs
         return bufs
+
+    def held(self, key: Hashable, make: Callable[[], Any]) -> Any:
+        """``make()``, kept for ``key`` on the graphed route (a step-invariant
+        input the captured graphs read at its address, such as absorbed
+        weights; the binds of the graphs that read it tie it to one weight
+        tree), and made anew on every call on the eager route."""
+        if self.capture is None:
+            return make()
+        if key not in self._held:
+            self._held[key] = make()
+        return self._held[key]
 
     def stage(self, key: Hashable, **arrays: np.ndarray) \
             -> Dict[str, torch.Tensor]:

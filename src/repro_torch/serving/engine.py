@@ -1,5 +1,5 @@
 """Continuous-batching serving engine over the ragged step (counterpart of
-``repro.serving.engine`` for the gqa and gqa_moe families).
+``repro.serving.engine`` for the gqa, gqa_moe and mla_moe families).
 
 The engine drives :meth:`repro_torch.models.lm.LM.step_ragged` — one
 step in which every cache slot advances by its own number of tokens —
@@ -30,7 +30,12 @@ positions in one ragged step of the target
 accepted prefix plus one (:mod:`repro_torch.serving.speculative`): the
 streams are those of plain greedy decode.  The drafter keeps a cache of
 its own, in lockstep with the target's (it rides along every ragged step;
-paged, it mirrors the target's page rows).
+paged, it mirrors the target's page rows).  On mla_moe with an MTP head,
+``drafter="mtp"`` (k = 1) drafts with the model's own MTP head instead:
+one step verifies the held draft and drafts the next one from the same
+hidden states.  mla_moe's absorbed ``kv_up`` weights
+(:meth:`repro_torch.models.lm.LM.absorbed_weights`) are computed once, at
+construction, and every step reads them.
 
 Multi-tenant serving: with an :class:`~repro_torch.serving.AdapterStore`
 the served tree is the store's ``with_slot_ids`` tree for the current
@@ -49,8 +54,9 @@ fixed addresses; the captures are budgeted as the reference budgets its
 compiles (:mod:`repro_torch.runtime.compile_guard`, checked after every
 iteration).  ``eager=True`` runs the same steps op by op (the oracle
 runs); it is never chosen implicitly.  On the CPU the steps run eagerly.
-Encdec sources, the MTP drafter and the other families raise, and so do
-tenants over a gqa_moe model (:data:`MOE_TENANTS`).
+Encdec sources and the other families raise, and so do tenants over a
+gqa_moe model (:data:`MOE_TENANTS`) or an mla_moe one
+(:data:`ABSORBED_TENANTS`).
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import schemes
+from repro_torch.models.slot_state import cache_leaves
 from repro_torch.runtime import compile_guard
 from repro_torch.runtime.graphs import StepGraphs, captures
 from .paging import PageTable, pages_for
@@ -80,16 +87,38 @@ MOE_TENANTS = (
     "buffer and the [B] slot ids and raises), so there is no reference to "
     "port (ROADMAP.md, faults of the reference)")
 
+# the reference's refusal of tenants over a model with absorbed weights
+ABSORBED_TENANTS = (
+    "adapter serving: family 'mla_moe' hoists absorbed weights out of the "
+    "step from a FIXED params tree, which would ignore per-slot adapters "
+    "on those projections; serve this family merged")
 
-def _ragged_step(lm, params, cache, tokens, n_new):
+
+def _mtp_refusal(lm, params, k: int) -> Optional[str]:
+    """The reference's reason to refuse ``drafter="mtp"`` with ``speculate
+    = k``, or None: the MTP head is mla_moe's, and it drafts one token."""
+    has = hasattr(params, "mtp_block")
+    if lm.cfg.family != "mla_moe" or not lm.cfg.mtp or not has:
+        return (f"drafter='mtp' needs an mla_moe model trained with "
+                f"cfg.mtp=True (family {lm.cfg.family!r}, mtp={lm.cfg.mtp}, "
+                f"mtp_block {'present' if has else 'absent'})")
+    if k != 1:
+        return (f"the MTP head predicts exactly ONE token ahead; speculate "
+                f"must be 1 with drafter='mtp' (got {k})")
+    return None
+
+
+def _ragged_step(lm, params, aux, cache, tokens, n_new):
     """One ragged step, advancing the cache in place; argmax and the
-    health bit (all logits finite) stay on the device."""
-    logits, _ = lm.step_ragged(params, cache, tokens, n_new)
+    health bit (all logits finite) stay on the device.  ``aux``: the
+    absorbed weights of ``params`` (None but for mla_moe)."""
+    logits, _ = lm.step_ragged(params, cache, tokens, n_new, aux=aux)
     ok = torch.isfinite(logits).all()
     return logits.argmax(-1).to(torch.int32), ok
 
 
-def _burst_steps(lm, params, cache, tok, remaining, eos, k_steps: int):
+def _burst_steps(lm, params, aux, cache, tok, remaining, eos,
+                 k_steps: int):
     """``k_steps`` masked single-token ragged steps on the cache, in place.
     A slot whose remaining count hits 0 (max-len or EOS) stops consuming
     (n_new=0), so its cache and length freeze until the host evicts it.
@@ -99,7 +128,7 @@ def _burst_steps(lm, params, cache, tok, remaining, eos, k_steps: int):
     for _ in range(k_steps):
         active = remaining > 0
         logits, _ = lm.step_ragged(params, cache, tok[:, None],
-                                   active.to(torch.int32))
+                                   active.to(torch.int32), aux=aux)
         nxt = torch.where(active, logits.argmax(-1).to(torch.int32), tok)
         emitted.append(torch.where(active, nxt, -1))
         stop = active & ((remaining <= 1) | (nxt == eos))
@@ -110,7 +139,7 @@ def _burst_steps(lm, params, cache, tok, remaining, eos, k_steps: int):
     return tok, remaining, torch.stack(emitted), torch.stack(oks).all()
 
 
-def _draft_steps(lm, params, cache, tok, active, k_steps: int):
+def _draft_steps(lm, params, aux, cache, tok, active, k_steps: int):
     """The drafter's ``k_steps`` single-token steps on its cache, in place
     (active slots consume one row each, idle ones none).  Step i inserts
     its input token and argmaxes the next draft, so the steps propose
@@ -122,23 +151,41 @@ def _draft_steps(lm, params, cache, tok, active, k_steps: int):
     n = active.to(torch.int32)
     drafts = []
     for _ in range(k_steps):
-        logits, _ = lm.step_ragged(params, cache, tok[:, None], n)
+        logits, _ = lm.step_ragged(params, cache, tok[:, None], n, aux=aux)
         tok = torch.where(active, logits.argmax(-1).to(torch.int32), tok)
         drafts.append(tok)
     return torch.stack(drafts)
 
 
-def _verify_step(lm, params, cache, tokens, n_new):
+def _verify_step(lm, params, aux, cache, tokens, n_new):
     """All k+1 speculative positions in ONE ragged step: the per-position
     argmax [B, C] (column i is the target's next token after
     ``tokens[:, :i+1]``) and the health bit over the consumed rows only
     (rows past ``n_new`` are garbage).  The cache advances by the full
     ``n_new``; the host rolls the rejected tail back."""
-    logits, _ = lm.verify_ragged(params, cache, tokens, n_new)
+    logits, _, _ = lm.verify_ragged(params, cache, tokens, n_new, aux=aux)
     valid = (torch.arange(tokens.shape[1], device=tokens.device)[None, :]
              < n_new[:, None])
     ok = torch.isfinite(torch.where(valid[..., None], logits, 0.0)).all()
     return logits.argmax(-1).to(torch.int32), ok
+
+
+@torch.no_grad()
+def _spec_step_mtp(lm, params, aux, cache, tokens, n_new):
+    """MTP speculation in one step: verify this dispatch's draft and draft
+    the next one from the same hidden states.  ``tokens`` [B, 2] = [last
+    committed token, held draft]; ``n_new`` 2 where the slot holds a
+    draft, 1 where it does not (a fresh slot: the step verifies nothing),
+    0 for an idle slot.  Returns (verify argmax [B, 2], next-draft argmax
+    [B, 2], of which the host takes column m-1, the one conditioned on
+    exactly the committed stream, and the health bit)."""
+    logits, h, _ = lm.verify_ragged(params, cache, tokens, n_new, aux=aux)
+    v = logits.argmax(-1).to(torch.int32)
+    draft = lm.mtp_draft_logits(params, h, v).argmax(-1).to(torch.int32)
+    valid = (torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+             < n_new[:, None])
+    ok = torch.isfinite(torch.where(valid[..., None], logits, 0.0)).all()
+    return v, draft, ok
 
 
 def make_self_drafter(params, policy: str, base=None):
@@ -239,7 +286,8 @@ class ContinuousEngine:
     ``speculate = k > 0`` drafts k tokens a slot per decode dispatch; it
     needs ``decode_burst`` 1 and a ``drafter`` (a policy string such as
     ``"*=intq8"``, given to :func:`make_self_drafter` with the served
-    tree, or a drafter tree), and refuses an ``AdapterStore``.
+    tree, a drafter tree, or ``"mtp"``: an mla_moe model's MTP head, k =
+    1), and refuses an ``AdapterStore``.
 
     ``step_hook(engine)`` is called once per :meth:`step_once`, before
     admission and the dispatch: it may sleep (straggler injection), poison
@@ -264,6 +312,8 @@ class ContinuousEngine:
                 "yet ported (see ROADMAP.md); the port serves gqa")
         if lm.cfg.family == "gqa_moe" and adapters is not None:
             raise NotImplementedError(MOE_TENANTS)
+        if lm.cfg.family == "mla_moe" and adapters is not None:
+            raise NotImplementedError(ABSORBED_TENANTS)
         self.lm, self.params = lm, params
         self.n_slots, self.max_len = n_slots, max_len
         self.step_hook = step_hook
@@ -276,7 +326,13 @@ class ContinuousEngine:
         self.decode_burst = 1 << (db.bit_length() - 1)
         self.device = params.embed.device
         self.speculate = int(speculate)
+        self._mtp_draft = False
         self.draft_params = self._check_speculation(decode_burst, drafter)
+        # step-invariant absorbed weights (mla_moe; None otherwise),
+        # dequantised once here and read by every step
+        self.aux = lm.absorbed_weights(params)
+        self.draft_aux = (None if self.draft_params is None
+                          else lm.absorbed_weights(self.draft_params))
         self.page_size = page_size
         if page_size > 0:
             if n_pages is None:
@@ -289,14 +345,18 @@ class ContinuousEngine:
         ragged = StepGraphs("engine.ragged", self.device, eager=eager)
         self.graphs = {"ragged": ragged}
         # a speculating engine decodes in rounds, never in bursts
-        for name in (("draft", "verify") if self.speculate else ("burst",)):
+        steps = (("spec_mtp",) if self._mtp_draft else ("draft", "verify")) \
+            if self.speculate else ("burst",)
+        for name in steps:
             self.graphs[name] = StepGraphs(f"engine.{name}", self.device,
                                            eager=eager, pool=ragged.pool)
         # captures each step may make: one chunk width for the ragged step
         # (one placement on one card; the drafter's ride-along is a
         # second), the pow2 ladder for the burst, one draft scan and one
-        # verify width
-        if self.speculate:
+        # verify width (the MTP step is one width, and it has no ride-along)
+        if self._mtp_draft:
+            self.budgets = {"engine.ragged": 1, "engine.spec_mtp": 1}
+        elif self.speculate:
             self.budgets = {"engine.ragged": 2, "engine.draft": 1,
                             "engine.verify": 1}
         else:
@@ -346,15 +406,18 @@ class ContinuousEngine:
                 "with speculate=0")
         if drafter is None:
             raise ValueError(
-                "speculate > 0 needs a drafter: a policy spec string (e.g. "
+                "speculate > 0 needs a drafter: pass drafter='mtp' (mla_moe "
+                "with a trained MTP head, k=1), a policy spec string (e.g. "
                 "'*=intq8': a reduced-bits self-speculation view of the "
                 "merged base, built by make_self_drafter) or a drafter "
                 "params tree")
         if isinstance(drafter, str):
             if drafter == "mtp":
-                raise NotImplementedError(
-                    "drafter='mtp' needs the mla_moe family's MTP head, not "
-                    "yet ported (see ROADMAP.md)")
+                why = _mtp_refusal(self.lm, self.params, k)
+                if why is not None:
+                    raise ValueError(why)
+                self._mtp_draft = True
+                return None
             return make_self_drafter(self.params, drafter,
                                      base=self.lm.cfg.quant.default)
         return drafter
@@ -446,7 +509,7 @@ class ContinuousEngine:
         or the whole page pool of a paged one.  A slot whose state is read
         next produces NaN logits and trips :class:`EngineCorrupted` before
         commit; :meth:`reset` zeroes the rows again."""
-        for t in self.cache["layers"].values():
+        for t in cache_leaves(self.cache["layers"]):
             t.fill_(float("nan"))
 
     # ---------------- one engine iteration ----------------
@@ -538,7 +601,8 @@ class ContinuousEngine:
         graphs, key = self.graphs["ragged"], ("ragged",) + tokens.shape
         buf = graphs.stage(key, tokens=tokens, n_new=n_new)
         nxt, ok = graphs(key, lambda: _ragged_step(
-            self.lm, self.params, self.cache, buf["tokens"], buf["n_new"]))
+            self.lm, self.params, self.aux, self.cache, buf["tokens"],
+            buf["n_new"]))
         nxt, ok = _to_host(nxt, ok)
         st = self.stats
         if self.draft_cache is not None:
@@ -547,8 +611,8 @@ class ContinuousEngine:
             # health unchecked (verification rejects bad drafts).  Its own
             # capture: the graph holds the drafter's weights
             graphs(("ragged-draft",) + tokens.shape, lambda: _ragged_step(
-                self.lm, self.draft_params, self.draft_cache, buf["tokens"],
-                buf["n_new"]))
+                self.lm, self.draft_params, self.draft_aux, self.draft_cache,
+                buf["tokens"], buf["n_new"]))
             st.dispatches += 1
         if not ok:
             raise EngineCorrupted("non-finite logits in ragged step (decode "
@@ -577,8 +641,8 @@ class ContinuousEngine:
         graphs, key = self.graphs["burst"], ("burst", k)
         buf = graphs.stage(key, tok=tok, remaining=remaining, eos=eos)
         tok_d, rem_d, emitted, ok = graphs(key, lambda: _burst_steps(
-            self.lm, self.params, self.cache, buf["tok"], buf["remaining"],
-            buf["eos"], k_steps=k))
+            self.lm, self.params, self.aux, self.cache, buf["tok"],
+            buf["remaining"], buf["eos"], k_steps=k))
         emitted, tok_d, rem_d, ok = _to_host(emitted, tok_d, rem_d, ok)
         if not ok:
             raise EngineCorrupted("non-finite logits in decode burst (decode "
@@ -600,44 +664,79 @@ class ContinuousEngine:
         (the stream is plain greedy decode's).  The verify step advanced
         every active slot by k+1 rows; the rejected tail rolls back by a
         per-slot length subtraction, in place, on both caches, restoring
-        "the cache holds the committed stream minus its last token".
+        "the cache holds the committed stream minus its last token".  With
+        the MTP drafter the round is one step (:meth:`_mtp_round`), k = 1.
 
         On :class:`EngineCorrupted` the drafter's cache may have advanced
         already; the engine must be reset before serving on anyway."""
         tok, remaining, eos = self.sched.burst_state()
         active = remaining > 0
-        k = self.speculate
-        # each step reads its own staged buffers (a captured step's
-        # closure must not see them rebound)
-        draft, key = self.graphs["draft"], ("draft", k + 1)
-        dbuf = draft.stage(key, tok=tok, active=active)
-        d = draft(key, lambda: _draft_steps(
-            self.lm, self.draft_params, self.draft_cache, dbuf["tok"],
-            dbuf["active"], k_steps=k + 1))
-        (d,) = _to_host(d)
-        drafts = d[:k].T                       # [B, k] = d_1..d_k
-        tokens = np.concatenate([tok[:, None], drafts], axis=1)
-        n_new = np.where(active, k + 1, 0).astype(np.int32)
-        verify, key = self.graphs["verify"], ("verify",) + tokens.shape
-        vbuf = verify.stage(key, tokens=tokens, n_new=n_new)
-        v, ok = verify(key, lambda: _verify_step(
-            self.lm, self.params, self.cache, vbuf["tokens"], vbuf["n_new"]))
-        v, ok = _to_host(v, ok)
-        if not ok:
-            raise EngineCorrupted("non-finite logits in speculative verify "
-                                  "(decode state is poisoned); tokens NOT "
-                                  "committed")
+        st = self.stats
+        if self._mtp_draft:
+            drafts, v, mtp_d, n_new, proposed = self._mtp_round(tok, active)
+        else:
+            k = self.speculate
+            # each step reads its own staged buffers (a captured step's
+            # closure must not see them rebound)
+            draft, key = self.graphs["draft"], ("draft", k + 1)
+            dbuf = draft.stage(key, tok=tok, active=active)
+            d = draft(key, lambda: _draft_steps(
+                self.lm, self.draft_params, self.draft_aux, self.draft_cache,
+                dbuf["tok"], dbuf["active"], k_steps=k + 1))
+            (d,) = _to_host(d)
+            drafts = d[:k].T                       # [B, k] = d_1..d_k
+            tokens = np.concatenate([tok[:, None], drafts], axis=1)
+            n_new = np.where(active, k + 1, 0).astype(np.int32)
+            verify, key = self.graphs["verify"], ("verify",) + tokens.shape
+            vbuf = verify.stage(key, tokens=tokens, n_new=n_new)
+            v, ok = verify(key, lambda: _verify_step(
+                self.lm, self.params, self.aux, self.cache, vbuf["tokens"],
+                vbuf["n_new"]))
+            v, ok = _to_host(v, ok)
+            st.dispatches += 2
+            if not ok:
+                raise EngineCorrupted("non-finite logits in speculative "
+                                      "verify (decode state is poisoned); "
+                                      "tokens NOT committed")
+            proposed = k * int(active.sum())
         emitted, m = accept_drafts(drafts, v, n_new, remaining, eos)
         rb = torch.as_tensor(rollback_counts(n_new, m).astype(np.int32),
                              device=self.device)
         for cache in self._caches():
             cache["len"].sub_(rb)
+        if self._mtp_draft:
+            # the next draft: column m-1, the MTP prediction conditioned on
+            # exactly the committed stream
+            nd = mtp_d[np.arange(self.n_slots), np.maximum(m - 1, 0)]
+            self.sched.set_spec_drafts(np.where(m > 0, nd, -1))
         self.sched.commit_spec(emitted, m)
-        st = self.stats
-        st.dispatches += 2
-        st.model_steps += k + 1
-        st.slot_steps += self.n_slots * (k + 1)
+        c = int(v.shape[1])
+        st.model_steps += c
+        st.slot_steps += self.n_slots * c
         st.busy_slot_steps += int(n_new.sum())
         st.tokens_out += int(m.sum())
-        st.proposed_tokens += k * int(active.sum())
+        st.proposed_tokens += proposed
         st.accepted_tokens += int(np.maximum(m - 1, 0).sum())
+
+    def _mtp_round(self, tok, active):
+        """The MTP step of one round: each active slot verifies its held
+        draft (if it holds one) and drafts the next.  Returns (drafts [B,
+        1], -1 where none was held; the verify argmax [B, 2]; the next
+        drafts [B, 2]; n_new; the drafts proposed)."""
+        held = self.sched.spec_drafts()
+        have = active & (held >= 0)
+        tokens = np.stack([tok, np.maximum(held, 0)], axis=1).astype(np.int32)
+        n_new = np.where(active, np.where(have, 2, 1), 0).astype(np.int32)
+        graphs, key = self.graphs["spec_mtp"], ("spec_mtp",) + tokens.shape
+        buf = graphs.stage(key, tokens=tokens, n_new=n_new)
+        v, mtp_d, ok = graphs(key, lambda: _spec_step_mtp(
+            self.lm, self.params, self.aux, self.cache, buf["tokens"],
+            buf["n_new"]))
+        v, mtp_d, ok = _to_host(v, mtp_d, ok)
+        self.stats.dispatches += 1
+        if not ok:
+            raise EngineCorrupted("non-finite logits in speculative verify "
+                                  "(decode state is poisoned); tokens NOT "
+                                  "committed")
+        return (np.where(have, held, -1)[:, None], v, mtp_d, n_new,
+                int(have.sum()))

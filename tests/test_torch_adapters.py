@@ -538,14 +538,15 @@ def test_poisoned_engine_raises_before_commit(served):
 
 def test_engine_refuses_modes_not_ported(served):
     """What the engine still refuses (paging and self-speculation are
-    ported): encdec sources, the MTP drafter, speculation over an
-    AdapterStore, with a decode burst or without a drafter, and a request
-    the page pool can never cover."""
+    ported): encdec sources, the MTP drafter on a gqa model (the
+    reference's reason), speculation over an AdapterStore, with a decode
+    burst or without a drafter, and a request the page pool can never
+    cover."""
     base = served.tstore.base
     for kw, exc, match in (
             ({"max_src": 8}, NotImplementedError, "not yet ported"),
             ({"speculate": 1, "decode_burst": 1, "drafter": "mtp"},
-             NotImplementedError, "not yet ported"),
+             ValueError, "drafter='mtp' needs an mla_moe model"),
             ({"speculate": 2, "decode_burst": 1, "drafter": "*=intq8",
               "adapters": served.tstore}, NotImplementedError,
              "AdapterStore"),

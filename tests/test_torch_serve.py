@@ -204,13 +204,14 @@ def test_serve_cli_cpu(argv):
     (["--engine", "continuous", "--page-size", "4", "--n-pages", "3"],
      "page pool can never cover"),
     (["--engine", "continuous", "--speculate", "1", "--draft-policy",
-      "mtp"], "not yet ported")))
+      "mtp"], "drafter='mtp' needs an mla_moe model")))
 def test_serve_cli_refuses_modes_not_ported(flag, message, capsys):
     """What the CLI still refuses (paging and speculation are ported on
     the continuous engine and the frontend): paging or speculation on the
     static engine, injected faults without the frontend, speculation with
     decode bursts, a pool that can never hold a request, and the MTP
-    drafter."""
+    drafter on a gqa model (the reference's reason: it needs mla_moe's MTP
+    head)."""
     with pytest.raises(SystemExit):
         tserve.main(["--reduced", "--device", "cpu"] + flag)
     assert message in capsys.readouterr().err

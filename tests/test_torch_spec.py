@@ -215,8 +215,8 @@ def test_verify_ragged_matches_reference(served, page_size):
     n_new = np.asarray([4, 0, 2], np.int32)
     r_logits, _, rcache = jax.jit(served.rlm.verify_ragged)(
         served.merged, rcache, jnp.asarray(verify), jnp.asarray(n_new))
-    t_logits, _ = served.tlm.verify_ragged(served.tmerged, tcache,
-                                           _t(verify), _t(n_new))
+    t_logits, _, _ = served.tlm.verify_ragged(served.tmerged, tcache,
+                                              _t(verify), _t(n_new))
     assert tuple(t_logits.shape) == r_logits.shape == (b, 4,
                                                        served.rcfg.vocab)
     for i in range(b):
@@ -355,10 +355,12 @@ def test_spec_refusals_match_reference(served):
         with pytest.raises(ValueError, match="2 speculative headroom.*pool"):
             eng.submit(np.arange(4, 9, dtype=np.int32), 2)
         eng.submit(np.arange(4, 8, dtype=np.int32), 2)
-    with pytest.raises(NotImplementedError, match="mtp"):
-        serving.ContinuousEngine(served.tlm, served.tmerged, n_slots=1,
-                                 max_len=16, decode_burst=1, speculate=1,
-                                 drafter="mtp")
+    for mod, lm, tree in ((rserving, served.rlm, served.merged),
+                          (serving, served.tlm, served.tmerged)):
+        with pytest.raises(ValueError, match="drafter='mtp' needs an "
+                                             "mla_moe model"):
+            mod.ContinuousEngine(lm, tree, n_slots=1, max_len=16,
+                                 decode_burst=1, speculate=1, drafter="mtp")
 
 
 def _stand_in(eng):
