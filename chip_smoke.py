@@ -139,11 +139,12 @@ and the line before the card's names what each took):
    5a counted.  (b) Live SLO runs on the serve thread, after the
    reference's ``slo_bench``: 32 requests, queue cap 8, offered at 0.7 x
    the capacity of a saturated calibration run, total deadline 3 x its
-   slowest latency; Poisson and bursty (6) arrivals, each clean and with a
-   crash at dispatch 8 and stragglers.  Prints each run's TTFT and TPOT
+   slowest latency; Poisson arrivals, clean and with a crash at dispatch
+   8 and stragglers (bursty arrivals ran too until the two recurrent
+   families' phases were added).  Prints each run's TTFT and TPOT
    p50/p95/p99, timeout and reject rates, goodput and recoveries, the
    frontend's own host ms a dispatch, and the device's idle share of a
-   fifth, clean Poisson run under ``torch.profiler``.  Gates: no FAILED
+   third, clean Poisson run under ``torch.profiler``.  Gates: no FAILED
    ticket, recoveries equal to the injected crashes, every ticket's tokens
    a prefix of the plain engine's stream (the whole stream when
    FINISHED), no capture inside a measured run, every serve thread ended.
@@ -158,22 +159,26 @@ and the line before the card's names what each took):
    8-bit significand; and, as the loss limit's measure, how far the card's
    loss moves with every B zeroed (the adapter term dropped).
 12. train    -- ``repro_torch.launch.train``'s own ``setup`` and ``run`` on
-   the full llama7b-proxy (int4 g32 r64, bf16, remat): 4 steps of 16 x 256
+   llama7b-proxy at its widths and 16 of its 32 layers (int4 g32 r64,
+   bf16, remat; all 32 before phases mla_train and recurrent were
+   added): 4 steps of 16 x 256
    tokens of alpaca, lr 2e-4, max grad norm 0.3, a checkpoint every 2 steps
    under ``build/`` (removed at the end); the codes, scales and zeros bit
    for bit unchanged, B nonzero after step 1, kernel 3 and its projection
-   2 x 224 times a step and no other kernel; the merged result against the
+   2 x 112 times a step and no other kernel; the merged result against the
    trained adapter model (``serve.merge_check``, kernels 1-4); then steps
    3-4 again from the step-2 checkpoint, with the same losses and adapters
    bit for bit.  Step wall ms, tokens/s, peak memory, and kernel 3's and
    the plain backward's shares of a step; kernel 3 and its projection
    held against their plain versions at the step's M = 4096 on one
    layer's 7 linears.
-13. baselines -- the paper's contrast at llama7b-proxy's widths and 16
-   of its 32 layers, on a float stand-in base drawn from seed 0 (bf16),
+13. baselines -- the paper's contrast at llama7b-proxy's widths and 8
+   of its 32 layers (16 before phases mla_train and recurrent were
+   added), on a float stand-in base drawn from
+   seed 0 (bf16),
    with calibration activations of 2048 rows a D_in (lognormal
    per-feature scales) and one f64 GPTQ Hessian per D_in built on the
-   card: ``convert_tree`` with a GPTQ closure over all 112 linears into
+   card: ``convert_tree`` with a GPTQ closure over all 56 linears into
    int4 g32 r64 ``qalora`` (wall
    time); GPTQ's output MSE at or below RTN's on each of layer 0's 7
    linears; GPTQ on the card against the CPU on ``W[:, :256]`` of layer
@@ -202,8 +207,9 @@ and the line before the card's names what each took):
    their published widths, random weights from seed 0, bf16, int4 g32
    r64: h2o-danube-1.8b (24 layers, head_dim 80, window 4096) and
    starcoder2-7b (32 layers, non-gated GELU MLP) at full depth,
-   deepseek-67b at 16 of 95 layers and mixtral-8x22b (8 experts top-2,
-   moe_d_ff 16384) at 8 of 56 (as phases moe_* run it).  Each
+   deepseek-67b at 8 of 95 layers (16 before phases mla_train and
+   recurrent were added) and mixtral-8x22b (8
+   experts top-2, moe_d_ff 16384) at 8 of 56.  Each
    served
    statically, 4 x (128 + 32), the decode step replayed (one capture
    within its budget, under a ``CompileGuard``), a counted pass with the
@@ -245,10 +251,11 @@ and the line before the card's names what each took):
    zero patch rows + 256 tokens), lr 2e-5, remat, from the nudged
    adapters, kernel 3 and 3a 2 x 56 times a step and no other kernel, and
    the trained merge checked with patches, kernels 1-4 counted exactly.
-16. moe_train -- mixtral-8x22b fine-tuned at its published widths and 8
-   of 56 layers (built once, and reused merged by phase moe_serve)
-   through ``launch/train.py``'s ``setup`` and ``run`` (bf16, int4 g32
-   r64, remat, ``--n-layers 8``): 4 steps of 8 x 256 tokens of
+16. moe_train -- mixtral-8x22b fine-tuned at its published widths and 4
+   of 56 layers (8 before phases mla_train and recurrent were added;
+   built once, and reused merged by phase
+   moe_serve) through ``launch/train.py``'s ``setup`` and ``run`` (bf16,
+   int4 g32 r64, remat, ``--n-layers 4``): 4 steps of 8 x 256 tokens of
    alpaca at lr 2e-5, one routing group of 2048 rows a step, so each
    expert's capacity is C = 640; kernel 3 and its projection 2 x 28 times
    a layer a step (attention at M = 2048, each expert at M = 640) and no
@@ -276,7 +283,7 @@ and the line before the card's names what each took):
    the card did (``moe.choose_experts``; its own top-2 recorded: where it
    differs, a near tie, a limit that a planted misrouting must exceed),
    gradients, loss, xent and aux at phase train_small's bounds.
-17. moe_serve -- phase moe_train's trained mixtral at 8 layers, merged,
+17. moe_serve -- phase moe_train's trained mixtral at 4 layers, merged,
    self-speculating (k = 3, one
    ``*=intq2`` drafter tree): a plain graphed engine and speculating ones,
    contiguous and paged, 8 requests of 64/96/128 + 16/32/24 tokens on 4
@@ -287,7 +294,7 @@ and the line before the card's names what each took):
    token and acceptance, each speculating layout again eager with equal
    streams, paged equal to contiguous unless the pool backed off;
    kernel 2 held at M = 5 (4 bits) and M = 2 (2 bits) on expert 0.  Then
-   mixtral (8 layers), h2o-danube-1.8b (12 of 24 layers), and
+   mixtral (4 layers), h2o-danube-1.8b (6 of 24 layers), and
    starcoder2-7b and deepseek-67b (4 layers each) behind
    ``ServingFrontend``: phase frontend's recovery runs (a crash at dispatch
    3, a NaN at 7; exact launch counts; h2o's tokens equal to the clean run
@@ -297,6 +304,12 @@ and the line before the card's names what each took):
    again in another batch, and capacity routing depends on the batch),
    then the calibration and one clean Poisson SLO run at 0.7 x capacity
    under ``torch.profiler`` (TTFT and TPOT p50/p99, goodput, idle share).
+   Last, the speculating engine's card against the CPU at 2 layers and d
+   512 (8 experts top-2 kept; the base as initialised, adapters not
+   nudged: see ``_card_cpu``): the card's 2-bit drafter tree copied to
+   the CPU, the CPU in f32 (plain versions) routed and committing as the
+   card, every draft, verify and ragged step's logits within 5e-2 of the
+   CPU's max|logit|.
 18. mla_serve -- deepseek-v3-671b (mla_moe) at its published widths and
    5 of 61 layers (the 3 dense and 2 MoE: 256 experts top-8, sigmoid
    routing, a shared expert) with its MTP head, from seed 0: the
@@ -315,8 +328,44 @@ and the line before the card's names what each took):
    readings; the card against the CPU at 2 layers and narrow widths
    (256 experts kept), plain and MTP, the CPU routed and committing as
    the card; kernels 1-4 held at every (K, N) the phase launches, at its
-   rows.  No gate reads the clock or rests on a router tie.
-19. the ``kernels`` summary, and the final ``{"ok": true, ...}`` line.
+   rows.  No gate reads the clock or rests on a router tie.  Its adapter
+   model is handed on to phase mla_train, not rebuilt.
+19. mla_train -- that model trained: ``launch/train.py``'s ``setup`` and
+   ``run``, 3 steps of 4 x 256 alpaca tokens at lr 2e-5 with remat (C =
+   40), kernel 3 and 3a once per linear of the stack a forward, again in
+   the recompute, and once per MTP block linear (3160 a step), no other
+   kernel; xent, aux and the MTP term a step, peak memory, the step
+   median beside its operations floor, the last step's device time by
+   kind (a device-only trace); the trained merge with the routing held
+   (bound 0.10), the adapters dropped failing it.  Then, at 2 layers and
+   d 512 with 256 experts: a run cut at step 2 and resumed bit for bit
+   (phase train's), and one step against the CPU in f32, routed as the
+   card (phase train_small's: the loss, and the gradients by module
+   group within 0.5, which a step leaving the MTP term out must fail;
+   the same step without the MTP head within llama's 0.16; the updates
+   within the AdamW allowance; the per-tensor limits readings).
+20. recurrent -- rwkv6-7b (16 of 32 layers) and zamba2-7b (15 of 81: 2
+   groups of 5 Mamba2 layers each followed by the one shared attention
+   block, and a tail of 3) at their published widths, seed 0: the
+   unmerged and the merged model served statically, 4 x (128 + 32),
+   graphed, exact launches (the shared block's counted per
+   application), decode ms a token and prefill ms beside their floors;
+   the merge check (bound 0.10) and the base with its adapters dropped
+   failing it; the continuous engine on 8 requests over 4 slots,
+   graphed and eager (zamba2 also paged: equal to contiguous); rwkv6
+   behind the frontend through a crash and a NaN (the clean run the
+   plain engine's, the recovered run the clean run's up to what each
+   request had committed at the first fault, its whole identity a
+   reading: a recovered request's tokens are prefilled again in chunks
+   of 64, in bf16 not bit for bit the decode that made them; and the
+   same recovery with prefill chunks of 1, where the re-prefill repeats
+   the decode's arithmetic: every recovered ticket the clean run's
+   whole), a refilled slot equal to a fresh one bit for bit (eviction
+   zeroes the recurrent state), and with three demo tenants (logits
+   against their merged trees, a graphed engine counted); kernels 1-4
+   at every distinct (K, N) and the path's rows; the card against the
+   CPU at 2-3 layers and d 512.
+21. the ``kernels`` summary, and the final ``{"ok": true, ...}`` line.
 
 Any failed phase exits non-zero before the final line.  Without a card,
 or without the repository's ``src`` beside this file, it exits non-zero
@@ -343,6 +392,8 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 # H100 SXM data sheet: HBM3 rate and dense bf16 tensor-core peak
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
+# f32 without tensor cores (TF32 is off: the plain versions' products)
+PEAK_F32_FLOP_S = 67e12
 
 # llama7b-proxy int4 g32 r64: (K, N) of the linears of one layer and how
 # many of each a layer holds (wq/wk/wv/wo, gate/up, down)
@@ -447,12 +498,14 @@ def emit(obj):
 
 # seconds each phase is expected to take on one H100 80GB HBM3 at 700 W
 # (this script's own runs, PERF.md section 5), printed after the build;
-# moe_train includes building the 16-layer mixtral that moe_serve reuses
+# moe_train includes building the mixtral that moe_serve reuses, and
+# mla_serve the deepseek-v3 model that mla_train trains
 EXPECTED_S = {"device": 1, "build": 22, "kernels": 7, "flash": 6,
-              "small": 1, "serve": 16, "adapters": 43, "paged": 59,
-              "spec": 31, "frontend": 110, "train_small": 3, "train": 35,
-              "baselines": 60, "families": 49, "vision": 15,
-              "moe_train": 50, "moe_serve": 125, "mla_serve": 130}
+              "small": 1, "serve": 22, "adapters": 38, "paged": 57,
+              "spec": 31, "frontend": 80, "train_small": 4, "train": 17,
+              "baselines": 37, "families": 47, "vision": 13,
+              "moe_train": 17, "moe_serve": 80, "mla_serve": 113,
+              "mla_train": 62, "recurrent": 67}
 
 
 def _phase(name, fn, *args):
@@ -490,11 +543,22 @@ def save():
 
 def _step_linears(cfg) -> int:
     """Quantized linears a model step of ``cfg`` launches a kernel for,
-    counted from the config (``LM.layer_linears``: 7 a gated dense layer,
+    counted from the config (``LM.step_linears``: 7 a gated dense layer,
     6 with starcoder2's non-gated MLP, 4 + 3 x 8 for mixtral, whose
-    router is fp) times its layers."""
+    router is fp, 8 an RWKV6 layer, 2 a Mamba2 layer and 7 each
+    application of zamba2's shared block)."""
     from repro_torch.models.lm import LM
-    return LM(cfg).layer_linears() * cfg.n_layers
+    return LM(cfg).step_linears()
+
+
+def _train_launches(cfg) -> int:
+    """Kernel 3 (and 3a) launches of one ``qalora`` train step of ``cfg``:
+    every linear of the stack in the forward and again in remat's
+    recompute, and an MTP head's dense MLA block (not recomputed) once."""
+    from repro_torch.models.lm import LM
+    lm = LM(cfg)
+    mtp = lm.layer_linears(0) if cfg.family == "mla_moe" and cfg.mtp else 0
+    return lm.step_linears() * (2 if cfg.remat else 1) + mtp
 
 
 def _smi(fields: str) -> str:
@@ -2294,12 +2358,13 @@ FE_TENANT_FAULTS = dict(seed=0, crash_steps=(5,))
 # (b) the live SLO runs, after the reference's slo_bench
 # (benchmarks/run.py:715-797): 32 requests, queue cap 8, offered at 0.7 x
 # the saturated capacity, total deadline 3 x the saturated run's slowest
-# end-to-end latency; Poisson and bursty (6) arrivals, clean and faulty
+# end-to-end latency; Poisson arrivals, clean and faulty (bursty ones were
+# cut to keep the script under 800 s once phases mla_train and recurrent
+# were added: 99-114 s for the phase with them, H100 80GB HBM3, 700 W)
 SLO_TRACE = dict(seed=0, prompt_lens=(32, 64, 128), gen_lens=(16, 32, 48))
 SLO_REQUESTS = 32
 SLO_QUEUE_CAP = 8
 SLO_LOAD = 0.7
-SLO_BURST = 6
 SLO_FAULTS = dict(seed=2, crash_steps=(8,), p_straggle=0.05, straggle_s=0.01)
 JOIN_S = 300.0  # a serve thread that outlives this fails the phase
 
@@ -2635,22 +2700,18 @@ def _slo_calibrate(torch, cfg, lm, merged, max_len):
 
 
 def _frontend_slo(torch, cfg, lm, merged):
-    """(b): calibration, then Poisson and bursty arrivals, each clean and
-    faulty, then one clean Poisson run under ``torch.profiler`` for the
-    device's idle share."""
+    """(b): calibration, then Poisson arrivals, clean and faulty, then one
+    clean Poisson run under ``torch.profiler`` for the device's idle
+    share."""
     from repro_torch.runtime import FaultInjector
-    from repro_torch.serving import (bursty_arrivals, make_trace,
-                                     poisson_arrivals)
+    from repro_torch.serving import make_trace, poisson_arrivals
     trace = make_trace(SLO_REQUESTS, cfg.vocab, **SLO_TRACE)
     max_len = max(SLO_TRACE["prompt_lens"]) + max(SLO_TRACE["gen_lens"])
     plain = _engine_streams(lm, merged, trace, max_len=max_len, **FE_ENGINE)
     _free(torch)
     calibration, rate, deadline = _slo_calibrate(torch, cfg, lm, merged,
                                                  max_len)
-    arrivals = {"poisson": poisson_arrivals(SLO_REQUESTS, rate, seed=1),
-
-                "bursty": bursty_arrivals(SLO_REQUESTS, rate,
-                                          burst=SLO_BURST, seed=1)}
+    arrivals = {"poisson": poisson_arrivals(SLO_REQUESTS, rate, seed=1)}
     runs = {}
     for arr, at in arrivals.items():
         for mode in ("clean", "faulty"):
@@ -2701,7 +2762,8 @@ def _recovery_checks(rec, plain, per_step, routed=False):
     clean run must give the plain engine's streams and the faulty run the
     clean run's tokens up to what each request had committed when the
     first fault hit (the reference's recovery does the same:
-    tests/test_torch_frontend.py)."""
+    tests/test_torch_frontend.py); rwkv6 is held so too (``_recurrent``
+    says why)."""
     clean, faulty = rec["clean"], rec["faulty"]
     poisoned = faulty["poisoned_dispatch_launches"]
     in_ragged = any("ragged step" in e for e in faulty["fault_log"])
@@ -2819,7 +2881,7 @@ def phase_frontend(torch, adapter_toks):
            "recovery_trace": dict(FE_TRACE, requests=FE_REQUESTS),
            "tenants": tenants, "slo_trace": dict(
                SLO_TRACE, requests=SLO_REQUESTS, queue_cap=SLO_QUEUE_CAP,
-               load=SLO_LOAD, burst=SLO_BURST, faults=SLO_FAULTS),
+               load=SLO_LOAD, faults=SLO_FAULTS),
            "calibration": calibration, "slo": slo, "traced": traced,
            "launches_per_step": per_step,
            "phase_s": time.perf_counter() - t_phase,
@@ -2874,6 +2936,9 @@ TRAIN_GRAD_TOL = 0.16
 # gradient error eps flips a share arctan(eps) / pi of Gaussian elements:
 # 8 % at 64 u; allow one element in eight
 TRAIN_FLIP_SHARE = 1 / 8
+# the test suite's relative term beside its AdamW allowance
+# (tests/test_torch_train.py's REL)
+TRAIN_ADAM_REL = 1e-5
 TRAIN_UPDATE_TOL = 2 * math.sqrt(TRAIN_FLIP_SHARE)
 # the updated B (a demo tenant's: rms 0.02) rounds to bf16 (u / 2) and
 # moves by 2 lr = 4e-4 where the update flipped
@@ -2883,7 +2948,9 @@ TRAIN_B_TOL = (math.sqrt(TRAIN_FLIP_SHARE) * 2 * TRAIN_LR / TRAIN_B_RMS
 TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
 # phase train: the paper's batch of 16 x 256 tokens on alpaca, lr 2e-4,
 # max grad norm 0.3 (AdamWConfig's default), 4 steps with a checkpoint
-# every 2, then steps 3-4 again from the step-2 checkpoint
+# every 2, then steps 3-4 again from the step-2 checkpoint; 16 of the 32
+# layers (all 32 until phases mla_train and recurrent were added)
+TRAIN_LAYERS = 16
 TRAIN_ARGV = ["--arch", "llama7b-proxy", "--seq-len", "256",
               "--global-batch", "16", "--dataset", "alpaca", "--lr", "2e-4",
               "--ckpt-every", "2", "--log-every", "1", "--device", "cuda"]
@@ -2900,6 +2967,52 @@ def _rel(got, ref):
     n = ref.norm().item()
     d = (got - ref).norm().item()
     return d / n if n else d
+
+
+def _adam_allowance_first(opt_a, opt_b, cfg, name):
+    """Per element, how far two AdamW first steps may move ``name`` apart
+    through the update map alone given their moments (float64 on the CPU;
+    ``_adam_allowance`` of tests/test_torch_train.py at t = 1): lr (|dm| /
+    (sqrt(v) + eps) + |m| |d sqrt(v)| / (sqrt(v) + eps)^2) on the
+    bias-corrected moments, v the smaller of the two."""
+    c1, c2 = 1 - cfg.b1, 1 - cfg.b2
+    ma, va, mb, vb = (opt[k][name].detach().cpu().double()
+                      for opt in (opt_a, opt_b) for k in ("mu", "nu"))
+    den = (va.minimum(vb) / c2).sqrt() + cfg.eps
+    dm = (ma - mb).abs() / c1
+    dv = ((va / c2).sqrt() - (vb / c2).sqrt()).abs()
+    return cfg.lr * (dm / den + (mb / c1).abs() * dv / den ** 2)
+
+
+# deepseek-v3's card-vs-CPU step: each module group's adapter gradients
+# with the MTP head in the loss, its un-normed logits rounding in bf16
+# (the card's global error 0.209 in a run on an H100 80GB HBM3, 700 W);
+# a gradient with the MTP term left out is off by ~1 in every group
+MLA_MTP_GRAD_TOL = 0.5
+
+
+def _without_mtp(tree):
+    """``tree`` (an mla_moe model's) with its MTP head removed: LM.loss
+    then leaves the MTP term out, and a step trains nothing of it."""
+    for n in ("mtp_proj", "mtp_block", "mtp_ln"):
+        delattr(tree, n)
+    return tree
+
+
+def _grad_groups(got, ref):
+    """||got - ref|| / ||ref|| over each module group of adapter
+    gradients (the leaves whose names differ only in layer and expert
+    index, e.g. ``moe_blocks.moe.gate.ad.a``), in f32 on the CPU; a leaf
+    ``got`` lacks counts as 0."""
+    num, den = {}, {}
+    for k, r in ref.items():
+        g = ".".join(x for x in k.split(".") if not x.isdigit())
+        r = r.detach().cpu().float()
+        d = (got[k].detach().cpu().float() - r) if k in got else r
+        num[g] = num.get(g, 0.0) + d.norm().item() ** 2
+        den[g] = den.get(g, 0.0) + r.norm().item() ** 2
+    return {g: math.sqrt(num[g] / den[g]) if den[g] else math.sqrt(num[g])
+            for g in sorted(num)}
 
 
 def _adam_first_update(opt, cfg, name):
@@ -3021,7 +3134,9 @@ def phase_train_small(torch, device="cuda", n_layers=2, seq=128, batch=2,
     cfg = C.get(arch)
     cfg = cfg.scaled(n_layers=n_layers, quant=dataclasses.replace(
         cfg.quant, mode=mode), **(over or {}))
-    moe = cfg.family == "gqa_moe"
+    moe = cfg.family in ("gqa_moe", "mla_moe")
+    mla = cfg.family == "mla_moe"
+    n_moe = n_layers - (cfg.n_dense_layers if mla else 0)
     lm = LM(cfg)
     card = demo_tenant(lm.init(torch.Generator(device=device).manual_seed(0),
                                device), 1)
@@ -3048,34 +3163,47 @@ def phase_train_small(torch, device="cuda", n_layers=2, seq=128, batch=2,
         for t, k in zip(bs, kept):
             t.copy_(k)
         del bs, kept
-    sides, own = {}, {}
-    for side, params, dev in (("card", card, device), ("cpu", cpu, "cpu")):
-        tr = trainable_tensors(params)
-        before = {k: v.detach().clone() for k, v in tr.items()}
-        opt = adamw_init(tr)
-        batch_t = {"tokens": torch.as_tensor(toks).to(dev),
-                   "labels": torch.as_tensor(labs).to(dev)}
-        if torch.device(dev).type == "cuda":
-            torch.cuda.synchronize()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        with (record_routing() if moe else contextlib.nullcontext([])) \
-                as route, (_routed_as(torch, params, sides["card"]["route"],
-                                      own)
-                           if moe and side == "cpu"
-                           else contextlib.nullcontext()):
-            m = steps[side](params, opt, batch_t)
-            loss = float(m["loss"])
-        secs = time.perf_counter() - t0
-        gnorm = float(m["grad_norm"])
-        clip = min(1.0, opt_cfg.max_grad_norm / max(gnorm, 1e-9))
-        sides[side] = {
-            "loss": loss, "xent": float(m["xent"]), "aux": float(m["aux"]),
-            "grad_norm": gnorm, "seconds": secs,
-            "launches": kernels.launches(), "tr": tr, "before": before,
-            "opt": opt, "route": [{k: v.cpu() for k, v in r.items()}
-                                  for r in route],
-            "grad": {k: opt["mu"][k] / (1 - opt_cfg.b1) / clip for k in tr}}
+    # mla_moe: the same step on fresh copies with the MTP head left out
+    # (its un-normed logits make the bf16 gradients noisy), held tighter
+    nomtp = ({side: _without_mtp(copy.deepcopy(t))
+              for side, t in (("card", card), ("cpu", cpu))} if mla else None)
+
+    def run(steps, card, cpu):
+        sides, own, own_mla = {}, {}, []
+        for side, params, dev in (("card", card, device),
+                                  ("cpu", cpu, "cpu")):
+            tr = trainable_tensors(params)
+            before = {k: v.detach().clone() for k, v in tr.items()}
+            opt = adamw_init(tr)
+            batch_t = {"tokens": torch.as_tensor(toks).to(dev),
+                       "labels": torch.as_tensor(labs).to(dev)}
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            # mla_moe's MoE layers follow its dense ones: its CPU side
+            # routes call by call (one call a layer; the MTP block is dense)
+            card_route = sides["card"]["route"] if side == "cpu" else None
+            held = (contextlib.nullcontext() if not moe or side == "card"
+                    else _routed_by_call(torch, card_route, own_mla)
+                    if mla else _routed_as(torch, params, card_route, own))
+            with (record_routing() if moe else contextlib.nullcontext([])) \
+                    as route, held:
+                m = steps[side](params, opt, batch_t)
+                loss = float(m["loss"])
+            secs = time.perf_counter() - t0
+            gnorm = float(m["grad_norm"])
+            clip = min(1.0, opt_cfg.max_grad_norm / max(gnorm, 1e-9))
+            sides[side] = {
+                "loss": loss, "xent": float(m["xent"]),
+                "aux": float(m["aux"]), "grad_norm": gnorm, "seconds": secs,
+                "launches": kernels.launches(), "tr": tr, "before": before,
+                "opt": opt, "route": [{k: v.cpu() for k, v in r.items()}
+                                      for r in route],
+                "grad": {k: opt["mu"][k] / (1 - opt_cfg.b1) / clip
+                         for k in tr}}
+        return sides, (dict(enumerate(own_mla)) if mla else own)
+    sides, own = run(steps, card, cpu)
     c, p = sides["card"], sides["cpu"]
     routing = None
     if moe:
@@ -3088,7 +3216,7 @@ def phase_train_small(torch, device="cuda", n_layers=2, seq=128, batch=2,
                 for a, b in zip(c["route"], p["route"])),
             "cpu_own_choice_by_layer": by_layer,
             "cpu_own_choice_differs": sum(r["differ"] for r in by_layer)
-            / (len(by_layer) * batch * seq),
+            / max(len(by_layer) * batch * seq, 1),
             "tie_gap_limit": MOE_TIE_GAP,
             "tie_gap_planted": _planted_misrouting(torch, own[0]),
             "flip_limit_free_routing": MOE_FLIP_LIMIT,
@@ -3107,8 +3235,7 @@ def phase_train_small(torch, device="cuda", n_layers=2, seq=128, batch=2,
     a_total = sum(c["tr"][k].numel() for k in a_names)
     b_moved = sum(int((c["tr"][k] != c["before"][k]).sum()) for k in b_names)
     b_total = sum(c["tr"][k].numel() for k in b_names)
-    per_step = _step_linears(cfg) * (2 if cfg.remat else 1) \
-        if mode == "qalora" else 0
+    per_step = _train_launches(cfg) if mode == "qalora" else 0
     loss_rel = abs(c["loss"] - p["loss"]) / abs(p["loss"])
     launches = c["launches"]
     out = {"phase": phase, "mode": mode,
@@ -3167,7 +3294,72 @@ def phase_train_small(torch, device="cuda", n_layers=2, seq=128, batch=2,
         and all(v == 0 for k, v in launches.items() if k not in TRAIN_PATH),
         "cpu_step_launched_nothing": set(p["launches"].values()) == {0},
     }
-    if moe:
+    if mla:
+        # deepseek-v3's MTP head feeds the head un-normed (as the
+        # reference's does), so its logits are large and their bf16
+        # rounding moves the softmax's gradient far more than llama's:
+        # the per-tensor limits above, set from llama7b-proxy's readings,
+        # are readings here (median gradient rel 0.124, max 0.70 on an
+        # expert with one or two rows, H100 80GB HBM3, 700 W).  The
+        # gradients are held by module group instead (the leaves whose
+        # names differ only in layer and expert index): with the MTP head
+        # within MLA_MTP_GRAD_TOL, which the gradient of a step that
+        # leaves the MTP term out must fail in every group; and the same
+        # step without the MTP head within llama's TRAIN_GRAD_TOL.  On
+        # top, each updated adapter is held to the CPU's within the AdamW
+        # allowance of the test suite (tests/test_torch_train.py: 1e-5 of
+        # the tensor's largest plus the allowance for the two sides'
+        # moments), plus the card's bf16 rounding of the new value (u
+        # |p|, u = 2^-8)
+        n_sides, _ = run(steps, nomtp["card"], nomtp["cpu"])
+        nc, npc = n_sides["card"], n_sides["cpu"]
+        del nomtp
+        groups = _grad_groups(c["grad"], p["grad"])
+        groups_nomtp = _grad_groups(nc["grad"], npc["grad"])
+        control = _grad_groups(npc["grad"], p["grad"])
+        out["grad_groups"] = {
+            "bound_with_mtp": MLA_MTP_GRAD_TOL,
+            "bound_without_mtp": TRAIN_GRAD_TOL,
+            "with_mtp": groups, "without_mtp": groups_nomtp,
+            "with_mtp_max": max(groups.values()),
+            "without_mtp_max": max(groups_nomtp.values()),
+            "control_mtp_term_dropped_min": min(control.values()),
+            "loss_without_mtp": {
+                "card": nc["loss"], "cpu": npc["loss"],
+                "rel": abs(nc["loss"] - npc["loss"]) / abs(npc["loss"])},
+            "grad_norm_without_mtp": {"card": nc["grad_norm"],
+                                      "cpu": npc["grad_norm"]}}
+        allow = {k: _adam_allowance_first(c["opt"], p["opt"], opt_cfg, k)
+                 for k in names}
+        over = {}
+        for k in names:
+            cpu_p = p["tr"][k].detach().double()
+            diff = (c["tr"][k].detach().cpu().double() - cpu_p).abs()
+            over[k] = float((diff - allow[k] - BF16_U * cpu_p.abs()
+                             - TRAIN_ADAM_REL * cpu_p.abs().max()).max())
+        out["update_over_adam_allowance_max"] = max(over.values())
+        out["update_over_adam_allowance_worst"] = sorted(
+            over.items(), key=lambda kv: -kv[1])[:4]
+        for k in ("grads_within_bound", "f32_updates_within_bound"):
+            out[f"reading_{k}"] = checks.pop(k)
+        # sigmoid routing's scores are no probabilities: the tie limit and
+        # the aux (the card's and the CPU's scores) are readings there
+        gg = out["grad_groups"]
+        checks.update({
+            "grad_groups_within_mtp_bound":
+                gg["with_mtp_max"] <= MLA_MTP_GRAD_TOL,
+            "mtp_bound_rejects_mtp_term_dropped":
+                gg["control_mtp_term_dropped_min"] > MLA_MTP_GRAD_TOL,
+            "grad_groups_without_mtp_within_bound":
+                gg["without_mtp_max"] <= TRAIN_GRAD_TOL,
+            "loss_without_mtp_within_bound":
+                gg["loss_without_mtp"]["rel"] <= TRAIN_LOSS_TOL,
+            "updates_within_adam_allowance":
+                out["update_over_adam_allowance_max"] <= 0.0,
+            "routing_recorded_once_a_layer": routing["layers_recorded"]
+            == [n_moe, n_moe],
+            "cpu_routed_as_card": routing["cpu_routed_as_card"]})
+    elif moe:
         checks.update({
             "aux_within_bound": out["aux"]["rel"] <= TRAIN_LOSS_TOL,
             "routing_recorded_once_a_layer": routing["layers_recorded"]
@@ -3328,7 +3520,8 @@ def phase_train(torch, argv=None, steps=TRAIN_STEPS,
     from repro_torch import kernels
     from repro_torch.launch import serve, train
     from repro_torch.optim import trainable_tensors
-    argv = list(TRAIN_ARGV if argv is None else argv)
+    argv = list(TRAIN_ARGV + ["--n-layers", str(TRAIN_LAYERS)]
+                if argv is None else argv)
     run_a, run_b = (os.path.join(TRAIN_DIR, n) for n in ("run", "resume"))
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     os.makedirs(TRAIN_DIR)
@@ -3364,8 +3557,7 @@ def phase_train(torch, argv=None, steps=TRAIN_STEPS,
                         for k, v in st.params.named_buffers())
         del frozen_before
         per_layer = _step_linears(st.cfg) // st.cfg.n_layers
-        per_step = _step_linears(st.cfg) * (
-            2 if st.cfg.remat else 1)
+        per_step = _train_launches(st.cfg)
         step_launches = res["launches"]
         # the merged model against the trained adapter model
         prompts = np.random.default_rng(0).integers(
@@ -3393,6 +3585,7 @@ def phase_train(torch, argv=None, steps=TRAIN_STEPS,
                         if dev.type == "cuda" and hold_kernels
                         else ({}, []))
         full_layers = C.get(st.cfg.name).n_layers
+        st_family = st.cfg.family
         del st, res["state"], inner, step_fn
         _free(torch)
         # steps resume_at.. again, from the step-resume_at checkpoint
@@ -3467,7 +3660,12 @@ def phase_train(torch, argv=None, steps=TRAIN_STEPS,
     }
     checks["merge_path_kernels_launched"] = all(
         merge_counts[k] > 0 for k in MERGE_PATH)
-    if f32 is None:
+    if st_family == "mla_moe":
+        # a reading here: phase mla_train gates deepseek-v3's merge at its
+        # published widths with the routing held
+        out["merge_within_bound_routed_alike"] = all(
+            r["rel"] <= bound for r in mcheck.values())
+    elif f32 is None:
         checks["merge_within_bound"] = all(r["rel"] <= bound
                                            for r in mcheck.values())
     else:
@@ -3510,11 +3708,12 @@ GPTQ_SAME_SHARE = 0.9999
 # QLoRA's fine-tune: launch/train.py on the converted model, 2 steps of
 # 4 x 256 tokens
 # the float stand-in base, its GPTQ and NF4 conversions, QLoRA's training
-# and the PTQ models at 16 of llama7b-proxy's 32 layers (widths as
-# published): the two GPTQ passes over all 224 linears took 63 s of the
-# phase's 95 (H100 80GB HBM3, 700 W); the lm_head=int4 model is served
-# whole through launch/serve.py
-BASELINE_LAYERS = 16
+# and the PTQ models at 8 of llama7b-proxy's 32 layers (widths as
+# published; 16 until phases mla_train and recurrent were added): the two
+# GPTQ passes over all 224 linears took 63 s of the phase's 95 (H100 80GB
+# HBM3, 700 W); the lm_head=int4 model is served whole through
+# launch/serve.py
+BASELINE_LAYERS = 8
 QLORA_ARGV = ["--arch", "llama7b-proxy", "--mode", "qlora", "--seq-len",
               "256", "--global-batch", "4", "--dataset", "alpaca", "--lr",
               "2e-4", "--steps", "2", "--log-every", "1", "--device", "cuda",
@@ -3954,7 +4153,7 @@ def phase_baselines(torch):
 # other
 # mixtral at 8 of 56 layers, as phases moe_train and moe_serve run it
 FAMILY_CUTS = (("h2o-danube-1.8b", None), ("starcoder2-7b", None),
-               ("deepseek-67b", 16), ("mixtral-8x22b", 8))
+               ("deepseek-67b", 8), ("mixtral-8x22b", 8))
 # the continuous engine (contiguous and paged, graphed and eager) runs on
 # these: the dense config with head_dim 80, and the MoE
 FAMILY_ENGINES = ("h2o-danube-1.8b", "mixtral-8x22b")
@@ -4122,7 +4321,7 @@ def _profile_prefill(torch, lm, merged, prompts, frontend=None):
 
 
 def _hold_family_linears(torch, cfg, params, merged, prefill_rows: int,
-                         engine: bool):
+                         engine: bool, pairs=None):
     """Kernels 1-4 on block 0 of one family config, at the rows the served
     path gives each linear, against their plain versions (two bf16 steps
     of the plain version's max, as :func:`_hold_intq_linears`): the merged
@@ -4132,7 +4331,9 @@ def _hold_family_linears(torch, cfg, params, merged, prefill_rows: int,
     decode step's, as the merge check runs them.  Attention and a dense
     MLP see every row of the step; an MoE's experts (expert 0's gate, up
     and down) see their capacity buffer: for mixtral 160 rows at a 4 x
-    128 prefill, 80 at a 4 x 64 ragged step, 2 at a 4-slot decode step."""
+    128 prefill, 80 at a 4 x 64 ragged step, 2 at a 4-slot decode step.
+    ``pairs`` ((label, merged linear, adapter linear), every row seen)
+    replaces block 0's linears (a recurrent config's)."""
     from repro_torch.core import schemes
     from repro_torch.kernels.qalora_fused import (qalora_matmul_cuda,
                                                   qalora_matmul_plain)
@@ -4144,17 +4345,23 @@ def _hold_family_linears(torch, cfg, params, merged, prefill_rows: int,
     steps = {"prefill": prefill_rows, "decode": GEMV_M}
     if engine:
         steps["ragged"] = RAGGED_M
-    names = [("attn", n, None) for n in ("wq", "wk", "wv", "wo")]
-    if cfg.family == "gqa_moe":
-        names += [("moe", n, 0) for n in ("gate", "up", "down")]
+    if pairs is None:
+        names = [("attn", n, None) for n in ("wq", "wk", "wv", "wo")]
+        if cfg.family == "gqa_moe":
+            names += [("moe", n, 0) for n in ("gate", "up", "down")]
+        else:
+            names += [("mlp", n, None) for n in ("gate", "up", "down")
+                      if n != "gate" or cfg.gated_mlp]
+        pairs = [(f"{grp}/{name}" + ("" if expert is None else f"/{expert}"),
+                  *[blk[grp][name] if expert is None
+                    else getattr(blk[grp], name)[expert]
+                    for blk in (merged.blocks[0], params.blocks[0])],
+                  expert) for grp, name, expert in names]
     else:
-        names += [("mlp", n, None) for n in ("gate", "up", "down")
-                  if n != "gate" or cfg.gated_mlp]
+        pairs = [(*p, None) for p in pairs]
     rows = []
-    for grp, name, expert in names:
-        lps = [blk[grp][name] if expert is None
-               else getattr(blk[grp], name)[expert]
-               for blk in (merged.blocks[0], params.blocks[0])]
+    for label, lp_m, lp_a, expert in pairs:
+        lps = (lp_m, lp_a)
         (qm, qa), ad = (schemes.quantized_base(lp) for lp in lps), \
             schemes.adapter_params(lps[1])
         kw = dict(bits=qm.bits, group_size=qm.group_size)
@@ -4179,8 +4386,7 @@ def _hold_family_linears(torch, cfg, params, merged, prefill_rows: int,
                 tol = 2.0 ** -6 * ref.abs().max().item()
                 rows.append({
                     "kernel": kern.__name__.replace("_cuda", ""),
-                    "linear": f"{grp}/{name}" + (
-                        "" if expert is None else f"/{expert}"),
+                    "linear": label,
                     "step": step, "M": m, "K": qm.d_in, "N": qm.d_out,
                     "bits": qm.bits,
                     "max_abs_err": err, "tol": tol,
@@ -4214,7 +4420,7 @@ def _faulty_merge_check(torch, lm, params, merged, prompts, max_len,
         moe._expert_ffn = sound
 
 
-def _family_engines(torch, cfg, lm, merged, n_lin):
+def _family_engines(torch, cfg, lm, merged, n_lin, paged=True):
     """The continuous engine on ``FAMILY_REQUESTS`` requests over 4 slots
     (chunks of 64, bursts of 8), contiguous and paged: each graphed engine
     warmed by a first pass and then counted, and an eager one of each
@@ -4223,7 +4429,8 @@ def _family_engines(torch, cfg, lm, merged, n_lin):
     The paged streams equal the contiguous ones for a dense model; for an
     MoE that is a reading, since a padding row reads stale rows in one
     layout and the null page in the other, and padding rows take
-    capacity."""
+    capacity.  ``paged=False`` runs the contiguous layout alone (rwkv has
+    nothing to page)."""
     from repro_torch import kernels
     from repro_torch.models.moe import record_routing
     from repro_torch.runtime.compile_guard import CompileGuard
@@ -4233,6 +4440,8 @@ def _family_engines(torch, cfg, lm, merged, n_lin):
               decode_burst=8, max_len=max(FAMILY_TRACE["prompt_lens"])
               + max(FAMILY_TRACE["gen_lens"]))
     layouts = {"contiguous": kw, "paged": dict(page_size=PAGE_SIZE, **kw)}
+    if not paged:
+        del layouts["paged"]
     moe = cfg.family == "gqa_moe"
     out, streams = {}, {}
     with CompileGuard(f"chip_smoke families {cfg.name}") as guard:
@@ -4282,10 +4491,11 @@ def _family_engines(torch, cfg, lm, merged, n_lin):
                     torch, rec, rows, cfg.n_layers, cfg.n_experts)
         guard_counts = guard.counts()
         guard.check()
-    same = streams["paged"] == streams["contiguous"]
-    out["paged_streams_equal_contiguous"] = same
-    if not moe:
-        out["paged"]["checks"]["paged_streams_equal_contiguous"] = same
+    if paged:
+        same = streams["paged"] == streams["contiguous"]
+        out["paged_streams_equal_contiguous"] = same
+        if not moe:
+            out["paged"]["checks"]["paged_streams_equal_contiguous"] = same
     out["guard_counts"] = {k: list(v) for k, v in guard_counts.items()}
     return out
 
@@ -4622,11 +4832,11 @@ def phase_vision(torch):
 # phases 15-16: mixtral-8x22b trained, speculated and behind the frontend
 # ---------------------------------------------------------------------------
 
-# 8 of 56 layers, to keep the script under 850 s beside phase mla_serve:
-# with 16 layers, and the dense frontends already cut, a run of the
-# script took 903.0 s on an H100 80GB HBM3 at 700 W whose every phase
-# ran slower than the previous run's
-MOE_ARCH, MOE_LAYERS = "mixtral-8x22b", 8
+# 4 of 56 layers, to keep the script under 800 s beside phases mla_serve,
+# mla_train and recurrent (8 before them; with 16 layers, and the dense
+# frontends already cut, a run of the script took 903.0 s on an H100 80GB
+# HBM3 at 700 W whose every phase ran slower than the previous run's)
+MOE_ARCH, MOE_LAYERS = "mixtral-8x22b", 4
 # the main training run through launch/train.py: 8 x 256 tokens of alpaca
 # a step, one routing group of T = 2048 rows (moe_chunk 512 > S), so each
 # expert's capacity is C = ceil(2 x 2048 / 8 x 1.25) = 640; remat, 4
@@ -4652,13 +4862,19 @@ MOE_CPU_OVER = {"moe_d_ff": 2048}
 # rows and a drafter step's C = 2, so both run kernel 2
 MOE_SPEC_DRAFTER = "*=intq2"
 MOE_SPEC_REQUESTS = 8
+# the speculating engine's card against the CPU (:func:`_card_cpu`): 2
+# layers at d 512 keeping the 8 experts, top-2 and the window, the CPU
+# routed and committing as the card, the card's drafter tree copied
+MOE_SPEC_CPU_OVER = dict(n_layers=2, d_model=512, n_heads=8, n_kv_heads=2,
+                         head_dim=64, d_ff=1024, moe_d_ff=1024)
 # behind the frontend: the MoE (the model phase moe_train trained) and
 # three dense configs, their depth cut to keep the script under 850 s
 # since phase mla_serve was added: h2o-danube-1.8b at 12 of 24 layers
 # (whole until then) and the two configs with no other frontend run at 4
 # layers each (8 until then); a run of the script took 852.7 s with them
-# at 24, 8 and 8 layers (H100 80GB HBM3, 700 W)
-FRONTEND_ARCHS = ((MOE_ARCH, MOE_LAYERS), ("h2o-danube-1.8b", 12),
+# at 24, 8 and 8 layers (H100 80GB HBM3, 700 W); h2o-danube-1.8b at 6
+# since phases mla_train and recurrent were added
+FRONTEND_ARCHS = ((MOE_ARCH, MOE_LAYERS), ("h2o-danube-1.8b", 6),
                   ("starcoder2-7b", 4), ("deepseek-67b", 4))
 
 
@@ -4799,24 +5015,31 @@ def _fingerprint(torch, params):
     """Two integer sums over the bytes of each buffer of ``params`` (the
     frozen base, embedding, norms): plain and weighted by position mod a
     prime, so a changed byte changes them."""
-    sums = []
+    sums, chunk = [], 1 << 28  # bytes a slice: bounded temporaries
     for t in params.buffers():
-        b = t.detach().contiguous().view(-1).view(torch.uint8).to(torch.int64)
-        w = torch.arange(b.numel(), device=b.device) % 65521 + 1
-        sums += [b.sum(), (b * w).sum()]
-        del b, w
-    return torch.stack(sums).tolist()
+        flat = t.detach().contiguous().view(-1).view(torch.uint8)
+        plain = weighted = 0
+        for i in range(0, flat.numel(), chunk):
+            b = flat[i:i + chunk].to(torch.int64)
+            w = (torch.arange(b.numel(), device=b.device) + i) % 65521 + 1
+            plain += int(b.sum())
+            weighted += int((b * w).sum())
+            del b, w
+        sums += [plain, weighted]
+    return sums
 
 
 def _profiled_step(torch, step):
     """``step()`` (a train step, returning its metrics) under
-    ``torch.profiler``: (its metrics, the profiler, wall ms on the host
-    clock ending in a sync).  :func:`_step_profile` reads the profiler
-    later, outside the step's timing."""
+    ``torch.profiler`` tracing the device only (with the host's operators
+    traced too, a deepseek-v3 step of ~160k kernels took 4.4x its wall,
+    and reading them back took most of a minute): (its metrics, the
+    profiler, wall ms on the host clock ending in a sync).
+    :func:`_step_profile` reads the profiler later, outside the step's
+    timing."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         metrics = step()
         loss = float(metrics["loss"])
@@ -4830,23 +5053,40 @@ def _step_profile(torch, profiled):
     ms (the union of the device activities), the idle share and device
     ms by kind: kernel 3's tiled part, its rank projection 3a, PyTorch's
     matmuls (the plain backward's products, attention's, the router's)
-    and everything else."""
-    from repro_torch.launch.profile_serve import _device_us, _kind
+    and everything else; read from the trace's device records in one
+    pass."""
+    from repro_torch.launch.profile_serve import _kind
     prof, loss, wall = profiled
     names = {"qalora_matmul": "kernel 3", "qalora_rank_proj": "kernel 3a"}
-    by_kind, n_kind = {}, {}
-    for evt in prof.key_averages():
-        if evt.device_type.name != "CUDA":
+    by_kind, n_kind, kind_of = {}, {}, {}
+    spans = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type().name != "CUDA":
             continue
-        kind = names.get(_counter_of(evt.key)) or _kind(evt.key)
-        by_kind[kind] = by_kind.get(kind, 0.0) + _device_us(evt) / 1e3
-        n_kind[kind] = n_kind.get(kind, 0) + evt.count
-    busy, n_events = _busy_ms(prof)
+        start, end = e.start_ns(), e.end_ns()
+        spans.append((start, end))
+        name = e.name()
+        if name not in kind_of:
+            kind_of[name] = names.get(_counter_of(name)) or _kind(name)
+        kind = kind_of[name]
+        by_kind[kind] = by_kind.get(kind, 0.0) + (end - start) / 1e6
+        n_kind[kind] = n_kind.get(kind, 0) + 1
+    spans.sort()
+    busy, last = 0, None
+    for s0, e0 in spans:
+        if last is None or s0 > last:
+            busy += e0 - s0
+            last = e0
+        elif e0 > last:
+            busy += e0 - last
+            last = e0
+    busy /= 1e6
     del prof
     return {"loss": loss, "wall_ms": wall, "device_busy_ms": busy,
-            "device_events": n_events,
+            "device_events": len(spans),
             "device_idle_share": max(0.0, 1.0 - busy / wall),
-            "device_ms_by_kind": by_kind, "device_kernels_by_kind": n_kind}
+            "device_ms_by_kind": by_kind, "device_kernels_by_kind": n_kind,
+            "traced": "device activities only"}
 
 
 def _moe_model(torch):
@@ -5330,12 +5570,21 @@ def phase_moe_serve(torch, holder):
     _free(torch)
     fronts += [_moe_frontend(torch, arch, layers)
                for arch, layers in FRONTEND_ARCHS[1:]]
+    spec_cpu = _card_cpu(
+        torch, C.get(MOE_ARCH).scaled(**MOE_SPEC_CPU_OVER),
+        (("spec", dict(speculate=SPEC_K, decode_burst=1)),),
+        MLA_CPU_REQUESTS, MLA_CPU_TRACE, drafter=MOE_SPEC_DRAFTER)
+    print(f"[chip_smoke] moe_serve spec card vs CPU: max rel "
+          f"{spec_cpu['spec']['max_rel']:.3e} (tol {MLA_CPU_TOL}) over "
+          f"{spec_cpu['spec']['steps_by_kind']}", flush=True)
     out = {"phase": "moe_serve", "card": _smi("name,power.limit"),
            "arch": MOE_ARCH, "n_layers": MOE_LAYERS,
            "depth_cut": f"{MOE_LAYERS} of {C.get(MOE_ARCH).n_layers} layers",
-           "spec": spec, "frontend": fronts,
+           "spec": spec, "spec_card_cpu": spec_cpu, "frontend": fronts,
            "phase_s": time.perf_counter() - t_phase}
     checks = {f"spec_{k}": v for k, v in spec["checks"].items()}
+    checks.update({f"spec_card_cpu_{k}": v
+                   for k, v in spec_cpu["checks"].items()})
     for f in fronts:
         checks.update({f"{f['arch']}_{k}": v for k, v in f["checks"].items()})
     out["checks"] = checks
@@ -5659,13 +5908,15 @@ def _mla_engine_checks(cfg, lm, res, streams, eager, trace, spec):
 def _logit_log(torch, lm, log, force=None):
     """Every ``step_ragged``, ``verify_ragged`` and ``mtp_draft_logits``
     call of ``lm`` made in the context appends (name, its logits as f32 on
-    the CPU, the rows its step consumed) to ``log``; with ``force`` (the
+    the CPU, the rows its step consumed) to ``log`` (the name tagged
+    ``#i``, i the order in which the call's params tree first appeared:
+    0 the served model, 1 a drafter); with ``force`` (the
     log of another run of the same steps) each call's argmax is made that
     run's (the call's largest logit plus one at its index), so the two
     runs commit the same tokens step for step."""
     names = ("step_ragged", "verify_ragged", "mtp_draft_logits")
     orig = {n: getattr(lm, n) for n in names}
-    rows = {}
+    rows, trees = {}, {}
 
     def wrap(name):
         def call(*args, **kw):
@@ -5681,7 +5932,9 @@ def _logit_log(torch, lm, log, force=None):
                     c = logits.shape[1]
                     valid = torch.arange(c)[None, :] < n_new[:, None]
                     rows["verify"] = valid
-            log.append((name, logits.detach().float().cpu(), valid))
+            tree = trees.setdefault(id(args[0]), len(trees))
+            log.append((f"{name}#{tree}", logits.detach().float().cpu(),
+                        valid))
             if force is not None:
                 want = force[len(log) - 1][1].argmax(-1).to(logits.device)
                 top = logits.max() + 1.0
@@ -5700,57 +5953,92 @@ def _logit_log(torch, lm, log, force=None):
 
 
 def _mla_card_cpu(torch):
-    """The card against the CPU at a narrow shape (``MLA_CPU_OVER``): the
-    merged model eager on the card (bf16, kernels), its routing and
-    logits recorded; a copy in f32 on the CPU (plain versions) runs the
-    same engine, each MoE call routed as the card's and each step
-    committing the card's tokens; for the plain engine and the MTP one.
+    """deepseek-v3's card against the CPU (:func:`_card_cpu`) at
+    ``MLA_CPU_OVER``, for the plain engine and the MTP one."""
+    import repro_torch.configs as C
+    return _card_cpu(torch, C.get(MLA_ARCH).scaled(**MLA_CPU_OVER),
+                     (("plain", dict(decode_burst=8)),
+                      ("mtp", dict(speculate=1, drafter="mtp",
+                                   decode_burst=1))),
+                     MLA_CPU_REQUESTS, MLA_CPU_TRACE)
+
+
+def _card_cpu(torch, cfg, modes, requests, trace_kw, drafter=None):
+    """The card against the CPU at a narrow shape ``cfg``: the merged model
+    eager on the card (bf16, kernels), its routing (an MoE) and logits
+    recorded; a copy in f32 on the CPU (plain versions) runs the same
+    engine, each MoE call routed as the card's and each step committing
+    the card's tokens; for each engine of ``modes`` ((name, engine
+    arguments)).  ``drafter`` (a policy such as ``"*=intq2"``) builds a
+    self-speculation drafter on the card once, and the CPU runs a copy of
+    that tree (the same codes), so the drafter's steps are held too.
+    The model is the base as initialised (seed 0, adapters not nudged):
+    the serve demo's nudge adds 0.01 to every entry of B, a rank-one term
+    that lifts each merged linear's largest singular value ~12x over the
+    next (tests/test_torch_card_cpu.py), and along that direction bf16
+    rounding grows through the layers until a few rows leave f32 by up
+    to ~2 of max|logit| in bf16 on the CPU alone, with no card or kernel
+    involved; without it bf16 stays within 5e-2 of f32 there.
     Gates: logits within ``MLA_CPU_TOL`` of the CPU's max|logit| at every
     step, and argmax equal at every row whose CPU top-2 margin is at
     least twice that.  Readings: the tokens' prefix, the steps before
     the first row whose CPU top-2 margin is under the tolerance, and
-    whether the argmax agreed over it (random logits over a vocab of
-    129280 leave most rows' margins under the tolerance); the share of
-    rows whose argmax agreed."""
+    whether the argmax agreed over it (random logits over a large vocab
+    leave most rows' margins under the tolerance); the share of rows
+    whose argmax agreed."""
     import dataclasses as dc
-    import repro_torch.configs as C
     from repro_torch.launch import serve
     from repro_torch.models.lm import LM
     from repro_torch.models.moe import record_routing
-    from repro_torch.serving import ContinuousEngine, make_trace
+    from repro_torch.serving import (ContinuousEngine, make_self_drafter,
+                                     make_trace)
     t0 = time.perf_counter()
-    cfg = C.get(MLA_ARCH).scaled(**MLA_CPU_OVER)
-    lm, params, merged = serve.build_model(cfg, "cuda")
+    routed = cfg.family in ("gqa_moe", "mla_moe")
+    lm, params, merged = serve.build_model(cfg, "cuda", bump=False)
     del params
-    cpu_cfg = cfg.scaled(quant=dc.replace(cfg.quant, dtype=torch.float32,
-                                          scale_dtype=torch.float32))
-    cpu_lm = LM(cpu_cfg)
-    cpu_tree = copy.deepcopy(merged).to("cpu").float()
-    trace = make_trace(MLA_CPU_REQUESTS, cfg.vocab, **MLA_CPU_TRACE)
-    max_len = MLA_CPU_TRACE["prompt_lens"][0] \
-        + MLA_CPU_TRACE["gen_lens"][0] + 1
-    kw = dict(n_slots=MLA_CPU_REQUESTS, max_len=max_len,
-              prefill_chunk=MLA_CPU_TRACE["prompt_lens"][0])
-    out = {"shape": {**MLA_CPU_OVER, "n_experts": cfg.n_experts,
-                     "top_k": cfg.top_k, "routing": cfg.routing,
-                     "n_shared_experts": cfg.n_shared_experts,
-                     "vocab": cfg.vocab},
-           "trace": {"requests": MLA_CPU_REQUESTS, **MLA_CPU_TRACE},
+
+    def to_cpu(tree):
+        return copy.deepcopy(tree).to("cpu").float()
+    cpu_lm = LM(cfg.scaled(quant=dc.replace(
+        cfg.quant, dtype=torch.float32, scale_dtype=torch.float32)))
+    cpu_tree = to_cpu(merged)
+    drafts = {}
+    if drafter is not None:
+        card_draft = make_self_drafter(merged, drafter,
+                                       base=cfg.quant.default)
+        drafts = {"card": card_draft, "cpu": to_cpu(card_draft)}
+    trace = make_trace(requests, cfg.vocab, **trace_kw)
+    max_len = max(trace_kw["prompt_lens"]) + max(trace_kw["gen_lens"]) \
+        + max(e.get("speculate", 0) for _, e in modes) + 1
+    kw = dict(n_slots=requests, max_len=max_len,
+              prefill_chunk=max(trace_kw["prompt_lens"]))
+    out = {"shape": {k: getattr(cfg, k) for k in (
+               "n_layers", "d_model", "n_heads", "d_ff", "vocab")},
+           "trace": {"requests": requests, **trace_kw},
+           "model": "the base as initialised, seed 0, adapters not nudged",
            "tol_rel": MLA_CPU_TOL}
+    if routed:
+        out["shape"].update({k: getattr(cfg, k) for k in (
+            "n_experts", "top_k", "moe_d_ff", "routing",
+            "n_shared_experts")})
     checks = {}
-    for name, ekw in (("plain", dict(decode_burst=8)),
-                      ("mtp", dict(speculate=1, drafter="mtp",
-                                   decode_burst=1))):
+    for name, ekw in modes:
         card_log, cpu_log, own = [], [], []
-        with record_routing() as routes, _logit_log(torch, lm, card_log):
-            eng = ContinuousEngine(lm, merged, eager=True, **kw, **ekw)
+        ekw_card = ({**ekw, "drafter": drafts["card"]}
+                    if drafts and ekw.get("speculate") else ekw)
+        ekw_cpu = ({**ekw, "drafter": drafts["cpu"]}
+                   if drafts and ekw.get("speculate") else ekw)
+        with (record_routing() if routed else contextlib.nullcontext([])) \
+                as routes, _logit_log(torch, lm, card_log):
+            eng = ContinuousEngine(lm, merged, eager=True, **kw, **ekw_card)
             card_out, _, _ = _engine_pass(torch, eng, trace)
         del eng
         routes = [{k: v.cpu() for k, v in r.items()} for r in routes]
         t_cpu = time.perf_counter()
-        with _routed_by_call(torch, routes, own), \
+        with (_routed_by_call(torch, routes, own) if routed
+              else contextlib.nullcontext()), \
                 _logit_log(torch, cpu_lm, cpu_log, force=card_log):
-            eng = ContinuousEngine(cpu_lm, cpu_tree, **kw, **ekw)
+            eng = ContinuousEngine(cpu_lm, cpu_tree, **kw, **ekw_cpu)
             for r in trace:
                 eng.submit(r.prompt, r.max_new_tokens, rid=r.rid)
             cpu_out = eng.run()
@@ -5758,6 +6046,7 @@ def _mla_card_cpu(torch):
         del eng
         worst, prefix, argmax_rows, near, agree, rows_all = \
             0.0, None, 0, 0, 0, 0
+        by_kind = {}
         prefix_equal = True
         aligned = len(card_log) == len(cpu_log) and all(
             a[0] == b[0] and a[1].shape == b[1].shape
@@ -5768,7 +6057,10 @@ def _mla_card_cpu(torch):
             if c.numel() == 0:
                 continue
             top = float(c.abs().max())
-            worst = max(worst, float((g - c).abs().max()) / top)
+            rel = float((g - c).abs().max()) / top
+            worst = max(worst, rel)
+            kind = card_log[j][0]
+            by_kind[kind] = max(by_kind.get(kind, 0.0), rel)
             two = c.topk(2, dim=-1).values
             margin = two[:, 0] - two[:, 1]
             clear = margin >= 2 * MLA_CPU_TOL * top
@@ -5786,9 +6078,12 @@ def _mla_card_cpu(torch):
                 checks[f"{name}_argmax_equal_where_clear"] = False
         differ = sum(int((~(o[0].sort(-1)[0] == o[1].sort(-1)[0]).all(-1))
                          .sum()) for o in own)
-        out[name] = {"steps": len(card_log), "moe_calls": len(routes),
+        out[name] = {"steps": len(card_log),
+                     "steps_by_kind": {k: sum(e[0] == k for e in card_log)
+                                       for k in {e[0] for e in card_log}},
+                     "moe_calls": len(routes),
                      "max_rel": worst, "max_rel_over_tol":
-                         worst / MLA_CPU_TOL,
+                         worst / MLA_CPU_TOL, "max_rel_by_kind": by_kind,
                      "prefix_steps": len(card_log) if prefix is None
                      else prefix,
                      "prefix_argmax_equal": prefix_equal,
@@ -5802,8 +6097,9 @@ def _mla_card_cpu(torch):
         checks[f"{name}_logits_within_tol"] = aligned and worst <= MLA_CPU_TOL
         checks.setdefault(f"{name}_argmax_equal_where_clear", True)
         checks[f"{name}_streams_equal"] = card_out == cpu_out
-        checks[f"{name}_routed_every_call"] = len(own) == len(routes) > 0
-    del lm, merged, cpu_tree
+        if routed:
+            checks[f"{name}_routed_every_call"] = len(own) == len(routes) > 0
+    del lm, merged, cpu_tree, drafts
     _free(torch)
     out["checks"] = checks
     out["seconds"] = time.perf_counter() - t0
@@ -5890,7 +6186,8 @@ def phase_mla_serve(torch):
     the CPU at a narrow shape (:func:`_mla_card_cpu`); (6) kernels 1-4 at
     the phase's shapes.  No gate reads the clock or rests on a router tie:
     every MoE comparison holds one side's routing.  Returns the launch
-    counts of each counted window and the kernel rows held."""
+    counts of each counted window, the kernel rows held and [(lm, the
+    adapter model)] for phase mla_train."""
     import numpy as np
     import repro_torch.configs as C
     from repro_torch.launch import serve
@@ -5926,8 +6223,11 @@ def phase_mla_serve(torch):
     held = _hold_mla_linears(torch, cfg, params, merged, steps)
     floors = _mla_floors(torch, cfg, merged, b, s, max_len, b * s)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    del lm, params, merged
+    # the adapter model is handed on to phase mla_train (built once)
+    del merged
     _free(torch)
+    holder = [(lm, params)]
+    del lm, params
     card_cpu = _mla_card_cpu(torch)
     su, sm = static["unmerged"], static["merged"]
     step_lin = _mla_step_linears(LM(cfg))
@@ -6022,6 +6322,662 @@ def phase_mla_serve(torch):
                   plain["contiguous"]["launches"],
               "deepseek-v3 MTP engine (phase mla_serve)":
                   mtp["contiguous"]["launches"]}
+    return counts, held, holder
+
+
+# ---------------------------------------------------------------------------
+# phase 18: deepseek-v3-671b (mla_moe) trained on the card
+# ---------------------------------------------------------------------------
+
+# phase mla_serve's 5-layer model (3 dense, 2 MoE layers and the MTP head,
+# adapters nudged) trained through launch/train.py: 4 x 256 alpaca tokens
+# a step, one routing group of T = 1024 rows (moe_chunk 512 > S), so each
+# of the 256 experts' capacity is C = ceil(8 x 1024 / 256 x 1.25) = 40;
+# lr 2e-5 as mixtral's; remat; no checkpoint at this size (the base holds
+# ~17 GB), as phase moe_train: the cut and resumed run is the narrow one
+MLA_TRAIN_ARGV = ["--arch", MLA_ARCH, "--seq-len", "256", "--global-batch",
+                  "4", "--dataset", "alpaca", "--lr", "2e-5", "--log-every",
+                  "1", "--device", "cuda"]
+MLA_TRAIN_STEPS = 3
+# the cut and resumed run and the card-vs-CPU step: MLA_CPU_OVER's shape
+MLA_TRAIN_NARROW = {k: v for k, v in MLA_CPU_OVER.items() if k != "n_layers"}
+
+
+def _mla_train_flops(torch, cfg, params, b, s):
+    """Operations of one remat train step of b x s tokens of an mla_moe
+    model: the stack's forward (every linear at its rows, each expert at
+    its capacity, the routers, the attention core over the causal half)
+    three times (the step, the recompute, the backward's dx products: the
+    base is frozen), the head over every token forward and backward, and
+    the MTP head (its projection, its dense MLA block and the head again)
+    forward and backward."""
+    from repro_torch.core import schemes
+    t = b * s
+    cap = _moe_capacity(cfg, t)
+    stack, mtp = 0, 0
+    for name, mod in params.named_modules():
+        if not schemes.is_linear(mod) or name == "head":
+            continue
+        if ".moe.router" in name:
+            ops = 2 * t * cfg.d_model * cfg.n_experts
+        elif name == "mtp_proj":
+            ops = 2 * t * 2 * cfg.d_model * cfg.d_model
+        else:
+            qt = schemes.quantized_base(mod)
+            rows = cap if any(f".moe.{n}." in name
+                              for n in ("gate", "up", "down")) else t
+            ops = 2 * rows * qt.d_in * qt.d_out
+        if name.startswith("mtp_"):
+            mtp += ops
+        else:
+            stack += ops
+    core = b * cfg.n_heads * s * s * (cfg.qk_nope_dim + cfg.qk_rope_dim
+                                      + cfg.v_head_dim)
+    head = 2 * t * cfg.d_model * cfg.vocab
+    return (3 * (stack + core * cfg.n_layers) + 2 * head
+            + 2 * (mtp + core + head))
+
+
+def phase_mla_train(torch, holder):
+    """deepseek-v3-671b fine-tuned on the card at its published widths:
+    phase mla_serve's model (``holder``: [(lm, adapter params)], emptied
+    here; 5 of 61 layers, the 3 dense and 2 MoE, and the MTP head, int4
+    g32 r64, bf16, adapters nudged) through ``launch/train.py``'s
+    ``setup`` and ``run``, ``MLA_TRAIN_STEPS`` steps of 4 x 256 tokens at
+    lr 2e-5 with remat, counts reset just before the loop and read just
+    after: kernel 3 and its projection once per linear of the stack a
+    forward (MLA's five, the dense MLP, 768 expert linears and the shared
+    expert a MoE layer), again in the recompute, and once per MTP block
+    linear (8), and no other kernel; the loss is xent + 0.3 MTP xent +
+    aux_coef x the routers' aux, the MTP term read as the rest; the last
+    step under ``torch.profiler`` (device time by kind: kernel 3, 3a,
+    PyTorch's matmuls, the rest); the step wall's median (steps 2-3)
+    beside the operations floor.  The trained merge is checked with the
+    merged model routed as the adapter model (:func:`_mla_merge`, bound
+    0.10 in bf16), and the base with its adapters dropped must fail it.
+    Then at ``MLA_CPU_OVER``'s narrow shape (2 layers, d 512, 256 experts
+    kept): a run cut at step 2 and resumed bit for bit (phase train's;
+    the full-width run writes no checkpoint, as mixtral's), and one step
+    on the card against the CPU in f32, routed as the card (phase
+    train_small's).  Returns the launch counts and the errors of the
+    kernels held."""
+    import statistics
+    import numpy as np
+    import repro_torch.configs as C
+    from repro_torch import kernels
+    from repro_torch.launch import serve, train
+    t_phase = time.perf_counter()
+    lm, params = holder.pop()
+    args = train.build_parser().parse_args(MLA_TRAIN_ARGV + [
+        "--n-layers", str(lm.cfg.n_layers), "--steps", str(MLA_TRAIN_STEPS)])
+    del lm
+    t0 = time.perf_counter()
+    st = train.setup(args, params=params)
+    del params
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg = st.cfg
+    base_before = _fingerprint(torch, st.params)
+    inner, recorded = st.step_fn, {"steps": 0}
+
+    def step_fn(params, opt_state, batch):
+        recorded["steps"] += 1
+        if recorded["steps"] < MLA_TRAIN_STEPS:
+            return inner(params, opt_state, batch)
+        metrics, recorded["profiled"] = _profiled_step(
+            torch, lambda: inner(params, opt_state, batch))
+        return metrics
+    st.step_fn = step_fn
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    res = train.run(st, args)
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    st.step_fn = inner
+    base_same = _fingerprint(torch, st.params) == base_before
+    per_step = _train_launches(cfg)
+    profile = _step_profile(torch, recorded.pop("profiled"))
+    b, s = args.global_batch, args.seq_len
+    flops = _mla_train_flops(torch, cfg, st.params, b, s)
+    med = statistics.median(res["step_ms"][1:-1])
+    secs = {"train_loop": sum(res["step_ms"]) / 1e3}
+    t1 = time.perf_counter()
+    mtp = [(lo - x - cfg.aux_coef * a) / 0.3
+           for lo, x, a in zip(res["loss"], res["xent"], res["aux"])]
+    merged = serve.merge_model(st.params)
+    seq = np.random.default_rng(0).integers(
+        4, cfg.vocab, size=(4, 128 + SERVE_GEN)).astype(np.int32)
+    kernels.reset_launches()
+    merge = _mla_merge(torch, st.lm, st.params, merged, seq)
+    merge_counts = kernels.launches()
+    del merged, st, res["state"], inner, step_fn
+    _free(torch)
+    secs["merge"] = time.perf_counter() - t1
+    print(f"[chip_smoke] mla_train: {MLA_ARCH} ({cfg.n_layers} layers) "
+          f"{b * s} tokens a step: {med:.1f} ms median (floor "
+          f"{flops / PEAK_BF16_FLOP_S * 1e3:.2f} ms), peak "
+          f"{(res['peak_mem_bytes'] or 0) / 1e9:.2f} GB, xent {res['xent']}, "
+          f"aux {res['aux']}, mtp {mtp}; merge rel {merge['rel']:.3e} "
+          f"(bound {merge['bound_rel']}, adapters dropped "
+          f"{merge['control_adapters_dropped_rel']:.3e}); idle "
+          f"{profile['device_idle_share']:.3f}", flush=True)
+    # the narrow runs each emit their own line; a failure of one is
+    # raised after this phase's line is out
+    failed, resume_counts = [], {}
+    t1 = time.perf_counter()
+    try:
+        resume_counts, _ = phase_train(
+            torch, argv=MLA_TRAIN_ARGV + ["--ckpt-every", "2"], steps=3,
+            resume_at=2, phase="mla_train_resume", hold_kernels=False,
+            over=MLA_CPU_OVER)
+    except AssertionError as e:
+        failed.append(str(e))
+    secs["narrow_resume"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    try:
+        phase_train_small(torch, arch=MLA_ARCH, phase="mla_train_small",
+                          n_layers=MLA_CPU_OVER["n_layers"],
+                          over=MLA_TRAIN_NARROW)
+    except AssertionError as e:
+        failed.append(str(e))
+    secs["narrow_card_cpu"] = time.perf_counter() - t1
+    checks = {
+        "losses_finite": all(math.isfinite(x) for x in res["loss"]
+                             + res["xent"] + res["aux"]),
+        "mtp_term_in_loss": all(m > 0 for m in mtp),
+        "base_fingerprint_unchanged": base_same,
+        "kernel3_and_3a_per_step": all(
+            st_[k] == per_step for st_ in res["launches"] for k in TRAIN_PATH),
+        "no_other_kernel_in_a_step": all(
+            v == 0 for st_ in res["launches"] for k, v in st_.items()
+            if k not in TRAIN_PATH),
+        "path_kernels_launched": all(counts[k] > 0 for k in TRAIN_PATH),
+        "merge_within_bound_routing_held": merge["rel"] <= merge["bound_rel"],
+        "merge_control_adapters_dropped_fails":
+            merge["control_adapters_dropped_rel"] > merge["bound_rel"],
+        "profiled_step_finite": math.isfinite(profile["loss"])}
+    full = C.get(MLA_ARCH)
+    out = {"phase": "mla_train", "card": _smi("name,power.limit"),
+           "arch": MLA_ARCH, "n_layers": cfg.n_layers,
+           "depth_cut": f"{cfg.n_layers} of {full.n_layers} layers (the "
+                        f"{full.n_dense_layers} dense and 2 MoE) and the "
+                        f"MTP head; the full-width run writes no checkpoint "
+                        f"(its base holds ~17 GB): the cut and resumed run "
+                        f"is the narrow one (mla_train_resume)",
+           "batch": [b, s], "dataset": args.dataset, "lr": args.lr,
+           "steps": MLA_TRAIN_STEPS, "capacity": _moe_capacity(cfg, b * s),
+           "setup_s": setup_s, "loss": res["loss"], "xent": res["xent"],
+           "aux": res["aux"], "mtp_xent": mtp, "grad_norm": res["grad_norm"],
+           "step_ms": res["step_ms"], "step_ms_median_after_first": med,
+           "step_ms_median_of": "step 2 (step 1 warms, step 3 is profiled)",
+           "tokens_per_s": b * s / (med / 1e3),
+           "peak_mem_gb": (res["peak_mem_bytes"] or 0) / 1e9,
+           "step_tflop": flops / 1e12,
+           "step_floor_ms": flops / PEAK_BF16_FLOP_S * 1e3,
+           "step_floor_bound_by": "operations",
+           "over_floor": med / (flops / PEAK_BF16_FLOP_S * 1e3),
+           "launches": counts, "launches_per_step": res["launches"],
+           "launches_expected_per_step": per_step,
+           "start": "phase mla_serve's model: adapters nudged by +0.01",
+           "merge": merge, "merge_launches": merge_counts,
+           "profiled_step": profile, "seconds_by_part": secs,
+           "checks": checks, "phase_s": time.perf_counter() - t_phase}
+    out["ok"] = all(checks.values()) and not failed
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"mla_train checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}"
+                             + "".join(f"; {f}" for f in failed))
+    return _sum_counts([counts, merge_counts, resume_counts])
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the recurrent families served (rwkv6-7b, zamba2-7b)
+# ---------------------------------------------------------------------------
+
+# rwkv6-7b at 16 of 32 layers; zamba2-7b at 15 of 81: 2 groups of 5
+# Mamba2 layers, each followed by the shared attention block, and a tail
+# of 3, so every structural part runs
+REC_CUTS = (("rwkv6-7b", 16), ("zamba2-7b", 15))
+# the card against the CPU: 2-3 layers at d 512 (zamba2: one group of one
+# Mamba2 layer and the shared block, then a tail layer), prompts of 64
+# (rwkv6's chunk) and 8 generated tokens
+REC_CPU_OVER = {
+    "rwkv6-7b": dict(n_layers=2, d_model=512, n_heads=8, n_kv_heads=8,
+                     d_ff=1024),
+    "zamba2-7b": dict(n_layers=3, attn_every=2, d_model=512, n_heads=4,
+                      n_kv_heads=4, head_dim=128, d_ff=1024)}
+REC_CPU_TRACE = dict(seed=5, prompt_lens=(64,), gen_lens=(8,))
+REC_CPU_REQUESTS = 4
+
+
+def _rec_pairs(cfg, params, merged):
+    """(label, merged linear, adapter linear) of one of each distinct
+    linear of a recurrent config: RWKV6 block 0's eight; zamba2's first
+    Mamba2 layer's in_proj and out_proj and the shared block's seven."""
+    from repro_torch.models.ssm import RWKV6Params
+    if cfg.family == "rwkv":
+        return [(f"mix/{n}", getattr(merged.blocks[0]["mix"], n),
+                 getattr(params.blocks[0]["mix"], n))
+                for n in RWKV6Params.LINEARS]
+    out = [(f"mamba/{n}", getattr(merged.mamba_groups[0][0], n),
+            getattr(params.mamba_groups[0][0], n))
+           for n in ("in_proj", "out_proj")]
+    for grp, names in (("attn", ("wq", "wk", "wv", "wo")),
+                       ("mlp", ("gate", "up", "down"))):
+        out += [(f"shared/{grp}/{n}", merged.shared_attn[grp][n],
+                 params.shared_attn[grp][n]) for n in names]
+    return out
+
+
+def _rec_floors(torch, cfg, lm, merged, b, s, max_len):
+    """The decode step's and the prefill's floors of a recurrent config on
+    the card.  Decode: bytes, each linear's stored tensors once per
+    application (zamba2's shared block ``n_groups`` times) and the bf16
+    head, plus the recurrent state each step reads and writes (f32 WKV,
+    SSM and conv windows; RWKV6's carries in bf16) and zamba2's f32 K/V
+    cache read.  Prefill of b x s tokens: operations, every linear at b s
+    rows (the shared block per application, the head on the last row) at
+    the bf16 peak, and the chunked recurrences' and the attention core's
+    f32 products (no TF32) at the f32 peak."""
+    from repro_torch.core import schemes
+    from repro_torch.models.slot_state import (hybrid_layout, mamba_cfg,
+                                               rwkv_cfg)
+    t = b * s
+    lin_bytes, lin_ops = 0, 0
+    groups = hybrid_layout(cfg)[0] if cfg.family == "mamba_hybrid" else 1
+    for name, mod in merged.named_modules():
+        if not schemes.is_linear(mod):
+            continue
+        times = groups if name.startswith("shared_attn") else 1
+        lin_bytes += times * sum(x.numel() * x.element_size()
+                                 for x in mod.buffers())
+        if name == "head":
+            lin_ops += 2 * b * cfg.d_model * cfg.vocab
+        else:
+            qt = schemes.quantized_base(mod)
+            lin_ops += times * 2 * t * qt.d_in * qt.d_out
+    cache = lm.init_cache(b, max_len, dtype=torch.float32, device="cuda")
+    state = sum(x.numel() * x.element_size()
+                for x in lm.slot_state().state_leaves(cache))
+    kv = sum(cache["layers"][k].numel() * 4 for k in ("k", "v")
+             if k in cache["layers"])
+    del cache
+    if cfg.family == "rwkv":
+        r = rwkv_cfg(cfg)
+        q = min(r.chunk, s)
+        # a chunk: r k^T and att v (Q x Q), the state's read and update
+        rec = cfg.n_layers * b * (s // q) * r.n_heads * (
+            2 * 2 * q * q * r.head_dim + 2 * 2 * q * r.head_dim * r.head_dim)
+        rec += cfg.n_layers * t * 2 * cfg.d_model * 64 * 2  # decay LoRA
+    else:
+        m = mamba_cfg(cfg)
+        q = min(m.chunk, s)
+        n_mamba = cfg.n_layers - groups
+        rec = n_mamba * b * (s // q) * (
+            2 * q * q * m.ssm_state + 2 * q * q * m.n_heads * m.head_dim
+            + 3 * 2 * q * m.n_heads * m.head_dim * m.ssm_state)
+        rec += groups * 2 * 2 * b * cfg.n_heads * s * s // 2 * cfg.head_dim
+    decode_bytes = lin_bytes + 2 * state + kv
+    prefill = lin_ops / PEAK_BF16_FLOP_S + rec / PEAK_F32_FLOP_S
+    return {"decode_step_ms": decode_bytes / PEAK_BYTES_S * 1e3,
+            "decode_bound_by": "bytes", "decode_gb": decode_bytes / 1e9,
+            "decode_state_gb": 2 * state / 1e9, "decode_kv_gb": kv / 1e9,
+            "prefill_ms": max(prefill, lin_bytes / PEAK_BYTES_S) * 1e3,
+            "prefill_bound_by": "operations"
+            if prefill > lin_bytes / PEAK_BYTES_S else "bytes",
+            "prefill_linear_tflop": lin_ops / 1e12,
+            "prefill_recurrence_f32_tflop": rec / 1e12}
+
+
+def _recurrent(torch, arch, layers):
+    """One recurrent config at full width, ``layers`` deep, seed 0
+    (adapters nudged, then merged): the unmerged and the merged model
+    served statically, 4 x (128 + 32), graphed, exact launches
+    (:func:`_mla_static`), decode ms a token and prefill ms beside their
+    floors (:func:`_rec_floors`); the merge check (bound 0.10 in bf16) and
+    the base with its adapters dropped failing it; the continuous engine
+    (:func:`_family_engines`: 8 requests of 64/96/128 + 16/32/24 on 4
+    slots, chunks of 64, graphed and eager; zamba2 also paged, equal to
+    contiguous); for rwkv6, phase frontend's recovery (a crash and a NaN:
+    the recovered tickets the clean run's up to what each request had
+    committed at the first fault, their whole identity a reading), the
+    same with prefill chunks of 1 (every recovered ticket the clean run's
+    whole: :func:`_recovery_stepwise`) and three demo tenants graphed,
+    checked by logits (``serve.tenant_check``); a refilled slot equal to
+    a fresh one bit for bit (:func:`_rec_refill`); kernels 1-4 at every
+    distinct (K, N); the card against the CPU at a narrow shape
+    (:func:`_card_cpu`)."""
+    import numpy as np
+    import repro_torch.configs as C
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    full = C.get(arch)
+    cfg = full.scaled(n_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    lm, params, merged = serve.build_model(cfg, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_lin = lm.step_linears()
+    prompts = np.random.default_rng(0).integers(
+        4, cfg.vocab, size=(4, 128)).astype(np.int32)
+    b, s = prompts.shape
+    max_len = s + SERVE_GEN
+    secs, t1 = {"init": init_s}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t1
+        secs[name] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+    static = _mla_static(torch, lm, params, merged, prompts, max_len)
+    lap("static")
+    bound = serve.merge_bound(cfg)
+    mcheck = serve.merge_check(lm, params, merged, prompts, max_len,
+                               device="cuda")
+    dropped = _merged_with(torch, params)
+    control = serve.merge_check(lm, params, dropped, prompts, max_len,
+                                device="cuda")
+    del dropped
+    lap("merge")
+    pairs = _rec_pairs(cfg, params, merged)
+    held = _hold_family_linears(torch, cfg, params, merged, b * s, True,
+                                pairs=pairs)
+    floors = _rec_floors(torch, cfg, lm, merged, b, s, max_len)
+    lap("held_and_floors")
+    tenants = None
+    if cfg.family == "rwkv":
+        tenants = _rec_tenants(torch, cfg, lm, params)
+        lap("tenants")
+    del params
+    _free(torch)
+    engines = _family_engines(torch, cfg, lm, merged, n_lin,
+                              paged=cfg.family != "rwkv")
+    lap("engines")
+    recovery = stepwise = None
+    if cfg.family == "rwkv":
+        trace, plain, recovery = _frontend_recovery(torch, cfg, lm, merged)
+        lap("frontend_recovery")
+        stepwise = _recovery_stepwise(torch, cfg, lm, merged, trace)
+        lap("frontend_recovery_stepwise")
+    refill = _rec_refill(torch, cfg, lm, merged)
+    checks_refill = {"refilled_slot_equals_fresh_slot": refill["equal"]}
+    lap("refill")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del lm, merged
+    _free(torch)
+    card_cpu = _card_cpu(torch, full.scaled(**REC_CPU_OVER[arch]),
+                         (("plain", dict(decode_burst=8)),),
+                         REC_CPU_REQUESTS, REC_CPU_TRACE)
+    lap("card_cpu")
+    su, sm = static["unmerged"], static["merged"]
+    want_static = {"qmatmul": n_lin, "qmatvec": n_lin * (SERVE_GEN - 1),
+                   "qalora_matmul": n_lin,
+                   "qalora_matvec": n_lin * (SERVE_GEN - 1),
+                   "qalora_rank_proj": n_lin * SERVE_GEN}
+    static_counts = _sum_counts((su["launches"], sm["launches"]))
+    checks = {
+        "static_tokens_shape": all(list(x["tokens"].shape) == [4, SERVE_GEN]
+                                   for x in (su, sm)),
+        "static_tokens_in_vocab": all(
+            bool(((x["tokens"] >= 0) & (x["tokens"] < cfg.vocab)).all())
+            for x in (su, sm)),
+        "static_same_tokens_every_pass": su["same_tokens_every_pass"]
+        and sm["same_tokens_every_pass"],
+        "static_decode_captured_once": su["captures"] == sm["captures"] == 1,
+        "static_launches_exact": all(static_counts[k] == want_static.get(k, 0)
+                                     for k in static_counts),
+        "merge_finite": all(math.isfinite(r["max_abs_diff"])
+                            for r in mcheck.values()),
+        "merge_within_bound": all(r["rel"] <= bound for r in mcheck.values()),
+        "merge_control_adapters_dropped_fails": any(
+            r["rel"] > bound for r in control.values()),
+        "kernels_held_against_plain": bool(held) and all(r["ok"]
+                                                         for r in held),
+        **checks_refill,
+        **{f"card_cpu_{k}": v for k, v in card_cpu["checks"].items()}}
+    for layout in ("contiguous", "paged"):
+        if layout in engines:
+            checks.update({f"engine_{layout}_{k}": v for k, v in
+                           engines[layout]["checks"].items()})
+    if recovery is not None:
+        # the frontend resubmits a recovered request as prompt + emitted
+        # tokens (as the reference's does), so those tokens are prefilled
+        # in chunks of 64 through kernel 1 where the clean run decoded
+        # them one by one through kernel 2, and a request admitted after
+        # the faults decodes in other steps' company (a ragged step's
+        # chunked form or a burst) than in the clean run; in bf16 the
+        # recurrent state then differs by rounding, which the nudged
+        # model's logits turn into other tokens (3 of 12 tickets whole
+        # in a run on an H100 80GB HBM3 at 700 W; identical in f32 on the
+        # CPU, in both packages).  So these tickets are held as an MoE's
+        # are (the clean run the plain engine's, the faulty run the clean
+        # run's up to what each request had committed at the first
+        # fault) and their whole identity is a reading; the stepwise run
+        # (prefill chunks of 1, the same arithmetic for every token) must
+        # give every recovered ticket whole, and the refill check holds
+        # eviction's zeroing of the state bit for bit
+        checks.update(_recovery_checks(recovery, plain, n_lin, routed=True))
+        checks.update(stepwise["checks"])
+        checks["recovery_no_capture_after_first_pass"] = all(
+            r["captures_after"] == r["captures_warm"]
+            for r in recovery.values())
+        faulty = recovery["faulty"]["tokens"]
+        recovery["faulty_tickets_identical_to_clean"] = sum(
+            faulty[r] == recovery["clean"]["tokens"][r] for r in faulty) \
+            / len(faulty)
+        for r in (recovery["clean"], recovery["faulty"]):
+            r["tokens"] = {str(k): v[:8] for k, v in r["tokens"].items()}
+    if tenants is not None:
+        checks.update({f"tenants_{k}": v
+                       for k, v in tenants["checks"].items()})
+    for x in (su, sm):
+        x["tokens"] = x["tokens"][0][:8].tolist()
+    return {"arch": arch, "family": cfg.family, "n_layers": cfg.n_layers,
+            "depth_cut": f"{cfg.n_layers} of {full.n_layers} layers",
+            "widths": {k: getattr(cfg, k) for k in (
+                "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
+                "vocab", "ssm_state", "ssm_head_dim", "attn_every",
+                "ssm_chunk")},
+            "init_s": init_s, "linears_per_step": n_lin,
+            "peak_mem_gb": peak, "static": static,
+            "decode_ms_per_token": sm["decode_ms_per_token"],
+            "prefill_ms": sm["prefill_ms"], "floors": floors,
+            "decode_over_floor": sm["decode_ms_per_token"]
+            / floors["decode_step_ms"],
+            "prefill_over_floor": sm["prefill_ms"] / floors["prefill_ms"],
+            "merge_check": mcheck, "merge_bound_rel": bound,
+            "merge_control_adapters_dropped": control,
+            "merge_rel_over_bound": max(r["rel"] for r in mcheck.values())
+            / bound, "engine": engines, "recovery": recovery,
+            "recovery_stepwise": stepwise,
+            "tenants": tenants, "refill": refill, "held": held,
+            "card_cpu": card_cpu,
+            "expected_launches_static": want_static,
+            "static_launches": static_counts, "seconds_by_part": secs,
+            # a reading here, as in phase mla_serve: over one decode
+            # replay the profiler saw 124 of rwkv6's 128 GEMVs and 39 of
+            # zamba2's 40 in a full run of the script, and all of them in
+            # a run of this phase alone (H100 80GB HBM3, 700 W); the
+            # launch counters are gated exactly above
+            "replay_launches_match_profiler": bool(sm["replay_profiles"])
+            and all(r["match"] for r in sm["replay_profiles"].values()),
+            "seconds": time.perf_counter() - t0, "checks": checks}
+
+
+# the recovery again with prefill chunks of 1: the faults late enough
+# that the requests in flight have emitted tokens, which the recovered
+# run prefills again
+FE_STEPWISE_FAULTS = dict(seed=0, crash_steps=(74,), nan_steps=(195,))
+
+
+def _recovery_stepwise(torch, cfg, lm, merged, trace):
+    """Phase frontend's recovery trace through a clean frontend and one
+    with a crash and a NaN (``FE_STEPWISE_FAULTS``), with prefill chunks
+    of 1: every step, a recovered request's prefill of its prompt and
+    emitted tokens included, is then a single-token ragged step at the
+    same rows as the decode that emitted those tokens, so each recovered
+    ticket must be the clean run's whole, bit for bit (with chunks of 64
+    the re-prefill rounds otherwise than the decode did)."""
+    from repro_torch.runtime import FaultInjector
+    from repro_torch.serving import ServingFrontend
+    kw = dict(FE_ENGINE, prefill_chunk=1,
+              max_len=max(FE_TRACE["prompt_lens"])
+              + max(FE_TRACE["gen_lens"]))
+    out = {"prefill_chunk": 1, "faults": dict(FE_STEPWISE_FAULTS)}
+    for name, inj in (("clean", None),
+                      ("faulty", FaultInjector(**FE_STEPWISE_FAULTS))):
+        probe = _LaunchProbe(inj)
+        fe = ServingFrontend(lm, merged, queue_cap=len(trace),
+                             injector=probe, **kw)
+        for r in trace:
+            fe.submit(r.prompt, r.max_new_tokens, eos_id=r.eos_id, rid=r.rid)
+        fe.run_until_drained()
+        out[name] = {"statuses": fe.status_counts(),
+                     "recoveries": fe.n_recoveries,
+                     "tokens": {t.rid: list(t.tokens)
+                                for t in fe.tickets.values()}}
+        if inj is not None:
+            first = min(*FE_STEPWISE_FAULTS["crash_steps"],
+                        *FE_STEPWISE_FAULTS["nan_steps"])
+            out[name]["emitted_at_first_fault"] = probe.emitted[first]
+        del fe
+        _free(torch)
+    clean, faulty = out["clean"], out["faulty"]
+    out["checks"] = {
+        "stepwise_all_finished": all(
+            r["statuses"] == {"FINISHED": FE_REQUESTS}
+            for r in (clean, faulty)),
+        "stepwise_exactly_two_recoveries": faulty["recoveries"] == 2
+        and clean["recoveries"] == 0,
+        "stepwise_faults_hit_emitted_tokens":
+            sum(faulty["emitted_at_first_fault"].values()) > 0,
+        "stepwise_recovered_tickets_identical_to_clean":
+            faulty["tokens"] == clean["tokens"]}
+    for r in (clean, faulty):
+        r["tokens"] = {str(k): v[:8] for k, v in r["tokens"].items()}
+    return out
+
+
+def _rec_refill(torch, cfg, lm, merged):
+    """Eviction zeroes a slot's recurrent state: a request served alone on
+    a fresh 1-slot graphed engine, and served again on a 1-slot engine
+    right after another request held the slot (evicted, then this one
+    admitted into it), give the same stream bit for bit (the same kernels
+    at the same rows in the same order), which a state carried over from
+    the first occupant would break."""
+    import numpy as np
+    from repro_torch.serving import ContinuousEngine
+    rng = np.random.default_rng(9)
+    first, second = (rng.integers(4, cfg.vocab, size=64).astype(np.int32)
+                     for _ in range(2))
+
+    def run(prompts):
+        eng = ContinuousEngine(lm, merged, n_slots=1, max_len=64 + 16,
+                               prefill_chunk=RAGGED_CHUNK, decode_burst=8)
+        rids = [eng.submit(p, 16) for p in prompts]
+        out = eng.run()
+        del eng
+        return [out[r] for r in rids]
+    alone = run([second])[0]
+    after = run([first, second])
+    _free(torch)
+    return {"alone": alone, "after_other": after[1],
+            "other": after[0], "equal": alone == after[1]}
+
+
+def _rec_tenants(torch, cfg, lm, params):
+    """Three demo tenants and the null adapter over ``params``' base:
+    checked by logits (``serve.tenant_check``: every row bound to one
+    tenant, and one batch cycling them; each within the merge bound of its
+    own merged tree and nearer it than the next one's), then served
+    through a graphed continuous engine (4 prompts of 64 + 16, one a
+    tenant and one the null adapter), counted: kernel 1 at each ragged
+    step, kernels 5 and 5a at each decode step."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    store, tenants = serve.build_store(params, list(ADAPTER_TENANTS), None)
+    prompts = np.random.default_rng(0).integers(
+        4, cfg.vocab, size=(4, 64)).astype(np.int32)
+    own, nxt, mixed = serve.tenant_check(lm, store, tenants, prompts, 64 + 2,
+                                         device="cuda")
+    bound = serve.merge_bound(cfg)
+    cycle = [*tenants, None]
+    run = dict(slots=4, prefill_chunk=RAGGED_CHUNK, decode_burst=8,
+               store=store, who=lambda i: cycle[i % len(cycle)])
+    serve.serve_continuous(lm, store.base, prompts, 16, 64 + 16, **run)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    toks, eng, counts = serve.serve_continuous(lm, store.base, prompts, 16,
+                                               64 + 16, **run)
+    st = eng.stats
+    decode_steps = st.model_steps - RAGGED_CHUNK * st.ragged_dispatches
+    n_lin = lm.step_linears()
+    want = {"qmatmul": n_lin * st.ragged_dispatches,
+            "qalora_slot_matvec": n_lin * decode_steps,
+            "qalora_slot_rank_proj": n_lin * decode_steps}
+    checks = {
+        "own_within_bound": all(r[ph]["rel"] <= bound for r in own.values()
+                                for ph in r),
+        "nearer_own_than_next": all(
+            own[t][ph]["max_abs_diff"] < nxt[t][ph]["max_abs_diff"]
+            for t in own for ph in own[t]),
+        "mixed_within_bound_and_nearer_own": all(
+            r <= bound and r < n for ph in ("prefill", "decode")
+            for r, n in zip(mixed[ph]["rel"], mixed[ph]["next_rel"])),
+        "engine_launches_exact": all(counts[k] == want.get(k, 0)
+                                     for k in counts),
+        "engine_tokens_in_vocab": bool(((toks >= 0)
+                                        & (toks < cfg.vocab)).all())}
+    del store, eng
+    _free(torch)
+    return {"tenants": tenants, "own": own, "next": nxt, "mixed": mixed,
+            "bound_rel": bound, "engine_launches": counts,
+            "engine_ragged_dispatches": st.ragged_dispatches,
+            "engine_decode_steps": decode_steps, "checks": checks}
+
+
+def phase_recurrent(torch):
+    """rwkv6-7b and zamba2-7b served at their published widths (depth cuts
+    in ``REC_CUTS``): see :func:`_recurrent`.  No gate reads the clock:
+    streams, launches and captures are exact equalities.  Returns the
+    launch counts of each counted window and the kernel rows held."""
+    t_phase = time.perf_counter()
+    rows = [_recurrent(torch, arch, layers) for arch, layers in REC_CUTS]
+    counts, held = {}, []
+    for r in rows:
+        held += r["held"]
+        counts[f"{r['arch']} static serve, unmerged and merged (phase "
+               f"recurrent)"] = r["static_launches"]
+        for layout in ("contiguous", "paged"):
+            if layout in r["engine"]:
+                counts[f"{r['arch']} {layout} engine (phase recurrent)"] = \
+                    r["engine"][layout]["launches"]
+        if r["recovery"] is not None:
+            counts[f"{r['arch']} frontend recovery (phase recurrent)"] = \
+                _sum_counts(r["recovery"][x]["launches"]
+                            for x in ("clean", "faulty"))
+        if r["tenants"] is not None:
+            counts[f"{r['arch']} multi-tenant engine (phase recurrent)"] = \
+                r["tenants"]["engine_launches"]
+        cc = r["card_cpu"]["plain"]
+        print(f"[chip_smoke] recurrent: {r['arch']} ({r['depth_cut']}): "
+              f"decode {r['decode_ms_per_token']:.3f} ms a token (floor "
+              f"{r['floors']['decode_step_ms']:.3f}), prefill "
+              f"{r['prefill_ms']:.2f} ms (floor "
+              f"{r['floors']['prefill_ms']:.3f}), merge rel/bound "
+              f"{r['merge_rel_over_bound']:.3f}, card vs CPU "
+              f"{cc['max_rel']:.3e} (tol {MLA_CPU_TOL}), peak "
+              f"{r['peak_mem_gb']:.1f} GB, ok "
+              f"{all(r['checks'].values())}", flush=True)
+    out = {"phase": "recurrent", "card": _smi("name,power.limit"),
+           "configs": rows, "phase_s": time.perf_counter() - t_phase,
+           "ok": all(all(r["checks"].values()) for r in rows)}
+    emit(out)
+    if not out["ok"]:
+        bad = {r["arch"]: [k for k, v in r["checks"].items() if not v]
+               for r in rows}
+        raise AssertionError(f"recurrent checks failed: {bad}")
     return counts, held
 
 
@@ -6080,8 +7036,16 @@ def main() -> int:
         moe_serve_counts, moe_held = _phase("moe_serve", phase_moe_serve,
                                             torch, holder)
         serve_counts.update(moe_serve_counts)
-        mla_counts, mla_held = _phase("mla_serve", phase_mla_serve, torch)
+        mla_counts, mla_held, mla_model = _phase("mla_serve",
+                                                 phase_mla_serve, torch)
         serve_counts.update(mla_counts)
+        mla_train_counts = _phase("mla_train", phase_mla_train, torch,
+                                  mla_model)
+        del mla_model
+        serve_counts["deepseek-v3 train, merge check and narrow resumed "
+                     "run (phase mla_train)"] = mla_train_counts
+        rec_counts, rec_held = _phase("recurrent", phase_recurrent, torch)
+        serve_counts.update(rec_counts)
     except Exception as e:  # report, save and fail: no result line
         import traceback
         traceback.print_exc()
@@ -6097,7 +7061,7 @@ def main() -> int:
         spec = [x for rs in spec_held.values() for x in rs
                 if x["kernel"] == name]
         fam = [x for x in family_held + vision_held + moe_held + mla_held
-               if x["kernel"] == name]
+               + rec_held if x["kernel"] == name]
         held = spec + fam
         summary.append({
             "name": name, "route": "cuda", "source": source,

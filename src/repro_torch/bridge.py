@@ -24,7 +24,14 @@ and an mla_moe model has, in place of ``blocks``, ``dense_blocks`` (an
 is MLA's ``{"q_down", "q_up", "kv_down", "kv_up", "wo": <linear>, "qn",
 "kvn": {"g"}}``, and with an MTP head ``"mtp_proj"`` (an exempt fp
 linear), ``"mtp_block"`` (one dense MLA block, no layer axis) and
-``"mtp_ln"``.  A linear is a dict of tags and arrays (a leading ``[L]`` axis inside
+``"mtp_ln"``.  An rwkv block is ``{"ln1", "ln2", "mix"}``, ``mix`` holding
+the linears ``wr wk wv wg wo ck cv cr`` and the fp arrays ``mu [L, 5, d]``,
+``w0``, ``w1``, ``w2``, ``u``, ``cmu`` and ``ln_x``; a mamba_hybrid model
+has ``mamba_groups`` (Mamba2 mixers stacked ``[G, P]``: ``in_proj``,
+``out_proj``, ``norm`` and the fp arrays ``conv_w``, ``conv_b``,
+``dt_bias``, ``a_log``, ``d_skip``), ``mamba_tail`` (stacked ``[T]``) and
+``shared_attn`` (one gqa block, no layer axis).  A linear is a dict of
+tags and arrays (a leading ``[L]`` axis inside
 ``blocks``, ``[L, E]`` for an expert stack)::
 
     {"scheme": "fp", "weight": [D_in, D_out]}     # + "exempt": True (router)
@@ -65,6 +72,8 @@ from repro_torch.core.quant import QuantizedLinear
 from repro_torch.models.common import RMSNorm
 from repro_torch.models.lm import LMParams, resolve_device
 from repro_torch.models.moe import MoEParams
+from repro_torch.models.slot_state import hybrid_layout
+from repro_torch.models.ssm import Mamba2Params, RWKV6Params
 
 
 def _tensor(a, device, layer=None):
@@ -145,10 +154,37 @@ _ATTN = {"gqa": (("wq", "wk", "wv", "wo"), ("qn", "kn")),
          "mla": (("q_down", "q_up", "kv_down", "kv_up", "wo"), ("qn", "kvn"))}
 
 
+def _fp(tree, names, device, layer) -> dict:
+    return {name: _tensor(tree[name], device, layer) for name in names}
+
+
+def _rwkv_mix(tree, cfg: ArchConfig, device, layer) -> RWKV6Params:
+    path = "blocks/mix"
+    return RWKV6Params(
+        {name: _linear(tree[name], cfg, f"{path}/{name}", device, layer)
+         for name in RWKV6Params.LINEARS},
+        _norm(tree["ln_x"], device, layer),
+        **_fp(tree, ("mu", "w0", "w1", "w2", "u", "cmu"), device, layer))
+
+
+def _mamba(tree, cfg: ArchConfig, path: str, device, layer) -> Mamba2Params:
+    return Mamba2Params(
+        _linear(tree["in_proj"], cfg, f"{path}/in_proj", device, layer),
+        _linear(tree["out_proj"], cfg, f"{path}/out_proj", device, layer),
+        _norm(tree["norm"], device, layer),
+        **_fp(tree, ("conv_w", "conv_b", "dt_bias", "a_log", "d_skip"),
+              device, layer))
+
+
 def _block(tree, cfg: ArchConfig, device, layer, path="blocks") \
         -> nn.ModuleDict:
     """Block ``layer`` of the stack at ``path`` (layer None: an unstacked
-    block, the MTP head's)."""
+    block, the MTP head's and the shared attention block's)."""
+    if "mix" in tree:
+        return nn.ModuleDict({"ln1": _norm(tree["ln1"], device, layer),
+                              "ln2": _norm(tree["ln2"], device, layer),
+                              "mix": _rwkv_mix(tree["mix"], cfg, device,
+                                               layer)})
     attn_t = tree["attn"]
     linears, norms = _ATTN["mla" if "kv_up" in attn_t else "gqa"]
     attn = nn.ModuleDict({
@@ -184,6 +220,19 @@ def _mla_parts(tree, cfg: ArchConfig, device) -> dict:
     return out
 
 
+def _hybrid_parts(tree, cfg: ArchConfig, device) -> dict:
+    groups = tree["mamba_groups"]
+    ng, per = np.shape(groups["norm"]["g"])[:2]
+    return {"mamba_groups": [[_mamba(groups, cfg, "mamba_groups", device,
+                                     (g, j)) for j in range(per)]
+                             for g in range(ng)],
+            "mamba_tail": [_mamba(tree["mamba_tail"], cfg, "mamba_tail",
+                                  device, j)
+                           for j in range(hybrid_layout(cfg)[2])],
+            "shared_attn": _block(tree["shared_attn"], cfg, device, None,
+                                  "shared_attn")}
+
+
 def load_numpy_tree(tree, cfg: ArchConfig, device="cuda") -> LMParams:
     """Build :class:`LMParams` for ``cfg`` from a numpy tree (layout in the
     module docstring), on ``device``."""
@@ -194,7 +243,11 @@ def load_numpy_tree(tree, cfg: ArchConfig, device="cuda") -> LMParams:
     if cfg.family == "mla_moe":
         return LMParams(_tensor(tree["embed"], dev),
                         _norm(tree["final_ln"], dev), head, [],
-                        mla=_mla_parts(tree, cfg, dev))
+                        parts=_mla_parts(tree, cfg, dev))
+    if cfg.family == "mamba_hybrid":
+        return LMParams(_tensor(tree["embed"], dev),
+                        _norm(tree["final_ln"], dev), head, [],
+                        parts=_hybrid_parts(tree, cfg, dev))
     blocks = [_block(tree["blocks"], cfg, dev, layer)
               for layer in range(cfg.n_layers)]
     return LMParams(_tensor(tree["embed"], dev), _norm(tree["final_ln"], dev),
@@ -335,6 +388,9 @@ def numpy_tree(params: LMParams):
             put(*_where(mname), **linear_numpy(mod))
         elif isinstance(mod, MoEParams) and mod.bias is not None:
             put(*_where(mname), bias=_np(mod.bias))
+        elif isinstance(mod, (Mamba2Params, RWKV6Params)):
+            put(*_where(mname), **{k: _np(t) for k, t in
+                                   mod.named_buffers(recurse=False)})
     tree = _nest(flat)
     tree["embed"] = _np(params.embed)
     return tree

@@ -11,7 +11,7 @@ from repro_torch.core.schemes import PolicyTree, QuantPolicy
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # gqa | gqa_moe | mla_moe (the families ported so far)
+    family: str  # gqa | gqa_moe | mla_moe | mamba_hybrid | rwkv (ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -42,6 +42,13 @@ class ArchConfig:
     qk_rope_dim: int = 0
     v_head_dim: int = 0
     mtp: bool = False
+    # ssm / hybrid: Mamba2's state size N, the Mamba2 / WKV head dim, the
+    # hybrid's period (the shared attention block after every
+    # attn_every - 1 Mamba2 layers) and the chunk of the chunked scans
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    attn_every: int = 0
+    ssm_chunk: int = 128
     gated_mlp: bool = True
     act: str = "silu"
     # frontend stub ("vision" or None): precomputed patch embeddings given

@@ -1,22 +1,30 @@
-"""The gqa, gqa_moe and mla_moe decoder LMs: init, the training loss,
-prefill, ragged decode step and greedy generation.  Counterpart of those
-families of ``repro.models.lm``: a gqa_moe block has an ``moe`` FFN
-(:mod:`repro_torch.models.moe`) where a gqa block has its ``mlp``; an
-mla_moe model (DeepSeek-V3) has MLA attention
-(:func:`repro_torch.models.attention.mla_apply`), ``n_dense_layers``
-dense blocks then MoE blocks with sigmoid routing and a shared expert,
-and an MTP head (one extra dense MLA block predicting two tokens ahead:
-a loss term in training, a one-token drafter in serving).
+"""The decoder LMs of the gqa, gqa_moe, mla_moe, mamba_hybrid and rwkv
+families: init, the training loss, prefill, ragged decode step and greedy
+generation.  Counterpart of those families of ``repro.models.lm``: a
+gqa_moe block has an ``moe`` FFN (:mod:`repro_torch.models.moe`) where a
+gqa block has its ``mlp``; an mla_moe model (DeepSeek-V3) has MLA
+attention (:func:`repro_torch.models.attention.mla_apply`),
+``n_dense_layers`` dense blocks then MoE blocks with sigmoid routing and a
+shared expert, and an MTP head (one extra dense MLA block predicting two
+tokens ahead: a loss term in training, a one-token drafter in serving).
+A mamba_hybrid model (Zamba2) stacks groups of Mamba2 mixers
+(:mod:`repro_torch.models.ssm`, each a residual with no pre-norm), each
+group followed by the ONE shared gqa block (its weights held once), then
+a tail of Mamba2 mixers; an rwkv model (RWKV6) has blocks of a time mix
+and a channel mix, each pre-normed.  Their decode state is recurrent
+(:class:`~repro_torch.models.slot_state.SlotState`'s STATE leaves), which a
+ragged step advances by each slot's own count, in place.
 
 Parameters are an :class:`LMParams` module: the embedding, the final norm,
 the head (fp, or under an explicit ``lm_head`` policy rule any scheme,
 through the same kernels as the blocks' linears) and one block per layer
 in a ``ModuleList`` (``blocks``; mla_moe's ``dense_blocks`` and
-``moe_blocks``, as the reference names its two stacks; the reference
-stacks layers on a leading axis and scans, here a Python loop walks the
-list).  Every projection routes through the linear-scheme API, so a
-``qalora`` model, its merged ``intq`` model and the kernel routing are
-policy switches.
+``moe_blocks``, mamba_hybrid's ``mamba_groups`` (a list of lists),
+``mamba_tail`` and ``shared_attn``, as the reference names its stacks;
+the reference stacks layers on a leading axis and scans, here a Python
+loop walks the list).  Every projection routes through the
+linear-scheme API, so a ``qalora`` model, its merged ``intq`` model and
+the kernel routing are policy switches.
 
 Batch format: ``{"tokens": [B, S] int}``, plus ``"labels"`` ([B, S] int,
 -1 = not supervised) for :meth:`LM.loss`, and for a config with
@@ -55,28 +63,35 @@ from .common import rmsnorm, rmsnorm_init
 from .mlp import mlp_apply, mlp_init
 from .moe import moe_apply, moe_init, suspend_recording
 from .slot_state import (SlotState, attn_cfg as _attn_cfg, cache_leaves,
-                         check_family, mla_cfg as _mla_cfg)
+                         check_family, hybrid_layout, mamba_cfg as _mamba_cfg,
+                         mla_cfg as _mla_cfg, rwkv_cfg as _rwkv_cfg)
+from .ssm import (mamba2_chunk_step, mamba2_init, mamba2_mix,
+                  rwkv6_channel_mix, rwkv6_channel_mix_ragged, rwkv6_init,
+                  rwkv6_time_mix, rwkv6_time_mix_ragged)
 
 
 class LMParams(nn.Module):
     """Model parameters: buffer ``embed [V, d]``, ``final_ln``, ``head``
     (a tagged linear ``[d, V]``, None when tied) and ``blocks``.  An
-    mla_moe model gives ``mla``: ``dense_blocks`` and ``moe_blocks`` (lists
-    of blocks; ``blocks`` is then empty) and, with an MTP head,
+    mla_moe model gives ``parts``: ``dense_blocks`` and ``moe_blocks``
+    (lists of blocks; ``blocks`` is then empty) and, with an MTP head,
     ``mtp_proj`` (an exempt fp linear ``[2d, d]``), ``mtp_block`` and
-    ``mtp_ln``."""
+    ``mtp_ln``; a mamba_hybrid model ``mamba_groups`` (a list of lists of
+    Mamba2 mixers), ``mamba_tail`` and ``shared_attn`` (one gqa block)."""
 
     def __init__(self, embed: torch.Tensor, final_ln: nn.Module,
                  head: Optional[schemes.LinearParams], blocks: List[nn.Module],
-                 mla: Optional[Dict[str, Any]] = None):
+                 parts: Optional[Dict[str, Any]] = None):
         super().__init__()
         self.register_buffer("embed", embed)
         self.final_ln = final_ln
         self.head = head
         self.blocks = nn.ModuleList(blocks)
-        for name, part in (mla or {}).items():
-            setattr(self, name, nn.ModuleList(part)
-                    if isinstance(part, list) else part)
+        for name, part in (parts or {}).items():
+            if isinstance(part, list):
+                part = nn.ModuleList(nn.ModuleList(p) if isinstance(p, list)
+                                     else p for p in part)
+            setattr(self, name, part)
 
     def layer_blocks(self) -> List[nn.Module]:
         """Every layer's block in order (mla_moe: the dense ones first)."""
@@ -101,6 +116,37 @@ def _gqa_block_init(generator, cfg: ArchConfig, pol, device) -> nn.ModuleDict:
         p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, pol.at("mlp"),
                             cfg.gated_mlp, device)
     return p
+
+
+def _rwkv_block_init(generator, cfg: ArchConfig, pol, device) -> nn.ModuleDict:
+    return nn.ModuleDict({
+        "ln1": rmsnorm_init(cfg.d_model, device=device),
+        "ln2": rmsnorm_init(cfg.d_model, device=device),
+        "mix": rwkv6_init(generator, _rwkv_cfg(cfg), pol.at("mix"), device)})
+
+
+def _rwkv_block(p, x, cfg: ArchConfig):
+    """One RWKV6 block over whole sequences -> (x, its decode state)."""
+    rcfg = _rwkv_cfg(cfg)
+    y, (tp, wkv) = rwkv6_time_mix(p["mix"], rmsnorm(p["ln1"], x), rcfg)
+    x = x + y
+    y, cp = rwkv6_channel_mix(p["mix"], rmsnorm(p["ln2"], x), rcfg)
+    return x + y, {"tm_prev": tp, "wkv": wkv, "cm_prev": cp}
+
+
+def _rwkv_block_train(p, x, cfg: ArchConfig):
+    return _rwkv_block(p, x, cfg)[0], None
+
+
+def _mamba_block(p, x, cfg: ArchConfig):
+    """One Mamba2 layer over whole sequences (a residual, no pre-norm) ->
+    (x, its decode state)."""
+    y, st = mamba2_mix(p, x, _mamba_cfg(cfg), return_state=True)
+    return x + y, st
+
+
+def _mamba_block_train(p, x, cfg: ArchConfig):
+    return x + mamba2_mix(p, x, _mamba_cfg(cfg)), None
 
 
 def _mla_block_init(generator, cfg: ArchConfig, pol, moe: bool,
@@ -217,6 +263,19 @@ def _stack_layers(ts, x, dim: int):
     return x.new_zeros((0,) + tuple(x.shape[:2]) + (dim,))
 
 
+def _stack_states(sts):
+    """Per-layer state dicts stacked on a leading layer axis, key by key."""
+    return {k: torch.stack([st[k] for st in sts]) for k in sts[0]}
+
+
+def _empty_states(slot_state, x):
+    """A zero-layer Mamba2 state stack (a hybrid without tail layers), as
+    the reference's scan over an empty stack gives."""
+    spec = slot_state.layout(x.shape[0], 1)["layers"]["tail"]
+    return {k: torch.zeros(s.shape, dtype=s.dtype, device=x.device)
+            for k, s in spec.items()}
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; raises when CUDA is asked for and
     there is none (never falls back to the CPU)."""
@@ -244,8 +303,11 @@ class LM:
         quantizes every block linear: attention's 4 (MLA's 5: q_down, q_up,
         kv_down, kv_up, wo), then the gated MLP's 3 (2 when not gated), or
         each expert's gate, up and down plus the shared experts' MLP (the
-        router stays fp).  Only mla_moe's blocks differ by layer: its first
-        ``n_dense_layers`` have the MLP."""
+        router stays fp); RWKV6's 8 (wr wk wv wg wo ck cv cr: the decay
+        LoRA stays fp); a Mamba2 layer's 2 (in_proj, out_proj).  mla_moe's
+        blocks differ by layer (its first ``n_dense_layers`` have the MLP)
+        and so do mamba_hybrid's: the last layer of each group of
+        ``attn_every`` is an application of the shared gqa block."""
         cfg = self.cfg
         mlp = 3 if cfg.gated_mlp else 2
         experts = 3 * cfg.n_experts + (3 if cfg.n_shared_experts else 0)
@@ -253,11 +315,19 @@ class LM:
             return 5 + (mlp if layer < cfg.n_dense_layers else experts)
         if cfg.family == "gqa_moe":
             return 4 + experts
+        if cfg.family == "rwkv":
+            return 8
+        if cfg.family == "mamba_hybrid":
+            ng = hybrid_layout(cfg)[0]
+            shared = (layer < ng * cfg.attn_every
+                      and layer % cfg.attn_every == cfg.attn_every - 1)
+            return 4 + mlp if shared else 2
         return 4 + mlp
 
     def step_linears(self) -> int:
         """Quantized linears of one pass through the layer stack (the MTP
-        head runs only in the loss and the MTP drafter)."""
+        head runs only in the loss and the MTP drafter; the shared block
+        of mamba_hybrid counts once an application)."""
         return sum(self.layer_linears(i) for i in range(self.cfg.n_layers))
 
     # ---------------- init ----------------
@@ -285,11 +355,30 @@ class LM:
             del w
         if cfg.family == "mla_moe":
             return LMParams(embed, rmsnorm_init(d, device=dev), head, [],
-                            mla=self._mla_init(generator, dev))
+                            parts=self._mla_init(generator, dev))
+        if cfg.family == "mamba_hybrid":
+            return LMParams(embed, rmsnorm_init(d, device=dev), head, [],
+                            parts=self._hybrid_init(generator, dev))
         bpol = pol.at("blocks")
-        blocks = [_gqa_block_init(generator, cfg, bpol, dev)
+        init = (_rwkv_block_init if cfg.family == "rwkv"
+                else _gqa_block_init)
+        blocks = [init(generator, cfg, bpol, dev)
                   for _ in range(cfg.n_layers)]
         return LMParams(embed, rmsnorm_init(d, device=dev), head, blocks)
+
+    def _hybrid_init(self, generator, dev) -> Dict[str, Any]:
+        """mamba_hybrid's parts: the groups' and the tail's Mamba2 mixers
+        and the one shared gqa block."""
+        cfg, pol = self.cfg, self.cfg.quant
+        ng, per, tail = hybrid_layout(cfg)
+        mcfg = _mamba_cfg(cfg)
+        gpol, tpol = pol.at("mamba_groups"), pol.at("mamba_tail")
+        return {"mamba_groups": [[mamba2_init(generator, mcfg, gpol, dev)
+                                  for _ in range(per)] for _ in range(ng)],
+                "mamba_tail": [mamba2_init(generator, mcfg, tpol, dev)
+                               for _ in range(tail)],
+                "shared_attn": _gqa_block_init(generator, cfg,
+                                               pol.at("shared_attn"), dev)}
 
     def _mla_init(self, generator, dev) -> Dict[str, Any]:
         """mla_moe's parts: the dense and MoE stacks, and with ``cfg.mtp``
@@ -379,6 +468,14 @@ class LM:
         """Runs the layer stack.  Returns (h, cache or None)."""
         if self.cfg.family == "mla_moe":
             return self._mla_trunk(params, x, collect_cache)
+        if self.cfg.family == "mamba_hybrid":
+            return self._hybrid_trunk(params, x, collect_cache)
+        if self.cfg.family == "rwkv":
+            sts = []
+            for blk in params.blocks:
+                x, st = _rwkv_block(blk, x, self.cfg)
+                sts.append(st)
+            return x, _stack_states(sts) if collect_cache else None
         ks, vs = [], []
         for blk, (window, theta) in zip(params.blocks, self._layer_extras()):
             x, (k, v), _ = _gqa_block(blk, x, self.cfg, window=window,
@@ -389,6 +486,32 @@ class LM:
         cache = {"k": torch.stack(ks), "v": torch.stack(vs)} \
             if collect_cache else None
         return x, cache
+
+    def _hybrid_trunk(self, params: LMParams, x, collect_cache: bool):
+        """mamba_hybrid's stack: each group's Mamba2 layers then the shared
+        block, then the tail; the cache holds every Mamba2 layer's state
+        and the shared block's K/V of each group."""
+        cfg = self.cfg
+        groups, ks, vs = [], [], []
+        for gblk in params.mamba_groups:
+            sts = []
+            for blk in gblk:
+                x, st = _mamba_block(blk, x, cfg)
+                sts.append(st)
+            groups.append(_stack_states(sts))
+            x, (k, v), _ = _gqa_block(params.shared_attn, x, cfg)
+            ks.append(k)
+            vs.append(v)
+        tail = []
+        for blk in params.mamba_tail:
+            x, st = _mamba_block(blk, x, cfg)
+            tail.append(st)
+        if not collect_cache:
+            return x, None
+        return x, {"groups": _stack_states(groups),
+                   "tail": _stack_states(tail) if tail else _empty_states(
+                       self.slot_state(), x), "k": torch.stack(ks),
+                   "v": torch.stack(vs)}
 
     def _mla_trunk(self, params: LMParams, x, collect_cache: bool):
         """mla_moe's stack: the compressed cache of the dense and the MoE
@@ -421,6 +544,16 @@ class LM:
         if self.cfg.family == "mla_moe":
             blocks = [(blk, functools.partial(_mla_block_train, cfg=self.cfg))
                       for blk in params.layer_blocks()]
+        elif self.cfg.family == "rwkv":
+            blocks = [(blk, functools.partial(_rwkv_block_train, cfg=self.cfg))
+                      for blk in params.blocks]
+        elif self.cfg.family == "mamba_hybrid":
+            mamba = functools.partial(_mamba_block_train, cfg=self.cfg)
+            shared = (params.shared_attn, functools.partial(
+                _gqa_block_train, cfg=self.cfg, window=None, theta=None))
+            blocks = [b for gblk in params.mamba_groups
+                      for b in [(blk, mamba) for blk in gblk] + [shared]]
+            blocks += [(blk, mamba) for blk in params.mamba_tail]
         else:
             blocks = [(blk, functools.partial(_gqa_block_train, cfg=self.cfg,
                                               window=window, theta=theta))
@@ -568,6 +701,10 @@ class LM:
         n_new = n_new.to(torch.int32)
         x = self._embed(params, tokens)
         pages = cache.get("pages")
+        if self.cfg.family == "rwkv":
+            return self._rwkv_ragged(params, cache, x, n_new), n_new
+        if self.cfg.family == "mamba_hybrid":
+            return self._hybrid_ragged(params, cache, x, n_new), n_new
         if self.cfg.family == "mla_moe":
             lay = cache["layers"]
             leaf = cache_leaves(lay)[0]
@@ -595,6 +732,54 @@ class LM:
                                     cur, n_new, self.cfg, window=window,
                                     theta=theta, plan=plan)
         return rmsnorm(params.final_ln, x, self.cfg.norm_eps), n_new
+
+    def _rwkv_ragged(self, params: LMParams, cache, x, n_new):
+        """rwkv's ragged layer stack: each layer's carries and WKV state
+        advance by the slot's own count, written into the cache in place
+        (an idle slot's bit for bit: its rows are identity)."""
+        cfg, lay = self.cfg, cache["layers"]
+        rcfg = _rwkv_cfg(cfg)
+        for layer, blk in enumerate(params.blocks):
+            y, (tp, wkv) = rwkv6_time_mix_ragged(
+                blk["mix"], rmsnorm(blk["ln1"], x),
+                (lay["tm_prev"][layer], lay["wkv"][layer]), n_new, rcfg)
+            x = x + y
+            y, cp = rwkv6_channel_mix_ragged(
+                blk["mix"], rmsnorm(blk["ln2"], x), lay["cm_prev"][layer],
+                n_new, rcfg)
+            x = x + y
+            for name, t in (("tm_prev", tp), ("wkv", wkv), ("cm_prev", cp)):
+                lay[name][layer].copy_(t)
+        return rmsnorm(params.final_ln, x, cfg.norm_eps)
+
+    def _hybrid_ragged(self, params: LMParams, cache, x, n_new):
+        """mamba_hybrid's ragged layer stack: the Mamba2 states advance in
+        place as rwkv's do; the shared block's K/V of group g is the
+        cache's entry g (contiguous or paged)."""
+        cfg, lay = self.cfg, cache["layers"]
+        mcfg = _mamba_cfg(cfg)
+        pages = cache.get("pages")
+        kc, vc = lay["k"], lay["v"]
+        s = kc.shape[2] if pages is None else pages.shape[1] * kc.shape[2]
+        plan = StepPlan(cache["len"], n_new, x.shape[1], s, cfg.head_dim,
+                        pages=pages, page_size=kc.shape[2])
+
+        def mamba(blk, st):
+            y, new = mamba2_chunk_step(
+                blk, x, {"conv": st["conv"], "ssm": st["ssm"]}, n_new, mcfg)
+            for name in ("conv", "ssm"):
+                st[name].copy_(new[name])
+            return x + y
+
+        for g, gblk in enumerate(params.mamba_groups):
+            for j, blk in enumerate(gblk):
+                x = mamba(blk, {k: v[g, j] for k, v in lay["groups"].items()})
+            x, _ = _gqa_block_chunk(params.shared_attn, x,
+                                    {"k": kc[g], "v": vc[g]}, cache["len"],
+                                    n_new, cfg, plan=plan)
+        for j, blk in enumerate(params.mamba_tail):
+            x = mamba(blk, {k: v[j] for k, v in lay["tail"].items()})
+        return rmsnorm(params.final_ln, x, cfg.norm_eps)
 
     # ---------------- serving: prefill + greedy decode ----------------
 

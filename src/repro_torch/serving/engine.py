@@ -1,5 +1,6 @@
 """Continuous-batching serving engine over the ragged step (counterpart of
-``repro.serving.engine`` for the gqa, gqa_moe and mla_moe families).
+``repro.serving.engine`` for the gqa, gqa_moe, mla_moe, mamba_hybrid and
+rwkv families).
 
 The engine drives :meth:`repro_torch.models.lm.LM.step_ragged` — one
 step in which every cache slot advances by its own number of tokens —
@@ -7,7 +8,8 @@ with the host-side :class:`~repro_torch.serving.scheduler.Scheduler`
 deciding what each slot consumes:
 
   * admission: queued requests enter free slots mid-flight; the slot's
-    length is reset to 0 and its stale KV is never read;
+    length is reset to 0 and its stale KV is never read, and its recurrent
+    state (Mamba2's, RWKV6's) is zeroed;
   * chunked prefill: prompts stream in ``prefill_chunk``-token chunks
     while decode slots ride along in the same batch;
   * per-request termination: slots stop at EOS or ``max_new_tokens`` and
@@ -56,7 +58,9 @@ iteration).  ``eager=True`` runs the same steps op by op (the oracle
 runs); it is never chosen implicitly.  On the CPU the steps run eagerly.
 Encdec sources and the other families raise, and so do tenants over a
 gqa_moe model (:data:`MOE_TENANTS`) or an mla_moe one
-(:data:`ABSORBED_TENANTS`).
+(:data:`ABSORBED_TENANTS`), speculation over a recurrent family (its state
+cannot be rolled back, :func:`recurrent_speculation`) and paging of rwkv
+(nothing to page).
 """
 
 from __future__ import annotations
@@ -92,6 +96,16 @@ ABSORBED_TENANTS = (
     "adapter serving: family 'mla_moe' hoists absorbed weights out of the "
     "step from a FIXED params tree, which would ignore per-slot adapters "
     "on those projections; serve this family merged")
+
+
+def recurrent_speculation(family: str) -> str:
+    """The reference's refusal of speculation over ``family``, whose decode
+    state is recurrent."""
+    return (f"speculative decoding needs reject-rollback by length "
+            f"arithmetic, but family {family!r} mutates per-slot recurrent "
+            f"STATE inside every decode step (SlotState.supports_rollback() "
+            f"is False) — a rejected draft cannot be un-stepped; serve it "
+            f"with speculate=0")
 
 
 def _mtp_refusal(lm, params, k: int) -> Optional[str]:
@@ -397,8 +411,7 @@ class ContinuousEngine:
                 f"dispatch).")
         if not self.lm.slot_state().supports_rollback():
             raise NotImplementedError(
-                f"speculative decoding needs rollback by length, which "
-                f"family {self.lm.cfg.family!r} does not support")
+                recurrent_speculation(self.lm.cfg.family))
         if self.adapters is not None:
             raise NotImplementedError(
                 "speculative decoding with an AdapterStore would need the "
@@ -506,9 +519,10 @@ class ContinuousEngine:
     def poison_cache(self):
         """Overwrite every floating-point leaf of the decode state with NaN,
         in place (fault injection): the K/V rows of the contiguous cache,
-        or the whole page pool of a paged one.  A slot whose state is read
-        next produces NaN logits and trips :class:`EngineCorrupted` before
-        commit; :meth:`reset` zeroes the rows again."""
+        or the whole page pool of a paged one, and every recurrent state.
+        A slot whose state is read next produces NaN logits and trips
+        :class:`EngineCorrupted` before commit; :meth:`reset` zeroes the
+        rows again."""
         for t in cache_leaves(self.cache["layers"]):
             t.fill_(float("nan"))
 

@@ -64,7 +64,8 @@ def _pair(arch):
             4, rcfg.vocab, size=(2, PROMPT)).astype(np.int32))
 
 
-@pytest.mark.parametrize("arch", DENSE + (MOE, "pixtral-12b"))
+@pytest.mark.parametrize("arch", DENSE + (MOE, "pixtral-12b", "rwkv6-7b",
+                                  "zamba2-7b"))
 def test_config_matches_reference(arch):
     """Every field the port's ArchConfig has equals the reference's, in
     the full and the reduced config; the policy's numbers too."""
