@@ -30,7 +30,10 @@ the linears ``wr wk wv wg wo ck cv cr`` and the fp arrays ``mu [L, 5, d]``,
 has ``mamba_groups`` (Mamba2 mixers stacked ``[G, P]``: ``in_proj``,
 ``out_proj``, ``norm`` and the fp arrays ``conv_w``, ``conv_b``,
 ``dt_bias``, ``a_log``, ``d_skip``), ``mamba_tail`` (stacked ``[T]``) and
-``shared_attn`` (one gqa block, no layer axis).  A linear is a dict of
+``shared_attn`` (one gqa block, no layer axis); an encdec model has
+``enc_blocks`` (gqa blocks with the MLP, stacked ``[L_enc]``),
+``dec_blocks`` (each also with ``"ln3"`` and a ``"cross"`` attention of
+the gqa linears, stacked ``[L]``) and ``enc_ln``.  A linear is a dict of
 tags and arrays (a leading ``[L]`` axis inside
 ``blocks``, ``[L, E]`` for an expert stack)::
 
@@ -196,6 +199,11 @@ def _block(tree, cfg: ArchConfig, device, layer, path="blocks") \
     out = nn.ModuleDict({"ln1": _norm(tree["ln1"], device, layer),
                          "ln2": _norm(tree["ln2"], device, layer),
                          "attn": attn})
+    if "cross" in tree:  # an encdec decoder block
+        out["ln3"] = _norm(tree["ln3"], device, layer)
+        out["cross"] = nn.ModuleDict({
+            name: _linear(tree["cross"][name], cfg, f"{path}/cross/{name}",
+                          device, layer) for name in _ATTN["gqa"][0]})
     if "moe" in tree:
         out["moe"] = _moe(tree["moe"], cfg, device, layer, f"{path}/moe")
     else:
@@ -233,6 +241,13 @@ def _hybrid_parts(tree, cfg: ArchConfig, device) -> dict:
                                   "shared_attn")}
 
 
+def _encdec_parts(tree, cfg: ArchConfig, device) -> dict:
+    return {name: [_block(tree[name], cfg, device, layer, name)
+                   for layer in range(_n_layers(tree[name]))]
+            for name in ("enc_blocks", "dec_blocks")} | {
+        "enc_ln": _norm(tree["enc_ln"], device)}
+
+
 def load_numpy_tree(tree, cfg: ArchConfig, device="cuda") -> LMParams:
     """Build :class:`LMParams` for ``cfg`` from a numpy tree (layout in the
     module docstring), on ``device``."""
@@ -248,6 +263,10 @@ def load_numpy_tree(tree, cfg: ArchConfig, device="cuda") -> LMParams:
         return LMParams(_tensor(tree["embed"], dev),
                         _norm(tree["final_ln"], dev), head, [],
                         parts=_hybrid_parts(tree, cfg, dev))
+    if cfg.family == "encdec":
+        return LMParams(_tensor(tree["embed"], dev),
+                        _norm(tree["final_ln"], dev), head, [],
+                        parts=_encdec_parts(tree, cfg, dev))
     blocks = [_block(tree["blocks"], cfg, dev, layer)
               for layer in range(cfg.n_layers)]
     return LMParams(_tensor(tree["embed"], dev), _norm(tree["final_ln"], dev),

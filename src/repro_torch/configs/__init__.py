@@ -1,6 +1,6 @@
 """Config registry: ``get(name)`` returns the full config, ``reduced(name)``
 a same-family CPU-smoke-size config (counterpart of ``repro.configs``;
-only the archs ported so far are registered)."""
+every arch of the reference is registered)."""
 
 from __future__ import annotations
 
@@ -11,11 +11,12 @@ from .base import ArchConfig
 
 from . import (deepseek_67b, deepseek_v3_671b, gemma3_1b, h2o_danube_1_8b,
                llama7b_proxy, mixtral_8x22b, pixtral_12b, rwkv6_7b,
-               starcoder2_7b, zamba2_7b)
+               seamless_m4t_medium, starcoder2_7b, zamba2_7b)
 
 REGISTRY = {m.CONFIG.name: m.CONFIG for m in (
     pixtral_12b, gemma3_1b, starcoder2_7b, h2o_danube_1_8b, deepseek_67b,
-    zamba2_7b, mixtral_8x22b, deepseek_v3_671b, rwkv6_7b, llama7b_proxy)}
+    seamless_m4t_medium, zamba2_7b, mixtral_8x22b, deepseek_v3_671b,
+    rwkv6_7b, llama7b_proxy)}
 
 
 def get(name: str) -> ArchConfig:
@@ -33,8 +34,8 @@ SMOKE_QUANT = QuantPolicy(bits=4, group_size=16, rank=4, dtype=torch.float32,
 def reduced(name: str, **over) -> ArchConfig:
     """Same-family tiny config for CPU smoke tests, with the reference's
     reductions (layers, width, experts, vocab, window, frontend length,
-    chunks, the MLA ranks and dims, the SSM state and head dims, no
-    remat)."""
+    chunks, the MLA ranks and dims, the SSM state and head dims, the
+    encoder's depth, no remat)."""
     cfg = get(name)
     kw = dict(
         n_layers=2, d_model=64, n_heads=4,
@@ -54,6 +55,8 @@ def reduced(name: str, **over) -> ArchConfig:
         kw.update(n_layers=5, attn_every=2, ssm_state=16, ssm_head_dim=16)
     if cfg.family == "rwkv":
         kw.update(ssm_head_dim=16)
+    if cfg.family == "encdec":
+        kw.update(n_enc_layers=2)
     if cfg.global_every:
         kw.update(global_every=2)
     kw.update(over)

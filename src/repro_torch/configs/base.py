@@ -11,7 +11,7 @@ from repro_torch.core.schemes import PolicyTree, QuantPolicy
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # gqa | gqa_moe | mla_moe | mamba_hybrid | rwkv (ported)
+    family: str  # gqa | gqa_moe | mla_moe | mamba_hybrid | rwkv | encdec
     n_layers: int
     d_model: int
     n_heads: int
@@ -49,11 +49,18 @@ class ArchConfig:
     ssm_head_dim: int = 64
     attn_every: int = 0
     ssm_chunk: int = 128
+    # enc-dec: the encoder's depth (n_layers is the decoder's), and the
+    # share of a training sequence (and of a decode cache made without an
+    # explicit source capacity) that is source frames
+    n_enc_layers: int = 0
+    source_frac: float = 0.5
     gated_mlp: bool = True
     act: str = "silu"
-    # frontend stub ("vision" or None): precomputed patch embeddings given
-    # as batch["frontend"] [B, frontend_len, d_model] and prepended to the
-    # token embeddings (pixtral-12b)
+    # frontend stub ("vision", "audio" or None): precomputed embeddings.
+    # "vision": patch embeddings given as batch["frontend"] [B,
+    # frontend_len, d_model], prepended to the token embeddings
+    # (pixtral-12b); "audio": the encoder's frames, batch["src"] [B, Ss,
+    # d_model] (seamless-m4t-medium)
     frontend: Optional[str] = None
     frontend_len: int = 256
     # policy: uniform QuantPolicy or per-layer PolicyTree

@@ -214,27 +214,33 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def prompt_batch(prompts, device, frontend=None) -> dict:
-    """The prefill batch of ``prompts`` [B, S]: its tokens on ``device``
-    and, for a vision config, the patch embeddings ``frontend`` [B, F,
-    d_model] the model prepends (the cache then holds F + S rows)."""
+def prompt_batch(prompts, device, frontend=None, src=None) -> dict:
+    """The prefill batch of ``prompts`` [B, S]: its tokens on ``device``;
+    for a vision config, the patch embeddings ``frontend`` [B, F, d_model]
+    the model prepends (the cache then holds F + S rows); for encdec, the
+    encoder's frames ``src`` [B, Ss, d_model]."""
     batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int32,
                                        device=device)}
     if frontend is not None:
         batch["frontend"] = torch.as_tensor(frontend, device=device)
+    if src is not None:
+        batch["src"] = torch.as_tensor(src, device=device)
     return batch
+
 
 
 def make_graph_generator(lm, params, batch_shape, gen_len: int,
                          max_len: int, cache_dtype=torch.float32,
-                         device="cuda", eager: bool = False):
+                         device="cuda", eager: bool = False, src_len: int = 0):
     """Build the static serve path ONCE for a prompt shape (the counterpart
     of ``make_scan_generator``): a full-capacity decode cache and the
     :class:`~repro_torch.runtime.graphs.StepGraphs` of its decode step,
-    both kept for every call.  Returns ``run(prompts, frontend=None) ->
-    (tokens [B, gen_len] numpy, timings)`` (``frontend``: a vision
-    config's patch embeddings, see :func:`prompt_batch`; ``max_len`` then
-    counts their rows); ``run.graphs`` is the step's graph
+    both kept for every call.  Returns ``run(prompts, frontend=None,
+    src=None) -> (tokens [B, gen_len] numpy, timings)`` (``frontend``: a
+    vision config's patch embeddings, see :func:`prompt_batch`;
+    ``max_len`` then counts their rows; ``src``: an encdec model's frames
+    [B, ``src_len``, d_model], which its cross cache holds); ``run.graphs``
+    is the step's graph
     cache and ``run.budgets`` its capture budget, declared to the active
     :class:`~repro_torch.runtime.compile_guard.CompileGuard` if any when
     the step is captured (the eager and CPU routes capture nothing).
@@ -249,14 +255,19 @@ def make_graph_generator(lm, params, batch_shape, gen_len: int,
     from repro_torch.runtime import compile_guard
     from repro_torch.runtime.graphs import StepGraphs, captures
     b = batch_shape[0]
-    cache = lm.init_cache(b, max_len, dtype=cache_dtype, device=device)
+    cache = lm.init_cache(b, max_len, dtype=cache_dtype, device=device,
+                          src_cap=src_len or None)
     graphs = StepGraphs("serve.decode", device, eager=eager)
 
-    def run(prompts, frontend=None):
+    def run(prompts, frontend=None, src=None):
         if tuple(prompts.shape) != tuple(batch_shape):
             raise ValueError(f"prompts {tuple(prompts.shape)}: this "
                              f"generator serves {tuple(batch_shape)}")
-        batch = prompt_batch(prompts, device, frontend)
+        frames = 0 if src is None else np.shape(src)[1]
+        if frames != src_len:
+            raise ValueError(f"src of {frames} frames: this generator "
+                             f"holds {src_len}")
+        batch = prompt_batch(prompts, device, frontend, src)
         _sync(device)
         t0 = time.perf_counter()
         logits, pre = lm.prefill(params, batch)
@@ -284,18 +295,22 @@ def make_graph_generator(lm, params, batch_shape, gen_len: int,
 
 
 def generate(lm, params, prompts, gen_len: int, max_len: int,
-             cache_dtype=torch.float32, device="cuda"):
+             cache_dtype=torch.float32, device="cuda", src=None):
     """One-shot prefill + greedy decode (see :func:`make_graph_generator`;
-    the counterpart of ``generate_scan``).  Returns (tokens [B, gen_len]
-    numpy, timings)."""
-    return make_graph_generator(lm, params, prompts.shape, gen_len, max_len,
-                                cache_dtype, device)(prompts)
+    the counterpart of ``generate_scan``; ``src``: an encdec model's
+    frames [B, Ss, d_model]).  Returns (tokens [B, gen_len] numpy,
+    timings)."""
+    return make_graph_generator(
+        lm, params, prompts.shape, gen_len, max_len, cache_dtype, device,
+        src_len=0 if src is None else np.shape(src)[1])(prompts, src=src)
 
 
 def generate_loop_reference(lm, params, prompts, gen_len: int, max_len: int,
                             cache_dtype=torch.float32, device="cuda"):
     """Per-token reference loop: the prompt too goes through decode steps.
-    Returns (tokens [B, gen_len] numpy, seconds)."""
+    An encdec model decodes over a zero cross memory (its cache as
+    ``init_cache`` splits ``max_len``, as the reference's loop).  Returns
+    (tokens [B, gen_len] numpy, seconds)."""
     b, prompt_len = prompts.shape
     if gen_len <= 0:
         return np.zeros((b, 0), np.int32), 0.0
@@ -315,11 +330,14 @@ def generate_loop_reference(lm, params, prompts, gen_len: int, max_len: int,
 
 
 def merge_check(lm, params, merged, prompts, max_len: int,
-                cache_dtype=torch.float32, device="cuda", frontend=None):
+                cache_dtype=torch.float32, device="cuda", frontend=None,
+                src=None):
     """The adapter model against the merged model: prefill logits, then one
     decode step on the merged model's greedy token, both given the same
-    batch (:func:`prompt_batch`, a vision config's patches too).  Returns
-    max|delta| and max|logits| of each.
+    batch (:func:`prompt_batch`, a vision config's patches or an encdec
+    model's frames too; an encdec model given none gets one zero frame,
+    whose memory and cross K/V are exactly zero: the zero context of a
+    src-less request).  Returns max|delta| and max|logits| of each.
 
     An MoE model (gqa_moe, mla_moe) is compared token by token over the
     tokens whose
@@ -327,7 +345,10 @@ def merge_check(lm, params, merged, prompts, max_len: int,
     rounding, which may flip a token's top-k choice where two router
     probabilities nearly tie, and a flipped token's logits move by far
     more than rounding.  Its prefill is compared at every position."""
-    batch = prompt_batch(prompts, device, frontend)
+    if lm.cfg.family == "encdec" and src is None:
+        src = torch.zeros((len(prompts), 1, lm.cfg.d_model),
+                          dtype=lm.cfg.quant.default.dtype, device=device)
+    batch = prompt_batch(prompts, device, frontend, src)
     nxt = lm.prefill(merged, batch)[0].argmax(-1).to(torch.int32)
     routed = lm.cfg.family in ("gqa_moe", "mla_moe")
     a, m = (_two_steps(lm, p, batch, nxt, max_len, cache_dtype, device,
@@ -350,9 +371,12 @@ def _two_steps(lm, params, batch, nxt, max_len: int, cache_dtype, device,
     with record_routing() as pre_routes:
         logits, pre = (lm.prefill_all if routed else lm.prefill)(
             params, batch)
+    # an encdec cache holds the frames' cross K/V and max_len positions
+    src = batch.get("src")
     cache = lm.merge_prefill_cache(
         pre, lm.init_cache(nxt.shape[0], max_len, dtype=cache_dtype,
-                           device=device))
+                           device=device,
+                           src_cap=None if src is None else src.shape[1]))
     with record_routing() as step_routes:
         step = lm.decode_step(params, cache, nxt[:, None])[0]
     out = {"prefill": logits, "decode": step}
@@ -656,6 +680,9 @@ def main(argv=None):
     if cfg.family == "mla_moe" and args.adapters:
         from repro_torch.serving.engine import ABSORBED_TENANTS
         ap.error(f"--arch {args.arch} --adapters: {ABSORBED_TENANTS}")
+    if cfg.family == "encdec" and args.adapters:
+        from repro_torch.serving.engine import ENCDEC_TENANTS
+        ap.error(f"--arch {args.arch} --adapters: {ENCDEC_TENANTS}")
     specs = [s for s in args.adapters.split(",") if s]
     # a trained checkpoint is served over the base it was trained on, its
     # adapters as initialised; a demo tenant is a nudge of the nudged base,
@@ -773,6 +800,18 @@ def main(argv=None):
               f"{st.dispatches} dispatches ({st.ragged_dispatches} ragged), "
               f"{len(tenants)}+null tenants{extra}, {result['path']}, "
               f"{device})")
+    elif cfg.family == "encdec":
+        # the token-only demo has no source frames for the prefill: as the
+        # reference, it decodes through the per-token loop over a zero
+        # cross memory
+        toks, dt = generate_loop_reference(lm, merged, prompts, args.gen_len,
+                                           max_len, device=device)
+        graphs, budgets = {}, {}
+        result.update(total_s=dt, path="per-token loop")
+        result["tok_s"] = b * toks.shape[1] / max(dt, 1e-9)
+        print(f"[serve] {b} requests x {toks.shape[1]} tokens in {dt:.3f}s "
+              f"({result['tok_s']:.1f} tok/s, per-token loop over a zero "
+              f"cross memory, {device})")
     else:
         gen = make_graph_generator(lm, merged, prompts.shape, args.gen_len,
                                    max_len, device=device, eager=args.loop)

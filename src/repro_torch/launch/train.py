@@ -27,7 +27,16 @@ serves the result over the same base.
 
 pixtral-12b's vision stub is fed as the reference feeds it: zero patch
 embeddings in place of each sequence's first ``frontend_len`` positions
-(``--seq-len`` must exceed it).
+(``--seq-len`` must exceed it).  An encdec model (seamless-m4t-medium) is
+fed as the reference's driver splits its batch: the first half of each
+sequence is its tokens and labels, and as many frames are the encoder's
+source (``--n-layers`` cuts the decoder).  The frames are where this driver
+departs from the reference's, which feeds zeros: they are drawn at the
+token embeddings' scale from a seed of the batch's tokens
+(:func:`source_frames` says why).
+
+    python -m repro_torch.launch.train --arch seamless-m4t-medium \
+        --reduced --device cpu --steps 2 --seq-len 32 --global-batch 2
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import dataclasses
 import json
 import statistics
 import time
+import zlib
 from types import SimpleNamespace
 
 import torch
@@ -220,14 +230,42 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+# an encdec batch's source frames: N(0, FRAME_STD^2), the token
+# embeddings' init scale
+FRAME_STD = 0.02
+
+
+def source_frames(toks, d_model, dtype, device) -> torch.Tensor:
+    """An encdec batch's source: [B, S // 2, d_model] frames drawn on the
+    CPU from a seed of the batch's tokens [B, S] (their CRC-32), so a
+    resumed run and any other device draw the same.  The reference's
+    driver feeds zeros instead; then every activation of the encoder is
+    0, each of its norms passes the gradient on times rsqrt(eps) = 1e3,
+    and at seamless-m4t-medium's 12 encoder layers the backward overflows
+    into non-finite encoder-adapter gradients (in the reference's
+    ``jax.value_and_grad`` as in this port)."""
+    toks = torch.as_tensor(toks).cpu().to(torch.int64)
+    gen = torch.Generator().manual_seed(zlib.crc32(toks.numpy().tobytes()))
+    b, s = toks.shape
+    return (torch.randn((b, s // 2, d_model), generator=gen)
+            * FRAME_STD).to(dtype).to(device)
+
+
 def train_batch(cfg, toks, labs, device) -> dict:
     """The step's batch from one stream batch [B, S]: tokens and labels on
     ``device``; for a vision config, as the reference's driver builds it,
     zero patch embeddings [B, frontend_len, d_model] in the policy's dtype
     in place of the first ``frontend_len`` positions (their tokens and
-    labels dropped)."""
+    labels dropped); for encdec the first S // 2 tokens and labels and
+    S // 2 source frames (:func:`source_frames`) in the policy's dtype."""
+    src = (source_frames(toks, cfg.d_model, cfg.quant.default.dtype, device)
+           if cfg.family == "encdec" else None)
     toks = torch.as_tensor(toks).to(device)
     labs = torch.as_tensor(labs).to(device)
+    if src is not None:
+        half = toks.shape[1] // 2
+        return {"tokens": toks[:, :half], "labels": labs[:, :half],
+                "src": src}
     if cfg.frontend != "vision":
         return {"tokens": toks, "labels": labs}
     f = cfg.frontend_len

@@ -1,9 +1,9 @@
 """GQA attention (+RoPE, sliding window, qk-norm): chunked flash-style
 attention for prefill and ragged-chunk attention against a slotted KV
-cache for decode, contiguous or paged; and DeepSeek's MLA, whose decode
-attends over the compressed cache with the absorbed ``kv_up``.
-Counterpart of ``repro.models.attention`` (its cross-attention waits for
-the encdec family).
+cache for decode, contiguous or paged; encdec's cross-attention against
+the encoder's memory (a frozen per-slot cross cache in decode); and
+DeepSeek's MLA, whose decode attends over the compressed cache with the
+absorbed ``kv_up``.  Counterpart of ``repro.models.attention``.
 
 Attention is plain PyTorch, as it is plain jnp in the reference (no model
 there calls the Pallas flash kernel).  Scores and softmax run in f32.
@@ -354,6 +354,57 @@ def gqa_init_cache(batch: int, seq: int, cfg: AttnConfig,
     shape = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (enc-dec)
+# ---------------------------------------------------------------------------
+
+
+def cross_init(generator, cfg: AttnConfig, pol, device="cuda") \
+        -> nn.ModuleDict:
+    return gqa_init(generator, cfg, pol, device)
+
+
+def cross_kv(p, mem, cfg: AttnConfig):
+    """K/V of the encoder memory ``mem`` [B, Ss, d] -> each [B, Ss, KvH,
+    hd] (computed once and reused by every decode step)."""
+    b, s, _ = mem.shape
+    k = linear_apply(p["wk"], mem).reshape(b, s, cfg.n_kv_heads,
+                                           cfg.head_dim)
+    v = linear_apply(p["wv"], mem).reshape(b, s, cfg.n_kv_heads,
+                                           cfg.head_dim)
+    return k, v
+
+
+def cross_apply(p, x, k_mem, v_mem, cfg: AttnConfig, chunk_q=256,
+                chunk_k=1024):
+    """No rope, no causality: every query attends to the whole memory.  A
+    single-token call is :func:`cross_chunk` over the whole memory (one
+    copy of the decode math, as in the reference)."""
+    b, s, _ = x.shape
+    if s == 1:
+        return cross_chunk(p, x, k_mem, v_mem, torch.full(
+            (b,), k_mem.shape[1], dtype=torch.int32, device=x.device), cfg)
+    q = linear_apply(p["wq"], x).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    o = flash_attention(q, k_mem, v_mem, causal=False, chunk_q=chunk_q,
+                        chunk_k=chunk_k)
+    return linear_apply(p["wo"], o.reshape(b, s, -1))
+
+
+def cross_chunk(p, x, k_mem, v_mem, mem_len, cfg: AttnConfig):
+    """Ragged cross-attention against the per-slot frozen cross cache: x
+    [B, C, d], caches [B, Ss, KvH, hd], ``mem_len`` [B] the valid frames
+    of each slot (a tensor: a captured step reads it at its address).
+    Every row of slot b attends to frames < mem_len[b], whatever its
+    decode position.  ``mem_len`` 0 (a src-less slot) masks every frame:
+    the finite ``NEG_INF`` makes that a uniform average over the slot's
+    zeroed cross cache, a zero context, as the reference's."""
+    b, c, _ = x.shape
+    q = linear_apply(p["wq"], x).reshape(b, c, cfg.n_heads, cfg.head_dim)
+    mem_pos = (mem_len.to(torch.int64) - 1)[:, None].expand(b, c)
+    o = chunk_attention(q, k_mem, v_mem, mem_pos)
+    return linear_apply(p["wo"], o.reshape(b, c, -1))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""The decoder LMs of the gqa, gqa_moe, mla_moe, mamba_hybrid and rwkv
-families: init, the training loss, prefill, ragged decode step and greedy
-generation.  Counterpart of those families of ``repro.models.lm``: a
+"""The LMs of every family, gqa, gqa_moe, mla_moe, mamba_hybrid, rwkv and
+encdec: init, the training loss, prefill, ragged decode step and greedy
+generation.  Counterpart of ``repro.models.lm``: a
 gqa_moe block has an ``moe`` FFN (:mod:`repro_torch.models.moe`) where a
 gqa block has its ``mlp``; an mla_moe model (DeepSeek-V3) has MLA
 attention (:func:`repro_torch.models.attention.mla_apply`),
@@ -13,14 +13,23 @@ group followed by the ONE shared gqa block (its weights held once), then
 a tail of Mamba2 mixers; an rwkv model (RWKV6) has blocks of a time mix
 and a channel mix, each pre-normed.  Their decode state is recurrent
 (:class:`~repro_torch.models.slot_state.SlotState`'s STATE leaves), which a
-ragged step advances by each slot's own count, in place.
+ragged step advances by each slot's own count, in place.  An encdec model
+(Seamless-M4T) has an encoder stack (``enc_blocks``: bidirectional
+self-attention and the MLP, then ``enc_ln``) over the audio frontend's
+frames, ``batch["src"]`` [B, Ss, d], and a decoder stack (``dec_blocks``:
+causal self-attention, cross-attention to the encoder's memory, the MLP);
+its decode cache holds the decoder's self K/V and a frozen cross cache,
+the cross K/V of each layer, written once (by :meth:`LM.prefill`, or by
+the engine at admission from :meth:`LM.encode_cross`) and read by every
+step up to the slot's cross ``len``.
 
 Parameters are an :class:`LMParams` module: the embedding, the final norm,
 the head (fp, or under an explicit ``lm_head`` policy rule any scheme,
 through the same kernels as the blocks' linears) and one block per layer
 in a ``ModuleList`` (``blocks``; mla_moe's ``dense_blocks`` and
 ``moe_blocks``, mamba_hybrid's ``mamba_groups`` (a list of lists),
-``mamba_tail`` and ``shared_attn``, as the reference names its stacks;
+``mamba_tail`` and ``shared_attn``, encdec's ``enc_blocks``,
+``dec_blocks`` and ``enc_ln``, as the reference names its stacks;
 the reference stacks layers on a leading axis and scans, here a Python
 loop walks the list).  Every projection routes through the
 linear-scheme API, so a ``qalora`` model, its merged ``intq`` model and
@@ -57,7 +66,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import schemes
 from repro_torch.runtime.graphs import StepGraphs
-from .attention import (StepPlan, gqa_apply, gqa_init, gqa_prefill_chunk,
+from .attention import (StepPlan, cross_apply, cross_chunk, cross_init,
+                        cross_kv, gqa_apply, gqa_init, gqa_prefill_chunk,
                         kv_up_split, mla_apply, mla_init, mla_prefill_chunk)
 from .common import rmsnorm, rmsnorm_init
 from .mlp import mlp_apply, mlp_init
@@ -77,7 +87,8 @@ class LMParams(nn.Module):
     (lists of blocks; ``blocks`` is then empty) and, with an MTP head,
     ``mtp_proj`` (an exempt fp linear ``[2d, d]``), ``mtp_block`` and
     ``mtp_ln``; a mamba_hybrid model ``mamba_groups`` (a list of lists of
-    Mamba2 mixers), ``mamba_tail`` and ``shared_attn`` (one gqa block)."""
+    Mamba2 mixers), ``mamba_tail`` and ``shared_attn`` (one gqa block); an
+    encdec model ``enc_blocks``, ``dec_blocks`` and ``enc_ln``."""
 
     def __init__(self, embed: torch.Tensor, final_ln: nn.Module,
                  head: Optional[schemes.LinearParams], blocks: List[nn.Module],
@@ -147,6 +158,59 @@ def _mamba_block(p, x, cfg: ArchConfig):
 
 def _mamba_block_train(p, x, cfg: ArchConfig):
     return x + mamba2_mix(p, x, _mamba_cfg(cfg)), None
+
+
+def _enc_block_init(generator, cfg: ArchConfig, pol, device) \
+        -> nn.ModuleDict:
+    return nn.ModuleDict({
+        "ln1": rmsnorm_init(cfg.d_model, device=device),
+        "ln2": rmsnorm_init(cfg.d_model, device=device),
+        "attn": gqa_init(generator, _attn_cfg(cfg), pol.at("attn"), device),
+        "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, pol.at("mlp"),
+                        cfg.gated_mlp, device)})
+
+
+def _dec_block_init(generator, cfg: ArchConfig, pol, device) \
+        -> nn.ModuleDict:
+    return nn.ModuleDict({
+        "ln1": rmsnorm_init(cfg.d_model, device=device),
+        "ln2": rmsnorm_init(cfg.d_model, device=device),
+        "ln3": rmsnorm_init(cfg.d_model, device=device),
+        "attn": gqa_init(generator, _attn_cfg(cfg), pol.at("attn"), device),
+        "cross": cross_init(generator, _attn_cfg(cfg), pol.at("cross"),
+                            device),
+        "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, pol.at("mlp"),
+                        cfg.gated_mlp, device)})
+
+
+def _enc_block(p, x, cfg: ArchConfig, src_len=None):
+    """One encoder block: bidirectional self-attention (keys at or past
+    ``src_len[b]`` masked, when given) and the MLP, each pre-normed (the
+    reference's norms here take rmsnorm's default eps)."""
+    a, _ = gqa_apply(p["attn"], rmsnorm(p["ln1"], x), _attn_cfg(cfg),
+                     causal=False, kv_len=src_len, chunk_q=cfg.chunk_q,
+                     chunk_k=cfg.chunk_k)
+    x = x + a
+    return x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x), cfg.act)
+
+
+def _dec_block(p, x, memory, cfg: ArchConfig):
+    """One decoder block over whole sequences: causal self-attention,
+    cross-attention to ``memory`` [B, Ss, d], the MLP.  Returns (x, (k,
+    v), (cross k, cross v))."""
+    acfg = _attn_cfg(cfg)
+    a, kv = gqa_apply(p["attn"], rmsnorm(p["ln1"], x), acfg,
+                      chunk_q=cfg.chunk_q, chunk_k=cfg.chunk_k)
+    x = x + a
+    km, vm = cross_kv(p["cross"], memory, acfg)
+    x = x + cross_apply(p["cross"], rmsnorm(p["ln2"], x), km, vm, acfg,
+                        chunk_q=cfg.chunk_q, chunk_k=cfg.chunk_k)
+    x = x + mlp_apply(p["mlp"], rmsnorm(p["ln3"], x), cfg.act)
+    return x, kv, (km, vm)
+
+
+def _dec_block_train(p, x, memory, cfg: ArchConfig):
+    return _dec_block(p, x, memory, cfg)[0]
 
 
 def _mla_block_init(generator, cfg: ArchConfig, pol, moe: bool,
@@ -304,12 +368,17 @@ class LM:
         kv_down, kv_up, wo), then the gated MLP's 3 (2 when not gated), or
         each expert's gate, up and down plus the shared experts' MLP (the
         router stays fp); RWKV6's 8 (wr wk wv wg wo ck cv cr: the decay
-        LoRA stays fp); a Mamba2 layer's 2 (in_proj, out_proj).  mla_moe's
-        blocks differ by layer (its first ``n_dense_layers`` have the MLP)
-        and so do mamba_hybrid's: the last layer of each group of
-        ``attn_every`` is an application of the shared gqa block."""
+        LoRA stays fp); a Mamba2 layer's 2 (in_proj, out_proj); an encdec
+        decoder layer's 8 in a decode or ragged step (self-attention's 4,
+        cross-attention's wq and wo, the MLP's 2: the cross wk and wv run
+        once, at admission).  mla_moe's blocks differ by layer (its first
+        ``n_dense_layers`` have the MLP) and so do mamba_hybrid's: the last
+        layer of each group of ``attn_every`` is an application of the
+        shared gqa block."""
         cfg = self.cfg
         mlp = 3 if cfg.gated_mlp else 2
+        if cfg.family == "encdec":
+            return 6 + mlp
         experts = 3 * cfg.n_experts + (3 if cfg.n_shared_experts else 0)
         if cfg.family == "mla_moe":
             return 5 + (mlp if layer < cfg.n_dense_layers else experts)
@@ -329,6 +398,22 @@ class LM:
         head runs only in the loss and the MTP drafter; the shared block
         of mamba_hybrid counts once an application)."""
         return sum(self.layer_linears(i) for i in range(self.cfg.n_layers))
+
+    def encode_linears(self) -> int:
+        """Quantized linears of :meth:`encode_cross` (encdec): each encoder
+        block's 4 + MLP and each decoder layer's cross wk and wv; 0 for the
+        other families."""
+        cfg = self.cfg
+        if cfg.family != "encdec":
+            return 0
+        mlp = 3 if cfg.gated_mlp else 2
+        return cfg.n_enc_layers * (4 + mlp) + 2 * cfg.n_layers
+
+    def pass_linears(self) -> int:
+        """Quantized linears of one pass over whole sequences (the loss's
+        forward, a prefill): :meth:`step_linears`, and for encdec the
+        encoder and the cross wk and wv too."""
+        return self.step_linears() + self.encode_linears()
 
     # ---------------- init ----------------
 
@@ -359,6 +444,15 @@ class LM:
         if cfg.family == "mamba_hybrid":
             return LMParams(embed, rmsnorm_init(d, device=dev), head, [],
                             parts=self._hybrid_init(generator, dev))
+        if cfg.family == "encdec":
+            epol, dpol = pol.at("enc_blocks"), pol.at("dec_blocks")
+            parts = {"enc_blocks": [_enc_block_init(generator, cfg, epol, dev)
+                                    for _ in range(cfg.n_enc_layers)],
+                     "dec_blocks": [_dec_block_init(generator, cfg, dpol, dev)
+                                    for _ in range(cfg.n_layers)],
+                     "enc_ln": rmsnorm_init(d, device=dev)}
+            return LMParams(embed, rmsnorm_init(d, device=dev), head, [],
+                            parts=parts)
         bpol = pol.at("blocks")
         init = (_rwkv_block_init if cfg.family == "rwkv"
                 else _gqa_block_init)
@@ -529,6 +623,54 @@ class LM:
                                                    self.cfg.qk_rope_dim)}
         return x, cache if collect_cache else None
 
+    # ---------------- encoder (enc-dec) ----------------
+
+    def _encode(self, params: LMParams, src, src_len=None):
+        """The encoder over ``src`` [B, Ss, d] (cast to the embedding's
+        dtype) -> the memory [B, Ss, d], after ``enc_ln``.  ``src_len``
+        ([B] int tensor, optional) masks the keys at or past each row's
+        valid frames, so a zero-padded (bucketed) source gives its valid
+        rows as the unpadded source does, up to rounding; padded rows are
+        garbage but finite, and callers drop them.  Each block is
+        recomputed in the backward when ``cfg.remat`` and autograd is
+        on."""
+        x = src.to(params.embed.dtype)
+        enc = functools.partial(_enc_block, cfg=self.cfg, src_len=src_len)
+        if torch.is_grad_enabled():
+            enc = _maybe_remat(enc, self.cfg)
+        for blk in params.enc_blocks:
+            x = enc(blk, x)
+        return rmsnorm(params.enc_ln, x)
+
+    def _decode_trunk(self, params: LMParams, x, memory):
+        """The decoder stack over whole sequences with the cross caches
+        taken from ``memory`` -> (x, the self K/V stacked on a layer axis,
+        the cross K/V likewise)."""
+        ks, vs, cks, cvs = [], [], [], []
+        for blk in params.dec_blocks:
+            x, (k, v), (ck, cv) = _dec_block(blk, x, memory, self.cfg)
+            ks.append(k)
+            vs.append(v)
+            cks.append(ck)
+            cvs.append(cv)
+        return x, ({"k": torch.stack(ks), "v": torch.stack(vs)},
+                   {"k": torch.stack(cks), "v": torch.stack(cvs)})
+
+    @torch.no_grad()
+    def encode_cross(self, params: LMParams, src, src_len=None):
+        """The encoder over ``src`` [B, Ss, d] and every decoder layer's
+        cross K/V of its memory: (k, v), each [L, B, Ss, KvH, hd].  The
+        continuous engine runs it once a request, at admission, and pins
+        the result into the slot's frozen cross cache.  ``src_len`` as in
+        :meth:`_encode`: rows at or past it are garbage, and are not
+        pinned."""
+        memory = self._encode(params, src, src_len)
+        acfg = _attn_cfg(self.cfg)
+        kv = [cross_kv(blk["cross"], memory, acfg)
+              for blk in params.dec_blocks]
+        return (torch.stack([k for k, _ in kv]),
+                torch.stack([v for _, v in kv]))
+
     # ---------------- public API ----------------
 
     def loss(self, params: LMParams, batch: Dict[str, Any]):
@@ -538,7 +680,19 @@ class LM:
         MoE's load-balance loss summed over the layers (0 for gqa), with
         autograd on.  Returns (loss, {"xent", "aux"}), xent before the MTP
         and aux terms, as the reference does.  Patch positions carry no
-        label."""
+        label.  An encdec batch also gives ``src`` [B, Ss, d], the
+        encoder's frames."""
+        if self.cfg.family == "encdec":
+            memory = self._encode(params, batch["src"])
+            x = self._embed(params, batch["tokens"])
+            block = _maybe_remat(functools.partial(_dec_block_train,
+                                                   cfg=self.cfg), self.cfg)
+            for blk in params.dec_blocks:
+                x = block(blk, x, memory)
+            h = rmsnorm(params.final_ln, x, self.cfg.norm_eps)
+            xent = self._xent(params, h, batch["labels"])
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            return xent, {"xent": xent, "aux": aux}
         x = self._inputs_to_x(params, batch)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.cfg.family == "mla_moe":
@@ -611,9 +765,18 @@ class LM:
     def _prefill(self, params: LMParams, batch: Dict[str, Any]):
         """The final-normed hidden states of every position (patches
         first), and the prefill cache, whose length counts the patch
-        rows."""
-        x = self._inputs_to_x(params, batch)
-        h, cache = self._trunk(params, x, collect_cache=True)
+        rows.  An encdec batch's ``src`` goes through the encoder, and the
+        cache's cross ``len`` is its frame count."""
+        if self.cfg.family == "encdec":
+            memory = self._encode(params, batch["src"])
+            x = self._embed(params, batch["tokens"])
+            h, (selfc, crossc) = self._decode_trunk(params, x, memory)
+            crossc["len"] = torch.full((x.shape[0],), memory.shape[1],
+                                       dtype=torch.int32, device=x.device)
+            cache = {"self": selfc, "cross": crossc}
+        else:
+            x = self._inputs_to_x(params, batch)
+            h, cache = self._trunk(params, x, collect_cache=True)
         length = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
                             device=x.device)
         return (rmsnorm(params.final_ln, h, self.cfg.norm_eps),
@@ -638,10 +801,13 @@ class LM:
         return SlotState(self.cfg, page_size=page_size, n_pages=n_pages)
 
     def init_cache(self, batch: int, seq: int, dtype=torch.bfloat16,
-                   device="cuda"):
-        """Fresh decode cache (see :class:`SlotState`)."""
+                   device="cuda", src_cap: Optional[int] = None):
+        """Fresh decode cache (see :class:`SlotState`; for encdec ``seq``
+        is split into source and decoder capacities unless ``src_cap``
+        is given)."""
         return self.slot_state().init(batch, seq, dtype=dtype,
-                                      device=resolve_device(device))
+                                      device=resolve_device(device),
+                                      src_cap=src_cap)
 
     def decode_step(self, params: LMParams, cache, tokens, aux=None):
         """tokens: [B, 1] -> (logits [B, V], updated cache): the C=1
@@ -705,6 +871,8 @@ class LM:
             return self._rwkv_ragged(params, cache, x, n_new), n_new
         if self.cfg.family == "mamba_hybrid":
             return self._hybrid_ragged(params, cache, x, n_new), n_new
+        if self.cfg.family == "encdec":
+            return self._encdec_ragged(params, cache, x, n_new), n_new
         if self.cfg.family == "mla_moe":
             lay = cache["layers"]
             leaf = cache_leaves(lay)[0]
@@ -779,6 +947,32 @@ class LM:
                                     n_new, cfg, plan=plan)
         for j, blk in enumerate(params.mamba_tail):
             x = mamba(blk, {k: v[j] for k, v in lay["tail"].items()})
+        return rmsnorm(params.final_ln, x, cfg.norm_eps)
+
+    def _encdec_ragged(self, params: LMParams, cache, x, n_new):
+        """encdec's ragged decoder stack: each layer's self-attention
+        inserts into the self K/V (contiguous or paged), its
+        cross-attention reads the frozen cross cache up to each slot's
+        cross ``len`` (read from the cache, so a captured step sees each
+        admission's), and the MLP; the cross cache is never written
+        here."""
+        cfg, lay = self.cfg, cache["layers"]
+        acfg = _attn_cfg(cfg)
+        pages = cache.get("pages")
+        kc, vc = lay["self"]["k"], lay["self"]["v"]
+        cross = lay["cross"]
+        s = kc.shape[2] if pages is None else pages.shape[1] * kc.shape[2]
+        plan = StepPlan(cache["len"], n_new, x.shape[1], s, cfg.head_dim,
+                        pages=pages, page_size=kc.shape[2])
+        for layer, blk in enumerate(params.dec_blocks):
+            a, _ = gqa_prefill_chunk(blk["attn"], rmsnorm(blk["ln1"], x),
+                                     {"k": kc[layer], "v": vc[layer]},
+                                     cache["len"], n_new, acfg, plan=plan)
+            x = x + a
+            x = x + cross_chunk(blk["cross"], rmsnorm(blk["ln2"], x),
+                                cross["k"][layer], cross["v"][layer],
+                                cross["len"], acfg)
+            x = x + mlp_apply(blk["mlp"], rmsnorm(blk["ln3"], x), cfg.act)
         return rmsnorm(params.final_ln, x, cfg.norm_eps)
 
     # ---------------- serving: prefill + greedy decode ----------------

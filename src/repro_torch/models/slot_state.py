@@ -27,7 +27,14 @@ The layouts (``cache["layers"]``):
   followed by the one shared attention block, whose K/V has one entry a
   group; T tail layers);
 * rwkv: ``{"tm_prev": [L, B, 1, d], "wkv": [L, B, H, hd, hd], "cm_prev":
-  [L, B, 1, d]}``.
+  [L, B, 1, d]}``;
+* encdec: the decoder's self-attention K/V ``{"self": {"k": [L, B, S,
+  KvH, hd], "v": ...}`` (CACHE) and the frozen cross cache ``"cross":
+  {"k": [L, B, Ss, KvH, hd], "v": ..., "len": [B]}}`` of capacity
+  ``src_cap``, written once at admission.  The cross K/V are STATE, not
+  CACHE: nothing masks them but the cross ``len``, so eviction must zero
+  them (a src-less request in a refilled slot would otherwise average the
+  last occupant's memory), and the cross ``len`` is a LEN leaf.
 
 STATE leaves have their own dtype (f32 for the recurrences, the policy's
 dtype for RWKV6's token-shift carries); CACHE leaves take the one the
@@ -36,7 +43,8 @@ position) axes become the pool's (page, offset) axes, ``[L, n_pages,
 page_size, ...]``, shared by every slot (page 0 the reserved null page,
 see :mod:`repro_torch.serving.paging`), and ``"pages": [B, slot_pages]``
 int32 (a STATE leaf) maps each slot's positions to pool pages; rwkv has
-no CACHE leaf and refuses to page.  Every step writes the cache in place,
+no CACHE leaf and refuses to page (encdec pages its self-attention K/V
+only).  Every step writes the cache in place,
 and so do admission, eviction and rollback, so it keeps its addresses, as
 a captured serve step needs.
 """
@@ -44,7 +52,7 @@ a captured serve step needs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -55,7 +63,7 @@ from .ssm import Mamba2Config, RWKV6Config
 
 # the families the port serves: LM and SlotState refuse the rest through
 # check_family
-FAMILIES = ("gqa", "gqa_moe", "mla_moe", "mamba_hybrid", "rwkv")
+FAMILIES = ("gqa", "gqa_moe", "mla_moe", "mamba_hybrid", "rwkv", "encdec")
 
 CACHE, STATE, LEN = "cache", "state", "len"
 
@@ -155,16 +163,17 @@ class SlotState:
         """Page-row width of a slot: pages covering ``max_len`` tokens."""
         return -(-max_len // self.page_size)
 
-    def layout(self, n_slots: int, max_len: int) -> dict:
+    def layout(self, n_slots: int, max_len: int, src_cap: int = 0) -> dict:
         """The cache as a tree of :class:`SlotLeaf` (``layers``, ``len``
-        and, paged, ``pages``)."""
+        and, paged, ``pages``); ``src_cap`` is encdec's cross-cache
+        capacity (frames a slot), unused by the other families."""
         cfg = self.cfg
         B, S = n_slots, max_len
 
-        def kv(n):
-            shape = (n, B, S, cfg.n_kv_heads, cfg.head_dim)
-            return {"k": SlotLeaf(shape, 1, CACHE),
-                    "v": SlotLeaf(shape, 1, CACHE)}
+        def kv(n, s=S, kind=CACHE):
+            shape = (n, B, s, cfg.n_kv_heads, cfg.head_dim)
+            return {"k": SlotLeaf(shape, 1, kind),
+                    "v": SlotLeaf(shape, 1, kind)}
 
         fam = cfg.family
         if fam in ("gqa", "gqa_moe"):
@@ -188,6 +197,10 @@ class SlotState:
                                                 m.ssm_state), ax, STATE, f32)}
             layers = {"groups": mamba_state((ng, per)),
                       "tail": mamba_state((tail,)), **kv(ng)}
+        elif fam == "encdec":
+            layers = {"self": kv(cfg.n_layers),
+                      "cross": {**kv(cfg.n_layers, src_cap, STATE),
+                                "len": SlotLeaf((B,), 0, LEN, torch.int32)}}
         else:  # rwkv
             r, L, sd = rwkv_cfg(cfg), cfg.n_layers, cfg.quant.dtype
             layers = {
@@ -215,25 +228,44 @@ class SlotState:
         """Whether a step can be partly undone by shrinking ``len`` (what
         speculative decoding's rollback needs), derived from the leaf kinds
         as the reference derives it: only when a step writes nothing but
-        length-indexed CACHE rows and ``len`` (the page map changes only at
-        admission and eviction).  A recurrent STATE leaf advances inside
-        every step, and a rejected draft cannot be un-stepped."""
-        spec = self.layout(1, max(self.page_size, 1))
-        return all(leaf.kind != STATE
-                   for _, leaf in _leaves_with_keys(spec["layers"]))
+        length-indexed CACHE rows and ``len``.  STATE leaves frozen during
+        decode are harmless: encdec's cross cache is written once at
+        admission, the page map only at admission and eviction.  A
+        recurrent STATE leaf advances inside every step, and a rejected
+        draft cannot be un-stepped."""
+        spec = self.layout(1, max(self.page_size, 1), src_cap=1)
+        frozen = {"cross", "pages"}
+        return all(leaf.kind != STATE or frozen & set(keys)
+                   for keys, leaf in _leaves_with_keys(spec))
 
     def init(self, n_slots: int, max_len: int, dtype=torch.bfloat16,
-             device="cuda") -> dict:
-        """Fresh all-slots-empty decode cache (``dtype``: the CACHE leaves';
-        STATE leaves keep their own)."""
+             device="cuda", src_cap: Optional[int] = None) -> dict:
+        """Fresh all-slots-empty decode cache (``dtype``: the CACHE leaves'
+        and the cross cache's; the other STATE leaves keep their own).
+
+        For encdec with ``src_cap`` None, ``max_len`` is split as the
+        reference's ``LM.init_cache`` splits it: ``int(max_len *
+        source_frac)`` frames of cross cache and the rest decoder
+        positions; an explicit ``src_cap`` leaves ``max_len`` the
+        decoder's (what the engine wants)."""
+        if self.cfg.family == "encdec" and src_cap is None:
+            src_cap = int(max_len * self.cfg.source_frac)
+            max_len = max_len - src_cap
         return _map(lambda s: torch.zeros(
             s.shape, dtype=s.dtype or dtype, device=device),
-            self.layout(n_slots, max_len))
+            self.layout(n_slots, max_len, src_cap or 0))
+
+    def _spec(self, cache) -> dict:
+        """The layout of ``cache`` (its slots, and encdec's cross
+        capacity; the other capacities do not change a leaf's kind)."""
+        src_cap = 0
+        if self.cfg.family == "encdec":
+            src_cap = cache["layers"]["cross"]["k"].shape[2]
+        return self.layout(cache["len"].shape[0], 1, src_cap)
 
     def _kinds(self, cache):
         """(slot axis, kind, tensor) of every leaf of ``cache``."""
-        n_slots = cache["len"].shape[0]
-        spec = self.layout(n_slots, 1)
+        spec = self._spec(cache)
         for keys, leaf in _leaves_with_keys(spec):
             t = cache
             for k in keys:
@@ -254,9 +286,9 @@ class SlotState:
         return cache
 
     def state_leaves(self, cache) -> list:
-        """The STATE tensors of ``cache["layers"]`` (the recurrences; none
-        for the attention-only families)."""
-        spec = self.layout(cache["len"].shape[0], 1)["layers"]
+        """The STATE tensors of ``cache["layers"]`` (the recurrences,
+        encdec's cross K/V; none for the attention-only families)."""
+        spec = self._spec(cache)["layers"]
         out = []
         for keys, leaf in _leaves_with_keys(spec):
             if leaf.kind == STATE:

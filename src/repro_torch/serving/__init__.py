@@ -1,6 +1,6 @@
 """Continuous-batching serving with multi-tenant QA-LoRA adapters, a
-paged KV cache and speculative decoding (counterpart of ``repro.serving``
-for gqa).
+paged KV cache and speculative decoding (counterpart of ``repro.serving``,
+for every family).
 
     from repro_torch.serving import AdapterStore, ContinuousEngine
     store = AdapterStore(base_params, capacity=8)

@@ -1,6 +1,5 @@
 """Continuous-batching serving engine over the ragged step (counterpart of
-``repro.serving.engine`` for the gqa, gqa_moe, mla_moe, mamba_hybrid and
-rwkv families).
+``repro.serving.engine``, for every family).
 
 The engine drives :meth:`repro_torch.models.lm.LM.step_ragged` — one
 step in which every cache slot advances by its own number of tokens —
@@ -9,7 +8,9 @@ deciding what each slot consumes:
 
   * admission: queued requests enter free slots mid-flight; the slot's
     length is reset to 0 and its stale KV is never read, and its recurrent
-    state (Mamba2's, RWKV6's) is zeroed;
+    state (Mamba2's, RWKV6's) and encdec cross cache are zeroed; an encdec
+    request's source frames are encoded once, there, and its cross K/V
+    pinned into the slot's frozen cross cache (:meth:`_pin_cross`);
   * chunked prefill: prompts stream in ``prefill_chunk``-token chunks
     while decode slots ride along in the same batch;
   * per-request termination: slots stop at EOS or ``max_new_tokens`` and
@@ -56,11 +57,11 @@ fixed addresses; the captures are budgeted as the reference budgets its
 compiles (:mod:`repro_torch.runtime.compile_guard`, checked after every
 iteration).  ``eager=True`` runs the same steps op by op (the oracle
 runs); it is never chosen implicitly.  On the CPU the steps run eagerly.
-Encdec sources and the other families raise, and so do tenants over a
-gqa_moe model (:data:`MOE_TENANTS`) or an mla_moe one
-(:data:`ABSORBED_TENANTS`), speculation over a recurrent family (its state
-cannot be rolled back, :func:`recurrent_speculation`) and paging of rwkv
-(nothing to page).
+Tenants over a gqa_moe model (:data:`MOE_TENANTS`), an mla_moe one
+(:data:`ABSORBED_TENANTS`) or an encdec one (:data:`ENCDEC_TENANTS`) raise,
+and so do speculation over a recurrent family (its state cannot be rolled
+back, :func:`recurrent_speculation`) or over encdec
+(:data:`ENCDEC_SPECULATION`), and paging of rwkv (nothing to page).
 """
 
 from __future__ import annotations
@@ -96,6 +97,26 @@ ABSORBED_TENANTS = (
     "adapter serving: family 'mla_moe' hoists absorbed weights out of the "
     "step from a FIXED params tree, which would ignore per-slot adapters "
     "on those projections; serve this family merged")
+
+
+# the reference's refusals of tenants and of speculation over encdec
+ENCDEC_TENANTS = (
+    "adapter serving: the encdec encoder runs outside the slotted step "
+    "(batch 1 per admission), so per-slot adapter indices do not apply; "
+    "serve encdec merged")
+ENCDEC_SPECULATION = (
+    "speculative decoding: encdec drafters would need their own per-slot "
+    "cross caches encoded at admission; serve encdec with speculate=0")
+
+
+def src_buckets(max_src: int) -> int:
+    """The encoder shapes an engine of ``max_src`` frames meets: source
+    lengths bucket to powers of two capped at ``max_src``, so
+    bit_length(max_src), and one more when ``max_src`` is not a power of
+    two (the capped top bucket); the reference's compile budget."""
+    n = max_src.bit_length()
+    return n + 1 if max_src & (max_src - 1) else n
+
 
 
 def recurrent_speculation(family: str) -> str:
@@ -312,7 +333,12 @@ class ContinuousEngine:
     ``cache_dtype`` is the dtype of the target's and the drafter's K/V
     (f32 by default, as in the reference; bf16 halves the bytes a decode
     step reads there): the steps write their rows cast to it and the
-    attention reads them in f32."""
+    attention reads them in f32.
+
+    ``max_src`` (encdec) is each slot's cross-cache capacity in source
+    frames (default ``int(max_len * source_frac)``; ignored by the other
+    families, as in the reference); a request's frames go to
+    :meth:`submit` as ``src``."""
 
     def __init__(self, lm, params, *, n_slots: int, max_len: int,
                  prefill_chunk: int = 8, decode_burst: int = 8,
@@ -320,10 +346,8 @@ class ContinuousEngine:
                  page_size: int = 0, n_pages: Optional[int] = None,
                  speculate: int = 0, drafter=None, eager: bool = False,
                  cache_dtype=torch.float32):
-        if max_src:
-            raise NotImplementedError(
-                "ContinuousEngine(max_src=...): encdec cross caches are not "
-                "yet ported (see ROADMAP.md); the port serves gqa")
+        if lm.cfg.family == "encdec" and adapters is not None:
+            raise NotImplementedError(ENCDEC_TENANTS)
         if lm.cfg.family == "gqa_moe" and adapters is not None:
             raise NotImplementedError(MOE_TENANTS)
         if lm.cfg.family == "mla_moe" and adapters is not None:
@@ -356,6 +380,9 @@ class ContinuousEngine:
         else:
             self.n_pages = 0
             self.slot_state = lm.slot_state()
+        # encdec: each slot's frozen cross-cache capacity, in frames
+        self.max_src = (max(1, max_src or int(max_len * lm.cfg.source_frac))
+                        if lm.cfg.family == "encdec" else 0)
         ragged = StepGraphs("engine.ragged", self.device, eager=eager)
         self.graphs = {"ragged": ragged}
         # a speculating engine decodes in rounds, never in bursts
@@ -376,13 +403,19 @@ class ContinuousEngine:
         else:
             self.budgets = {"engine.ragged": 1,
                             "engine.burst": self.decode_burst.bit_length()}
+        if self.max_src:
+            # the encoder at admission, one capture a source bucket
+            self.graphs["encode"] = StepGraphs("engine.encode", self.device,
+                                               eager=eager, pool=ragged.pool)
+            self.budgets["engine.encode"] = src_buckets(self.max_src)
         # the served tree's slot -> adapter ids, at a fixed address
         self._slot_ids = torch.zeros((n_slots,), dtype=torch.int32,
                                      device=self.device)
         self.cache_dtype = cache_dtype
         self.cache = self.slot_state.init(n_slots, max_len,
                                           dtype=cache_dtype,
-                                          device=self.device)
+                                          device=self.device,
+                                          src_cap=self.max_src or None)
         # the drafter's cache mirrors the target's (paged: a second pool
         # addressed by the same page rows), so its rows land at the same
         # positions and the rollback is one shared length subtraction
@@ -412,6 +445,8 @@ class ContinuousEngine:
         if not self.lm.slot_state().supports_rollback():
             raise NotImplementedError(
                 recurrent_speculation(self.lm.cfg.family))
+        if self.lm.cfg.family == "encdec":
+            raise NotImplementedError(ENCDEC_SPECULATION)
         if self.adapters is not None:
             raise NotImplementedError(
                 "speculative decoding with an AdapterStore would need the "
@@ -480,12 +515,12 @@ class ContinuousEngine:
                eos_id: Optional[int] = None, rid: Optional[int] = None,
                src=None, adapter_id=None) -> int:
         """Queue a request; returns its rid (key into run()'s results).
-        ``adapter_id`` (name or id of a registered adapter; 0/None = null
-        adapter) binds the request to one tenant; unknown ids raise here,
-        not mid-serve."""
-        if src is not None:
-            raise NotImplementedError("encdec src frames: not yet ported "
-                                      "(see ROADMAP.md)")
+        ``src`` (encdec only) carries the request's encoder frames [Ss,
+        d_model], 1 <= Ss <= ``max_src``; None serves it with a zero cross
+        context.  ``adapter_id`` (name or id of a registered adapter;
+        0/None = null adapter) binds the request to one tenant; unknown
+        ids and bad frames raise here (the reference's reasons), not
+        mid-serve."""
         aid = 0
         if adapter_id not in (None, 0):
             if self.adapters is None:
@@ -494,10 +529,34 @@ class ContinuousEngine:
                     f"has no AdapterStore (pass adapters= at construction)")
             aid = self.adapters.resolve(adapter_id)  # ValueError on unknown
             self.adapters.touch(aid)
+        if src is not None:
+            src = self._check_src(src)
         req = Request(prompt=np.asarray(prompt, np.int32).reshape(-1),
                       max_new_tokens=max_new_tokens, eos_id=eos_id,
-                      rid=-1 if rid is None else rid, adapter_id=aid)
+                      rid=-1 if rid is None else rid, src=src,
+                      adapter_id=aid)
         return self.sched.submit(req)
+
+    def _check_src(self, src) -> np.ndarray:
+        """``src`` as f32 [Ss, d_model], or the reference's ValueError."""
+        cfg = self.lm.cfg
+        if cfg.family != "encdec":
+            raise ValueError(f"src frames are an encdec request field; "
+                             f"family is {cfg.family!r}")
+        src = np.asarray(src, np.float32)
+        if src.ndim != 2 or src.shape[1] != cfg.d_model:
+            raise ValueError(f"src must be [Ss, d_model={cfg.d_model}]; got "
+                             f"{src.shape}")
+        if src.shape[0] == 0:
+            raise ValueError(
+                "src has zero frames; pass src=None for a src-less request "
+                "(a [0, d] src would burn an encoder dispatch at admission "
+                "to pin nothing)")
+        if src.shape[0] > self.max_src:
+            raise ValueError(f"request has {src.shape[0]} encoder frames but "
+                             f"the engine's cross cache holds max_src="
+                             f"{self.max_src}")
+        return src
 
     def run(self) -> Dict[int, List[int]]:
         """Serve until queue and slots drain; returns rid -> token list."""
@@ -522,9 +581,10 @@ class ContinuousEngine:
         or the whole page pool of a paged one, and every recurrent state.
         A slot whose state is read next produces NaN logits and trips
         :class:`EngineCorrupted` before commit; :meth:`reset` zeroes the
-        rows again."""
+        rows again.  Integer leaves (encdec's cross ``len``) are kept."""
         for t in cache_leaves(self.cache["layers"]):
-            t.fill_(float("nan"))
+            if t.is_floating_point():
+                t.fill_(float("nan"))
 
     # ---------------- one engine iteration ----------------
 
@@ -561,6 +621,7 @@ class ContinuousEngine:
             for cache in self._caches():
                 self.slot_state.reset(cache, mask)
             self._publish_pages(filled)
+            self._pin_cross(filled)
         self._refresh_adapters()
         if self.sched.all_decoding:
             if self.speculate:
@@ -590,6 +651,39 @@ class ContinuousEngine:
         for cache in self._caches():
             cache["pages"].index_copy_(0, idx, rows)
             cache["len"].index_copy_(0, idx, lens)
+
+    def _pin_cross(self, filled):
+        """encdec admission: encode each refilled slot's ``src`` frames once
+        and pin every layer's cross K/V into the slot's frozen cross cache,
+        in place (the captured steps read it, and its ``len``, at their
+        addresses).  Source lengths are bucketed: the frames are
+        zero-padded to the next power of two (capped at ``max_src``) and
+        the true length masks the encoder's keys, so at most
+        :func:`src_buckets` encoder shapes are ever captured; only the
+        first ``ss`` rows and the true length are pinned.  A src-less
+        request keeps the zeroed cross cache (cross ``len`` 0: a zero
+        context).  The refill's reset zeroed the rows first."""
+        if not self.max_src:
+            return
+        cross = self.cache["layers"]["cross"]
+        graphs = self.graphs["encode"]
+        for i in filled:
+            src = self.sched.slots[i].req.src
+            if src is None:
+                continue
+            ss = src.shape[0]
+            bs = min(self.max_src, 1 << max(ss - 1, 0).bit_length())
+            pad = np.zeros((1, bs, src.shape[1]), np.float32)
+            pad[0, :ss] = src
+            key = ("encode", bs)
+            buf = graphs.stage(key, src=pad,
+                               src_len=np.asarray([ss], np.int32))
+            ks, vs = graphs(key, lambda: self.lm.encode_cross(
+                self.params, buf["src"], buf["src_len"]),
+                binds=(self.params,))
+            cross["k"][:, i, :ss].copy_(ks[:, 0, :ss])
+            cross["v"][:, i, :ss].copy_(vs[:, 0, :ss])
+            cross["len"][i:i + 1].fill_(ss)
 
     def _refresh_adapters(self):
         """Rebind ``self.params`` to the store's serving tree for the

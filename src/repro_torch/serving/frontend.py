@@ -131,7 +131,7 @@ class ServingFrontend:
 
     The arguments are the reference's, plus the engine's ``eager``.
     ``cache_dtype`` (None: the engine's default, f32) goes to the engine,
-    and ``max_src`` raises as the port's engine does.
+    and so does ``max_src`` (encdec's cross-cache capacity).
     ``clock`` is injectable (``time.monotonic`` by default), so deadline
     behaviour is deterministic under test.  Every engine and scheduler
     mutation happens on the thread that drives ``step()``; ``submit`` and
@@ -470,7 +470,7 @@ class ServingFrontend:
             except (ValueError, NotImplementedError) as e:
                 # the engine's own checks (a request the page pool can
                 # never cover, an adapter evicted since submit, encoder
-                # frames, which the port does not serve)
+                # frames the engine cannot take)
                 self._finish(t, RequestStatus.REJECTED, error=str(e))
 
     def _harvest(self, now: float):
@@ -544,7 +544,7 @@ class ServingFrontend:
                                    adapter_id=t.adapter_id)
             for r in queued:
                 self.engine.submit(r.prompt, r.max_new_tokens,
-                                   eos_id=r.eos_id, rid=r.rid,
+                                   eos_id=r.eos_id, rid=r.rid, src=r.src,
                                    adapter_id=r.adapter_id)
 
 

@@ -34,6 +34,10 @@ class Request:
     generation always stops after ``max_new_tokens`` tokens.  The emitted
     sequence includes the EOS token when one is hit.
 
+    ``src`` (encdec only) carries the request's encoder frames [Ss, d]; at
+    admission the engine encodes them once and pins the cross K/V into
+    the slot's frozen cross cache.  None serves with a zero cross context.
+
     ``adapter_id`` selects a bank row of the engine's
     :class:`~repro_torch.serving.adapters.AdapterStore` (multi-tenant
     serving); 0 is the reserved null adapter (the bare base model).  The
@@ -43,6 +47,7 @@ class Request:
     max_new_tokens: int
     eos_id: Optional[int] = None
     rid: int = -1                 # assigned by Scheduler.submit
+    src: Optional[np.ndarray] = None  # [Ss, d] encoder frames (encdec)
     adapter_id: int = 0           # AdapterStore bank row (0 = null)
 
 

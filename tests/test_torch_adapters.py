@@ -537,14 +537,14 @@ def test_poisoned_engine_raises_before_commit(served):
 
 
 def test_engine_refuses_modes_not_ported(served):
-    """What the engine still refuses (paging and self-speculation are
-    ported): encdec sources, the MTP drafter on a gqa model (the
-    reference's reason), speculation over an AdapterStore, with a decode
-    burst or without a drafter, and a request the page pool can never
-    cover."""
+    """What the engine refuses (paging, self-speculation and encdec are
+    ported): source frames for a gqa model (the reference's reason; its
+    ``max_src`` is ignored, as in the reference), the MTP drafter on a gqa
+    model (the reference's reason), speculation over an AdapterStore,
+    with a decode burst or without a drafter, and a request the page pool
+    can never cover."""
     base = served.tstore.base
     for kw, exc, match in (
-            ({"max_src": 8}, NotImplementedError, "not yet ported"),
             ({"speculate": 1, "decode_burst": 1, "drafter": "mtp"},
              ValueError, "drafter='mtp' needs an mla_moe model"),
             ({"speculate": 2, "decode_burst": 1, "drafter": "*=intq8",
@@ -561,8 +561,10 @@ def test_engine_refuses_modes_not_ported(served):
                                      page_size=2, n_pages=3)
     with pytest.raises(ValueError, match="page pool can never cover"):
         paged.submit([5, 6, 7], 2)
-    eng = serving.ContinuousEngine(served.tlm, base, n_slots=2, max_len=8)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    eng = serving.ContinuousEngine(served.tlm, base, n_slots=2, max_len=8,
+                                   max_src=8)
+    assert eng.max_src == 0
+    with pytest.raises(ValueError, match="encdec request field"):
         eng.submit([5, 6], 2, src=np.zeros((2, 4), np.float32))
     with pytest.raises(ValueError, match="no AdapterStore"):
         eng.submit([5, 6], 2, adapter_id="alpha")

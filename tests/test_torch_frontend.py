@@ -463,12 +463,13 @@ def test_slo_summary_matches_reference_on_hand_built_tickets():
 
 
 def test_frontend_refuses_what_the_port_does_not_serve(served):
-    """``max_src`` (encdec) is refused; ``cache_dtype`` goes to the engine
+    """``max_src`` (encdec's) goes to the engine, which ignores it for a
+    gqa model as the reference's does; ``cache_dtype`` goes to the engine
     (f32 by default, bf16 when asked), and a bf16-cache frontend serves;
-    a request with encdec source frames comes back REJECTED."""
-    with pytest.raises(NotImplementedError, match="max_src"):
-        serving.ServingFrontend(served.tlm, served.tmerged, **ENGINE,
-                                max_src=8)
+    a request with source frames for the gqa model comes back REJECTED
+    with the reference's reason."""
+    assert serving.ServingFrontend(served.tlm, served.tmerged, **ENGINE,
+                                   max_src=8).engine.max_src == 0
     plain = serving.ServingFrontend(served.tlm, served.tmerged, **ENGINE)
     assert plain.engine.cache["layers"]["k"].dtype == torch.float32
     fe = serving.ServingFrontend(served.tlm, served.tmerged, **ENGINE,

@@ -432,3 +432,35 @@ def test_serve_cli(pair, monkeypatch, capsys):
             tserve.main(argv + ["--engine", "continuous", *extra])
         err = capsys.readouterr().err
         assert "recurrent STATE" in err or "nothing to page" in err
+
+
+def _cut_and_resumed(arch, tmp_path, extra=()):
+    """``train --arch <arch> --reduced --device cpu`` run 4 steps whole,
+    and cut at step 2 then resumed from its checkpoint."""
+    argv = ["--arch", arch, "--reduced", "--device", "cpu", "--seq-len",
+            "32", "--global-batch", "2", "--ckpt-every", "2", *extra]
+    whole, cut = str(tmp_path / "whole"), str(tmp_path / "cut")
+    full = ttrain.main(argv + ["--steps", "4", "--ckpt-dir", whole])
+    first = ttrain.main(argv + ["--steps", "2", "--ckpt-dir", cut])
+    resumed = ttrain.main(argv + ["--steps", "4", "--ckpt-dir", cut])
+    return full, first, resumed
+
+
+def assert_resumed_bit_for_bit(full, first, resumed):
+    assert resumed["start"] == 2 and resumed["steps"] == [2, 3]
+    assert first["loss"] + resumed["loss"] == full["loss"]
+    a, b = (r["state"].trainable for r in (full, resumed))
+    assert set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+    for key in ("mu", "nu"):
+        assert all(torch.equal(full["state"].opt_state[key][k],
+                               resumed["state"].opt_state[key][k]) for k in a)
+    assert all(np.isfinite(full["loss"]))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_cli_cut_and_resumed_equals_uninterrupted(arch, tmp_path):
+    """The train CLI on each recurrent family, cut at step 2 and resumed
+    from its checkpoint: the losses, the adapters and AdamW's moments
+    equal the uninterrupted run's bit for bit (the CPU's counterpart of
+    chip_smoke's rec_train_resume)."""
+    assert_resumed_bit_for_bit(*_cut_and_resumed(arch, tmp_path))
