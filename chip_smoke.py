@@ -553,7 +553,7 @@ EXPECTED_S = {"device": 1, "build": 25, "kernels": 10, "flash": 6,
               "baselines": 38, "families": 40, "vision": 14,
               "moe_train": 19, "moe_serve": 68, "mla_serve": 71,
               "mla_train": 50, "recurrent": 72, "rec_train": 35,
-              "encdec": 55}
+              "encdec": 55, "mesh_train": 35}
 
 
 def _phase(name, fn, *args):
@@ -1114,6 +1114,9 @@ def phase_kernels(torch):
     ragged_adapter = [_check_one(torch, "qalora_matmul", RAGGED_M, k, n, BITS,
                                  gen, timing=True) for k, n, _ in SHAPES]
     ragged_proj = [_check_proj(torch, RAGGED_M, k, gen) for k, _, _ in SHAPES]
+    # kernel 3 at a rank's shard shapes on phase mesh_train's model 2
+    mesh_rows = [_check_one(torch, "qalora_matmul", MESH_M, k, n, BITS, gen,
+                            timing=True) for k, n, _ in MESH_SHAPES]
     edge_calls = _edge_sweep(torch, gen)
     sweep = [_check_one(torch, name, KERNELS[name][1], *SWEEP_SHAPE, bits, gen,
                         timing=False)
@@ -1126,7 +1129,7 @@ def phase_kernels(torch):
               for m in ms]
     emit({"phase": "kernels_checked", "rows": sum(map(len, rows.values()))
           + len(ragged) + len(ragged_adapter) + len(ragged_proj) + len(sweep)
-          + len(gemv_proj) + len(sweep_proj),
+          + len(gemv_proj) + len(sweep_proj) + len(mesh_rows),
           "edge_sweep_calls": edge_calls,
           "tolerance": "2**-6 * max|plain| (two bf16 steps)",
           "ragged_step_per_layer_ms": {
@@ -1139,7 +1142,8 @@ def phase_kernels(torch):
           "clocks_after": _smi(CLOCKS)})
     torch.cuda.empty_cache()
     return rows, {"qmatmul": ragged, "qalora_matmul": ragged_adapter,
-                  PROJ[0]: ragged_proj, "gemv_proj": gemv_proj}
+                  PROJ[0]: ragged_proj, "gemv_proj": gemv_proj,
+                  "mesh_shards": mesh_rows}
 
 
 def _per_layer(rows, key):
@@ -7974,6 +7978,348 @@ def phase_encdec(torch):
                                             narrow_counts])}, held)
 
 
+# ---------------------------------------------------------------------------
+# phase: the sharded train step on a mesh of two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# llama7b-proxy at its full widths, 4 of 32 layers, 3 steps of 4 x 256 on
+# alpaca from seed 0; two ranks share the one card (gloo, host copies), so
+# their times are readings of that, not a tensor-parallel speed-up
+MESH_LAYERS = 4
+MESH_STEPS = 3
+MESH_ARGV = ["--arch", "llama7b-proxy", "--n-layers", str(MESH_LAYERS),
+             "--seq-len", "256", "--global-batch", "4", "--dataset",
+             "alpaca", "--lr", "2e-4", "--log-every", "1", "--device",
+             "cuda", "--mesh", "pod", "--steps", str(MESH_STEPS)]
+MESH_DIR = os.path.join(ROOT, "build", "chip_smoke_mesh")
+# each step's loss on model 2 against one device's, relative
+MESH_LOSS_TOL = 1e-2
+# kernel 3 at a rank's shard shapes on model 2, M = 4 x 256 rows:
+# (K, N, linears a layer): q/k/v and gate/up columns, wo and down rows
+MESH_M = 1024
+MESH_SHAPES = ((4096, 2048, 3), (4096, 5504, 2), (2048, 4096, 1),
+               (5504, 4096, 1))
+MESH_DEADLINE_S = 300.0
+MESH_PATH = (f"llama7b-proxy train on model 2, {MESH_LAYERS} layers, "
+             f"{MESH_STEPS} steps, per rank (phase mesh_train)")
+
+
+def _fingerprint_of(torch, tensors) -> str:
+    """sha256 of the tensors' bytes, in name order."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(tensors[k].detach().contiguous().cpu().view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _mesh_run(torch, mesh, argv, first=None, sync_log=None):
+    """setup + run of the train CLI on ``mesh`` (counts reset just before
+    the loop, read just after); with ``first`` (a dict), the gathered
+    first moments and grad norm after step 1; with ``sync_log`` (a list),
+    each sync's largest move over its allowance and the adapters'
+    fingerprint after it."""
+    from repro_torch import kernels
+    from repro_torch.launch import train
+    from repro_torch.sharding import gather_tensors
+    args = train.build_parser().parse_args(MESH_ARGV + argv)
+    t0 = time.perf_counter()
+    st = train.setup(args, mesh=mesh)
+    setup_s = time.perf_counter() - t0
+    inner = st.step_fn
+
+    def step_fn(params, opt, batch):
+        m = inner(params, opt, batch)
+        if first is not None and not first:
+            first["grad_norm"] = float(m["grad_norm"])
+            first["mu"] = {k: v.to("cpu", copy=True) for k, v in
+                           gather_tensors(opt["mu"], st.params.specs,
+                                          mesh).items()}
+        return m
+    st.step_fn = step_fn
+    if sync_log is not None:
+        real = st.sync
+
+        def sync(tr):
+            before = {k: v.detach().clone() for k, v in tr.items()}
+            real(tr)
+            worst = 0.0
+            for k, b in before.items():
+                a = tr[k].detach().float()
+                b = b.float()
+                allow = b.abs().max() / 254 + a.abs() * BF16_U + 1e-30
+                worst = max(worst, ((a - b).abs() / allow).max().item())
+            sync_log.append({"worst_move_over_allowance": worst,
+                             "fingerprint": _fingerprint_of(torch, tr)})
+        st.sync = sync
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    res = train.run(st, args)
+    torch.cuda.synchronize()
+    res["counts"] = kernels.launches()
+    res["setup_s"] = setup_s
+    return st, res
+
+
+def _merge_on_shards(torch, shard, mesh):
+    """The trained merge on a shard against the merge of the gathered
+    linear, linear by linear: (the merge keeps every shard's codes and
+    scales as the very tensors it had, the largest relative gap between
+    the gathered merged zeros and the zeros of the gathered linear
+    merged).  A linear's merge is local to each (group, column), and the
+    rules keep A's rows with the groups and B's columns with the columns;
+    only its zeros, A and B are gathered (the codes are not: the merge
+    does not read them)."""
+    from repro_torch.core import qalora, schemes
+    from repro_torch.sharding import gather_tensor
+    same, worst = True, 0.0
+    for name, lp in shard.named_modules():
+        if not schemes.is_linear(lp) or lp.scheme != "qalora":
+            continue
+        merged = schemes.merge_linear(lp)
+        q, mq = schemes.quantized_base(lp), schemes.quantized_base(merged)
+        same = same and mq.qweight is q.qweight and mq.scale is q.scale
+        spec = {k[len(name) + 1:]: v for k, v in shard.specs.items()
+                if k.startswith(name + ".")}
+        got = gather_tensor(mq.zero, spec["q.zero"], mesh)
+        full = qalora.merge(
+            type(q)(q.qweight, q.scale, gather_tensor(
+                q.zero, spec["q.zero"], mesh), q.bits, q.group_size),
+            qalora.QALoRAParams(*(gather_tensor(
+                t, spec[f"ad.{k}"], mesh) for k, t in
+                (("a", lp.ad.a), ("b", lp.ad.b)))), lp.policy.s).zero
+        gap = (got.float() - full.float()).abs().max() / \
+            full.float().abs().max().clamp_min(1e-30)
+        worst = max(worst, gap.item())
+    return same, worst
+
+
+def _mesh_rank(rank, ckpt_dir):
+    """One rank of phase mesh_train: model 2 (the main path, its
+    checkpoint, the merge on the shards), the control without the row B's sum over
+    "model", then pod 2 x model 1 with --sync-every 1."""
+    import torch
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import gather_tensors
+    out = {"rank": rank, "seconds": {}}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        out["seconds"][name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    mesh = make_mesh((1, 2), ("data", "model"))
+    lap("start")
+    first = {}
+    st, res = _mesh_run(torch, mesh, ["--ckpt-dir", ckpt_dir, "--ckpt-every",
+                                      str(MESH_STEPS)], first=first)
+    out["seconds"]["model2_setup"] = res["setup_s"]
+    lap("model2")
+    modes = {lp.tp.mode.value for lp in st.params.modules()
+             if hasattr(lp, "tp")}
+    adapters = {k: v.to("cpu", copy=True) for k, v in gather_tensors(
+        st.trainable, st.params.specs, mesh).items()}
+    same, zero_rel = _merge_on_shards(torch, st.params, mesh)
+    out["model2"] = {
+        "loss": res["loss"], "grad_norm": res["grad_norm"],
+        "step_ms": res["step_ms"], "step_ms_median": res["step_ms_median"],
+        "peak_mem_bytes": res["peak_mem_bytes"], "counts": res["counts"],
+        "backend": mesh.backend, "modes": sorted(modes),
+        "merge_codes_scales_identical": same, "merge_zero_max_rel": zero_rel}
+    if rank == 0:
+        out["model2"].update(adapters=adapters, first=first)
+    del st, res
+    torch.cuda.empty_cache()
+    lap("merge")
+    # the control: the row linears' B gradients left as partial sums
+    real = S.model_partial_leaves
+    S.model_partial_leaves = lambda p: {n for n in real(p)
+                                        if not n.endswith(".ad.b")}
+    try:
+        ctl_first = {}
+        st, res = _mesh_run(torch, mesh, [], first=ctl_first)
+        ctl = {k: v.to("cpu", copy=True) for k, v in gather_tensors(
+            st.trainable, st.params.specs, mesh).items()}
+    finally:
+        S.model_partial_leaves = real
+    if rank == 0:
+        out["control"] = {"adapters": ctl, "first": ctl_first,
+                          "loss": res["loss"]}
+    del st, res
+    torch.cuda.empty_cache()
+    lap("control")
+    # pod 2 x model 1: data parallel over "pod", the int8 sync every step
+    pods = make_mesh((2, 1, 1), ("pod", "data", "model"))
+    log = []
+    st, res = _mesh_run(torch, pods, ["--sync-every", "1"], sync_log=log)
+    out["pod2"] = {"loss": res["loss"], "syncs": log,
+                   "step_ms_median": res["step_ms_median"],
+                   "peak_mem_bytes": res["peak_mem_bytes"]}
+    del st, res
+    torch.cuda.empty_cache()
+    lap("pod2")
+    return out
+
+
+def _single_mesh_reference(torch):
+    """The same model, seed and batches on one device: losses, the
+    adapters after the last step, the first step's moments."""
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_cpu_mesh
+    first = {}
+    args = train.build_parser().parse_args(MESH_ARGV + ["--mesh", "cpu"])
+    st = train.setup(args, mesh=make_cpu_mesh())
+    inner = st.step_fn
+
+    def step_fn(params, opt, batch):
+        m = inner(params, opt, batch)
+        if not first:
+            first["grad_norm"] = float(m["grad_norm"])
+            first["mu"] = {k: v.to("cpu", copy=True)
+                           for k, v in opt["mu"].items()}
+        return m
+    st.step_fn = step_fn
+    res = train.run(st, args)
+    out = {"loss": res["loss"], "first": first,
+           "adapters": {k: v.detach().to("cpu", copy=True) for k, v in
+                        st.trainable.items()},
+           "step_ms_median": res["step_ms_median"],
+           "peak_mem_bytes": res["peak_mem_bytes"]}
+    del st, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _grads_of(first, cfg):
+    """Each adapter's step-1 gradient from its first moment, the clip
+    undone (as :func:`_step_grads` reads them)."""
+    clip = min(1.0, cfg.max_grad_norm / max(first["grad_norm"], 1e-9))
+    return {k: v / (1 - cfg.b1) / clip for k, v in first["mu"].items()}
+
+
+def phase_mesh_train(torch):
+    """``repro_torch.launch.train``'s sharded step on two ranks that share
+    the card (spawned here after phase build, so they load its libraries
+    and never build): model 2 held against one device on the same seed and
+    batches (each step's loss within ``MESH_LOSS_TOL``, the first step's
+    gradients and the adapters after the last within ``TRAIN_GRAD_TOL`` by
+    module group, phase train_small's measure), a control without the row
+    linears' B sum over "model" that must fail that limit, the trained
+    merge on the shards against the merge of the gathered tree, the
+    step-3 checkpoint restored on one device bit for bit, and pod 2 x
+    model 1 with --sync-every 1 (identical bits on both ranks after each
+    sync, each element moved within absmax / 254 and a bf16 step)."""
+    import shutil
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.optim import AdamWConfig
+    t_phase = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        ranks = run_ranks(_mesh_rank, 2, (MESH_DIR,), device_type="cuda",
+                          deadline_s=MESH_DEADLINE_S)
+        ranks_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        single = _single_mesh_reference(torch)
+        # the model-2 checkpoint restored on one device
+        args = train.build_parser().parse_args(
+            MESH_ARGV + ["--mesh", "cpu", "--ckpt-dir", MESH_DIR])
+        st = train.setup(args)
+        restored_start = st.start
+        restored = {k: v.detach().cpu() for k, v in st.trainable.items()}
+        cfg = st.cfg
+        del st
+        torch.cuda.empty_cache()
+        single_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    m2 = ranks[0]["model2"]
+    opt_cfg = AdamWConfig(lr=2e-4)
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(m2["loss"],
+                                                    single["loss"])]
+    grads = _grad_groups(_grads_of(m2["first"], opt_cfg),
+                         _grads_of(single["first"], opt_cfg))
+    adapters = _grad_groups(m2["adapters"], single["adapters"])
+    ctl = ranks[0]["control"]
+    ctl_grads = _grad_groups(_grads_of(ctl["first"], opt_cfg),
+                             _grads_of(single["first"], opt_cfg))
+    ctl_adapters = _grad_groups(ctl["adapters"], single["adapters"])
+    per_step = _train_launches(cfg)
+    counts = [r["model2"]["counts"] for r in ranks]
+    syncs = [r["pod2"]["syncs"] for r in ranks]
+    checks = {
+        "loss_within_tol": max(loss_rel) <= MESH_LOSS_TOL,
+        "grads_within_tol": max(grads.values()) <= TRAIN_GRAD_TOL,
+        "adapters_within_tol": max(adapters.values()) <= TRAIN_GRAD_TOL,
+        "control_fails_the_limit":
+            max(ctl_adapters.values()) > TRAIN_GRAD_TOL,
+        "modes_col_and_row": m2["modes"] == ["col", "row"],
+        "launches_per_rank": all(
+            c[k] == per_step * MESH_STEPS for c in counts
+            for k in TRAIN_PATH),
+        "merge_on_shards": all(r["model2"]["merge_codes_scales_identical"]
+                               and r["model2"]["merge_zero_max_rel"]
+                               <= BF16_U for r in ranks),
+        "checkpoint_restored_bit_for_bit": restored_start == MESH_STEPS
+        and sorted(restored) == sorted(m2["adapters"]) and all(
+            torch.equal(restored[k], m2["adapters"][k]) for k in restored),
+        "sync_bits_identical_on_both_ranks": len(syncs[0]) == MESH_STEPS
+        and [s["fingerprint"] for s in syncs[0]]
+        == [s["fingerprint"] for s in syncs[1]],
+        "sync_moves_within_int8_step": all(
+            s["worst_move_over_allowance"] <= 1.0 for r in syncs for s in r),
+        "finite": all(math.isfinite(x) for x in m2["loss"] + single["loss"]
+                      + ranks[0]["pod2"]["loss"])}
+    smi = _smi("name,power.limit")
+    out = {"phase": "mesh_train", "arch": "llama7b-proxy",
+           "n_layers": MESH_LAYERS, "steps": MESH_STEPS,
+           "batch": "4 x 256, alpaca, seed 0", "card": smi,
+           "ranks": "2 processes sharing one card (gloo, host copies)",
+           "backend": m2["backend"],
+           "loss_model2": m2["loss"], "loss_single": single["loss"],
+           "loss_rel": loss_rel, "loss_tol": MESH_LOSS_TOL,
+           "grad_rel_by_group": grads, "adapter_rel_by_group": adapters,
+           "control_grad_rel_by_group": ctl_grads,
+           "control_adapter_rel_by_group": ctl_adapters,
+           "tol": TRAIN_GRAD_TOL,
+           "merge_zero_max_rel": [r["model2"]["merge_zero_max_rel"]
+                                  for r in ranks],
+           "launches_per_rank": [{k: c[k] for k in TRAIN_PATH}
+                                 for c in counts],
+           "expected_per_rank": per_step * MESH_STEPS,
+           "step_ms_median_per_rank": [r["model2"]["step_ms_median"]
+                                       for r in ranks],
+           "peak_gb_per_rank": [r["model2"]["peak_mem_bytes"] / 1e9
+                                for r in ranks],
+           "single_step_ms_median": single["step_ms_median"],
+           "single_peak_gb": single["peak_mem_bytes"] / 1e9,
+           "pod2_step_ms_median_per_rank": [r["pod2"]["step_ms_median"]
+                                            for r in ranks],
+           "sync_worst_move_over_allowance": max(
+               s["worst_move_over_allowance"] for r in syncs for s in r),
+           "seconds_by_part": {"ranks": ranks_s, "single_and_restore":
+                               single_s, "rank0": ranks[0]["seconds"]},
+           "checks": checks, "phase_s": time.perf_counter() - t_phase}
+    out["ok"] = all(checks.values())
+    print(f"[chip_smoke] mesh_train: llama7b-proxy {MESH_LAYERS} layers on "
+          f"model 2 ({m2['backend']}, 2 ranks sharing {smi}): step "
+          f"{out['step_ms_median_per_rank']} ms a rank (one device "
+          f"{single['step_ms_median']:.1f} ms), peak "
+          f"{[round(g, 2) for g in out['peak_gb_per_rank']]} GB a rank; "
+          f"loss rel {max(loss_rel):.2e}, grads {max(grads.values()):.3f}, "
+          f"adapters {max(adapters.values()):.3f} (control "
+          f"{max(ctl_adapters.values()):.3f}) vs {TRAIN_GRAD_TOL}; ok "
+          f"{out['ok']}", flush=True)
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"mesh_train checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return counts[0]
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print(f"[chip_smoke] {SRC}/repro_torch not found: run from a checkout "
@@ -8047,6 +8393,8 @@ def main() -> int:
                      "resumed runs (phase rec_train)"] = rec_train_counts
         encdec_counts, encdec_held = _phase("encdec", phase_encdec, torch)
         serve_counts.update(encdec_counts)
+        serve_counts[MESH_PATH] = _phase("mesh_train", phase_mesh_train,
+                                         torch)
     except Exception as e:  # report, save and fail: no result line
         import traceback
         traceback.print_exc()
@@ -8072,7 +8420,9 @@ def main() -> int:
             + sum(c[name] for c in base_counts.values())
             + sum(c[name] for c in serve_counts.values()),
             "max_abs_err": max([x["max_abs_err"]
-                                for x in r + ragged.get(name, []) + held]
+                                for x in r + ragged.get(name, []) + held
+                                + (ragged["mesh_shards"]
+                                   if name == "qalora_matmul" else [])]
                                + [train_errs.get(name, 0.0),
                                   moe_train_errs.get(name, 0.0)]
                                + ([head["max_abs_err"]] if head else [])),
@@ -8117,6 +8467,20 @@ def main() -> int:
                 **{key: head[key] for key in (
                     "kernel_ms", "plain_ms", "library_ms", "bound_ms",
                     "bound_by", "max_abs_err")}}
+        if name == "qalora_matmul":
+            mr = ragged["mesh_shards"]
+            summary[-1]["mesh_shard_shapes"] = {
+                "work": f"a rank's shards on model 2 at M={MESH_M} (phase "
+                        f"mesh_train): " + ", ".join(
+                            f"{c}x({k},{n})" for k, n, c in MESH_SHAPES)
+                        + ", int4 g32, bf16",
+                **{f"{key}_ms": sum(r[f"{key}_ms"] * c for r, (_, _, c)
+                                    in zip(mr, MESH_SHAPES))
+                   for key in ("kernel", "plain", "library", "bound")},
+                "max_abs_err": max(r["max_abs_err"] for r in mr),
+                "rows": [{key: r[key] for key in (
+                    "K", "N", "kernel_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "max_abs_err")} for r in mr]}
         if name in ragged:
             rr = ragged[name]
             summary[-1]["ragged_step"] = {

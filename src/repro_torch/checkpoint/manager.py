@@ -11,6 +11,14 @@
   ``step_N/``; the manifest is written last, so a directory without one
   is a torn write, never restored, and reaped.
 * Retention keeps the newest ``keep`` checkpoints.
+* **Elastic**: on a mesh of processes (``mesh``, ``specs``: each rank
+  holds its shard of the tensors named in ``specs``) a save gathers the
+  full tensors on every rank and rank 0 writes them; a restore reads the
+  full tensors and slices this rank's blocks.  So a checkpoint written on
+  one mesh restores onto any other, or onto one process.  The directory
+  must be on a file system that every rank shares: rank 0 decides what
+  is there (the latest step, whether the base is written) for all ranks,
+  and a restore that some rank cannot read is refused on every rank.
 
 On disk: ``leaves.npz`` (leaf ``i`` as ``l<i>``; bf16 as its uint16 bit
 pattern), ``treedef.json`` (each leaf's key path and dtype name) and
@@ -176,20 +184,37 @@ def step_path(directory: str, step: int) -> str:
     return os.path.join(directory, f"step_{step:08d}")
 
 
+def _by_leaf_name(tree, specs, fn):
+    """``tree`` with each tensor leaf ``fn(tensor, spec)``, its spec found
+    by the leaf's own key (a tree of ``{name: tensor}`` dicts, e.g.
+    ``{"t": ..., "o": {"mu": ..., "nu": ..., "step": ...}}``; a key not in
+    ``specs`` is replicated)."""
+    return _unflatten((p, fn(x, specs.get(p[-1], ())) if isinstance(
+        x, torch.Tensor) else x) for p, x in _flatten(tree))
+
+
 class CheckpointManager:
     """Step checkpoints under ``directory/step_<N>/`` plus one ``base/``.
 
     With ``async_write`` a daemon thread writes each snapshot; a write
-    error is raised on the next :meth:`save` or :meth:`wait`."""
+    error is raised on the next :meth:`save` or :meth:`wait`.  With a
+    ``mesh`` of more than one process the trees saved and restored are
+    this rank's shards under ``specs`` (leaf name -> spec): every rank
+    calls :meth:`save` (a gather), :meth:`save_base`, :meth:`latest_step`
+    and :meth:`restore` (each a collective), and only rank 0 writes."""
 
-    def __init__(self, directory: str, keep: int = 3, async_write: bool = True):
+    def __init__(self, directory: str, keep: int = 3, async_write: bool = True,
+                 mesh=None, specs: Optional[dict] = None):
         self.dir = directory
         self.keep = keep
+        self.mesh = mesh if mesh is not None and not mesh.single else None
+        self.specs = specs or {}
+        self._writer = self.mesh is None or self.mesh.rank == 0
         os.makedirs(directory, exist_ok=True)
         self._q: "queue.Queue" = queue.Queue()
         self._err: Optional[BaseException] = None
-        self._async = async_write
-        if async_write:
+        self._async = async_write and self._writer
+        if self._async:
             self._thread = threading.Thread(target=self._worker, daemon=True)
             self._thread.start()
 
@@ -228,10 +253,20 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
 
+    def _gathered(self, tree):
+        if self.mesh is None:
+            return tree
+        from repro_torch.sharding.shard import gather_tensor
+        return _by_leaf_name(tree, self.specs,
+                             lambda t, s: gather_tensor(t, s, self.mesh))
+
     def save(self, step: int, tree, meta: Optional[dict] = None):
         """Snapshot ``tree`` to host memory on this thread, then write it
         (on the writer thread in async mode)."""
         self._raise_pending()
+        tree = self._gathered(tree)
+        if not self._writer:
+            return
         host = to_host(tree)
         if self._async:
             self._q.put((step, host, meta))
@@ -243,8 +278,10 @@ class CheckpointManager:
         """One-time immutable base-model snapshot (the quantized weights):
         a later call finds it and writes nothing."""
         p = os.path.join(self.dir, "base")
-        if not is_complete(p):
-            save_pytree(to_host(tree), p, meta)
+        if not self._from_rank0(is_complete(p)):
+            tree = self._gathered(tree)
+            if self._writer:
+                save_pytree(to_host(tree), p, meta)
 
     def wait(self):
         if self._async:
@@ -255,14 +292,39 @@ class CheckpointManager:
         return complete_steps(self.dir)
 
     def latest_step(self) -> Optional[int]:
-        s = self.all_steps()
-        return s[-1] if s else None
+        """The newest complete step.  On a mesh it is the one rank 0
+        finds, refused on every rank if some rank cannot read it."""
+        s = self.all_steps() if self._writer else None
+        step = self._from_rank0(s[-1] if s else None)
+        if self.mesh is None or step is None:
+            return step
+        unread = int(self.mesh.all_reduce(torch.tensor(
+            0 if is_complete(self.step_dir(step)) else 1),
+            self.mesh.axis_names))
+        if unread:
+            raise ValueError(
+                f"{unread} of {self.mesh.size(self.mesh.axis_names)} ranks "
+                f"cannot read {self.step_dir(step)!r}: the checkpoint "
+                f"directory of a mesh must be on a file system that every "
+                f"rank shares")
+        return step
+
+    def _from_rank0(self, value):
+        return value if self.mesh is None else self.mesh.from_rank0(value)
 
     def step_dir(self, step: int) -> str:
         return step_path(self.dir, step)
 
     def restore(self, step: int, like=None) -> Dict[str, Any]:
-        return load_pytree(self.step_dir(step), like)
+        """The tree of step ``step``, checked against ``like`` (this
+        rank's blocks of it on a mesh)."""
+        if self.mesh is None:
+            return load_pytree(self.step_dir(step), like)
+        from repro_torch.sharding.shard import shard_tensor
+        tree = _by_leaf_name(load_pytree(self.step_dir(step)), self.specs,
+                             lambda t, s: shard_tensor(t, s, self.mesh))
+        return tree if like is None else conform(tree, like,
+                                                 self.step_dir(step))
 
     def restore_base(self, like=None) -> Dict[str, Any]:
         return load_pytree(os.path.join(self.dir, "base"), like)

@@ -1,4 +1,5 @@
-"""The QA-LoRA train step (counterpart of ``make_train_fn`` in
+"""The QA-LoRA train step (counterpart of ``make_train_fn``,
+``make_train_step``, ``train_state_specs`` and ``make_sync_step`` in
 ``repro.launch.steps``).
 
 Gradients flow ONLY to the adapters: the quantized base is a set of
@@ -9,15 +10,39 @@ in the backward when ``cfg.remat`` recomputes the block; the backward
 itself is plain PyTorch.  A gqa_moe model's loss carries ``cfg.aux_coef``
 times the router's load-balance term, and its expert adapters train with
 the rest.
+
+On a mesh of processes (:func:`make_train_step`) each rank holds its
+shard (:func:`repro_torch.sharding.shard_params`) and computes what
+GSPMD computes for the reference's single-device step: the masked mean
+``loss_sum / max(n, 1)`` over the global batch and the clip over the
+global norm.  Its batch rows are its block of the global batch over the
+data-parallel axes (the whole batch where they do not divide it); the
+model's tensor-parallel forward is :mod:`repro_torch.models.tp`.  After
+the backward, the gradients that are partial sums over "model" (a column
+linear's replicated A, whose gradient contracts over the sharded output;
+a row linear's replicated B, whose input is a partial sum) are summed
+over "model", and every gradient over the data-parallel axes.  The dense
+gqa family in ``--mode qalora`` is ported on a mesh; the rest are
+refused (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
+from typing import Dict, Optional, Set
+
 import torch
 
+from repro_torch.core import schemes
 from repro_torch.models.lm import LM
-from repro_torch.optim.adamw import AdamWConfig, adamw_update
-from repro_torch.optim.partition import trainable_tensors
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim.compression import compressed_mean
+from repro_torch.optim.partition import split_params, trainable_tensors
+from repro_torch.sharding import batch_spec_tree, param_specs, shard_tensors
+from repro_torch.sharding.shard import Mode, tp_of
+
+MESH_NOT_PORTED = ("not yet ported on a mesh (see ROADMAP.md, Queue 1 item "
+                   "16c): only the dense gqa family in --mode qalora trains "
+                   "on a mesh")
 
 
 def make_train_fn(lm: LM, opt_cfg: AdamWConfig):
@@ -37,3 +62,131 @@ def make_train_fn(lm: LM, opt_cfg: AdamWConfig):
                 **{k: v.detach() for k, v in metrics.items()}, **om}
 
     return train_step
+
+
+def check_mesh_support(cfg, schemes_used, mesh=None) -> None:
+    """Raises NotImplementedError, naming ROADMAP.md, for what does not
+    train on a mesh yet: a family other than gqa, a tied embedding, a
+    vocabulary that does not split over ``mesh``'s "model" axis (the
+    reference then replicates the head and splits the embedding over d),
+    a linear of another adapter scheme than qalora."""
+    other = sorted(set(schemes_used) - {"qalora", "intq", "fp"})
+    if cfg.family != "gqa":
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}): "
+                                  f"{MESH_NOT_PORTED}")
+    if cfg.tie_embeddings:
+        raise NotImplementedError(f"{cfg.name}'s tied embedding: "
+                                  f"{MESH_NOT_PORTED}")
+    model = 1 if mesh is None else mesh.size("model")
+    if cfg.vocab % model:
+        raise NotImplementedError(
+            f"{cfg.name}'s vocabulary {cfg.vocab} over model {model}: "
+            f"{MESH_NOT_PORTED}")
+    if other or "qalora" not in schemes_used:
+        raise NotImplementedError(f"linears of scheme(s) {other or ['fp']}: "
+                                  f"{MESH_NOT_PORTED}")
+
+
+def abstract_params(lm: LM):
+    """The model's params on the meta device (shapes only)."""
+    return lm.init(torch.Generator(), "meta")
+
+
+def train_state_specs(lm: LM, mesh):
+    """(trainable, frozen, optimizer) specs, ``name -> spec`` (the
+    optimizer's as ``{"mu", "nu", "step"}``)."""
+    trainable, frozen = split_params(abstract_params(lm))
+    tspec = param_specs(trainable, mesh)
+    fspec = param_specs(frozen, mesh)
+    return tspec, fspec, {"mu": tspec, "nu": tspec, "step": ()}
+
+
+def model_partial_leaves(params) -> Set[str]:
+    """The trainable leaves of a shard whose gradient on a rank is a
+    partial sum over "model": a ``col`` linear's A and a ``row`` linear's
+    B (both replicated, each used by this rank's part of the product)."""
+    out = set()
+    for name, lp in params.named_modules():
+        tp = tp_of(lp) if schemes.is_linear(lp) else None
+        if tp is not None and tp.mode is not Mode.WHOLE:
+            leaf = "ad.a" if tp.mode is Mode.COL else "ad.b"
+            if leaf in dict(lp.named_parameters()):
+                out.add(f"{name}.{leaf}")
+    return out
+
+
+def _sum_over(grads: Dict[str, torch.Tensor], names, mesh, axes):
+    """``grads[names]`` summed over ``axes`` in one f32 all-reduce, in
+    place in the dict (each cast back to its dtype)."""
+    names = [k for k in grads if k in names]
+    if not names or mesh.size(axes) == 1:
+        return
+    flat = torch.cat([grads[k].to(torch.float32).reshape(-1) for k in names])
+    flat = mesh.all_reduce(flat, axes)
+    at = 0
+    for k in names:
+        g = grads[k]
+        grads[k] = flat[at:at + g.numel()].reshape(g.shape).to(g.dtype)
+        at += g.numel()
+
+
+def make_train_step(lm: LM, mesh, opt_cfg: Optional[AdamWConfig] = None):
+    """``train_step(params, opt_state, batch) -> metrics`` on ``mesh``:
+    ``params`` this rank's shard, ``batch`` the global batch (each rank
+    takes its rows by :func:`repro_torch.sharding.batch_spec_tree`).  On
+    a mesh of one process it is :func:`make_train_fn`.  Metrics as
+    there, ``loss`` and ``xent`` over the global batch."""
+    opt_cfg = opt_cfg or AdamWConfig()
+    if mesh is None or mesh.single:
+        return make_train_fn(lm, opt_cfg)
+
+    def train_step(params, opt_state, batch):
+        check_mesh_support(lm.cfg, {lp.scheme for lp in params.modules()
+                                    if schemes.is_linear(lp)}, mesh)
+        trainable = trainable_tensors(params)
+        local = shard_tensors(batch, batch_spec_tree(batch, mesh), mesh)
+        # the rows split over the data-parallel axes where they divide
+        # (batch_spec_tree's rule), else every rank takes them all
+        rows = batch["tokens"].shape[0]
+        dp = mesh.dp_axes if rows % mesh.size(mesh.dp_axes) == 0 else ()
+
+        def n_reduce(n):
+            return mesh.all_reduce(n, dp)
+        loss, metrics = lm.loss(params, local,
+                                n_reduce=n_reduce if dp else None)
+        grads = dict(zip(trainable, torch.autograd.grad(
+            loss, list(trainable.values()))))
+        partial = model_partial_leaves(params)
+        _sum_over(grads, partial, mesh, dp + ("model",))
+        _sum_over(grads, set(grads) - partial, mesh, dp)
+        om = adamw_update(opt_cfg, grads, opt_state, trainable, mesh,
+                          params.specs)
+        out = {"loss": loss.detach(),
+               **{k: v.detach() for k, v in metrics.items()}}
+        for k in ("loss", "xent", "aux"):
+            out[k] = mesh.all_reduce(out[k], dp)
+        return {**out, **om}
+
+    return train_step
+
+
+def make_sync_step(mesh, tspec=None):
+    """The periodic cross-pod adapter sync with int8 compression, in place
+    on a ``name -> tensor`` dict of adapters
+    (:func:`repro_torch.optim.compression.compressed_mean` over "pod");
+    None on a mesh without a "pod" axis, as in the reference."""
+    if mesh is None or "pod" not in mesh.shape:
+        return None
+
+    @torch.no_grad()
+    def sync(trainable):
+        for k, t in compressed_mean(trainable, mesh, "pod").items():
+            trainable[k].copy_(t)
+        return trainable
+
+    return sync
+
+
+__all__ = ["make_train_fn", "make_train_step", "make_sync_step",
+           "train_state_specs", "abstract_params", "model_partial_leaves",
+           "check_mesh_support", "adamw_init", "MESH_NOT_PORTED"]

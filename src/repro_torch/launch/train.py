@@ -16,6 +16,23 @@ one written for another model, seed or device), and writes the frozen base
 there once.  ``repro_torch.launch.serve --adapters name=<ckpt-dir>``
 serves the result over the same base.
 
+``--mesh pod`` (16 x 16 over data x model) and ``--mesh multipod`` (2 x 16
+x 16 over pod x data x model) train on a mesh of processes started by
+``torchrun`` (the rank and world size from its environment; a world size
+that is not the mesh's is refused): each rank builds the model from
+``--seed``, keeps its shard (:func:`repro_torch.sharding.shard_params`)
+and its rows of each global batch, and runs the sharded step
+(:func:`repro_torch.launch.steps.make_train_step`).  ``--sync-every N``
+syncs the adapters over "pod" with int8 every N steps where the mesh has
+that axis, and does nothing otherwise, as ``repro.launch.train``.  Rank 0
+prints and writes the checkpoints, which hold the gathered adapters and
+moments, so a run restores onto any mesh.  The dense gqa family in
+``--mode qalora`` trains on a mesh; the other families and modes are
+refused (see ROADMAP.md)::
+
+    torchrun --nnodes 32 --nproc-per-node 8 ... -m repro_torch.launch.train \
+        --mesh pod --arch llama7b-proxy --steps 100 --global-batch 256
+
     python -m repro_torch.launch.train --arch llama7b-proxy --steps 4 \\
         --seq-len 256 --global-batch 16 --ckpt-dir build/ckpt --ckpt-every 2
     python -m repro_torch.launch.train --arch gemma3-1b --reduced \\
@@ -44,6 +61,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import statistics
 import time
 import zlib
@@ -51,7 +69,6 @@ from types import SimpleNamespace
 
 import torch
 
-NOT_PORTED = "not yet ported (see ROADMAP.md)"
 SEED_HELP = ("seed of the model's random init; the trainer and "
              "repro_torch.launch.serve build the same base from the same "
              "--seed on the same device")
@@ -81,7 +98,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", default="cpu", choices=["cpu", "pod", "multipod"],
                     help="cpu = one device (the card, or the CPU with "
-                         "--device cpu)")
+                         "--device cpu); pod / multipod = the production "
+                         "mesh of torchrun's processes")
     ap.add_argument("--sync-every", type=int, default=0,
                     help="cross-pod int8 adapter sync cadence (multipod)")
     ap.add_argument("--log-every", type=int, default=10)
@@ -116,9 +134,11 @@ def train_meta(cfg, params, seed: int, device) -> dict:
 
 def meta_mismatch(got: dict, want: dict) -> list:
     """The fields where a checkpoint's :func:`train_meta` differs from the
-    model's (for the policy, the first linears that differ)."""
+    model's (for the policy, the first linears that differ).  The mesh a
+    run was sharded on is a reading, not a field: a checkpoint holds the
+    gathered tensors and restores onto any mesh."""
     out = []
-    for key in sorted(set(got) | set(want)):
+    for key in sorted((set(got) | set(want)) - {"mesh"}):
         if key == "policy":
             g, w = got.get(key, {}), want.get(key, {})
             bad = sorted(k for k in set(g) | set(w) if g.get(k) != w.get(k))
@@ -131,16 +151,16 @@ def meta_mismatch(got: dict, want: dict) -> list:
 
 
 def build_config(args):
-    """The config the flags ask for; raises on what is not ported."""
+    """The config the flags ask for; raises on what is not ported (on a
+    mesh: another family than gqa, another mode than qalora)."""
     import repro_torch.configs as C
     from repro_torch.core.schemes import PolicyTree
-    if args.mesh != "cpu":
-        raise NotImplementedError(f"--mesh {args.mesh}: {NOT_PORTED}; the "
-                                  f"port trains on one device")
-    if args.sync_every:
-        raise NotImplementedError(f"--sync-every {args.sync_every}: "
-                                  f"{NOT_PORTED} (cross-pod adapter sync)")
+    from repro_torch.launch.steps import MESH_NOT_PORTED
     cfg = C.reduced(args.arch) if args.reduced else C.get(args.arch)
+    if args.mesh != "cpu" and (cfg.family != "gqa" or args.mode != "qalora"):
+        raise NotImplementedError(
+            f"--mesh {args.mesh} with {cfg.name} ({cfg.family}) --mode "
+            f"{args.mode}: {MESH_NOT_PORTED}")
     if args.n_layers:
         cfg = cfg.scaled(n_layers=args.n_layers)
     if cfg.frontend == "vision" and args.seq_len <= cfg.frontend_len:
@@ -157,27 +177,57 @@ def build_config(args):
     return cfg.scaled(quant=q)
 
 
-def setup(args, params=None, cfg=None) -> SimpleNamespace:
+def mesh_from_args(args):
+    """The mesh ``--mesh`` asks for: one process for ``cpu``, else the
+    production mesh over torchrun's processes (initialising the default
+    group from its environment; a wrong world size raises ValueError)."""
+    from repro_torch.launch.mesh import (init_from_env, make_cpu_mesh,
+                                         make_production_mesh)
+    if args.mesh == "cpu":
+        return make_cpu_mesh()
+    init_from_env(args.device)
+    return make_production_mesh(multi_pod=args.mesh == "multipod")
+
+
+def setup(args, params=None, cfg=None, mesh=None) -> SimpleNamespace:
     """Model, optimizer state, data stream and checkpoint manager, resumed
     from the newest complete checkpoint in ``--ckpt-dir`` if there is
     one (the base is written there once).  ``params`` trains a given model
     of the config (e.g. :func:`repro_torch.core.schemes.convert_tree` of a
     float base) in place of the one drawn from ``--seed``; ``cfg`` a given
     config (e.g. :func:`build_config`'s with narrower widths) in place of
-    the one the flags ask for."""
+    the one the flags ask for.  On ``mesh`` (a
+    :class:`repro_torch.launch.mesh.Mesh` of more than one process) the
+    full params are sharded and ``params`` is this rank's shard; the
+    device is this rank's (``LOCAL_RANK``, else its rank, modulo the
+    cards)."""
     from repro_torch.checkpoint import CheckpointManager, read_meta
     from repro_torch.data import make_stream
-    from repro_torch.launch.steps import make_train_fn
+    from repro_torch.launch.mesh import make_cpu_mesh, rank_device
+    from repro_torch.launch.steps import make_sync_step, make_train_step
     from repro_torch.models.lm import LM, resolve_device
     from repro_torch.optim import (AdamWConfig, adamw_init, count_params,
                                    split_params)
+    from repro_torch.sharding import shard_params
 
-    device = resolve_device(args.device)
+    mesh = make_cpu_mesh() if mesh is None else mesh
+    if mesh.single:
+        device = resolve_device(args.device)
+    else:
+        device = rank_device(args.device, int(os.environ.get(
+            "LOCAL_RANK", mesh.rank)))
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+    log = print if mesh.rank == 0 else _quiet
     cfg = build_config(args) if cfg is None else cfg
     lm = LM(cfg)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(args.seed)
         params = lm.init(gen, device)
+    meta = train_meta(cfg, params, args.seed, device)
+    if not mesh.single:
+        meta["mesh"] = dict(mesh.shape)
+        params = shard_params(params, mesh)
     trainable, frozen = split_params(params)
     if not trainable:
         # e.g. --mode fp: the reference's mask is all False there and its
@@ -187,17 +237,20 @@ def setup(args, params=None, cfg=None) -> SimpleNamespace:
             f" declares no trainable tensor (an fp linear has no adapter), "
             f"so nothing would train; use qalora, lora or qlora")
     opt_state = adamw_init(trainable)
-    print(f"[train] arch={cfg.name} mode={args.mode} bits={args.bits} "
-          f"trainable={count_params(trainable):,} "
-          f"frozen={count_params(frozen):,} device={device}")
+    log(f"[train] arch={cfg.name} mode={args.mode} bits={args.bits} "
+        f"trainable={count_params(trainable):,} "
+        f"frozen={count_params(frozen):,} device={device}"
+        + ("" if mesh.single else f" mesh={mesh.describe()}"))
     opt_cfg = AdamWConfig(lr=args.lr, schedule="constant")
     stream = make_stream(args.dataset, vocab=cfg.vocab, seq_len=args.seq_len,
                          global_batch=args.global_batch)
-    meta = train_meta(cfg, params, args.seed, device)
-    ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
-    start = 0
-    if ckpt and ckpt.latest_step() is not None:
-        start = ckpt.latest_step()
+    specs = getattr(params, "specs", None)
+    ckpt = CheckpointManager(args.ckpt_dir, mesh=mesh, specs=specs) \
+        if args.ckpt_dir else None
+    start = ckpt.latest_step() if ckpt else None
+    if start is None:
+        start = 0
+    else:
         bad = meta_mismatch(read_meta(ckpt.step_dir(start)), meta)
         if bad:
             raise ValueError(f"checkpoint step {start} in {args.ckpt_dir!r} "
@@ -212,7 +265,7 @@ def setup(args, params=None, cfg=None) -> SimpleNamespace:
                     opt_state[key][name].copy_(t)
             opt_state["step"].copy_(state["o"]["step"])
         stream.skip_to(start)
-        print(f"[train] resumed from step {start}")
+        log(f"[train] resumed from step {start}")
     base_s = None
     if ckpt:
         t0 = time.perf_counter()
@@ -221,8 +274,14 @@ def setup(args, params=None, cfg=None) -> SimpleNamespace:
     return SimpleNamespace(cfg=cfg, lm=lm, params=params, trainable=trainable,
                            opt_state=opt_state, opt_cfg=opt_cfg,
                            stream=stream, ckpt=ckpt, start=start, meta=meta,
-                           device=device, base_save_s=base_s,
-                           step_fn=make_train_fn(lm, opt_cfg))
+                           device=device, base_save_s=base_s, mesh=mesh,
+                           log=log, step_fn=make_train_step(lm, mesh, opt_cfg),
+                           sync=make_sync_step(mesh) if args.sync_every
+                           else None)
+
+
+def _quiet(*args, **kwargs):
+    """Where a rank other than 0 would print."""
 
 
 def _sync(device):
@@ -302,6 +361,8 @@ def run(st: SimpleNamespace, args) -> dict:
         t0 = time.perf_counter()
         batch = train_batch(st.cfg, *st.stream.next_batch(), dev)
         metrics = st.step_fn(st.params, st.opt_state, batch)
+        if st.sync is not None and (step + 1) % args.sync_every == 0:
+            st.sync(st.trainable)
         loss = float(metrics["loss"])  # waits for the step's last kernel
         ms = (time.perf_counter() - t0) * 1e3
         gnorm = float(metrics["grad_norm"])
@@ -314,7 +375,7 @@ def run(st: SimpleNamespace, args) -> dict:
         rec["grad_norm"].append(gnorm)
         rec["step_ms"].append(ms)
         if step % args.log_every == 0:
-            print(f"[train] step={step} loss={loss:.4f} gnorm={gnorm:.3f}")
+            st.log(f"[train] step={step} loss={loss:.4f} gnorm={gnorm:.3f}")
         return {"loss": loss}
 
     with PreemptionGuard() as guard:
@@ -329,9 +390,10 @@ def run(st: SimpleNamespace, args) -> dict:
         st.ckpt.wait()
         drain_s = time.perf_counter() - t1
         st.ckpt.close()
-    print(f"[train] finished at step {end} "
-          f"({dt / max(end - st.start, 1):.3f}s/step, "
-          f"{len(loop.stragglers)} straggler steps)")
+    st.mesh.barrier()  # rank 0's last checkpoint is on disk for all
+    st.log(f"[train] finished at step {end} "
+           f"({dt / max(end - st.start, 1):.3f}s/step, "
+           f"{len(loop.stragglers)} straggler steps)")
     steady = rec["step_ms"][1:] or rec["step_ms"]
     median = statistics.median(steady) if steady else None
     tokens = args.global_batch * args.seq_len
@@ -354,19 +416,32 @@ def run(st: SimpleNamespace, args) -> dict:
         "base_save_s": st.base_save_s,
         "ckpt_snapshot_ms": rec["ckpt_snapshot_ms"],
         "ckpt_drain_s": drain_s}
-    print(json.dumps({"train": summary}))
+    if not st.mesh.single:
+        summary.update(mesh=dict(st.mesh.shape), rank=st.mesh.rank)
+    st.log(json.dumps({"train": summary}))
     return {**summary, "steps": rec["step"], "launches": rec["launches"],
             "state": st}
 
 
 def main(argv=None) -> dict:
+    import torch.distributed as dist
     ap = build_parser()
     args = ap.parse_args(argv)
     try:
-        st = setup(args)
+        if args.mesh != "cpu":
+            build_config(args)  # refuses what no mesh trains yet
+        mesh = mesh_from_args(args)
+    except (NotImplementedError, ValueError) as e:
+        ap.error(str(e))
+    try:
+        st = setup(args, mesh=mesh)
     except NotImplementedError as e:
         ap.error(str(e))
-    return run(st, args)
+    try:
+        return run(st, args)
+    finally:
+        if not mesh.single and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

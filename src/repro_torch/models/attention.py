@@ -19,6 +19,8 @@ import torch
 from torch import nn
 
 from repro_torch.core.schemes import dense_view, linear_apply, linear_init
+from repro_torch.sharding.shard import tp_of
+from . import tp
 from .common import rmsnorm, rmsnorm_init, rope, rope_table
 
 NEG_INF = -1e30
@@ -166,30 +168,46 @@ def gqa_init(generator, cfg: AttnConfig, pol, device="cuda") -> nn.ModuleDict:
     return p
 
 
-def _qkv(p, x, cfg: AttnConfig, positions, theta=None, table=None):
-    b, s, _ = x.shape
+def _rope_qk(p, q, k, cfg: AttnConfig, positions, theta=None, table=None):
+    """q and k after the qk-norm (where the config has one) and rope."""
     theta = cfg.rope_theta if theta is None else theta
-    q = linear_apply(p["wq"], x).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = linear_apply(p["wk"], x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = linear_apply(p["wv"], x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     if "qn" in p:
         q, k = rmsnorm(p["qn"], q), rmsnorm(p["kn"], k)
     if table is None:
         table = rope_table(positions, cfg.head_dim, theta)
-    return rope(q, positions, table=table), rope(k, positions, table=table), v
+    return rope(q, positions, table=table), rope(k, positions, table=table)
+
+
+def _qkv(p, x, cfg: AttnConfig, positions, theta=None, table=None):
+    b, s, _ = x.shape
+    q = linear_apply(p["wq"], x).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = linear_apply(p["wk"], x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = linear_apply(p["wv"], x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return (*_rope_qk(p, q, k, cfg, positions, theta, table), v)
 
 
 def gqa_apply(p, x, cfg: AttnConfig, positions=None, window=None, theta=None,
               causal=True, chunk_q=256, chunk_k=1024, kv_len=None):
     """Prefill self-attention; returns (out, (k, v)).  ``window`` /
-    ``theta`` override cfg (per-layer values)."""
+    ``theta`` override cfg (per-layer values).  On a shard (``wq``
+    carries a tensor-parallel mode) the attention runs over this rank's
+    query heads where it can, and ``wo`` gives the full output
+    (:mod:`repro_torch.models.tp`)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    q, k, v = _qkv(p, x, cfg, positions, theta)
+    shard = tp_of(p["wq"])
+    if shard is not None:
+        q, k, v, heads = tp.qkv(p, x, cfg, shard.mesh)
+        q, k = _rope_qk(p, q, k, cfg, positions, theta)
+    else:
+        q, k, v = _qkv(p, x, cfg, positions, theta)
     window = cfg.window if window is None else window
     o = flash_attention(q, k, v, causal=causal, window=window,
                         chunk_q=chunk_q, chunk_k=chunk_k, kv_len=kv_len)
+    if shard is not None:
+        return (tp.attn_output(p, o.reshape(b, s, -1), heads, shard.mesh),
+                (k, v))
     out = linear_apply(p["wo"], o.reshape(b, s, -1))
     return out, (k, v)
 

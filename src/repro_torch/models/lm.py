@@ -70,6 +70,7 @@ from .attention import (StepPlan, cross_apply, cross_chunk, cross_init,
                         cross_kv, gqa_apply, gqa_init, gqa_prefill_chunk,
                         kv_up_split, mla_apply, mla_init, mla_prefill_chunk)
 from .common import rmsnorm, rmsnorm_init
+from . import tp
 from .mlp import mlp_apply, mlp_init
 from .moe import moe_apply, moe_init, suspend_recording
 from .slot_state import (SlotState, attn_cfg as _attn_cfg, cache_leaves,
@@ -511,6 +512,9 @@ class LM:
         return out
 
     def _embed(self, params: LMParams, tokens):
+        mesh = tp.model_mesh(params)
+        if mesh is not None:  # a shard: the vocabulary split over "model"
+            return tp.embed(params.embed, tokens, mesh)
         return params.embed[tokens.to(torch.int64)]
 
     def _patches(self, batch):
@@ -530,25 +534,39 @@ class LM:
         return x
 
     def _logits(self, params: LMParams, h):
+        """Logits f32 (on a shard, this rank's vocabulary columns)."""
+        mesh = tp.model_mesh(params)
+        if mesh is not None:
+            return tp.logits(params.head, h, mesh)
         if self.cfg.tie_embeddings:
             return (h @ params.embed.T.to(h.dtype)).to(torch.float32)
         return schemes.linear_apply(params.head, h).to(torch.float32)
 
-    def _xent(self, params: LMParams, h, labels):
+    def _xent(self, params: LMParams, h, labels, n_reduce=None):
         """Chunked softmax cross-entropy over ``cfg.xent_chunk`` positions
         at a time (never ``[B, S, V]`` logits at once): labels < 0 are
         masked, and the mean is ``loss_sum / max(n, 1)``.  Each chunk's
         logits come from :meth:`_logits`, so a quantized head runs its
         scheme's kernel (the reference multiplies by the head's dense
-        view: the same product, another order of sums)."""
+        view: the same product, another order of sums).  On a shard the
+        chunk is vocabulary-parallel
+        (:func:`repro_torch.models.tp.xent_sums`).  ``n_reduce`` maps the
+        count n to the global batch's before the division (a sum over the
+        data-parallel axes)."""
         s = h.shape[1]
         c = min(self.cfg.xent_chunk, s)
         if s % c:
             raise ValueError(f"sequence {s} is not a multiple of xent_chunk "
                              f"{c}")
+        mesh = tp.model_mesh(params)
         loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
         n = torch.zeros((), dtype=torch.float32, device=h.device)
         for i in range(0, s, c):
+            if mesh is not None:
+                part, count = tp.xent_sums(params.head, h[:, i:i + c],
+                                           labels[:, i:i + c], mesh)
+                loss_sum, n = loss_sum + part, n + count
+                continue
             logits = self._logits(params, h[:, i:i + c])
             yc = labels[:, i:i + c].to(torch.int64)
             lse = torch.logsumexp(logits, dim=-1)
@@ -556,6 +574,8 @@ class LM:
             mask = (yc >= 0).to(torch.float32)
             loss_sum = loss_sum + ((lse - ll) * mask).sum()
             n = n + mask.sum()
+        if n_reduce is not None:
+            n = n_reduce(n)
         return loss_sum / n.clamp(min=1.0)
 
     def _trunk(self, params: LMParams, x, collect_cache: bool = False):
@@ -673,7 +693,7 @@ class LM:
 
     # ---------------- public API ----------------
 
-    def loss(self, params: LMParams, batch: Dict[str, Any]):
+    def loss(self, params: LMParams, batch: Dict[str, Any], n_reduce=None):
         """Mean next-token cross-entropy of ``batch`` (``tokens`` and
         ``labels``, [B, S]), plus 0.3 times the MTP head's (mla_moe with
         its head: :meth:`_mtp_loss`), plus ``cfg.aux_coef`` times the
@@ -681,7 +701,8 @@ class LM:
         autograd on.  Returns (loss, {"xent", "aux"}), xent before the MTP
         and aux terms, as the reference does.  Patch positions carry no
         label.  An encdec batch also gives ``src`` [B, Ss, d], the
-        encoder's frames."""
+        encoder's frames.  ``n_reduce`` as in :meth:`_xent` (the sharded
+        train step's data-parallel count)."""
         if self.cfg.family == "encdec":
             memory = self._encode(params, batch["src"])
             x = self._embed(params, batch["tokens"])
@@ -690,7 +711,7 @@ class LM:
             for blk in params.dec_blocks:
                 x = block(blk, x, memory)
             h = rmsnorm(params.final_ln, x, self.cfg.norm_eps)
-            xent = self._xent(params, h, batch["labels"])
+            xent = self._xent(params, h, batch["labels"], n_reduce)
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
             return xent, {"xent": xent, "aux": aux}
         x = self._inputs_to_x(params, batch)
@@ -724,7 +745,7 @@ class LM:
             labels = torch.cat([labels.new_full((labels.shape[0],
                                                  f.shape[1]), -1), labels],
                                dim=1)
-        xent = self._xent(params, h, labels)
+        xent = self._xent(params, h, labels, n_reduce)
         loss = xent
         if self._has_mtp(params):
             loss = loss + 0.3 * self._mtp_loss(params, h, batch, labels)

@@ -5,6 +5,8 @@ from __future__ import annotations
 from torch import nn
 
 from repro_torch.core.schemes import linear_apply, linear_init
+from repro_torch.sharding.shard import tp_of
+from . import tp
 from .common import act_fn
 
 
@@ -19,6 +21,9 @@ def mlp_init(generator, d_model: int, d_ff: int, pol, gated: bool = True,
 
 
 def mlp_apply(p: nn.ModuleDict, x, act: str = "silu"):
+    shard = tp_of(p["up"])
+    if shard is not None:  # a shard: column then row linears
+        return tp.mlp_apply(p, x, act_fn(act), shard.mesh)
     u = linear_apply(p["up"], x)
     if "gate" in p:
         h = act_fn(act)(linear_apply(p["gate"], x)) * u

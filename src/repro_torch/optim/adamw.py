@@ -62,18 +62,36 @@ _SCHEDULES = {"constant": constant_schedule, "cosine": cosine_schedule,
               "warmup_cosine": warmup_cosine}
 
 
-def global_norm(tensors: Tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor, in f32 (0 when empty)."""
-    sums = [t.to(torch.float32).square().sum() for t in tensors.values()]
-    if not sums:
+def global_norm(tensors: Tensors, mesh=None, specs=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor, in f32 (0 when empty).
+    On a mesh, ``tensors`` are this rank's blocks under ``specs`` (name ->
+    spec): the sum of squares of the leaves sharded over some axes is
+    all-reduced over those axes, and a replicated leaf counts once."""
+    if mesh is None or mesh.single:
+        sums = [t.to(torch.float32).square().sum() for t in tensors.values()]
+        if not sums:
+            return torch.zeros((), dtype=torch.float32)
+        return torch.stack(sums).sum().sqrt()
+    from repro_torch.sharding.rules import spec_axes
+    by_axes: Dict[tuple, list] = {}
+    for k in sorted(tensors):
+        by_axes.setdefault(spec_axes(specs.get(k, ())), []).append(
+            tensors[k].to(torch.float32).square().sum())
+    total = None
+    for axes, sums in by_axes.items():
+        part = mesh.all_reduce(torch.stack(sums).sum(), axes)
+        total = part if total is None else total + part
+    if total is None:
         return torch.zeros((), dtype=torch.float32)
-    return torch.stack(sums).sum().sqrt()
+    return total.sqrt()
 
 
-def clip_by_global_norm(tensors: Tensors, max_norm: float):
+def clip_by_global_norm(tensors: Tensors, max_norm: float, mesh=None,
+                        specs=None):
     """(clipped copies, norm): each tensor times ``min(1, max_norm /
-    max(norm, 1e-9))`` in f32, cast back to its dtype."""
-    n = global_norm(tensors)
+    max(norm, 1e-9))`` in f32, cast back to its dtype (the norm over a
+    mesh as :func:`global_norm` takes it)."""
+    n = global_norm(tensors, mesh, specs)
     scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
     return {k: (t.to(torch.float32) * scale).to(t.dtype)
             for k, t in tensors.items()}, n
@@ -93,17 +111,21 @@ def adamw_init(params: Tensors) -> dict:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads: Tensors, state: dict,
-                 params: Tensors) -> Dict[str, torch.Tensor]:
+                 params: Tensors, mesh=None, specs=None
+                 ) -> Dict[str, torch.Tensor]:
     """One AdamW step, in place on ``params`` and ``state`` (``grads`` and
     ``params`` keyed alike).  Returns the metrics ``grad_norm`` (before the
-    clip) and ``lr`` (this step's), as f32 device scalars."""
+    clip) and ``lr`` (this step's), as f32 device scalars.  On a mesh the
+    tensors are this rank's blocks under ``specs`` and the norm is the
+    global one (:func:`global_norm`); the update is elementwise."""
     if set(grads) != set(params):
         raise ValueError(f"grads and params differ in keys: "
                          f"{sorted(set(grads) ^ set(params))[:4]}")
     if cfg.max_grad_norm:
-        grads, gnorm = clip_by_global_norm(grads, cfg.max_grad_norm)
+        grads, gnorm = clip_by_global_norm(grads, cfg.max_grad_norm, mesh,
+                                           specs)
     else:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, mesh, specs)
     state["step"] += 1
     step = state["step"]
     lr = _SCHEDULES[cfg.schedule](cfg, step)

@@ -1,0 +1,9 @@
+"""Partition specs (counterpart of ``repro.sharding``) and this rank's
+shard of a params tree."""
+
+from .rules import (TP_AXIS, DP_AXES, COL, ROW, padded, spec_axes,  # noqa: F401
+                    spec_for_param, param_specs, batch_spec_tree,
+                    cache_spec_tree)
+from .shard import (Mode, LinearTP, shard_tensor, gather_tensor,  # noqa: F401
+                    shard_tensors, gather_tensors, shard_params,
+                    gather_params, tp_of)
