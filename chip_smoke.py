@@ -286,7 +286,7 @@ and the line before the card's names what each took):
    the card did (``moe.choose_experts``; its own top-2 recorded: where it
    differs, a near tie, a limit that a planted misrouting must exceed),
    gradients, loss, xent and aux at phase train_small's bounds.
-17. moe_serve -- phase moe_train's trained mixtral at 4 layers, merged,
+17. moe_serve -- phase moe_train's trained mixtral at 2 layers, merged,
    self-speculating (k = 3, one
    ``*=intq2`` drafter tree): a plain graphed engine and speculating ones,
    contiguous and paged, 8 requests of 64/96/128 + 16/32/24 tokens on 4
@@ -348,9 +348,9 @@ and the line before the card's names what each took):
    group within 0.5, which a step leaving the MTP term out must fail;
    the same step without the MTP head within llama's 0.16; the updates
    within the AdamW allowance; the per-tensor limits readings).
-20. recurrent -- rwkv6-7b (16 of 32 layers) and zamba2-7b (15 of 81: 2
-   groups of 5 Mamba2 layers each followed by the one shared attention
-   block, and a tail of 3) at their published widths, seed 0: the
+20. recurrent -- rwkv6-7b (6 of 32 layers) and zamba2-7b (13 of 81: two
+   groups of 5 Mamba2 layers, each followed by the one shared attention
+   block, and a tail of 1) at their published widths, seed 0: the
    unmerged and the merged model served statically, 4 x (128 + 32),
    graphed, exact launches (the shared block's counted per
    application), decode ms a token and prefill ms beside their floors;
@@ -412,7 +412,28 @@ and the line before the card's names what each took):
    seeded by each batch), every gradient norm finite, its merge checked
    with frames, cut and resumed and a step against the CPU at d 512; the
    card against the CPU at d 512 (frames of 16 and none).
-23. the ``kernels`` summary, and the final ``{"ok": true, ...}`` line.
+23. mesh_train -- llama7b-proxy trained on a mesh of two processes sharing
+   the card (model 2, and pod 2 x model 1's int8 sync), held to one
+   device.
+24. roofline -- gemma3-1b at its published widths (26 layers, d 1152, 4
+   query heads and 1 KV head of 256, vocab 262144, int4 g32 r64, bf16),
+   one record for each step kind of ``SHAPES`` at a cut size: train_4k
+   (``launch/train.py``, 4 steps of 4 x 1024 alpaca tokens, remat, the
+   fourth profiled, then one counted; the trained merge within
+   ``serve.merge_bound`` and the adapters dropped failing it),
+   prefill_32k (``ROOF_PREFILL``: 1 x 4096 tokens, the adapter model and
+   the merged one) and decode_32k (``ROOF_DECODE``: 16 greedy steps of 32
+   sequences at a context of 4096, graphed, both models); long_500k is
+   not run.  Each record: wall ms (median) and device-busy ms, the idle
+   share, the step's ``OpCost`` counted on the card
+   (``repro_torch.perf.cost``), which must equal the same step's counted
+   on ``meta`` by ``launch/dryrun.py`` (in a process of its own, beside
+   the card's work), the roofline terms on the H100
+   (``repro_torch.perf.roofline``), ``model_flops`` and ``model_flops /
+   (wall s x 989e12)``, the kernels' launches (exact); kernels 1-4 held
+   against their plain versions on block 0's seven linears (the head is
+   fp) at the prefill's 4096 rows, the decode's 32 and a GEMV step's 4.
+25. the ``kernels`` summary, and the final ``{"ok": true, ...}`` line.
 
 Any failed phase exits non-zero before the final line.  Without a card,
 or without the repository's ``src`` beside this file, it exits non-zero
@@ -436,11 +457,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
-# H100 SXM data sheet: HBM3 rate and dense bf16 tensor-core peak
-PEAK_BYTES_S = 3.35e12
-PEAK_BF16_FLOP_S = 989e12
-# f32 without tensor cores (TF32 is off: the plain versions' products)
-PEAK_F32_FLOP_S = 67e12
+# H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core peak and f32
+# without tensor cores (TF32 is off: the plain versions' products), read
+# from repro_torch.perf.roofline.HW (_load_peaks: at import where the
+# repository's src is on the path, else by phase_device)
+PEAK_BYTES_S = PEAK_BF16_FLOP_S = PEAK_F32_FLOP_S = None
 
 # llama7b-proxy int4 g32 r64: (K, N) of the linears of one layer and how
 # many of each a layer holds (wq/wk/wv/wo, gate/up, down)
@@ -553,7 +574,7 @@ EXPECTED_S = {"device": 1, "build": 25, "kernels": 10, "flash": 6,
               "baselines": 38, "families": 40, "vision": 14,
               "moe_train": 19, "moe_serve": 68, "mla_serve": 71,
               "mla_train": 50, "recurrent": 72, "rec_train": 35,
-              "encdec": 55, "mesh_train": 35}
+              "encdec": 55, "mesh_train": 35, "roofline": 60}
 
 
 def _phase(name, fn, *args):
@@ -623,7 +644,24 @@ def _smi(fields: str) -> str:
 CLOCKS = "clocks.sm,clocks.mem,clocks.max.sm,power.draw,temperature.gpu"
 
 
+def _load_peaks():
+    """The H100's figures from the port's roofline module (its one copy
+    of them), into this script's constants."""
+    global PEAK_BYTES_S, PEAK_BF16_FLOP_S, PEAK_F32_FLOP_S
+    from repro_torch.perf.roofline import HW
+    hw = HW()
+    PEAK_BYTES_S, PEAK_BF16_FLOP_S, PEAK_F32_FLOP_S = (
+        hw.hbm_bw, hw.peak_flops, hw.peak_f32_flops)
+
+
+try:  # imported with the repository's src on the path (the tests)
+    _load_peaks()
+except ImportError:  # run as a script: phase_device loads them
+    pass
+
+
 def phase_device(torch):
+    _load_peaks()
     line = _smi("name,power.limit")
     print(line, flush=True)
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
@@ -4345,29 +4383,45 @@ FAMILY_FAULTS = (2.0 ** -8, 2.0 ** -6, 2.0 ** -4, 2.0 ** -2)
 FAMILY_FAULT_REJECT = 2.0 ** -4
 
 
+def _linear_cost(mod, rows):
+    """(flops, bytes) of one linear at ``rows`` rows, from its scheme's
+    ``flops_bytes`` (``schemes.tree_flops_bytes``): the operations and
+    the stored tensors read once.  An adapter linear (``qalora``) counts
+    its INT-N base alone, the product the merged model deploys."""
+    from repro_torch.core import schemes
+    if mod.scheme == "qalora":
+        return schemes.get_scheme("intq").flops_bytes(
+            {"q": schemes.quantized_base(mod)}, mod.policy, rows)
+    return schemes.tree_flops_bytes(mod, rows)
+
+
 def _linear_bytes(params):
     """Bytes of every linear's stored tensors (codes, scales, zeros,
     adapters, fp weights): what a decode step must read once."""
     from repro_torch.core import schemes
-    return sum(b.numel() * b.element_size() for m in params.modules()
-               if schemes.is_linear(m) for b in m.buffers())
+    return schemes.tree_flops_bytes(params, 1)[1]
 
 
-def _prefill_flops(cfg, b, s):
+def _is_expert(name) -> bool:
+    return any(f".moe.{n}." in name for n in ("gate", "up", "down"))
+
+
+def _prefill_flops(cfg, params, b, s):
     """Operations of a prefill of b x s tokens: every linear at the rows it
-    computes (an MoE's experts at their capacity buffers), the attention
-    scores and values over the causal half, the head on the last token."""
-    d, hd = cfg.d_model, cfg.head_dim
-    attn = 2 * b * s * d * hd * 2 * (cfg.n_heads + cfg.n_kv_heads)
+    computes (an MoE's experts at their capacity buffers, the router at
+    every row), the attention scores and values over the causal half, the
+    head on the last token."""
+    from repro_torch.core import schemes
+    hd = cfg.head_dim
     scores = 2 * b * cfg.n_heads * s * min(s, cfg.window or s) * hd
+    cap = 0
     if cfg.family == "gqa_moe":
         chunk = cfg.moe_chunk if 0 < cfg.moe_chunk < s else s
         cap = _moe_capacity(cfg, b * chunk) * (s // chunk)
-        ffn = 2 * cap * d * cfg.moe_d_ff * 3 * cfg.n_experts
-        ffn += 2 * b * s * d * cfg.n_experts  # the router
-    else:
-        ffn = 2 * b * s * d * cfg.d_ff * (3 if cfg.gated_mlp else 2)
-    return cfg.n_layers * (attn + scores + ffn) + 2 * b * d * cfg.vocab
+    ops = sum(_linear_cost(mod, cap if _is_expert(name) else b * s)[0]
+              for name, mod in params.named_modules()
+              if schemes.is_linear(mod) and name != "head")
+    return cfg.n_layers * scores + ops + _linear_cost(params.head, b)[0]
 
 
 def _routed_alike(r) -> bool:
@@ -4494,7 +4548,7 @@ def _profile_prefill(torch, lm, merged, prompts, frontend=None):
 
 
 def _hold_family_linears(torch, cfg, params, merged, prefill_rows: int,
-                         engine: bool, pairs=None):
+                         engine: bool, pairs=None, extra=None):
     """Kernels 1-4 on block 0 of one family config, at the rows the served
     path gives each linear, against their plain versions (two bf16 steps
     of the plain version's max, as :func:`_hold_intq_linears`): the merged
@@ -4506,7 +4560,9 @@ def _hold_family_linears(torch, cfg, params, merged, prefill_rows: int,
     and down) see their capacity buffer: for mixtral 160 rows at a 4 x
     128 prefill, 80 at a 4 x 64 ragged step, 2 at a 4-slot decode step.
     ``pairs`` ((label, merged linear, adapter linear), every row seen)
-    replaces block 0's linears (a recurrent config's)."""
+    replaces block 0's linears (a recurrent config's); ``extra`` ({step:
+    rows}) adds steps run like the prefill (phase roofline's decode at
+    M = 32)."""
     from repro_torch.core import schemes
     from repro_torch.kernels.qalora_fused import (qalora_matmul_cuda,
                                                   qalora_matmul_plain)
@@ -4518,6 +4574,7 @@ def _hold_family_linears(torch, cfg, params, merged, prefill_rows: int,
     steps = {"prefill": prefill_rows, "decode": GEMV_M}
     if engine:
         steps["ragged"] = RAGGED_M
+    steps.update(extra or {})
     if pairs is None:
         names = [("attn", n, None) for n in ("wq", "wk", "wv", "wo")]
         if cfg.family == "gqa_moe":
@@ -4758,7 +4815,8 @@ def _family(torch, arch, layers, prompt_len=128):
                for f in (FAMILY_FAULTS if moe else ())}
     decode_bytes = _linear_bytes(merged) + (
         2 * cfg.n_layers * 4 * max_len * cfg.n_kv_heads * cfg.head_dim * 4)
-    flops = _prefill_flops(cfg, prompts.shape[0], n_patch + prompts.shape[1])
+    flops = _prefill_flops(cfg, merged, prompts.shape[0],
+                           n_patch + prompts.shape[1])
     floors = {"decode_step_ms": decode_bytes / PEAK_BYTES_S * 1e3,
               "decode_bound_by": "bytes", "decode_gb": decode_bytes / 1e9,
               "prefill_ms": max(flops / PEAK_BF16_FLOP_S,
@@ -5015,11 +5073,13 @@ def phase_vision(torch):
 # phases 15-16: mixtral-8x22b trained, speculated and behind the frontend
 # ---------------------------------------------------------------------------
 
-# 4 of 56 layers, to keep the script under 800 s beside phases mla_serve,
+# 2 of 56 layers, to keep the script under 800 s beside phases mla_serve,
 # mla_train and recurrent (8 before them; with 16 layers, and the dense
 # frontends already cut, a run of the script took 903.0 s on an H100 80GB
-# HBM3 at 700 W whose every phase ran slower than the previous run's)
-MOE_ARCH, MOE_LAYERS = "mixtral-8x22b", 4
+# HBM3 at 700 W whose every phase ran slower than the previous run's);
+# 4 until phase roofline was added (a run then took 905.8 s on a slow
+# machine, H100 80GB HBM3 at 700 W)
+MOE_ARCH, MOE_LAYERS = "mixtral-8x22b", 2
 # the main training run through launch/train.py: 8 x 256 tokens of alpaca
 # a step, one routing group of T = 2048 rows (moe_chunk 512 > S), so each
 # expert's capacity is C = ceil(2 x 2048 / 8 x 1.25) = 640; remat, 4
@@ -5062,13 +5122,13 @@ FRONTEND_ARCHS = ((MOE_ARCH, MOE_LAYERS), ("h2o-danube-1.8b", 3),
                   ("starcoder2-7b", 2), ("deepseek-67b", 2))
 
 
-def _train_flops(cfg, b, s):
+def _train_flops(cfg, params, b, s):
     """Operations of one remat train step of b x s tokens: every block's
     forward twice (the step and the recompute) and its backward's dx
     products once more (the base is frozen: no dW), the head over every
     token forward and backward; an MoE's experts at their capacity."""
-    head_last = 2 * b * cfg.d_model * cfg.vocab
-    return 3 * (_prefill_flops(cfg, b, s) - head_last) \
+    head_last = _linear_cost(params.head, b)[0]
+    return 3 * (_prefill_flops(cfg, params, b, s) - head_last) \
         + 2 * (head_last * s)
 
 
@@ -5393,7 +5453,7 @@ def phase_moe_train(torch, model):
     profiled = recorded.pop("profiled")
     profile = _step_profile(torch, profiled)
     del profiled
-    flops = _train_flops(cfg, args.global_batch, args.seq_len)
+    flops = _train_flops(cfg, st.params, args.global_batch, args.seq_len)
     med = statistics.median(res["step_ms"][1:-1])
     tokens_per_s = tokens / (med / 1e3)
     lm = st.lm
@@ -5829,17 +5889,9 @@ def _mla_floors(torch, cfg, merged, b, s, max_len, chunk_rows):
     for name, mod in merged.named_modules():
         if not schemes.is_linear(mod) or name.startswith("mtp_"):
             continue
-        nbytes = sum(x.numel() * x.element_size() for x in mod.buffers())
+        rows = b if name == "head" else cap if _is_expert(name) else t
+        flops, nbytes = _linear_cost(mod, rows)
         lin_bytes += nbytes
-        if name == "head":
-            flops = 2 * b * cfg.d_model * cfg.vocab
-        elif ".moe.router" in name:
-            flops = 2 * t * cfg.d_model * cfg.n_experts
-        else:
-            rows = cap if (".moe.gate." in name or ".moe.up." in name
-                           or ".moe.down." in name) else t
-            qt = schemes.quantized_base(mod)
-            flops = 2 * rows * qt.d_in * qt.d_out
         ops += flops
         per_linear += max(flops / PEAK_BF16_FLOP_S, nbytes / PEAK_BYTES_S)
     core = b * cfg.n_heads * s * s * (cfg.qk_nope_dim + cfg.qk_rope_dim
@@ -6553,22 +6605,14 @@ def _mla_train_flops(torch, cfg, params, b, s):
     for name, mod in params.named_modules():
         if not schemes.is_linear(mod) or name == "head":
             continue
-        if ".moe.router" in name:
-            ops = 2 * t * cfg.d_model * cfg.n_experts
-        elif name == "mtp_proj":
-            ops = 2 * t * 2 * cfg.d_model * cfg.d_model
-        else:
-            qt = schemes.quantized_base(mod)
-            rows = cap if any(f".moe.{n}." in name
-                              for n in ("gate", "up", "down")) else t
-            ops = 2 * rows * qt.d_in * qt.d_out
+        ops = _linear_cost(mod, cap if _is_expert(name) else t)[0]
         if name.startswith("mtp_"):
             mtp += ops
         else:
             stack += ops
     core = b * cfg.n_heads * s * s * (cfg.qk_nope_dim + cfg.qk_rope_dim
                                       + cfg.v_head_dim)
-    head = 2 * t * cfg.d_model * cfg.vocab
+    head = _linear_cost(params.head, t)[0]
     return (3 * (stack + core * cfg.n_layers) + 2 * head
             + 2 * (mtp + core + head))
 
@@ -6693,10 +6737,11 @@ def phase_mla_train(torch, holder):
 # phase 19: the recurrent families served (rwkv6-7b, zamba2-7b)
 # ---------------------------------------------------------------------------
 
-# rwkv6-7b at 16 of 32 layers; zamba2-7b at 15 of 81: 2 groups of 5
-# Mamba2 layers, each followed by the shared attention block, and a tail
-# of 3, so every structural part runs
-REC_CUTS = (("rwkv6-7b", 16), ("zamba2-7b", 15))
+# rwkv6-7b at 6 of 32 layers (the script's seconds); zamba2-7b at 13 of
+# 81: two groups of 5 Mamba2 layers, each followed by the shared attention
+# block (its second application reads its own cache slice and adds to the
+# same adapters' gradients), and a tail of 1, so every structural part runs
+REC_CUTS = (("rwkv6-7b", 6), ("zamba2-7b", 13))
 # the card against the CPU: 2-3 layers at d 512 (zamba2: one group of one
 # Mamba2 layer and the shared block, then a tail layer), prompts of 64
 # (rwkv6's chunk) and 8 generated tokens
@@ -6772,13 +6817,9 @@ def _rec_floors(torch, cfg, lm, merged, b, s, max_len):
         if not schemes.is_linear(mod):
             continue
         times = groups if name.startswith("shared_attn") else 1
-        lin_bytes += times * sum(x.numel() * x.element_size()
-                                 for x in mod.buffers())
-        if name == "head":
-            lin_ops += 2 * b * cfg.d_model * cfg.vocab
-        else:
-            qt = schemes.quantized_base(mod)
-            lin_ops += times * 2 * t * qt.d_in * qt.d_out
+        flops, nbytes = _linear_cost(mod, b if name == "head" else t)
+        lin_bytes += times * nbytes
+        lin_ops += times * flops
     cache = lm.init_cache(b, max_len, dtype=torch.float32, device="cuda")
     state = sum(x.numel() * x.element_size()
                 for x in lm.slot_state().state_leaves(cache))
@@ -7199,12 +7240,11 @@ def _linear_train_ops(cfg, params, b, s, src_s=0):
     for name, mod in params.named_modules():
         if not schemes.is_linear(mod) or name == "head":
             continue
-        qt = schemes.quantized_base(mod)
         src = name.startswith("enc_blocks") or any(
             f".cross.{n}" in name for n in ("wk", "wv"))
         times = groups if name.startswith("shared_attn") else 1
-        stack += times * 2 * b * (src_s if src else s) * qt.d_in * qt.d_out
-    return stack, 2 * b * s * cfg.d_model * cfg.vocab
+        stack += times * _linear_cost(mod, b * (src_s if src else s))[0]
+    return stack, _linear_cost(params.head, b * s)[0]
 
 
 def _train_on_card(torch, lm, params, argv, steps):
@@ -7339,7 +7379,7 @@ def _narrow_train(torch, arch, argv, over, phase, grad_tol=TRAIN_GRAD_TOL):
 def phase_rec_train(torch, models):
     """rwkv6-7b and zamba2-7b fine-tuned on the card at their published
     widths: phase recurrent's models (``models``: [(lm, adapter params)],
-    emptied here; rwkv6 at 16 of 32 layers, zamba2 at 15 of 81, adapters
+    emptied here; rwkv6 at 6 of 32 layers, zamba2 at 13 of 81, adapters
     nudged) through ``launch/train.py``, ``REC_TRAIN_STEPS`` steps of 4 x
     256 tokens at lr 2e-5 with remat: kernel 3 and its projection once
     per linear a forward (RWKV6's eight a block, Mamba2's in_proj and
@@ -7499,12 +7539,11 @@ def _encdec_floors(torch, cfg, lm, merged, b, s, ss, max_len):
     decoder's at b x s and its cross wk / wv at b x ss, the head at the
     last row, at the bf16 peak; the attention cores at the f32 peak)."""
     from repro_torch.core import schemes
-    lin_bytes = 0
-    for name, mod in merged.named_modules():
-        if not schemes.is_linear(mod) or name.startswith("enc_blocks") \
-                or ".cross.wk" in name or ".cross.wv" in name:
-            continue
-        lin_bytes += sum(x.numel() * x.element_size() for x in mod.buffers())
+    lin_bytes = sum(_linear_cost(mod, 1)[1]
+                    for name, mod in merged.named_modules()
+                    if schemes.is_linear(mod)
+                    and not name.startswith("enc_blocks")
+                    and ".cross.wk" not in name and ".cross.wv" not in name)
     kv = 2 * cfg.n_layers * b * cfg.n_kv_heads * cfg.head_dim * 4
     self_kv, cross_kv = kv * max_len, kv * ss
     stack, head = _linear_train_ops(cfg, merged, b, s, src_s=ss)
@@ -8320,6 +8359,350 @@ def phase_mesh_train(torch):
     return counts[0]
 
 
+# ---------------------------------------------------------------------------
+# phase roofline: gemma3-1b at its published widths against the roofline
+# ---------------------------------------------------------------------------
+
+ROOF_ARCH = "gemma3-1b"
+# train_4k cut from 256 x 4096: 4 steps of 4 x 1024 alpaca tokens, remat,
+# from seed 0 with the adapters nudged (the merge's control then fails);
+# step 1 warms, steps 2-3 are timed, step 4 profiled
+ROOF_TRAIN_ARGV = ["--arch", ROOF_ARCH, "--mode", "qalora", "--seq-len",
+                   "1024", "--global-batch", "4", "--dataset", "alpaca",
+                   "--lr", "2e-5", "--seed", "0", "--log-every", "1",
+                   "--device", "cuda"]
+ROOF_TRAIN_STEPS = 4
+# prefill_32k cut from 32 x 32768: (sequences, tokens).  4096, not 8192:
+# the plain chunked attention issues its products chunk pair by chunk
+# pair from the host, and at 8192 one prefill took 5.3-6.6 s (idle 0.88)
+ROOF_PREFILL = (1, 4096)
+# decode_32k cut from 128 x 32768: (sequences, context, greedy steps)
+ROOF_DECODE = (32, 4096, 16)
+ROOF_RUNS = 2  # timed runs of a prefill and of a decode window
+ROOF_PATH = (f"{ROOF_ARCH} at its published widths: train, prefill and "
+             f"decode (phase roofline)")
+
+
+def _roof_shapes():
+    """The cut cells of phase roofline, as ``ShapeCell``s."""
+    from repro_torch.configs.base import ShapeCell
+    b, s = (int(ROOF_TRAIN_ARGV[i + 1]) for i in (
+        ROOF_TRAIN_ARGV.index("--global-batch"),
+        ROOF_TRAIN_ARGV.index("--seq-len")))
+    db, ctx, steps = ROOF_DECODE
+    return {"train_4k": ShapeCell("train_4k", "train", s, b),
+            "prefill_32k": ShapeCell("prefill_32k", "prefill",
+                                     ROOF_PREFILL[1], ROOF_PREFILL[0]),
+            "decode_32k": ShapeCell("decode_32k", "decode", ctx + steps, db)}
+
+
+def _roof_meta_costs(src):
+    """Phase roofline's steps counted on ``meta`` by ``launch/dryrun.py``
+    (``run_step``) at the card's shapes and dtypes: the train step, the
+    adapter model's and the merged model's prefill and decode step (an
+    f32 cache of the card's capacity).  Runs in a process of its own,
+    beside the card's work: ``{step: [OpCost dict, by_op]}``."""
+    sys.path.insert(0, src)
+    import torch
+    import repro_torch.configs as C
+    from repro_torch.core import schemes
+    from repro_torch.launch.dryrun import run_step
+    from repro_torch.launch.steps import abstract_params
+    from repro_torch.models.lm import LM
+    cells = _roof_shapes()
+    lm = LM(C.get(ROOF_ARCH))
+    params = abstract_params(lm)
+    merged = schemes.merge_tree(params)
+
+    def toks(b, s):
+        return torch.empty((b, s), dtype=torch.int32, device="meta")
+    out = {}
+    t = cells["train_4k"]
+    rows = toks(t.global_batch, t.seq_len)
+    c = run_step(lm, "train", params, {"batch": {"tokens": rows,
+                                                 "labels": rows}})
+    out["train"] = [c.cost.as_dict(), dict(c.by_op)]
+    for tag, p in (("adapters", params), ("merged", merged)):
+        c = run_step(lm, "prefill", p, {"batch": {"tokens": toks(
+            ROOF_PREFILL[0], ROOF_PREFILL[1])}})
+        out[f"prefill_{tag}"] = [c.cost.as_dict(), dict(c.by_op)]
+        db, ctx, steps = ROOF_DECODE
+        cache = lm.init_cache(db, ctx + steps, dtype=torch.float32,
+                              device="meta")
+        c = run_step(lm, "decode", p, {"cache": cache,
+                                       "tokens": toks(db, 1)})
+        out[f"decode_{tag}"] = [c.cost.as_dict(), dict(c.by_op)]
+    return out
+
+
+def _profiled_device(torch, fn):
+    """``fn()`` under ``torch.profiler`` tracing the device only
+    (:func:`_profiled_step`, :func:`_step_profile`): wall ms, device busy
+    ms, idle share, device ms by kind."""
+    def step():
+        fn()
+        return {"loss": torch.zeros((), device="cuda")}
+    rec = _step_profile(torch, _profiled_step(torch, step)[1])
+    rec.pop("loss")
+    return rec
+
+
+def _roof_record(torch, cfg, kind, cell, card, meta, wall_ms, profile,
+                 launches):
+    """One step kind's record: its counted cost on the card beside the
+    meta trace's, the roofline terms on one H100 and the roofline share
+    ``model_flops / (wall s x peak)``."""
+    from repro_torch.perf.cost import OpCost
+    from repro_torch.perf.roofline import HW, roofline_terms
+    terms = roofline_terms(OpCost(**card), 1, cfg, cell, HW())
+    diff = {k: [card[k], meta[0][k]] for k in card if card[k] != meta[0][k]}
+    return {"kind": kind, "cell": cell.name,
+            "cut": f"{cell.global_batch} x {cell.seq_len}",
+            "wall_ms": wall_ms, "device_busy_ms": profile["device_busy_ms"],
+            "device_idle_share": profile["device_idle_share"],
+            "profile": profile, "opcost_card": card,
+            "opcost_meta": meta[0], "opcost_equal": not diff,
+            "opcost_diff": diff, **terms,
+            "roofline_share": terms["model_flops"]
+            / (wall_ms / 1e3 * HW().peak_flops),
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def _roof_by_op_diff(card_by_op, meta_by_op):
+    """The operations whose tallies differ between the card's count and
+    the meta trace's (empty when they agree)."""
+    names = set(card_by_op) | set(meta_by_op)
+    return {n: [card_by_op.get(n), meta_by_op.get(n)] for n in sorted(names)
+            if list(card_by_op.get(n, [])) != list(meta_by_op.get(n, []))}
+
+
+def phase_roofline(torch):
+    """gemma3-1b's three step kinds on the card against the ported
+    roofline (module docstring, phase 24)."""
+    import multiprocessing
+    import statistics
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.launch import serve, train
+    from repro_torch.models.lm import LM
+    from repro_torch.perf.cost import CostCounter
+    from repro_torch.runtime.graphs import StepGraphs
+    t_phase = time.perf_counter()
+    secs = {}
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        pending = pool.apply_async(_roof_meta_costs, (SRC,))
+        cells = _roof_shapes()
+        smi = _smi("name,power.limit")
+        args = train.build_parser().parse_args(ROOF_TRAIN_ARGV)
+        lm = LM(train.build_config(args))
+        cfg = lm.cfg
+        dev = torch.device("cuda")
+        params = lm.init(torch.Generator(device=dev).manual_seed(args.seed),
+                         dev)
+        with torch.no_grad():
+            serve.bump_adapters(params)
+        # train_4k: the CLI's setup and run, the last step profiled
+        st, res, args, train_counts, train_prof, base_same, setup_s = \
+            _train_on_card(torch, lm, params, ROOF_TRAIN_ARGV,
+                           ROOF_TRAIN_STEPS)
+        del params
+        secs["train"] = time.perf_counter() - t_phase
+        batch = train.train_batch(cfg, *st.stream.next_batch(), dev)
+        t0 = time.perf_counter()
+        with CostCounter() as counted:
+            metrics = st.step_fn(st.params, st.opt_state, batch)
+        counted_loss = float(metrics["loss"])
+        secs["train_counted_step"] = time.perf_counter() - t0
+        train_card = (counted.cost.as_dict(), dict(counted.by_op))
+        t0 = time.perf_counter()
+        prompts = np.random.default_rng(0).integers(
+            4, cfg.vocab, size=(4, 128)).astype(np.int32)
+        check, control, bound, merge_counts = _trained_merge(
+            torch, st, prompts, 129)
+        per_step = _train_launches(cfg)
+        train_rec, train_checks = _train_record(
+            res, args, train_counts, train_prof, per_step,
+            _train_flops(cfg, st.params, args.global_batch, args.seq_len),
+            check, control, bound)
+        adapters = st.params
+        merged = serve.merge_model(adapters)
+        del st, res["state"]
+        _free(torch)
+        secs["merge_check"] = time.perf_counter() - t0
+        # kernels 1-4 on block 0 (the head is fp) at the prefill's rows,
+        # the decode's M = 32 and a GEMV step's, against the plain versions
+        t0 = time.perf_counter()
+        db, ctx, steps = ROOF_DECODE
+        held = _hold_family_linears(
+            torch, cfg, adapters, merged, ROOF_PREFILL[0] * ROOF_PREFILL[1],
+            False, extra={"decode_32k": db})
+        _free(torch)
+        secs["held"] = time.perf_counter() - t0
+        # prefill_32k and decode_32k, each on both models
+        gen = torch.Generator(device=dev).manual_seed(1)
+        ptoks = torch.randint(4, cfg.vocab, ROOF_PREFILL, generator=gen,
+                              device=dev, dtype=torch.int32)
+        cache = lm.init_cache(db, ctx + steps, dtype=torch.float32,
+                              device=dev)
+        start = torch.randn((db, cfg.vocab), generator=gen, device=dev)
+        dtoks = torch.randint(4, cfg.vocab, (db, 1), generator=gen,
+                              device=dev, dtype=torch.int32)
+        served, walls = {}, {}
+        for tag, p in (("adapters", adapters), ("merged", merged)):
+            t0 = time.perf_counter()
+
+            def prefill():
+                return lm.prefill(p, {"tokens": ptoks})
+            prefill()
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            ws = []
+            for _ in range(ROOF_RUNS):
+                t0 = time.perf_counter()
+                logits, _ = prefill()
+                torch.cuda.synchronize()
+                ws.append((time.perf_counter() - t0) * 1e3)
+            pcounts = kernels.launches()
+            pprof = _profiled_device(torch, prefill)
+            t1 = time.perf_counter()
+            with CostCounter() as c:
+                prefill()
+            secs[f"prefill_{tag}_counted"] = time.perf_counter() - t1
+            served[f"prefill_{tag}"] = (ws, pprof, pcounts, c, logits)
+            secs[f"prefill_{tag}"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            graphs = StepGraphs(f"roofline.decode.{tag}", dev)
+
+            def decode():
+                cache["len"].fill_(ctx)
+                return lm.generate(p, cache, start, steps + 1, graphs)
+            decode()  # captures the step
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            ws = []
+            for _ in range(ROOF_RUNS):
+                t0 = time.perf_counter()
+                out, _ = decode()
+                torch.cuda.synchronize()
+                ws.append((time.perf_counter() - t0) * 1e3 / steps)
+            dcounts = kernels.launches()
+            dprof = _profiled_device(torch, decode)
+            dprof = {k: v / steps if k.endswith("_ms") else v
+                     for k, v in dprof.items()}
+            cache["len"].fill_(ctx)
+            with CostCounter() as c, torch.no_grad():
+                lm.decode_step(p, cache, dtoks)
+            served[f"decode_{tag}"] = (ws, dprof, dcounts, c, out)
+            del graphs
+            _free(torch)
+            secs[f"decode_{tag}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        meta = pending.get(timeout=900)
+        secs["waiting_for_meta"] = time.perf_counter() - t0
+    finally:
+        pool.terminate()
+        pool.join()
+    records, checks = {}, {f"train_{k}": v for k, v in train_checks.items()}
+    train_wall = statistics.median(res["step_ms"][1:-1])
+    # the idle share against the unprofiled steps' wall (tracing slows
+    # the host, not the device)
+    records["train_4k"] = _roof_record(
+        torch, cfg, "train", cells["train_4k"], train_card[0],
+        meta["train"], train_wall, {**train_prof, "device_idle_share": max(
+            0.0, 1.0 - train_prof["device_busy_ms"] / train_wall)},
+        train_counts)
+    records["train_4k"].update(
+        steps=ROOF_TRAIN_STEPS, loss=res["loss"], grad_norm=res["grad_norm"],
+        counted_step_loss=counted_loss, step_ms=res["step_ms"],
+        wall_ms_median_of="steps 2..3 (step 4 profiled, its device time "
+                          "the busy ms; a fifth step counted, then the "
+                          "merge)",
+        device_idle_share_of_profiled_step=train_prof["device_idle_share"],
+        merge_rel=train_rec["merge_rel"],
+        merge_control_rel=train_rec["merge_control_rel"],
+        merge_bound_rel=bound, floor_ms=train_rec["step_floor_ms"],
+        over_floor=train_rec["over_floor"],
+        peak_mem_gb=train_rec["peak_mem_gb"], setup_s=setup_s,
+        frozen_base_unchanged=base_same,
+        by_op_diff=_roof_by_op_diff(train_card[1], meta["train"][1]))
+    checks["train_opcost_equals_meta"] = records["train_4k"]["opcost_equal"]
+    checks["train_counted_loss_finite"] = math.isfinite(counted_loss)
+    checks["train_frozen_base_unchanged"] = base_same
+    checks["kernels_held_against_plain"] = bool(held) and all(
+        r["ok"] for r in held)
+    pass_lin, step_lin = lm.pass_linears(), lm.step_linears()
+    want = {"prefill_adapters": {"qalora_matmul": pass_lin * ROOF_RUNS,
+                                 "qalora_rank_proj": pass_lin * ROOF_RUNS},
+            "prefill_merged": {"qmatmul": pass_lin * ROOF_RUNS},
+            "decode_adapters": {"qalora_matmul": step_lin * steps * ROOF_RUNS,
+                                "qalora_rank_proj":
+                                    step_lin * steps * ROOF_RUNS},
+            "decode_merged": {"qmatmul": step_lin * steps * ROOF_RUNS}}
+    for key, (ws, prof, counts, c, out) in served.items():
+        kind = key.split("_")[0]
+        cell = cells[f"{kind}_32k"]
+        rec = _roof_record(torch, cfg, kind, cell, c.cost.as_dict(),
+                           meta[key], statistics.median(ws), prof, counts)
+        rec.update(model=key.split("_")[1], walls_ms=ws,
+                   by_op_diff=_roof_by_op_diff(dict(c.by_op), meta[key][1]))
+        if kind == "decode":
+            rec.update(wall_ms_is="a graphed decode step (a window of "
+                       f"{steps} replays over {ROOF_RUNS} runs)",
+                       tokens_in_vocab=bool(((out >= 0) & (out < cfg.vocab))
+                                            .all()))
+            checks[f"{key}_tokens_in_vocab"] = rec["tokens_in_vocab"]
+        else:
+            checks[f"{key}_logits_finite"] = bool(torch.isfinite(out).all())
+        records[key] = rec
+        checks[f"{key}_opcost_equals_meta"] = rec["opcost_equal"]
+        checks[f"{key}_launches_exact"] = \
+            {k: v for k, v in counts.items() if v} == want[key]
+    total = {k: train_counts[k] + merge_counts[k]
+             + sum(served[key][2][k] for key in served)
+             for k in train_counts}
+    out = {"phase": "roofline", "card": smi, "arch": ROOF_ARCH,
+           "config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                      "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                      "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+                      "vocab": cfg.vocab, "window": cfg.window,
+                      "global_every": cfg.global_every},
+           "cuts": {"train_4k": f"256 x 4096 -> 4 x 1024, "
+                                f"{ROOF_TRAIN_STEPS} steps and a counted "
+                                f"one",
+                    "prefill_32k": f"32 x 32768 -> {ROOF_PREFILL[0]} x "
+                                   f"{ROOF_PREFILL[1]}",
+                    "decode_32k": f"128 x 32768 -> {db} sequences at a "
+                                  f"context of {ctx}, {steps} steps",
+                    "long_500k": "not run: one sequence of 524288 tokens, "
+                                 "whose f32 cache alone (26 x 2 x 524288 x "
+                                 "256 x 4 B = 27.9 GB) and plain chunked "
+                                 "prefill are beyond the phase's time"},
+           "records": records, "launches": total, "held": held,
+           "checks": checks,
+           "seconds_by_part": secs, "phase_s": time.perf_counter() - t_phase}
+    out["ok"] = all(checks.values())
+    for key, rec in records.items():
+        print(f"[chip_smoke] roofline {key} ({smi}): wall "
+              f"{rec['wall_ms']:.2f} ms, busy {rec['device_busy_ms']:.2f} "
+              f"ms, idle {rec['device_idle_share']:.3f}; card {json.dumps(rec['opcost_card'])} "
+              f"meta equal {rec['opcost_equal']}; compute "
+              f"{rec['compute_s'] * 1e3:.3f} ms, memory "
+              f"{rec['memory_s'] * 1e3:.3f} ms ({rec['dominant']}); "
+              f"model_flops {rec['model_flops']:.4e}, share "
+              f"{rec['roofline_share']:.4f}; launches "
+              f"{json.dumps(rec['launches'])}", flush=True)
+    worst = max(r["max_abs_err"] / max(r["tol"], 1e-30) for r in held)
+    print(f"[chip_smoke] roofline: {len(held)} kernel holds on block 0 "
+          f"(M {sorted({r['M'] for r in held})}), worst err/tol "
+          f"{worst:.3f}", flush=True)
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"roofline checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return total, held
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print(f"[chip_smoke] {SRC}/repro_torch not found: run from a checkout "
@@ -8395,6 +8778,8 @@ def main() -> int:
         serve_counts.update(encdec_counts)
         serve_counts[MESH_PATH] = _phase("mesh_train", phase_mesh_train,
                                          torch)
+        serve_counts[ROOF_PATH], roof_held = _phase("roofline",
+                                                    phase_roofline, torch)
     except Exception as e:  # report, save and fail: no result line
         import traceback
         traceback.print_exc()
@@ -8410,7 +8795,8 @@ def main() -> int:
         spec = [x for rs in spec_held.values() for x in rs
                 if x["kernel"] == name]
         fam = [x for x in family_held + vision_held + moe_held + mla_held
-               + rec_held + encdec_held if x["kernel"] == name]
+               + rec_held + encdec_held + roof_held
+               if x["kernel"] == name]
         held = spec + fam
         summary.append({
             "name": name, "route": "cuda", "source": source,

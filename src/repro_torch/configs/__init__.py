@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.schemes import QuantPolicy
-from .base import ArchConfig
+from .base import SHAPES, SUBQUADRATIC, ArchConfig, ShapeCell, cells_for
 
 from . import (deepseek_67b, deepseek_v3_671b, gemma3_1b, h2o_danube_1_8b,
                llama7b_proxy, mixtral_8x22b, pixtral_12b, rwkv6_7b,
@@ -17,6 +17,9 @@ REGISTRY = {m.CONFIG.name: m.CONFIG for m in (
     pixtral_12b, gemma3_1b, starcoder2_7b, h2o_danube_1_8b, deepseek_67b,
     seamless_m4t_medium, zamba2_7b, mixtral_8x22b, deepseek_v3_671b,
     rwkv6_7b, llama7b_proxy)}
+
+# the configs of the dry run (llama7b-proxy is the paper's stand-in)
+ASSIGNED = [n for n in REGISTRY if n != "llama7b-proxy"]
 
 
 def get(name: str) -> ArchConfig:
@@ -63,4 +66,5 @@ def reduced(name: str, **over) -> ArchConfig:
     return cfg.scaled(**kw)
 
 
-__all__ = ["ArchConfig", "REGISTRY", "SMOKE_QUANT", "get", "reduced"]
+__all__ = ["ASSIGNED", "ArchConfig", "REGISTRY", "SHAPES", "SMOKE_QUANT",
+           "SUBQUADRATIC", "ShapeCell", "cells_for", "get", "reduced"]

@@ -77,3 +77,29 @@ class ArchConfig:
 
     def scaled(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str        # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str        # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeCell("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeCell("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeCell("long_500k", "decode", 524288, 1),
+}
+
+# archs with sub-quadratic attention run long_500k
+SUBQUADRATIC = {"gemma3-1b", "h2o-danube-1.8b", "zamba2-7b", "mixtral-8x22b",
+                "rwkv6-7b"}
+
+
+def cells_for(arch_name: str):
+    """The shape cells an arch runs (long_500k only when sub-quadratic)."""
+    return [s for s in SHAPES.values()
+            if s.name != "long_500k" or arch_name in SUBQUADRATIC]

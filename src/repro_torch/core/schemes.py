@@ -49,7 +49,7 @@ __all__ = [
     "is_linear", "dense_linear", "quantized_base", "frozen_base",
     "adapter_params", "from_dense_linear", "linear_init", "linear_apply",
     "merge_linear", "dense_view", "map_linears", "merge_tree",
-    "convert_tree", "trainable_tensors",
+    "convert_tree", "trainable_tensors", "tree_flops_bytes",
 ]
 
 
@@ -313,6 +313,18 @@ class LinearScheme:
         drawn from ``generator``."""
         raise NotImplementedError
 
+    def stack_ndim(self, data: dict) -> int:
+        """Leading stack dims of the payload (0: one ``[D_in, D_out]``
+        linear)."""
+        raise NotImplementedError
+
+    def flops_bytes(self, data: dict, pol: QuantPolicy, m: int = 1):
+        """(flops, weight bytes read) of one linear of the payload for an
+        ``[m, D_in]`` activation, plain ints; read from the trailing dims,
+        so a stacked payload gives one member's cost (and a ``meta`` one
+        costs nothing to ask)."""
+        raise NotImplementedError
+
 
 _REGISTRY: Dict[str, LinearScheme] = {}
 
@@ -359,6 +371,14 @@ class FPScheme(LinearScheme):
     def from_dense(self, generator, w, pol, quantizer=None):
         return {"w": w}
 
+    def stack_ndim(self, data):
+        return data["w"].dim() - 2
+
+    def flops_bytes(self, data, pol, m=1):
+        w = data["w"]
+        k, n = w.shape[-2:]
+        return 2 * m * k * n, k * n * w.element_size()
+
 
 @register_scheme("lora")
 class LoRAScheme(LinearScheme):
@@ -383,6 +403,16 @@ class LoRAScheme(LinearScheme):
         return {"w": w.to(pol.dtype),
                 "ad": lora_lib.init_lora(generator, d_in, pol.rank, d_out,
                                          pol.dtype, w.device)}
+
+    def stack_ndim(self, data):
+        return data["w"].dim() - 2
+
+    def flops_bytes(self, data, pol, m=1):
+        w, b = data["w"], data["ad"].b
+        k, n = w.shape[-2:]
+        r = b.shape[-2]
+        return (2 * m * k * n + 2 * m * r * (k + n),
+                k * n * w.element_size() + r * (k + n) * b.element_size())
 
 
 @register_scheme("qlora")
@@ -412,6 +442,29 @@ class QLoRAScheme(LinearScheme):
         return {"nf4": nf4_lib.nf4_quantize(w.to(torch.float32)),
                 "ad": lora_lib.init_lora(generator, d_in, pol.rank, d_out,
                                          pol.dtype, w.device)}
+
+    def stack_ndim(self, data):
+        return data["nf4"].codes.dim() - 2
+
+    def flops_bytes(self, data, pol, m=1):
+        nf4, b = data["nf4"], data["ad"].b
+        k, n = nf4.shape[-2:]
+        r = b.shape[-2]
+        return (2 * m * k * n + 2 * m * r * (k + n),
+                k * n // 2 + nf4.absmax.shape[-1] * 4
+                + r * (k + n) * b.element_size())
+
+
+def _qt_dims(qt: quant_lib.QuantizedLinear):
+    """(D_in, D_out, groups) of a packed base, from its trailing dims."""
+    return (qt.qweight.shape[-2] * quant_lib.codes_per_byte(qt.bits),
+            qt.qweight.shape[-1], qt.scale.shape[-2])
+
+
+def _qt_bytes(qt: quant_lib.QuantizedLinear) -> int:
+    """Codes, scales and zeros of one packed base."""
+    _, n, g = _qt_dims(qt)
+    return (qt.qweight.shape[-2] + 2 * g * qt.scale.element_size()) * n
 
 
 def _quantizer(pol: QuantPolicy, quantizer):
@@ -452,6 +505,16 @@ class QALoRAScheme(LinearScheme):
                                              pol.rank, d_out, pol.dtype,
                                              device=w.device)}
 
+    def stack_ndim(self, data):
+        return data["q"].qweight.dim() - 2
+
+    def flops_bytes(self, data, pol, m=1):
+        qt, b = data["q"], data["ad"].b
+        k, n, g = _qt_dims(qt)
+        r = b.shape[-2]
+        return (2 * m * k * n + 2 * m * r * (g + n),
+                _qt_bytes(qt) + r * (g + n) * b.element_size())
+
 
 @register_scheme("qalora_slot")
 class QALoRASlotScheme(LinearScheme):
@@ -482,6 +545,17 @@ class QALoRASlotScheme(LinearScheme):
             "merge target; use AdapterStore.merged(name) for one tenant's "
             "merged tree")
 
+    def stack_ndim(self, data):
+        return data["q"].qweight.dim() - 2
+
+    def flops_bytes(self, data, pol, m=1):
+        qt = data["q"]
+        k, n, g = _qt_dims(qt)
+        r = data["a"].shape[-1]
+        # each row reads the shared base once plus its own adapter's rows
+        return (2 * m * k * n + 2 * m * r * (g + n),
+                _qt_bytes(qt) + m * r * (g + n) * data["b"].element_size())
+
 
 @register_scheme("intq")
 class IntQScheme(LinearScheme):
@@ -505,6 +579,13 @@ class IntQScheme(LinearScheme):
 
     def from_dense(self, generator, w, pol, quantizer=None):
         return {"q": _quantizer(pol, quantizer)(w.to(torch.float32))}
+
+    def stack_ndim(self, data):
+        return data["q"].qweight.dim() - 2
+
+    def flops_bytes(self, data, pol, m=1):
+        k, n, _ = _qt_dims(data["q"])
+        return 2 * m * k * n, _qt_bytes(data["q"])
 
 
 # ---------------------------------------------------------------------------
@@ -664,3 +745,31 @@ def trainable_tensors(params: nn.Module) -> Dict[str, torch.Tensor]:
             f"{len(declared - actual)} declared tensors are not parameters")
     return out
 
+
+def _first_leaf(data: dict) -> torch.Tensor:
+    """The payload's first tensor, in the payload's order (the
+    reference's ``jax.tree.leaves(data)[0]``)."""
+    v = next(iter(data.values()))
+    return next(v.buffers()) if isinstance(v, nn.Module) else v
+
+
+def tree_flops_bytes(params, m: int = 1):
+    """Sum of (flops, weight bytes) over every linear of ``params`` (a
+    module, or a dict or list of them) for an ``[m, D_in]`` activation
+    each: the scheme-aware roofline numerator, plain ints.  A stacked
+    payload counts each member.  Works on ``meta`` params at any width:
+    only shapes are read."""
+    mods = params.values() if isinstance(params, dict) else \
+        params if isinstance(params, (list, tuple)) else (params,)
+    flops = nbytes = 0
+    for mod in mods:
+        for lp in mod.modules():
+            if not isinstance(lp, LinearParams):
+                continue
+            scheme, data = get_scheme(lp.scheme), lp.data
+            nd = scheme.stack_ndim(data)
+            stack = math.prod(int(d) for d in _first_leaf(data).shape[:nd])
+            f, b = scheme.flops_bytes(data, lp.policy, m)
+            flops += int(f) * stack
+            nbytes += int(b) * stack
+    return flops, nbytes

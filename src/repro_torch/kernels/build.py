@@ -23,6 +23,10 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+# devices whose tensors take a kernel's plain version: the CPU computes
+# it, ``meta`` only its shapes (a dry run); CUDA tensors launch the kernel
+PLAIN_DEVICES = ("cpu", "meta")
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("qmatmul", "qmatvec", "qalora_fused", "flash")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -26,6 +26,7 @@ import math
 import torch
 
 from . import build
+from .build import PLAIN_DEVICES
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.bfloat16, torch.float32)
@@ -118,11 +119,11 @@ def flash_mha_cuda(q, k, v, *, causal=True, window=0, block_q=128,
                    block_k=128):
     """Flash attention on q, k, v ``[B·H, S, d]``, bf16 or f32, output in
     q's dtype.  CUDA tensors launch the kernel (the block sizes, checked on
-    either device, shape only the plain version's tiles); CPU tensors take
-    :func:`flash_mha_plain`."""
+    either device, shape only the plain version's tiles); CPU and ``meta``
+    tensors take :func:`flash_mha_plain`."""
     bh, sq, sk, d = check_operands(q, k, v)
     check_blocks(sq, sk, block_q, block_k)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_mha_plain(q, k, v, causal=causal, window=window,
                                block_q=block_q, block_k=block_k)
     if q.device.type != "cuda":

@@ -7,7 +7,12 @@ The kernels mask their own edges, so M is never padded.  Block shapes are
 fixed in the kernels (no autotuning).
 
 On CUDA tensors every call launches a kernel or raises; CPU tensors take
-the kernels' plain versions.  :func:`qalora_slot_matmul` at M > 8 adds the
+the kernels' plain versions, and ``meta`` tensors their shapes alone (a
+dry run).  Under a :class:`repro_torch.perf.cost.CostCounter` each call is
+one operation, whichever route runs: its flops and weight bytes from the
+linear scheme's ``flops_bytes`` (the attention core's for
+:func:`flash_mha`), plus the activation's bytes in and out; what runs
+inside is not counted again.  :func:`qalora_slot_matmul` at M > 8 adds the
 plain PyTorch bank delta to the tiled base product, as the reference does
 outside any Pallas kernel.
 
@@ -25,8 +30,10 @@ import math
 
 import torch
 
+from ..core import schemes
 from ..core.qalora import QALoRAParams, bank_adapter_delta
 from ..core.quant import QuantizedLinear
+from ..perf import cost
 from .flash import flash_mha_cuda
 from .qalora_fused import qalora_matmul_cuda
 from .qmatmul import dequant_plain, qmatmul_cuda
@@ -41,12 +48,26 @@ def _flatten(x):
     return x.reshape(m, k).contiguous(), lead, m
 
 
+def _costed(name: str, call, scheme: str, data: dict, x2, n: int):
+    """``call()`` as one operation of the active cost counters: the
+    scheme's flops and weight bytes at x2's M rows, plus x2 read and the
+    ``[M, n]`` output written in x2's dtype."""
+    if not cost.counting():
+        return call()
+    m = x2.shape[0]
+    flops, wbytes = schemes.get_scheme(scheme).flops_bytes(data, None, m)
+    act = (x2.numel() + m * n) * x2.element_size()
+    with cost.reported(name, flops, wbytes + act):
+        return call()
+
+
 def qmatmul(x, qt: QuantizedLinear):
     """``y = x @ dequant(qt)``; any leading dims on x."""
     x2, lead, m = _flatten(x)
     fn = qmatvec_cuda if m <= GEMV_MAX_M else qmatmul_cuda
-    y = fn(x2, qt.qweight, qt.scale, qt.zero, bits=qt.bits,
-           group_size=qt.group_size)
+    y = _costed("qmatmul", lambda: fn(
+        x2, qt.qweight, qt.scale, qt.zero, bits=qt.bits,
+        group_size=qt.group_size), "intq", {"q": qt}, x2, qt.d_out)
     return y.reshape(*lead, qt.d_out)
 
 
@@ -99,7 +120,9 @@ def qalora_matmul(x, qt: QuantizedLinear, p: QALoRAParams, s: float = 1.0):
     """Fused ``y = x @ dequant(qt) + s * pool_sum(x) @ A @ B``; gradients
     reach x, ``p.a`` and ``p.b`` (:class:`_QALoRAMatmul`)."""
     x2, lead, m = _flatten(x)
-    y = _QALoRAMatmul.apply(x2, p.a, p.b, qt, float(s))
+    y = _costed("qalora_matmul", lambda: _QALoRAMatmul.apply(
+        x2, p.a, p.b, qt, float(s)), "qalora", {"q": qt, "ad": p}, x2,
+        qt.d_out)
     return y.reshape(*lead, qt.d_out)
 
 
@@ -126,9 +149,11 @@ def qalora_slot_matmul(x, qt: QuantizedLinear, a_bank, b_bank, ids,
                          f"{tuple(x.shape[:-1])}, got {tuple(ids.shape)}")
     x2, lead, m = _flatten(x)
     fn = qalora_slot_matvec_cuda if m <= GEMV_MAX_M else _slot_matmul_tiled
-    y = fn(x2, qt.qweight, qt.scale, qt.zero, a_bank, b_bank,
-           ids.reshape(m).contiguous(), s=float(s), bits=qt.bits,
-           group_size=qt.group_size)
+    y = _costed("qalora_slot_matmul", lambda: fn(
+        x2, qt.qweight, qt.scale, qt.zero, a_bank, b_bank,
+        ids.reshape(m).contiguous(), s=float(s), bits=qt.bits,
+        group_size=qt.group_size), "qalora_slot",
+        {"q": qt, "a": a_bank, "b": b_bank}, x2, qt.d_out)
     return y.reshape(*lead, qt.d_out)
 
 
@@ -156,6 +181,19 @@ def flash_mha(q, k, v, causal=True, window=0, block_q=128, block_k=128):
     # through a name, as the dispatch above: repro_lint's RL004 follows
     # calls by simple name from the reference's jit root `flash_mha`
     fn = flash_mha_cuda
-    o = fn(fold(q), fold(k), fold(v), causal=causal, window=window,
-           block_q=block_q, block_k=block_k)
+
+    def call():
+        return fn(fold(q), fold(k), fold(v), causal=causal, window=window,
+                  block_q=block_q, block_k=block_k)
+    if not cost.counting():
+        o = call()
+    else:
+        # the attention core's products over every (query, key) pair, and
+        # q, k, v read and the output written
+        sk, dv = k.shape[1], v.shape[-1]
+        flops = 2 * b * h * sq * sk * (q.shape[-1] + dv)
+        nbytes = cost.tensor_bytes(q, k, v) + b * sq * h * dv \
+            * q.element_size()
+        with cost.reported("flash_mha", flops, nbytes):
+            o = call()
     return o.reshape(b, h, sq, o.shape[-1]).permute(0, 2, 1, 3)

@@ -9,7 +9,7 @@ with two CUDA launches from ``csrc/qalora_fused.cu``: the rank projection
 operations at prefill M, like :mod:`.qmatmul`.
 
 :func:`qalora_matmul_cuda` launches both kernels for CUDA tensors and runs
-:func:`qalora_matmul_plain` for CPU tensors.
+:func:`qalora_matmul_plain` for CPU and ``meta`` tensors.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .build import PLAIN_DEVICES
 from .qmatmul import block_k, check_operands, dequant_plain
 
 MAX_RANK = 128  # the GEMV kernels stage t [8][128] in shared memory
@@ -82,7 +83,7 @@ def qalora_rank_proj_cuda(x, a, *, group_size: int):
     """``t = bf16(pool_sum_g(x) @ A)``, ``[M, r]``; x ``[M, K]`` and A
     ``[K / g, r]`` bf16 on CUDA, or any float dtype on the CPU (plain
     version).  Kernel 3's first launch, on its own."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return qalora_rank_proj_plain(x, a, group_size=group_size)
     if x.device.type != "cuda" or a.device != x.device:
         raise ValueError(f"x and a must be on one CUDA device, got "
@@ -111,7 +112,7 @@ def qalora_matmul_cuda(x, qweight, scale, zero, a, b, *, s: float, bits: int,
     current stream, neither synchronising: the rank projection into a
     ``[M, r]`` bf16 scratch (counted by :func:`qalora_rank_proj_cuda`),
     then the tiled product (counted here)."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return qalora_matmul_plain(x, qweight, scale, zero, a, b, s=s,
                                    bits=bits, group_size=group_size)
     m, k, n = check_operands(x, qweight, scale, zero, bits, group_size)

@@ -9,7 +9,8 @@ rows of x.
 
 :func:`qmatmul_cuda` launches the kernel for CUDA tensors (and raises on
 anything it does not take) and runs :func:`qmatmul_plain`, the plain
-PyTorch version with the kernel's cast points, for CPU tensors.
+PyTorch version with the kernel's cast points, for CPU tensors (and its
+shapes alone for ``meta`` ones: a dry run).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from ..core.quant import codes_per_byte, unpack
 from . import build
+from .build import PLAIN_DEVICES
 
 SCALE_DTYPES = (torch.bfloat16, torch.float32)
 # Above this M the tiled kernels run; at or below it the GEMV kernels (and
@@ -95,7 +97,7 @@ def block_k(group_size: int) -> int:
 def qmatmul_cuda(x, qweight, scale, zero, *, bits: int, group_size: int):
     """``y = x @ dequant(W_q)``; x ``[M, K]`` bf16 on CUDA (any M, meant for
     M > 8), or any float dtype on the CPU (plain version)."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return qmatmul_plain(x, qweight, scale, zero, bits=bits,
                              group_size=group_size)
     m, k, n = check_operands(x, qweight, scale, zero, bits, group_size)

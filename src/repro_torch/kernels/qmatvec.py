@@ -17,7 +17,8 @@ C entry reports which of its two kernels it launched, and the wrappers
 count from that.
 
 The wrappers launch the kernels for CUDA tensors (and raise on anything
-they do not take) and run the plain versions for CPU tensors.
+they do not take) and run the plain versions for CPU and ``meta``
+tensors.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import ctypes
 import torch
 
 from . import build
+from .build import PLAIN_DEVICES
 from .qalora_fused import (MAX_RANK, check_adapter, qalora_matmul_plain,
                            qalora_rank_proj_cuda)
 from .qmatmul import GEMV_MAX_M, check_operands, dequant_plain, qmatmul_plain
@@ -108,7 +110,7 @@ def _out_and_scratch(x, m: int, n: int, rank: int):
 def qmatvec_cuda(x, qweight, scale, zero, *, bits: int, group_size: int):
     """``y = x @ dequant(W_q)`` for x ``[M <= 8, K]`` bf16 on CUDA, or any
     float dtype on the CPU (plain version)."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return qmatvec_plain(x, qweight, scale, zero, bits=bits,
                              group_size=group_size)
     m, k, n = _check_gemv(x, qweight, scale, zero, bits, group_size)
@@ -133,7 +135,7 @@ def qalora_matvec_cuda(x, qweight, scale, zero, a, b, *, s: float, bits: int,
     block; counted by :func:`qalora_rank_proj_cuda`) into a ``[M, r]``
     bf16 scratch carved from y's allocation, then the GEMV (counted
     here)."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return qalora_matvec_plain(x, qweight, scale, zero, a, b, s=s,
                                    bits=bits, group_size=group_size)
     m, k, n = _check_gemv(x, qweight, scale, zero, bits, group_size)
@@ -193,7 +195,7 @@ def qalora_slot_rank_proj_cuda(x, a_bank, ids, *, group_size: int):
     ``[M, r]``; x ``[M <= 8, K]`` and the bank ``[N, K / g, r]`` bf16, ids
     ``[M]`` int32, on CUDA, or any float dtype on the CPU (plain version).
     Kernel 5's first launch, on its own."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return qalora_slot_rank_proj_plain(x, a_bank, ids,
                                            group_size=group_size)
     if x.device.type != "cuda" or x.dtype != torch.bfloat16 or x.dim() != 2 \
@@ -224,7 +226,7 @@ def qalora_slot_matvec_cuda(x, qweight, scale, zero, a_bank, b_bank, ids, *,
     ``ids [M]`` int32, all on CUDA; or any float dtype on the CPU (plain
     version).  One host call, two launches: the slot projection (counted by
     :func:`qalora_slot_rank_proj_cuda`), then the GEMV (counted here)."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return qalora_slot_matvec_plain(x, qweight, scale, zero, a_bank,
                                         b_bank, ids, s=s, bits=bits,
                                         group_size=group_size)

@@ -39,6 +39,7 @@ import torch
 
 from ..kernels import build
 from ..kernels.flash import DESIGNS, flash_mha_plain
+from ..perf.roofline import HW
 
 # chip_smoke.py's FLASH_ROWS: (row, B, S, heads, KV heads, head dim, window)
 ROWS = (("llama7b-proxy", 4, 2048, 32, 32, 128, 0),
@@ -48,8 +49,7 @@ ROW_TOL = 2.0 ** -6
 ROUNDS = 3
 ITERS = 20
 # H100 SXM data sheet: HBM3 rate and dense bf16 tensor-core peak
-PEAK_BYTES_S = 3.35e12
-PEAK_BF16_FLOP_S = 989e12
+PEAK_BYTES_S, PEAK_BF16_FLOP_S = HW().hbm_bw, HW().peak_flops
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 # the spin of sm90::mbar_wait with a bound that traps
 TRAP_SPIN = ("  uint32_t done = 0;\n  do {",

@@ -18,7 +18,12 @@ The backend is ``nccl`` when each rank has a card of its own, else
 on gloo a collective on a CUDA tensor goes through a host copy, and on
 nccl one on a CPU tensor through the rank's card, made explicitly here.
 A collective that fails raises (the process group's timeout bounds a
-hang).
+hang).  Under a :class:`repro_torch.perf.cost.CostCounter` each
+collective is one operation: its operand's bytes are its collective bytes,
+and it reads and writes its operand and result (the reference's HLO
+accounting); the tensor-parallel operators of
+:mod:`repro_torch.models.tp`, the train step's gradient sums and the
+loss's reductions all go through here.
 
 Functions, not module constants: importing this module starts no process
 and opens no socket.  :func:`run_ranks` spawns a mesh's processes on one
@@ -43,6 +48,7 @@ from typing import Any, Callable, Dict, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.perf import cost
 from repro_torch.sharding.rules import DP_AXES, TP_AXIS
 
 Axes = Tuple[str, ...]
@@ -163,7 +169,10 @@ class Mesh:
 
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
         """A copy of ``t`` where the backend's collectives take it: host
-        memory on gloo, this rank's card on nccl."""
+        memory on gloo, this rank's card on nccl, ``t``'s own device under
+        the fake group of a dry run."""
+        if self.backend == "fake":
+            return t.detach().clone()
         if self.backend == "gloo":
             return t.detach().to("cpu", copy=True)
         card = torch.device("cuda", torch.cuda.current_device())
@@ -175,9 +184,11 @@ class Mesh:
         g = self.group(axes)
         if g is None:
             return t
-        x = self._wire(t)
-        dist.all_reduce(x, op=_OPS[op], group=g)
-        return x.to(t.device)
+        nbytes = t.numel() * t.element_size()
+        with cost.reported("all_reduce", 0, 2 * nbytes, nbytes):
+            x = self._wire(t)
+            dist.all_reduce(x, op=_OPS[op], group=g)
+            return x.to(t.device)
 
     def all_gather(self, t: torch.Tensor, axes, dim: int):
         """The pieces of ``t`` over ``axes`` concatenated on ``dim``, in
@@ -185,10 +196,13 @@ class Mesh:
         g = self.group(axes)
         if g is None:
             return t
-        x = self._wire(t)
-        parts = [torch.empty_like(x) for _ in range(self.size(axes))]
-        dist.all_gather(parts, x, group=g)
-        return torch.cat(parts, dim=dim).to(t.device)
+        nbytes = t.numel() * t.element_size()
+        with cost.reported("all_gather", 0,
+                           (1 + self.size(axes)) * nbytes, nbytes):
+            x = self._wire(t)
+            parts = [torch.empty_like(x) for _ in range(self.size(axes))]
+            dist.all_gather(parts, x, group=g)
+            return torch.cat(parts, dim=dim).to(t.device)
 
     def from_rank0(self, value):
         """Rank 0's ``value`` (any picklable object) on every rank: a

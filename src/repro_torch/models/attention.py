@@ -339,7 +339,10 @@ def gqa_prefill_chunk(p, x, cache, cur_len, n_new, cfg: AttnConfig,
                       window=None, theta=None, plan=None, pages=None):
     """Ragged chunk step: x [B,C,d]; slot b consumes rows [:n_new[b]] at
     positions cur_len[b].., inserts their K/V into the slotted cache (in
-    place) and attends causally against it.  C == 1 is decode.
+    place) and attends causally against it.  C == 1 is decode.  On a
+    shard the step runs over the KV heads :func:`tp.qkv` gives this rank
+    (:func:`tp.rank_kv_heads`: the cache holds those), as
+    :func:`gqa_apply` does.
 
     ``pages`` ([B, P] int32) switches the cache leaves from per-slot
     [B, S, ...] to paged pools [n_pages, ps, ...]: inserts go through the
@@ -356,12 +359,21 @@ def gqa_prefill_chunk(p, x, cache, cur_len, n_new, cfg: AttnConfig,
     theta = cfg.rope_theta if theta is None else theta
     window = cfg.window if window is None else window
     positions = plan.positions
-    q, k, v = _qkv(p, x, cfg, positions, theta, table=plan.table(theta))
+    shard = tp_of(p["wq"])
+    if shard is not None:
+        q, k, v, heads = tp.qkv(p, x, cfg, shard.mesh)
+        q, k = _rope_qk(p, q, k, cfg, positions, theta,
+                        table=plan.table(theta))
+    else:
+        q, k, v = _qkv(p, x, cfg, positions, theta, table=plan.table(theta))
     kc = _cache_insert(cache["k"], k, cur_len, n_new, pages, plan=plan.insert)
     vc = _cache_insert(cache["v"], v, cur_len, n_new, pages, plan=plan.insert)
     o = chunk_attention(q, _cache_view(kc, pages), _cache_view(vc, pages),
                         positions, window=window, mask=plan.mask(window))
-    out = linear_apply(p["wo"], o.reshape(b, c, -1))
+    if shard is not None:
+        out = tp.attn_output(p, o.reshape(b, c, -1), heads, shard.mesh)
+    else:
+        out = linear_apply(p["wo"], o.reshape(b, c, -1))
     return out, {"k": kc, "v": vc}
 
 

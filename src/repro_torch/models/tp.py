@@ -36,7 +36,8 @@ from repro_torch.sharding.rules import TP_AXIS
 from repro_torch.sharding.shard import Mode, tp_of
 
 __all__ = ["copy_to", "reduce_from", "gather_from", "scatter_to",
-           "apply_linear", "qkv", "attn_output", "mlp_apply", "model_mesh",
+           "apply_linear", "qkv", "rank_kv_heads", "attn_output",
+           "mlp_apply", "model_mesh",
            "embed", "logits", "xent_sums"]
 
 
@@ -152,17 +153,40 @@ def qkv(p, x, cfg, mesh):
                 full("wv").reshape(b, s, kvh, hd), False)
     hq = h // t
     q = out["wq"].reshape(b, s, hq, hd)
-    if modes["wk"] is Mode.COL and modes["wv"] is Mode.COL and kvh % t == 0:
+    heads = _kv_heads(modes, h, kvh, t, r)
+    if heads is None:
         return (q, out["wk"].reshape(b, s, kvh // t, hd),
                 out["wv"].reshape(b, s, kvh // t, hd), True)
+    k, v = (copy_to(full(n), mesh).reshape(b, s, kvh, hd)[:, :, heads]
+            for n in ("wk", "wv"))
+    return q, k, v, True
+
+
+def _kv_heads(modes, h: int, kvh: int, t: int, r: int):
+    """The KV heads rank ``r``'s query heads read, when it holds its query
+    heads and ``wk``/``wv`` do not shard whole KV heads; None when they
+    do (the rank's own block of them)."""
+    if modes["wk"] is Mode.COL and modes["wv"] is Mode.COL and kvh % t == 0:
+        return None
+    hq = h // t
     idx = [(r * hq + j) // (h // kvh) for j in range(hq)]
     heads = sorted(set(idx))
     rep = hq // len(heads)
     if idx != [u for u in heads for _ in range(rep)]:
         heads = idx  # no even grouping: one KV head per query head
-    k, v = (copy_to(full(n), mesh).reshape(b, s, kvh, hd)[:, :, heads]
-            for n in ("wk", "wv"))
-    return q, k, v, True
+    return heads
+
+
+def rank_kv_heads(p, cfg, mesh) -> int:
+    """How many KV heads a rank's :func:`qkv` gives for attention params
+    ``p`` (what the rank's decode cache holds)."""
+    t = mesh.size(TP_AXIS)
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    modes = {n: _mode(p[n]) for n in ("wq", "wk", "wv")}
+    if not (modes["wq"] is Mode.COL and h % t == 0):
+        return kvh
+    heads = _kv_heads(modes, h, kvh, t, mesh.index(TP_AXIS))
+    return kvh // t if heads is None else len(heads)
 
 
 def attn_output(p, o, heads: bool, mesh):

@@ -2,7 +2,8 @@
 shard of a params tree."""
 
 from .rules import (TP_AXIS, DP_AXES, COL, ROW, padded, spec_axes,  # noqa: F401
-                    spec_for_param, param_specs, batch_spec_tree,
+                    spec_for_param, param_specs, rank_param_bytes,
+                    batch_spec_tree,
                     cache_spec_tree)
 from .shard import (Mode, LinearTP, shard_tensor, gather_tensor,  # noqa: F401
                     shard_tensors, gather_tensors, shard_params,

@@ -27,6 +27,7 @@ to the stacked shape, and drops the stack's leading entries.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Sequence, Tuple
 
 TP_AXIS = "model"
@@ -166,13 +167,11 @@ def _named_leaves(params) -> Dict[str, Tuple[int, ...]]:
     return out
 
 
-def param_specs(params, mesh) -> Dict[str, Spec]:
-    """``{leaf name: spec}`` of a params module (or a ``{name: tensor}``
-    dict keyed like its leaves), each spec padded to the leaf's own dims:
-    the rule applied to the reference's stacked leaf (layers, and experts,
-    on leading axes, sized from the names present), the stack's entries
-    dropped."""
-    ms = mesh_shape(mesh)
+def _stacked_specs(params, ms: dict) -> Dict[str, Tuple[Tuple[int, ...],
+                                                         Spec]]:
+    """``{leaf name: (stack, spec)}``: the reference's stacked leaf's
+    sizes of the stack axes (layers, and experts, sized from the names
+    present) and its spec padded to the stacked dims."""
     leaves = _named_leaves(params)
     stacks: Dict[Tuple[str, ...], list] = {}
     for name in leaves:
@@ -182,11 +181,44 @@ def param_specs(params, mesh) -> Dict[str, Spec]:
             top[i] = max(top[i], ix + 1)
     out = {}
     for name, shape in leaves.items():
-        names, index = leaf_names(name)
+        names, _ = leaf_names(name)
         stack = tuple(stacks[names])
         spec = spec_for_param(names, stack + shape, ms)
-        out[name] = padded(spec, len(stack) + len(shape))[len(stack):]
+        out[name] = (stack, padded(spec, len(stack) + len(shape)))
     return out
+
+
+def param_specs(params, mesh) -> Dict[str, Spec]:
+    """``{leaf name: spec}`` of a params module (or a ``{name: tensor}``
+    dict keyed like its leaves), each spec padded to the leaf's own dims:
+    the rule applied to the reference's stacked leaf (layers, and experts,
+    on leading axes, sized from the names present), the stack's entries
+    dropped."""
+    return {name: spec[len(stack):] for name, (stack, spec)
+            in _stacked_specs(params, mesh_shape(mesh)).items()}
+
+
+def rank_param_bytes(params, mesh) -> int:
+    """The bytes of ``params`` that ``mesh``'s rank holds under the
+    reference's layout: each leaf's own dims split as its spec says, and
+    a leaf whose stack axis is sharded (experts over ("data", "model"))
+    held only by the ranks whose block of that axis holds its index.
+    (:func:`param_specs` drops the stack entries; this counts them.)"""
+    ms = mesh_shape(mesh)
+    total = 0
+    tensors = dict(params.named_buffers())
+    tensors.update(params.named_parameters())
+    for name, (stack, spec) in _stacked_specs(params, ms).items():
+        _, index = leaf_names(name)
+        held = all(axes is None or index[d] // (stack[d] // _axes_size(
+            ms, axes)) == mesh.index(axes) for d, axes in
+            enumerate(spec[:len(stack)]))
+        if held:
+            t = tensors[name]
+            split = math.prod(_axes_size(ms, a) for a in spec[len(stack):]
+                              if a is not None)
+            total += t.numel() // split * t.element_size()
+    return total
 
 
 def batch_spec_tree(batch, mesh):
@@ -246,4 +278,5 @@ def cache_spec_tree(cache, mesh):
 
 __all__ = ["TP_AXIS", "DP_AXES", "COL", "ROW", "Spec", "mesh_shape",
            "padded", "spec_axes", "spec_for_param", "leaf_names",
-           "param_specs", "batch_spec_tree", "cache_spec_tree"]
+           "param_specs", "rank_param_bytes", "batch_spec_tree",
+           "cache_spec_tree"]

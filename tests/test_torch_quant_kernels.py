@@ -257,19 +257,24 @@ def test_dispatch_routes_by_m(monkeypatch, m, gemv):
 
 
 def test_wrappers_never_compute_plain_off_cpu():
-    """A tensor that is not on the CPU is never given the plain version: a
-    wrapper launches its kernel or raises (here: the meta device)."""
+    """Off the CPU a wrapper computes no plain values: a ``meta`` tensor
+    (a dry run) takes the plain version's shape logic and gets ``meta``
+    outputs of the kernel's shape, with no launch; a CUDA tensor launches
+    the kernel or raises (tests/test_torch_kernels_cuda.py)."""
+    from repro_torch import kernels
     x, _, tqt, (a, b) = _kernel_inputs(4, 4)
     meta = dict(device="meta")
     xm = torch.empty((4, 128), dtype=torch.bfloat16, **meta)
     q = [t.to("meta") for t in (tqt.qweight, tqt.scale, tqt.zero)]
     am, bm = _t(a).to("meta"), _t(b).to("meta")
+    kernels.reset_launches()
     for fn in (qmatvec_cuda, qmatmul_cuda):
-        with pytest.raises(ValueError):
-            fn(xm, *q, bits=4, group_size=32)
+        y = fn(xm, *q, bits=4, group_size=32)
+        assert y.device.type == "meta" and tuple(y.shape) == (4, 64)
     for fn in (qalora_matvec_cuda, qalora_matmul_cuda):
-        with pytest.raises(ValueError):
-            fn(xm, *q, am, bm, s=1.0, bits=4, group_size=32)
+        y = fn(xm, *q, am, bm, s=1.0, bits=4, group_size=32)
+        assert y.device.type == "meta" and tuple(y.shape) == (4, 64)
+    assert kernels.launches() == {k: 0 for k in kernels.KERNELS}
 
 
 @pytest.mark.parametrize("g,bk", ((16, 64), (32, 64), (64, 64), (128, 128),
