@@ -574,7 +574,8 @@ EXPECTED_S = {"device": 1, "build": 25, "kernels": 10, "flash": 6,
               "baselines": 38, "families": 40, "vision": 14,
               "moe_train": 19, "moe_serve": 68, "mla_serve": 71,
               "mla_train": 50, "recurrent": 72, "rec_train": 35,
-              "encdec": 55, "mesh_train": 35, "roofline": 60}
+              "encdec": 55, "mesh_train": 35, "moe_mesh": 130,
+              "roofline": 60}
 
 
 def _phase(name, fn, *args):
@@ -3138,6 +3139,15 @@ def _grad_groups(got, ref):
         den[g] = den.get(g, 0.0) + r.norm().item() ** 2
     return {g: math.sqrt(num[g] / den[g]) if den[g] else math.sqrt(num[g])
             for g in sorted(num)}
+
+
+def _group_norms(grads):
+    """||g|| over each module group of :func:`_grad_groups`, in f32."""
+    sq = {}
+    for k, t in grads.items():
+        g = ".".join(x for x in k.split(".") if not x.isdigit())
+        sq[g] = sq.get(g, 0.0) + t.detach().cpu().float().norm().item() ** 2
+    return {g: math.sqrt(v) for g, v in sorted(sq.items())}
 
 
 def _step_grads(step, params, batch, opt_cfg):
@@ -8360,6 +8370,451 @@ def phase_mesh_train(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase moe_mesh: the MoE families on a mesh of two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# data 1 x model 2 (the rule splits the experts over ("data", "model"):
+# full expert parallelism), from nudged adapters (MOE_MESH_NUDGE) at lr
+# 2e-5 with remat, 4 x 256 alpaca tokens a step (one routing group:
+# moe_chunk 512):
+# mixtral-8x22b at 2 of 56 layers (4 of 8 experts a rank, C = 320),
+# deepseek-v3-671b at 4 of 61 (the 3 dense layers, 1 MoE layer of 256
+# experts, 128 a rank, C = 40, and the MTP head)
+MOE_MESH_RUNS = (("mixtral-8x22b", 2, 3), ("deepseek-v3-671b", 4, 2))
+MOE_MESH_ARGV = ["--seq-len", "256", "--global-batch", "4", "--dataset",
+                 "alpaca", "--lr", "2e-5", "--log-every", "1", "--device",
+                 "cuda"]
+MOE_MESH_DIR = os.path.join(ROOT, "build", "chip_smoke_moe_mesh")
+MOE_MESH_DEADLINE_S = 400.0
+# kernel 3 at a rank's shard shapes (M, K, N): mixtral's experts at C =
+# 320 and its model-2 attention at M = 1024; deepseek-v3's experts at C =
+# 40 and MLA's col linears at a rank's 64 heads, wo a row
+MOE_MESH_SHAPES = ((320, 6144, 16384), (320, 16384, 6144),
+                   (1024, 6144, 3072), (1024, 3072, 6144),
+                   (40, 7168, 2048), (40, 2048, 7168),
+                   (1024, 7168, 768), (1024, 1536, 12288),
+                   (1024, 7168, 288), (1024, 512, 16384),
+                   (1024, 8192, 7168))
+MOE_MESH_PATH = ("mixtral-8x22b (2 layers, 3 steps) and deepseek-v3-671b (4 "
+                 "layers, 2 steps) train on model 2 with full expert "
+                 "parallelism, per rank (phase moe_mesh)")
+
+
+def _moe_mesh_argv(arch, layers, steps):
+    return ["--arch", arch, "--n-layers", str(layers), "--steps",
+            str(steps)] + MOE_MESH_ARGV
+
+
+# the adapters' nudge: 0.01 N(0, 1) an element, not phase families' +
+# 0.01.  With a constant B each A's gradient is s pool(x)^T (0.01
+# rowsum(dY)), a row sum of dY that bf16 cancels, and + 0.01 on every
+# adapter drives deepseek-v3's activations up until its MoE layer's
+# attention softmax saturates (gradient norm 7.5e6, that layer's query
+# path 1e-19 of the largest group).  Read on this phase's runs, mesh
+# against one device (H100 80GB HBM3, 700 W): with + 0.01, module groups
+# 0.007-4.2 apart; with + 0.01 (1 + N(0, 1)), up to 0.180 for mixtral
+# and 1299 for deepseek-v3's saturated groups; with 0.01 N(0, 1), every
+# group within 0.059
+MOE_MESH_NUDGE = 0.01
+
+
+def _nudged(torch, argv):
+    """The trainer's model of ``argv`` from its seed, on the card, its
+    adapters nudged (:data:`MOE_MESH_NUDGE`, the noise from seed 1)."""
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import trainable_tensors
+    args = train.build_parser().parse_args(argv)
+    lm = LM(train.build_config(args))
+    params = lm.init(torch.Generator(device="cuda").manual_seed(args.seed),
+                     "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        for t in trainable_tensors(params).values():
+            t.add_((MOE_MESH_NUDGE * torch.randn(
+                t.shape, generator=gen, device="cuda")).to(t.dtype))
+    return params
+
+
+def _rank_launches(cfg, shard) -> int:
+    """Kernel 3 (and 3a) launches of one train step on a rank: each
+    ``qalora`` linear it holds in the layers, again in the recompute, and
+    the MTP block's once."""
+    from repro_torch.core import schemes
+
+    def n(module):
+        return sum(1 for m in module.modules()
+                   if schemes.is_linear(m) and m.scheme == "qalora")
+    blocks = sum(n(b) for b in shard.layer_blocks())
+    mtp = n(shard.mtp_block) if hasattr(shard, "mtp_block") else 0
+    return blocks * (2 if cfg.remat else 1) + mtp
+
+
+def _moe_mesh_train(torch, mesh, arch, layers, steps, ckpt_dir=None,
+                    control=False):
+    """One arch's sharded run through the train CLI's ``setup`` and
+    ``run`` (counts reset just before the loop, read just after): its
+    losses, each step's recorded routing (rank 0's rows: all of them on
+    data 1), the gathered first moments and grad norm of step 1, the
+    gathered adapters after the last step; with ``control``, then step 1
+    again from the start with the experts' gradients also summed over
+    "model" (a replicated leaf's rule)."""
+    from repro_torch import kernels
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import gather_tensors
+    argv = _moe_mesh_argv(arch, layers, steps) + ["--mesh", "pod"] + (
+        ["--ckpt-dir", ckpt_dir, "--ckpt-every", str(steps)]
+        if ckpt_dir else [])
+    args = train.build_parser().parse_args(argv)
+    t0 = time.perf_counter()
+    st = train.setup(args, params=_nudged(torch, argv), mesh=mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    specs = st.params.specs
+    start = {k: v.detach().clone() for k, v in st.trainable.items()}
+    inner, rec = st.step_fn, {"routes": []}
+
+    def step_fn(params, opt, batch):
+        rec.setdefault("batch", batch)
+        with moe.record_routing() as route:
+            m = inner(params, opt, batch)
+        rec["routes"].append([{k: v.to("cpu", copy=True) for k, v in
+                               r.items()} for r in route])
+        if "mu" not in rec:
+            rec["grad_norm"] = float(m["grad_norm"])
+            rec["mu"] = {k: v.to("cpu", copy=True) for k, v in
+                         gather_tensors(opt["mu"], specs, mesh).items()}
+        return m
+    st.step_fn = step_fn
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    res = train.run(st, args)
+    torch.cuda.synchronize()
+    out = {"loss": res["loss"], "grad_norm_1": rec["grad_norm"],
+           "routes": rec["routes"], "counts": kernels.launches(),
+           "per_step": _rank_launches(st.cfg, st.params),
+           "step_ms": res["step_ms"],
+           "step_ms_median": res["step_ms_median"],
+           "peak_mem_bytes": res["peak_mem_bytes"], "setup_s": setup_s,
+           "backend": mesh.backend,
+           "experts": sorted({e for m in st.params.modules()
+                              if hasattr(m, "ep") for e in m.ep.experts}),
+           "modes": sorted({lp.tp.mode.value for lp in st.params.modules()
+                            if hasattr(lp, "tp")}),
+           "first": {"grad_norm": rec["grad_norm"], "mu": rec["mu"]},
+           "adapters": {k: v.to("cpu", copy=True) for k, v in gather_tensors(
+               st.trainable, specs, mesh).items()}}
+    if arch == "mixtral-8x22b":
+        out["merge_codes_scales_identical"], out["merge_zero_max_rel"] = \
+            _merge_on_shards(torch, st.params, mesh)
+    def first_step():
+        """Step 1 again from the start: its gathered first moments."""
+        with torch.no_grad():
+            for k, v in start.items():
+                if k in st.trainable:
+                    st.trainable[k].copy_(v)
+        tr = {k: v for k, v in st.trainable.items()
+              if k in dict(st.params.named_parameters())}
+        opt = adamw_init(tr)
+        m = S.make_train_step(st.lm, mesh, st.opt_cfg)(
+            st.params, opt, rec["batch"])
+        return {"grad_norm": float(m["grad_norm"]), "mu": {
+            k: v.to("cpu", copy=True) for k, v in gather_tensors(
+                opt["mu"], specs, mesh).items()}}
+    if control:
+        real = S.grad_sum_axes
+
+        def also_model(params, dp):
+            return {k: tuple(dict.fromkeys(v + ("model",)))
+                    if k in params.specs.experts else v
+                    for k, v in real(params, dp).items()}
+        S.grad_sum_axes = also_model
+        try:
+            out["control"] = first_step()
+        finally:
+            S.grad_sum_axes = real
+    if hasattr(st.params, "mtp_block"):
+        _without_mtp(st.params)
+        out["no_mtp"] = first_step()
+    del st, res, start, rec
+    _free(torch)
+    return out
+
+
+_MOE_MESH_TENSORS = ("first", "adapters", "control", "no_mtp", "routes")
+
+
+def _moe_mesh_rank(rank, ckpt_dir):
+    """One rank of phase moe_mesh on data 1 x model 2: mixtral (with its
+    checkpoint, the merge on shards and the control), then deepseek-v3.
+    The gathered tensors (the same on both ranks) rank 0 writes beside
+    the checkpoint, ``<arch>.pt``: ~1 GB for deepseek-v3's experts, which
+    the result queue would pickle by value."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 2), ("data", "model"))
+    out = {"rank": rank}
+    for arch, layers, steps in MOE_MESH_RUNS:
+        mixtral = arch == "mixtral-8x22b"
+        run = _moe_mesh_train(torch, mesh, arch, layers, steps,
+                              ckpt_dir if mixtral else None, control=mixtral)
+        kept = {k: run.pop(k) for k in _MOE_MESH_TENSORS if k in run}
+        if rank == 0:
+            torch.save(kept, os.path.join(ckpt_dir, f"{arch}.pt"))
+        out[arch] = run
+        del kept
+    return out
+
+
+def _single_moe(torch, arch, layers, steps, routes):
+    """The same model, seed and batches on one device, each MoE layer
+    routed as the mesh recorded it (``moe.choose_experts``): its losses,
+    first moments and adapters after the last step, and per (step,
+    layer) its own top-k beside the mesh's (the flips)."""
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_cpu_mesh
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw_init, trainable_tensors
+    argv = _moe_mesh_argv(arch, layers, steps)
+    args = train.build_parser().parse_args(argv)
+    st = train.setup(args, params=_nudged(torch, argv), mesh=make_cpu_mesh())
+    moes = [b["moe"] for b in st.params.layer_blocks() if "moe" in b]
+    layer_of = {id(m): i for i, m in enumerate(moes)}
+    at, own, first = [0], {}, {}
+
+    def choose(p, idx, probs):
+        layer = layer_of[id(p)]
+        mesh_idx = routes[at[0]][layer]["idx"].reshape(idx.shape).to(
+            idx.device)
+        own.setdefault((at[0], layer), (idx, mesh_idx, probs))
+        return mesh_idx
+    inner = st.step_fn
+
+    def step_fn(params, opt, batch):
+        with moe.choose_experts(choose):
+            m = inner(params, opt, batch)
+        if not first:
+            first.update(grad_norm=float(m["grad_norm"]), batch=batch, mu={
+                k: v.to("cpu", copy=True) for k, v in opt["mu"].items()})
+        at[0] += 1
+        return m
+    st.step_fn = step_fn
+    start = {k: v.detach().clone() for k, v in st.trainable.items()}
+    res = train.run(st, args)
+    flips = _own_choice(torch, {i: v for i, (_, v) in enumerate(
+        sorted(own.items()))})
+    no_mtp = None
+    if hasattr(st.params, "mtp_block"):
+        # step 1 again without the MTP head, routed as the mesh's step 1
+        _without_mtp(st.params)
+        tr = trainable_tensors(st.params)
+        with torch.no_grad():
+            for k, v in tr.items():
+                v.copy_(start[k])
+        opt = adamw_init(tr)
+        at[0] = 0
+        with moe.choose_experts(choose):
+            m = inner(st.params, opt, first["batch"])
+        no_mtp = {"grad_norm": float(m["grad_norm"]),
+                  "mu": {k: v.to("cpu", copy=True)
+                         for k, v in opt["mu"].items()}}
+    out = {"loss": res["loss"], "first": first, "flips": flips,
+           "no_mtp": no_mtp,
+           "adapters": {k: v.detach().to("cpu", copy=True)
+                        for k, v in st.trainable.items()},
+           "step_ms_median": res["step_ms_median"],
+           "peak_mem_bytes": res["peak_mem_bytes"]}
+    first.pop("batch")
+    del st, res, own, start
+    _free(torch)
+    return out
+
+
+def phase_moe_mesh(torch):
+    """``repro_torch.launch.train``'s sharded step for the MoE families on
+    two ranks that share the card (gloo, spawned after phase build: they
+    load its libraries and never build), data 1 x model 2 with full
+    expert parallelism (mixtral's 8 experts and deepseek-v3's 256 split
+    over the two), each held against one device on the same seed,
+    batches and routing (the one device routed as the mesh recorded:
+    each routing it would choose otherwise, a flip, a near tie within
+    ``MOE_TIE_GAP``), from adapters nudged by ``MOE_MESH_NUDGE`` N(0, 1):
+    each step's loss within ``MESH_LOSS_TOL``, the first step's
+    gradients and the adapters after the last within ``TRAIN_GRAD_TOL``
+    by module group (deepseek-v3's,
+    with its MTP head in the loss, within ``MLA_MTP_GRAD_TOL``, and step
+    1 again without the head within ``TRAIN_GRAD_TOL``: phase
+    mla_train's limits); a control with the experts' gradients also
+    summed over "model" must fail that limit; kernels 3
+    and 3a at the ranks' shard shapes against their plain versions; the
+    trained merge on mixtral's shards against the merge of the gathered
+    tree; its last checkpoint restored on one device bit for bit; each
+    rank's launches of kernels 3 and 3a exact."""
+    import shutil
+    import repro_torch.configs as C
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.optim import AdamWConfig
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    held = [_check_one(torch, "qalora_matmul", m, k, n, BITS, gen,
+                       timing=False) for m, k, n in MOE_MESH_SHAPES]
+    proj = [_check_proj(torch, m, k, gen) for m, k in sorted(
+        {(m, k) for m, k, _ in MOE_MESH_SHAPES})]
+    _free(torch)
+    checks_s = time.perf_counter() - t_phase
+    shutil.rmtree(MOE_MESH_DIR, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        ranks = run_ranks(_moe_mesh_rank, 2, (MOE_MESH_DIR,),
+                          device_type="cuda", deadline_s=MOE_MESH_DEADLINE_S)
+        ranks_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        single = {}
+        for arch, layers, steps in MOE_MESH_RUNS:
+            ranks[0][arch].update(torch.load(
+                os.path.join(MOE_MESH_DIR, f"{arch}.pt"), map_location="cpu"))
+            single[arch] = _single_moe(torch, arch, layers, steps,
+                                       ranks[0][arch]["routes"])
+        arch, layers, steps = MOE_MESH_RUNS[0]
+        args = train.build_parser().parse_args(
+            _moe_mesh_argv(arch, layers, steps) + ["--ckpt-dir",
+                                                   MOE_MESH_DIR])
+        st = train.setup(args)
+        restored_start = st.start
+        restored = {k: v.detach().cpu() for k, v in st.trainable.items()}
+        del st
+        _free(torch)
+        single_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(MOE_MESH_DIR, ignore_errors=True)
+    opt_cfg = AdamWConfig(lr=2e-5)
+    runs, checks = {}, {}
+    for arch, layers, steps in MOE_MESH_RUNS:
+        m0, one = ranks[0][arch], single[arch]
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(m0["loss"],
+                                                        one["loss"])]
+        grads = _grad_groups(_grads_of(m0["first"], opt_cfg),
+                             _grads_of(one["first"], opt_cfg))
+        adapters = _grad_groups(m0["adapters"], one["adapters"])
+
+        # phase mla_train's limits: deepseek-v3's step with the MTP head
+        # (its un-normed logits) within MLA_MTP_GRAD_TOL, without it
+        # within TRAIN_GRAD_TOL, as every mixtral group
+        mtp = m0.get("no_mtp") is not None
+        lim = MLA_MTP_GRAD_TOL if mtp else TRAIN_GRAD_TOL
+        no_mtp = (_grad_groups(_grads_of(m0["no_mtp"], opt_cfg),
+                               _grads_of(one["no_mtp"], opt_cfg))
+                  if mtp else {})
+        norms = {"with_head": _group_norms(_grads_of(one["first"],
+                                                     opt_cfg))}
+        if mtp:
+            norms["without_mtp"] = _group_norms(_grads_of(one["no_mtp"],
+                                                          opt_cfg))
+        flipped = sum(f["differ"] for f in one["flips"])
+        routed = sum(r["idx"].shape[0] * r["idx"].shape[1]
+                     for step in m0["routes"] for r in step)
+        run = {"loss_mesh": m0["loss"], "loss_single": one["loss"],
+               "loss_rel": loss_rel, "grad_rel_by_group": grads,
+               "grad_rel_by_group_without_mtp": no_mtp,
+               "single_grad_norm_by_group": norms,
+               "adapter_rel_by_group": adapters,
+               "flipped_share": flipped / routed, "flips": one["flips"],
+               "launches_per_rank": [
+                   {k: r[arch]["counts"][k] for k in TRAIN_PATH}
+                   for r in ranks],
+               "expected_per_rank": [r[arch]["per_step"] * steps
+                                     for r in ranks],
+               "experts_per_rank": [len(r[arch]["experts"]) for r in ranks],
+               "modes": m0["modes"],
+               "step_ms_median_per_rank": [r[arch]["step_ms_median"]
+                                           for r in ranks],
+               "peak_gb_per_rank": [(r[arch]["peak_mem_bytes"] or 0) / 1e9
+                                    for r in ranks],
+               "single_step_ms_median": one["step_ms_median"],
+               "single_peak_gb": (one["peak_mem_bytes"] or 0) / 1e9,
+               "setup_s_per_rank": [r[arch]["setup_s"] for r in ranks]}
+        tag = arch.split("-")[0]
+        checks.update({
+            f"{tag}_loss_within_tol": max(loss_rel) <= MESH_LOSS_TOL,
+            f"{tag}_grads_within_tol": max(grads.values()) <= lim,
+            f"{tag}_adapters_within_tol": max(adapters.values()) <= lim,
+            f"{tag}_grads_without_mtp_within_tol": all(
+                v <= TRAIN_GRAD_TOL for v in no_mtp.values()),
+            f"{tag}_flips_are_near_ties": max(
+                f["max_gap_given_up"] for f in one["flips"]) <= MOE_TIE_GAP,
+            f"{tag}_experts_split": run["experts_per_rank"] == [
+                C.get(arch).n_experts // 2] * 2,
+            f"{tag}_launches_per_rank": all(
+                c[k] == e for c, e in zip(run["launches_per_rank"],
+                                          run["expected_per_rank"])
+                for k in TRAIN_PATH),
+            f"{tag}_finite": all(math.isfinite(x) for x in m0["loss"]
+                                 + one["loss"])})
+        runs[arch] = run
+    mix = ranks[0]["mixtral-8x22b"]
+    one = single["mixtral-8x22b"]
+    ctl = _grad_groups(_grads_of(mix["control"], opt_cfg),
+                       _grads_of(one["first"], opt_cfg))
+    checks.update({
+        "control_fails_the_limit": max(ctl.values()) > TRAIN_GRAD_TOL,
+        "kernel3_at_shard_shapes": all(r["ok"] for r in held),
+        "kernel3a_at_shard_shapes": all(r["ok"] for r in proj),
+        "merge_on_shards": all(
+            r["mixtral-8x22b"]["merge_codes_scales_identical"]
+            and r["mixtral-8x22b"]["merge_zero_max_rel"] <= BF16_U
+            for r in ranks),
+        "checkpoint_restored_bit_for_bit": restored_start == MOE_MESH_RUNS[
+            0][2] and sorted(restored) == sorted(mix["adapters"]) and all(
+            torch.equal(restored[k], mix["adapters"][k]) for k in restored)})
+    smi = _smi("name,power.limit")
+    out = {"phase": "moe_mesh", "card": smi,
+           "mesh": "data 1 x model 2, full expert parallelism",
+           "ranks": "2 processes sharing one card (gloo, host copies)",
+           "backend": mix["backend"],
+           "batch": "4 x 256, alpaca, seed 0, lr 2e-5, remat, adapters "
+                    f"nudged by {MOE_MESH_NUDGE} N(0, 1)",
+           "runs": {f"{a} ({n} layers, {s} steps)": runs[a]
+                    for a, n, s in MOE_MESH_RUNS},
+           "control_grad_rel_by_group": ctl, "tol": TRAIN_GRAD_TOL,
+           "mtp_tol": MLA_MTP_GRAD_TOL, "loss_tol": MESH_LOSS_TOL,
+           "tie_gap": MOE_TIE_GAP,
+           "kernel3_rows": [{k: r[k] for k in ("M", "K", "N", "max_abs_err",
+                                               "tol")} for r in held],
+           "kernel3a_rows": [{k: r[k] for k in ("M", "K", "max_abs_err",
+                                                "tol")} for r in proj],
+           "merge_zero_max_rel": [r["mixtral-8x22b"]["merge_zero_max_rel"]
+                                  for r in ranks],
+           "seconds_by_part": {"kernel_checks": checks_s, "ranks": ranks_s,
+                               "single_and_restore": single_s},
+           "checks": checks, "phase_s": time.perf_counter() - t_phase}
+    out["ok"] = all(checks.values())
+    for a, n, s in MOE_MESH_RUNS:
+        r = runs[a]
+        print(f"[chip_smoke] moe_mesh: {a} {n} layers on model 2 "
+              f"({mix['backend']}, 2 ranks sharing {smi}): step "
+              f"{[round(x, 1) for x in r['step_ms_median_per_rank']]} ms a "
+              f"rank (one device {r['single_step_ms_median']:.1f} ms), peak "
+              f"{[round(g, 2) for g in r['peak_gb_per_rank']]} GB a rank; "
+              f"loss rel {max(r['loss_rel']):.2e}, grads "
+              f"{max(r['grad_rel_by_group'].values()):.3f}, adapters "
+              f"{max(r['adapter_rel_by_group'].values()):.3f}, flipped "
+              f"{r['flipped_share']:.4f}", flush=True)
+    print(f"[chip_smoke] moe_mesh: control {max(ctl.values()):.3f} vs "
+          f"{TRAIN_GRAD_TOL}; ok {out['ok']}", flush=True)
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"moe_mesh checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    counts = {k: sum(ranks[0][a]["counts"][k] for a, _, _ in MOE_MESH_RUNS)
+              for k in ranks[0]["mixtral-8x22b"]["counts"]}
+    return counts, held, proj
+
+
+# ---------------------------------------------------------------------------
 # phase roofline: gemma3-1b at its published widths against the roofline
 # ---------------------------------------------------------------------------
 
@@ -8778,6 +9233,8 @@ def main() -> int:
         serve_counts.update(encdec_counts)
         serve_counts[MESH_PATH] = _phase("mesh_train", phase_mesh_train,
                                          torch)
+        serve_counts[MOE_MESH_PATH], moe_mesh_held, moe_mesh_proj = _phase(
+            "moe_mesh", phase_moe_mesh, torch)
         serve_counts[ROOF_PATH], roof_held = _phase("roofline",
                                                     phase_roofline, torch)
     except Exception as e:  # report, save and fail: no result line
@@ -8807,7 +9264,7 @@ def main() -> int:
             + sum(c[name] for c in serve_counts.values()),
             "max_abs_err": max([x["max_abs_err"]
                                 for x in r + ragged.get(name, []) + held
-                                + (ragged["mesh_shards"]
+                                + (ragged["mesh_shards"] + moe_mesh_held
                                    if name == "qalora_matmul" else [])]
                                + [train_errs.get(name, 0.0),
                                   moe_train_errs.get(name, 0.0)]
@@ -8867,6 +9324,14 @@ def main() -> int:
                 "rows": [{key: r[key] for key in (
                     "K", "N", "kernel_ms", "plain_ms", "library_ms",
                     "bound_ms", "bound_by", "max_abs_err")} for r in mr]}
+            summary[-1]["moe_mesh_shard_shapes"] = {
+                "work": "a rank's experts at their capacity and its MLA / "
+                        "attention shards on model 2 (phase moe_mesh), "
+                        "int4 g32 r64, bf16, held against the plain "
+                        "version (not timed)",
+                "rows": [{key: r[key] for key in ("M", "K", "N", "bound_ms",
+                                                  "bound_by", "max_abs_err")}
+                         for r in moe_mesh_held]}
         if name in ragged:
             rr = ragged[name]
             summary[-1]["ragged_step"] = {
@@ -8902,7 +9367,8 @@ def main() -> int:
             **{f"{path} (phase baselines)": c[PROJ[0]]
                for path, c in base_counts.items()},
             **{path: c[PROJ[0]] for path, c in serve_counts.items()}},
-        "max_abs_err": max([x["max_abs_err"] for x in r + ragged[PROJ[0]]]
+        "max_abs_err": max([x["max_abs_err"] for x in r + ragged[PROJ[0]]
+                            + moe_mesh_proj]
                            + [train_errs[PROJ[0]], moe_train_errs[PROJ[0]]]),
         **{f"{key}_ms": _per_layer(r, f"{key}_ms")
            for key in ("plain", "library")},

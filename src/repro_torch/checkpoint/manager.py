@@ -184,13 +184,24 @@ def step_path(directory: str, step: int) -> str:
     return os.path.join(directory, f"step_{step:08d}")
 
 
-def _by_leaf_name(tree, specs, fn):
-    """``tree`` with each tensor leaf ``fn(tensor, spec)``, its spec found
-    by the leaf's own key (a tree of ``{name: tensor}`` dicts, e.g.
-    ``{"t": ..., "o": {"mu": ..., "nu": ..., "step": ...}}``; a key not in
-    ``specs`` is replicated)."""
-    return _unflatten((p, fn(x, specs.get(p[-1], ())) if isinstance(
-        x, torch.Tensor) else x) for p, x in _flatten(tree))
+def _by_dict(tree, fn):
+    """``tree`` (a tree of ``{name: tensor}`` dicts, e.g. ``{"t": ...,
+    "o": {"mu": ..., "nu": ..., "step": ...}}``) with each dict's tensor
+    leaves replaced by ``fn({name: tensor})`` (which may name other
+    leaves: a rank's experts in, every expert out), in one order on every
+    rank."""
+    groups: Dict[Tuple[str, ...], dict] = {}
+    for p, x in _flatten(tree):
+        groups.setdefault(p[:-1], {})[p[-1]] = x
+    items = []
+    for parent, leaves in groups.items():
+        tensors = {k: x for k, x in leaves.items()
+                   if isinstance(x, torch.Tensor)}
+        done = fn(tensors)
+        items += [(parent + (k,), x) for k, x in leaves.items()
+                  if k not in tensors]
+        items += [(parent + (k,), x) for k, x in done.items()]
+    return _unflatten(items)
 
 
 class CheckpointManager:
@@ -256,9 +267,9 @@ class CheckpointManager:
     def _gathered(self, tree):
         if self.mesh is None:
             return tree
-        from repro_torch.sharding.shard import gather_tensor
-        return _by_leaf_name(tree, self.specs,
-                             lambda t, s: gather_tensor(t, s, self.mesh))
+        from repro_torch.sharding.shard import gather_tensors
+        return _by_dict(tree, lambda d: gather_tensors(d, self.specs,
+                                                       self.mesh))
 
     def save(self, step: int, tree, meta: Optional[dict] = None):
         """Snapshot ``tree`` to host memory on this thread, then write it
@@ -320,9 +331,9 @@ class CheckpointManager:
         rank's blocks of it on a mesh)."""
         if self.mesh is None:
             return load_pytree(self.step_dir(step), like)
-        from repro_torch.sharding.shard import shard_tensor
-        tree = _by_leaf_name(load_pytree(self.step_dir(step)), self.specs,
-                             lambda t, s: shard_tensor(t, s, self.mesh))
+        from repro_torch.sharding.shard import shard_tensors
+        tree = _by_dict(load_pytree(self.step_dir(step)),
+                        lambda d: shard_tensors(d, self.specs, self.mesh))
         return tree if like is None else conform(tree, like,
                                                  self.step_dir(step))
 

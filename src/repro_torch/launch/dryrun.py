@@ -16,9 +16,13 @@ decode cache (:func:`~repro_torch.sharding.cache_spec_tree`).  Train
 cells run :func:`repro_torch.launch.steps.make_train_step`, prefill
 cells ``LM.prefill``, decode cells ``LM.decode_step`` (``--gen-len N``:
 N - 1 steps and their greedy argmax, the serve loop's program).  One step
-is counted by :class:`repro_torch.perf.cost.CostCounter`.  A cell the
-port does not run on a mesh (``check_mesh_support``, and for decode
-``check_decode_mesh_support``) is recorded as refused with the reason.
+is counted by :class:`repro_torch.perf.cost.CostCounter`: a MoE layer's
+expert dispatch and combine count as the mesh's all-to-all and
+all-gather, and a rank's expert bytes are its experts' only.  A cell the
+port does not run on a mesh (``check_mesh_support``, for decode
+``check_decode_mesh_support``, and for an mla_moe prefill whose
+compressed cache is not the rank's part ``check_prefill_mesh_support``)
+is recorded as refused with the reason.
 
 Each cell writes ``<outdir>/<arch>__<cell>__<mesh>.json``: the rank's
 bytes of params, optimizer state, cache and batch (what it holds before
@@ -48,12 +52,14 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.launch.mesh import PRODUCTION as MESHES
 from repro_torch.perf.cost import CostCounter, tensor_bytes
 from repro_torch.perf.roofline import HW
 
 OUTDIR = "experiments/dryrun_torch"
-MESHES = {"pod": ((16, 16), ("data", "model")),
-          "multipod": ((2, 16, 16), ("pod", "data", "model"))}
+MESH_DECODE_NOT_PORTED = (
+    "decode on a mesh of the MoE families is not yet ported (see "
+    "ROADMAP.md, Queue 1 item 16c: decode on a mesh)")
 
 
 @contextlib.contextmanager
@@ -136,6 +142,30 @@ def check_decode_mesh_support(cfg, shard, cache, mesh, seq: int) -> None:
             f"{MESH_NOT_PORTED}")
 
 
+def check_prefill_mesh_support(cfg, cache, mesh, rows: int) -> None:
+    """Raises NotImplementedError (naming ROADMAP.md) where an mla_moe
+    prefill's compressed cache on this rank (each leaf [L, B, S, R]) is
+    not its part under :func:`~repro_torch.sharding.cache_spec_tree` of
+    the global batch's ``rows``."""
+    from repro_torch.launch.steps import MESH_NOT_PORTED
+    from repro_torch.sharding import cache_spec_tree, padded
+    if cfg.family != "mla_moe":
+        return
+    width = {"c": cfg.kv_lora_rank, "kr": cfg.qk_rope_dim}
+    for part, leaves in cache["layers"].items():
+        for name, t in leaves.items():
+            full = (t.shape[0], rows, t.shape[2], width[name])
+            spec = padded(cache_spec_tree({name: full}, mesh)[name], 4)
+            want = tuple(n // mesh.size(a) if a else n
+                         for n, a in zip(full, spec))
+            if tuple(t.shape) != want:
+                raise NotImplementedError(
+                    f"{cfg.name}'s prefill writes a rank's {part} {name} "
+                    f"cache {tuple(t.shape)}, its cache spec {spec} holds "
+                    f"{want}; prefill with that cache layout is "
+                    f"{MESH_NOT_PORTED}")
+
+
 def make_step(lm, kind: str, params, inputs: Dict, mesh=None,
               opt_state=None, gen_len: int = 0):
     """A callable running one step of ``kind`` on ``params`` (this rank's
@@ -146,6 +176,7 @@ def make_step(lm, kind: str, params, inputs: Dict, mesh=None,
     ``gen_len`` > 0 runs ``gen_len - 1`` steps, each fed the argmax of
     the last)."""
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import moe
     from repro_torch.optim import adamw_init, trainable_tensors
     if kind == "train":
         step = make_train_step(lm, mesh)
@@ -156,7 +187,8 @@ def make_step(lm, kind: str, params, inputs: Dict, mesh=None,
     @torch.no_grad()
     def serve():
         if kind == "prefill":
-            return lm.prefill(params, inputs["batch"])
+            with moe.rows_over(inputs.get("rows", ())):
+                return lm.prefill(params, inputs["batch"])
         if not gen_len:
             return lm.decode_step(params, inputs["cache"], inputs["tokens"])
         tok = inputs["tokens"]
@@ -167,12 +199,14 @@ def make_step(lm, kind: str, params, inputs: Dict, mesh=None,
 
 
 def run_step(lm, kind: str, params, inputs: Dict, mesh=None, opt_state=None,
-             gen_len: int = 0) -> CostCounter:
+             gen_len: int = 0, out: Optional[list] = None) -> CostCounter:
     """One step of :func:`make_step` under a :class:`CostCounter`;
-    returns the counter."""
+    returns the counter (and appends the step's result to ``out``)."""
     step = make_step(lm, kind, params, inputs, mesh, opt_state, gen_len)
     with CostCounter() as counter:
-        step()
+        result = step()
+    if out is not None:
+        out.append(result)
     return counter
 
 
@@ -182,7 +216,6 @@ def trace(cfg, cell, mesh=None, gen_len: int = 0) -> dict:
     "memory"}``.  Raises NotImplementedError where the port does not run
     the cell on the mesh."""
     from repro_torch.configs.shapes import input_specs
-    from repro_torch.core import schemes
     from repro_torch.launch.steps import abstract_params, check_mesh_support
     from repro_torch.models.lm import LM
     from repro_torch.optim import adamw_init, trainable_tensors
@@ -192,14 +225,12 @@ def trace(cfg, cell, mesh=None, gen_len: int = 0) -> dict:
     sharded = mesh is not None and not mesh.single
     if sharded:
         # before the full-width params are built (a refused cell costs
-        # nothing): the family first, then the schemes of one layer of a
-        # gqa config (a policy names no layer)
-        used = set()
-        if cfg.family == "gqa":
-            one = abstract_params(LM(cfg.scaled(n_layers=1)))
-            used = {lp.scheme for lp in one.modules()
-                    if schemes.is_linear(lp)}
-        check_mesh_support(cfg, used, mesh)
+        # nothing): the family, then the schemes of one layer of each
+        # stack (a policy names no layer)
+        check_mesh_support(cfg, mesh=mesh)
+        if cell.kind == "decode" and cfg.family != "gqa":
+            raise NotImplementedError(f"{cfg.name} ({cfg.family}): "
+                                      f"{MESH_DECODE_NOT_PORTED}")
     params = abstract_params(lm)
     held = {"params_bytes": rank_param_bytes(params, mesh) if sharded
             else tensor_bytes(*params.buffers(), *params.parameters()),
@@ -217,7 +248,9 @@ def trace(cfg, cell, mesh=None, gen_len: int = 0) -> dict:
             if sharded else batch
         held["batch_bytes"] = tensor_bytes(local)
         if kind == "prefill":
-            inputs = {"batch": local}
+            rows = int(batch["tokens"].shape[0])
+            inputs = {"batch": local, "rows": mesh.dp_axes if sharded and
+                      _rows(mesh, rows)[1] < rows else ()}
     else:
         cache = inputs["cache"]
         if sharded:
@@ -229,8 +262,12 @@ def trace(cfg, cell, mesh=None, gen_len: int = 0) -> dict:
         inputs = {"cache": cache, "tokens": inputs["tokens"][first:first + n]}
         held["cache_bytes"] = tensor_bytes(cache)
         held["batch_bytes"] = tensor_bytes(inputs["tokens"])
+    result = []
     counter = run_step(lm, kind, params, inputs, mesh if sharded else None,
-                       opt, gen_len=gen_len)
+                       opt, gen_len=gen_len, out=result)
+    if kind == "prefill" and sharded:
+        check_prefill_mesh_support(cfg, result[0][1], mesh,
+                                   int(batch["tokens"].shape[0]))
     total = sum(held.values())
     return {"cost": counter.cost.as_dict(),
             "by_op": {k: dict(zip(("calls", "flops", "bytes",

@@ -74,7 +74,8 @@ class Mesh:
     ``shape`` maps each axis to its size (the reference's ``mesh.shape``),
     ``coords`` this rank's index on each.  :meth:`group` gives the process
     group of an axis or a tuple of axes (None where it has one process),
-    and :meth:`all_reduce` / :meth:`all_gather` run collectives over it."""
+    and :meth:`all_reduce` / :meth:`all_gather` / :meth:`all_to_all` run
+    collectives over it."""
 
     def __init__(self, sizes: Sequence[int], axis_names: Sequence[str]):
         if len(sizes) != len(axis_names):
@@ -117,13 +118,26 @@ class Mesh:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         return math.prod(self.shape.get(a, 1) for a in axes)
 
-    def index(self, axes) -> int:
-        """This rank's row-major index over ``axes``."""
+    def index(self, axes, coords=None) -> int:
+        """This rank's row-major index over ``axes`` (or, given
+        ``coords``, that of the rank at those coordinates)."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        coords = self.coords if coords is None else coords
         i = 0
         for a in axes:
-            i = i * self.shape.get(a, 1) + self.coords.get(a, 0)
+            i = i * self.shape.get(a, 1) + coords.get(a, 0)
         return i
+
+    def coords_at(self, axes, i: int) -> Dict[str, int]:
+        """The coordinates of the rank at row-major index ``i`` over
+        ``axes`` whose other coordinates are this rank's."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        out = dict(self.coords)
+        for a in reversed(axes):
+            if a in self.shape:
+                out[a] = i % self.shape[a]
+                i //= self.shape[a]
+        return out
 
     def _rank_of(self, coords: Dict[str, int]) -> int:
         r = 0
@@ -204,6 +218,21 @@ class Mesh:
             dist.all_gather(parts, x, group=g)
             return torch.cat(parts, dim=dim).to(t.device)
 
+    def all_to_all(self, t: torch.Tensor, axes):
+        """``t``'s rows (dim 0, ``n`` equal blocks for the ``n`` processes
+        of ``axes``) exchanged: block i goes to the rank at index i over
+        the axes, and the result holds, in index order, the block each
+        rank sent here; ``t`` itself on one process."""
+        g = self.group(axes)
+        if g is None:
+            return t
+        nbytes = t.numel() * t.element_size()
+        with cost.reported("all_to_all", 0, 2 * nbytes, nbytes):
+            x = self._wire(t)
+            y = torch.empty_like(x)
+            dist.all_to_all_single(y, x, group=g)
+            return y.to(t.device)
+
     def from_rank0(self, value):
         """Rank 0's ``value`` (any picklable object) on every rank: a
         collective (``value`` itself on one process)."""
@@ -230,11 +259,15 @@ def make_mesh(sizes: Sequence[int], axis_names: Sequence[str]) -> Mesh:
     return Mesh(sizes, axis_names)
 
 
+# (sizes, axes) of the production meshes, by their ``--mesh`` names
+PRODUCTION = {"pod": ((16, 16), ("data", "model")),
+              "multipod": ((2, 16, 16), ("pod", "data", "model"))}
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """16 x 16 over ("data", "model"), or 2 x 16 x 16 over ("pod",
     "data", "model"); refuses another number of processes."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = PRODUCTION["multipod" if multi_pod else "pod"]
     world, want = world_size(), math.prod(shape)
     if world != want:
         raise ValueError(
@@ -368,6 +401,7 @@ def run_ranks(fn: Callable, world: int, args: tuple = (), *,
     return [results[r] for r in range(world)]
 
 
-__all__ = ["Mesh", "make_mesh", "make_production_mesh", "make_cpu_mesh",
+__all__ = ["Mesh", "PRODUCTION", "make_mesh", "make_production_mesh",
+           "make_cpu_mesh",
            "init_from_env", "rank_device", "backend_for", "run_ranks",
            "world_size"]

@@ -6,7 +6,9 @@ rank's counted step per cell) and prints, for each cell the port runs on
 the mesh, the reference's table from
 :func:`repro_torch.perf.roofline.roofline_terms` with the H100 figures of
 :class:`~repro_torch.perf.roofline.HW`: compute, memory and collective
-time, the dominant term, MODEL_FLOPS, the useful ratio (MODEL_FLOPS over
+time, the dominant term, the share of the collective time in the MoE
+expert exchange's all-to-alls (dispatch forward, combine backward; "-"
+where a cell has none), MODEL_FLOPS, the useful ratio (MODEL_FLOPS over
 the counted flops of every rank) and the next move; then the refused
 cells and their reasons.  Writes the table and the rows as JSON.
 
@@ -66,6 +68,9 @@ def analyze(rec: dict) -> dict:
                        rec.get("reduced", False))
     terms = roofline_terms(OpCost(**rec["cost"]), rec["n_devices"], cfg,
                            SHAPES[rec["cell"]], HW())
+    a2a = rec.get("by_op", {}).get("all_to_all")
+    terms["all_to_all_s"] = (a2a["collective_bytes"] / HW().link_bw
+                             if a2a else None)
     return {**{k: v for k, v in rec.items() if k != "by_op"}, **terms}
 
 
@@ -86,14 +91,17 @@ def load(dryrun_dir: str, meshes) -> list:
 
 
 def table(rows) -> str:
-    lines = ["| arch | shape | mesh | compute | memory | collective | bound "
-             "| MODEL_FLOPS | useful | held GiB | next move |",
-             "|---|---|---|---|---|---|---|---|---|---|---|"]
+    lines = ["| arch | shape | mesh | compute | memory | collective | "
+             "of which all-to-all | bound | MODEL_FLOPS | useful | held GiB "
+             "| next move |",
+             "|---|---|---|---|---|---|---|---|---|---|---|---|"]
     for r in rows:
+        a2a = r.get("all_to_all_s")
         lines.append(
             f"| {r['arch']} | {r['cell']} | {r['mesh']} | "
             f"{fmt_s(r['compute_s'])} | {fmt_s(r['memory_s'])} | "
             f"{fmt_s(r['collective_s'])} | "
+            f"{'-' if a2a is None else fmt_s(a2a)} | "
             f"{r['dominant'].replace('_s', '')} | {r['model_flops']:.2e} | "
             f"{r['useful_ratio']:.2f} | "
             f"{r['memory']['total_bytes'] / 2**30:.2f} | "

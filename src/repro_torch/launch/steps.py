@@ -21,18 +21,24 @@ model's tensor-parallel forward is :mod:`repro_torch.models.tp`.  After
 the backward, the gradients that are partial sums over "model" (a column
 linear's replicated A, whose gradient contracts over the sharded output;
 a row linear's replicated B, whose input is a partial sum) are summed
-over "model", and every gradient over the data-parallel axes.  The dense
-gqa family in ``--mode qalora`` is ported on a mesh; the rest are
-refused (see ROADMAP.md).
+over "model", and every gradient over the data-parallel axes its leaf is
+not split over (:func:`grad_sum_axes`): an expert held by one rank of
+the whole mesh (full expert parallelism) computed every slot of its
+expert and is summed over none, one split over "model" alone over the
+data-parallel axes.  The MoE layers route the global batch
+(:mod:`repro_torch.models.moe`; their aux term each rank's share of the
+global one).  The gqa, gqa_moe and mla_moe families in ``--mode
+qalora`` are ported on a mesh; the rest are refused (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Set
+from typing import Dict, Optional, Set, Tuple
 
 import torch
 
 from repro_torch.core import schemes
+from repro_torch.models import moe
 from repro_torch.models.lm import LM
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.compression import compressed_mean
@@ -41,8 +47,9 @@ from repro_torch.sharding import batch_spec_tree, param_specs, shard_tensors
 from repro_torch.sharding.shard import Mode, tp_of
 
 MESH_NOT_PORTED = ("not yet ported on a mesh (see ROADMAP.md, Queue 1 item "
-                   "16c): only the dense gqa family in --mode qalora trains "
-                   "on a mesh")
+                   "16c): only the gqa, gqa_moe and mla_moe families in "
+                   "--mode qalora train on a mesh")
+MESH_FAMILIES = ("gqa", "gqa_moe", "mla_moe")
 
 
 def make_train_fn(lm: LM, opt_cfg: AdamWConfig):
@@ -64,20 +71,35 @@ def make_train_fn(lm: LM, opt_cfg: AdamWConfig):
     return train_step
 
 
-def check_mesh_support(cfg, schemes_used, mesh=None) -> None:
+def model_schemes(cfg) -> Set[str]:
+    """The linear schemes of ``cfg``'s model, read from one layer of each
+    stack built on ``meta`` (a policy names no layer)."""
+    cut = {"n_layers": 1}
+    if cfg.family == "mla_moe":
+        cut = {"n_layers": 2, "n_dense_layers": 1}
+    one = abstract_params(LM(cfg.scaled(**cut)))
+    return {lp.scheme for lp in one.modules() if schemes.is_linear(lp)}
+
+
+def check_mesh_support(cfg, schemes_used=None, mesh=None) -> None:
     """Raises NotImplementedError, naming ROADMAP.md, for what does not
-    train on a mesh yet: a family other than gqa, a tied embedding, a
-    vocabulary that does not split over ``mesh``'s "model" axis (the
-    reference then replicates the head and splits the embedding over d),
-    a linear of another adapter scheme than qalora."""
-    other = sorted(set(schemes_used) - {"qalora", "intq", "fp"})
-    if cfg.family != "gqa":
+    train on a mesh yet: a family other than gqa, gqa_moe and mla_moe, a
+    tied embedding, a vocabulary that does not split over ``mesh``'s
+    "model" axis (the reference then replicates the head and splits the
+    embedding over d), a linear of another adapter scheme than qalora.
+    ``schemes_used`` defaults to :func:`model_schemes`'s; ``mesh`` may be
+    a mapping of axis sizes."""
+    if cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(f"{cfg.name} ({cfg.family}): "
                                   f"{MESH_NOT_PORTED}")
     if cfg.tie_embeddings:
         raise NotImplementedError(f"{cfg.name}'s tied embedding: "
                                   f"{MESH_NOT_PORTED}")
-    model = 1 if mesh is None else mesh.size("model")
+    if schemes_used is None:
+        schemes_used = model_schemes(cfg)
+    other = sorted(set(schemes_used) - {"qalora", "intq", "fp"})
+    model = (1 if mesh is None else mesh.get("model", 1)
+             if isinstance(mesh, dict) else mesh.size("model"))
     if cfg.vocab % model:
         raise NotImplementedError(
             f"{cfg.name}'s vocabulary {cfg.vocab} over model {model}: "
@@ -112,6 +134,21 @@ def model_partial_leaves(params) -> Set[str]:
             leaf = "ad.a" if tp.mode is Mode.COL else "ad.b"
             if leaf in dict(lp.named_parameters()):
                 out.add(f"{name}.{leaf}")
+    return out
+
+
+def grad_sum_axes(params, dp) -> Dict[str, Tuple[str, ...]]:
+    """The axes each trainable leaf's gradient on a rank is summed over:
+    the data-parallel axes ``dp`` (those the batch rows split over) its
+    expert is not split over (``params.specs.experts``), and "model" for
+    :func:`model_partial_leaves`."""
+    experts = getattr(params.specs, "experts", {})
+    partial = model_partial_leaves(params)
+    out = {}
+    for name in trainable_tensors(params):
+        split = experts.get(name, ((),))[0]
+        out[name] = tuple(a for a in dp if a not in split) + (
+            ("model",) if name in partial else ())
     return out
 
 
@@ -152,13 +189,16 @@ def make_train_step(lm: LM, mesh, opt_cfg: Optional[AdamWConfig] = None):
 
         def n_reduce(n):
             return mesh.all_reduce(n, dp)
-        loss, metrics = lm.loss(params, local,
-                                n_reduce=n_reduce if dp else None)
-        grads = dict(zip(trainable, torch.autograd.grad(
-            loss, list(trainable.values()))))
-        partial = model_partial_leaves(params)
-        _sum_over(grads, partial, mesh, dp + ("model",))
-        _sum_over(grads, set(grads) - partial, mesh, dp)
+        with moe.rows_over(dp):
+            loss, metrics = lm.loss(params, local,
+                                    n_reduce=n_reduce if dp else None)
+            grads = dict(zip(trainable, torch.autograd.grad(
+                loss, list(trainable.values()))))
+        by_axes: Dict[Tuple[str, ...], Set[str]] = {}
+        for name, axes in grad_sum_axes(params, dp).items():
+            by_axes.setdefault(axes, set()).add(name)
+        for axes in sorted(by_axes):
+            _sum_over(grads, by_axes[axes], mesh, axes)
         om = adamw_update(opt_cfg, grads, opt_state, trainable, mesh,
                           params.specs)
         out = {"loss": loss.detach(),
@@ -174,9 +214,19 @@ def make_sync_step(mesh, tspec=None):
     """The periodic cross-pod adapter sync with int8 compression, in place
     on a ``name -> tensor`` dict of adapters
     (:func:`repro_torch.optim.compression.compressed_mean` over "pod");
-    None on a mesh without a "pod" axis, as in the reference."""
+    None on a mesh without a "pod" axis, as in the reference.  The sync
+    averages each leaf with its copies on the other pods: ``tspec`` (a
+    shard's specs) must split no expert over "pod" (no ported layout
+    does: experts split over "pod" would be averaged with other experts,
+    as the reference's ``shard_map`` would average them)."""
     if mesh is None or "pod" not in mesh.shape:
         return None
+    over_pod = sorted(k for k, (axes, _, _) in getattr(
+        tspec, "experts", {}).items() if "pod" in axes)
+    if over_pod:
+        raise ValueError(f"the int8 sync over \"pod\" would average "
+                         f"different experts: {over_pod[:3]} are split over "
+                         f"\"pod\"")
 
     @torch.no_grad()
     def sync(trainable):
@@ -189,4 +239,5 @@ def make_sync_step(mesh, tspec=None):
 
 __all__ = ["make_train_fn", "make_train_step", "make_sync_step",
            "train_state_specs", "abstract_params", "model_partial_leaves",
-           "check_mesh_support", "adamw_init", "MESH_NOT_PORTED"]
+           "grad_sum_axes", "check_mesh_support", "model_schemes",
+           "adamw_init", "MESH_NOT_PORTED"]

@@ -26,12 +26,15 @@ and its rows of each global batch, and runs the sharded step
 syncs the adapters over "pod" with int8 every N steps where the mesh has
 that axis, and does nothing otherwise, as ``repro.launch.train``.  Rank 0
 prints and writes the checkpoints, which hold the gathered adapters and
-moments, so a run restores onto any mesh.  The dense gqa family in
-``--mode qalora`` trains on a mesh; the other families and modes are
-refused (see ROADMAP.md)::
+moments, so a run restores onto any mesh.  The gqa, gqa_moe and mla_moe
+families in ``--mode qalora`` train on a mesh (the MoE experts split
+over the mesh where the rule splits them); the other families and modes
+are refused (see ROADMAP.md)::
 
     torchrun --nnodes 32 --nproc-per-node 8 ... -m repro_torch.launch.train \
         --mesh pod --arch llama7b-proxy --steps 100 --global-batch 256
+    torchrun --nnodes 32 --nproc-per-node 8 ... -m repro_torch.launch.train \
+        --mesh pod --arch deepseek-v3-671b --steps 100 --global-batch 256
 
     python -m repro_torch.launch.train --arch llama7b-proxy --steps 4 \\
         --seq-len 256 --global-batch 16 --ckpt-dir build/ckpt --ckpt-every 2
@@ -152,15 +155,11 @@ def meta_mismatch(got: dict, want: dict) -> list:
 
 def build_config(args):
     """The config the flags ask for; raises on what is not ported (on a
-    mesh: another family than gqa, another mode than qalora)."""
+    mesh: :func:`repro_torch.launch.steps.check_mesh_support` against the
+    production mesh's sizes, before any process group exists)."""
     import repro_torch.configs as C
     from repro_torch.core.schemes import PolicyTree
-    from repro_torch.launch.steps import MESH_NOT_PORTED
     cfg = C.reduced(args.arch) if args.reduced else C.get(args.arch)
-    if args.mesh != "cpu" and (cfg.family != "gqa" or args.mode != "qalora"):
-        raise NotImplementedError(
-            f"--mesh {args.mesh} with {cfg.name} ({cfg.family}) --mode "
-            f"{args.mode}: {MESH_NOT_PORTED}")
     if args.n_layers:
         cfg = cfg.scaled(n_layers=args.n_layers)
     if cfg.frontend == "vision" and args.seq_len <= cfg.frontend_len:
@@ -174,7 +173,13 @@ def build_config(args):
         **({"group_size": args.group_size} if args.group_size else {}))
     if args.policy:
         q = PolicyTree.parse(args.policy, base=q)
-    return cfg.scaled(quant=q)
+    cfg = cfg.scaled(quant=q)
+    if args.mesh != "cpu":
+        from repro_torch.launch.mesh import PRODUCTION
+        from repro_torch.launch.steps import check_mesh_support
+        sizes, axes = PRODUCTION[args.mesh]
+        check_mesh_support(cfg, mesh=dict(zip(axes, sizes)))
+    return cfg
 
 
 def mesh_from_args(args):
@@ -276,7 +281,8 @@ def setup(args, params=None, cfg=None, mesh=None) -> SimpleNamespace:
                            stream=stream, ckpt=ckpt, start=start, meta=meta,
                            device=device, base_save_s=base_s, mesh=mesh,
                            log=log, step_fn=make_train_step(lm, mesh, opt_cfg),
-                           sync=make_sync_step(mesh) if args.sync_every
+                           sync=make_sync_step(mesh, specs)
+                           if args.sync_every
                            else None)
 
 

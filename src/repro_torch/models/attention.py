@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.schemes import dense_view, linear_apply, linear_init
-from repro_torch.sharding.shard import tp_of
+from repro_torch.sharding.shard import Mode, tp_of
 from . import tp
 from .common import rmsnorm, rmsnorm_init, rope, rope_table
 
@@ -495,14 +495,56 @@ def _mla_ckv(p, x, cfg: MLAConfig, positions, table=None):
     return c, k_rope
 
 
+def _mla_apply_tp(p, x, cfg: MLAConfig, positions, mesh):
+    """:func:`mla_apply` on a shard (the reference's COL / ROW roles):
+    ``q_down`` and ``kv_down`` gathered (the latent norms run on the whole
+    latent), ``q_up`` and ``kv_up`` give this rank's heads where they are
+    ``col`` and the heads split over "model" (else every head on every
+    rank), ``wo`` the full output.  The cache is this rank's block of the
+    latent and the rope key over "model" (``cache_spec_tree``'s)."""
+    b, s, _ = x.shape
+    h, t = cfg.n_heads, mesh.size(tp.TP_AXIS)
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    qc = rmsnorm(p["qn"], tp.full_output(p["q_down"], x, mesh))
+    ckv = tp.full_output(p["kv_down"], x, mesh)
+    c = rmsnorm(p["kvn"], ckv[..., :cfg.kv_lora_rank])
+    k_rope = rope(ckv[..., cfg.kv_lora_rank:][:, :, None, :], positions,
+                  cfg.rope_theta)[:, :, 0]
+    heads = h % t == 0 and all(tp_of(p[n]).mode is Mode.COL
+                               for n in ("q_up", "kv_up"))
+    if heads:
+        hl = h // t
+        q = tp.apply_linear(p["q_up"], tp.copy_to(qc, mesh))
+        kv = tp.apply_linear(p["kv_up"], tp.copy_to(c, mesh))
+        kr = tp.copy_to(k_rope, mesh)
+    else:
+        hl = h
+        q = tp.full_output(p["q_up"], qc, mesh)
+        kv = tp.full_output(p["kv_up"], c, mesh)
+        kr = k_rope
+    q = q.reshape(b, s, hl, qk)
+    kv = kv.reshape(b, s, hl, cfg.qk_nope_dim + cfg.v_head_dim)
+    q = torch.cat([q[..., :cfg.qk_nope_dim],
+                   rope(q[..., cfg.qk_nope_dim:], positions, cfg.rope_theta)],
+                  dim=-1)
+    k = torch.cat([kv[..., :cfg.qk_nope_dim], kr[:, :, None, :].expand(
+        b, s, hl, cfg.qk_rope_dim)], dim=-1)
+    o = flash_attention(q, k, kv[..., cfg.qk_nope_dim:], causal=True)
+    out = tp.attn_output(p, o.reshape(b, s, -1), heads, mesh)
+    return out, (tp.rank_block(c, mesh), tp.rank_block(k_rope, mesh))
+
+
 def mla_apply(p, x, cfg: MLAConfig, positions=None):
     """Training / prefill: per-head K/V materialised through ``kv_up``,
     flash-style attention.  Returns (out, (c, k_rope)), the compressed
-    cache of ``x``."""
+    cache of ``x`` (on a shard, :func:`_mla_apply_tp`)."""
     b, s, _ = x.shape
     h = cfg.n_heads
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
+    shard = tp_of(p["q_up"])
+    if shard is not None:
+        return _mla_apply_tp(p, x, cfg, positions, shard.mesh)
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
     c, k_rope = _mla_ckv(p, x, cfg, positions)
     kv = linear_apply(p["kv_up"], c).reshape(
@@ -548,8 +590,13 @@ def mla_prefill_chunk(p, x, cache, cur_len, n_new, cfg: MLAConfig,
 
     ``w_kv`` is the layer's precomputed (W_uk [rank,H,nope], W_uv
     [rank,H,vdim]) (:func:`kv_up_split`, which runs here when it is None);
-    ``plan`` the step's :class:`StepPlan` (its head_dim the rope dim)."""
+    ``plan`` the step's :class:`StepPlan` (its head_dim the rope dim).
+    Not on a shard: MLA's decode on a mesh is not yet ported."""
     b, c, _ = x.shape
+    if tp_of(p["q_up"]) is not None:
+        raise NotImplementedError(
+            "MLA's ragged chunk and decode step on a mesh are not yet "
+            "ported (see ROADMAP.md, Queue 1 item 16c: decode on a mesh)")
     if plan is None:
         ps = cache["c"].shape[1]
         s = ps if pages is None else pages.shape[1] * ps

@@ -697,7 +697,8 @@ class LM:
         """Mean next-token cross-entropy of ``batch`` (``tokens`` and
         ``labels``, [B, S]), plus 0.3 times the MTP head's (mla_moe with
         its head: :meth:`_mtp_loss`), plus ``cfg.aux_coef`` times the
-        MoE's load-balance loss summed over the layers (0 for gqa), with
+        MoE's load-balance loss summed over the layers (0 for gqa; on a
+        shard each rank adds its share of the global batch's), with
         autograd on.  Returns (loss, {"xent", "aux"}), xent before the MTP
         and aux terms, as the reference does.  Patch positions carry no
         label.  An encdec batch also gives ``src`` [B, Ss, d], the
@@ -748,7 +749,8 @@ class LM:
         xent = self._xent(params, h, labels, n_reduce)
         loss = xent
         if self._has_mtp(params):
-            loss = loss + 0.3 * self._mtp_loss(params, h, batch, labels)
+            loss = loss + 0.3 * self._mtp_loss(params, h, batch, labels,
+                                               n_reduce)
         return loss + self.cfg.aux_coef * aux, {"xent": xent, "aux": aux}
 
     def _has_mtp(self, params: LMParams) -> bool:
@@ -763,17 +765,20 @@ class LM:
         the head as it is)."""
         cat = torch.cat([rmsnorm(params.mtp_ln, h), next_emb.to(h.dtype)],
                         dim=-1)
-        x = schemes.linear_apply(params.mtp_proj, cat)
+        shard = tp.tp_of(params.mtp_proj)
+        x = (schemes.linear_apply(params.mtp_proj, cat) if shard is None
+             else tp.full_output(params.mtp_proj, cat, shard.mesh))
         return _mla_block(params.mtp_block, x, self.cfg)[0]
 
-    def _mtp_loss(self, params: LMParams, h, batch, labels):
+    def _mtp_loss(self, params: LMParams, h, batch, labels, n_reduce=None):
         """DeepSeek-V3's multi-token prediction: one extra depth predicting
-        token t+2 from position t (the last position unsupervised)."""
+        token t+2 from position t (the last position unsupervised);
+        ``n_reduce`` as in :meth:`_xent`."""
         emb_next = torch.roll(self._inputs_to_x(params, batch), -1, dims=1)
         x = self._mtp_head(params, h, emb_next)
         labels2 = torch.roll(labels, -1, dims=1)
         labels2[:, -1] = -1
-        return self._xent(params, x, labels2)
+        return self._xent(params, x, labels2, n_reduce)
 
     def mtp_draft_logits(self, params: LMParams, h, next_tokens):
         """The MTP head as a drafter: from :meth:`verify_ragged`'s hidden

@@ -20,14 +20,35 @@ this rank's block of it.  Four operators move between the two, each a
 * :func:`scatter_to` (this rank's slice; all-gather in the backward)
   where a full activation feeds a ``row`` linear.
 
-Floating collectives run in f32 and cast back.  On a mesh whose "model"
-axis has one process none of this runs: the model's functions take their
-one-device path.
+:func:`copy_to` and :func:`reduce_from` take other axes too: the MoE's
+combine sums the rows of experts held on other ranks over the axes its
+expert dim is split over beyond the token owners' (:mod:`repro_torch.models.moe`).
+
+Expert parallelism adds two operators over the ranks that split the
+tokens (the data-parallel axes; :class:`Exchange` is their plan, from
+the routing every rank knows whole):
+
+* :func:`dispatch`: each rank's tokens to the ranks whose experts' slots
+  hold them (an all-to-all of fixed blocks, one for each rank, its rows
+  zero where it owns no slot's token); backward, the slots' gradients
+  all-gathered and each token's summed over its assignments in k order,
+  as the one-device dispatch's backward does;
+* :func:`combine`: every rank's expert outputs all-gathered, each
+  assignment's row read at its slot; backward, each slot's gradient
+  sent back by the rank owning its token (an all-to-all).
+
+Both move fixed shapes (no sizes exchanged): a step stays capturable and
+the dry run traces it on ``meta``.
+
+Floating collectives run in f32 and cast back (the exchanges move rows
+as they are).  On a mesh whose "model" axis has one process none of the
+Megatron operators runs: the model's functions take their one-device
+path.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -36,15 +57,16 @@ from repro_torch.sharding.rules import TP_AXIS
 from repro_torch.sharding.shard import Mode, tp_of
 
 __all__ = ["copy_to", "reduce_from", "gather_from", "scatter_to",
-           "apply_linear", "qkv", "rank_kv_heads", "attn_output",
+           "all_sum", "Exchange", "dispatch", "combine", "full_output",
+           "rank_block", "apply_linear", "qkv", "rank_kv_heads", "attn_output",
            "mlp_apply", "model_mesh",
            "embed", "logits", "xent_sums"]
 
 
-def _sum(x: torch.Tensor, mesh) -> torch.Tensor:
+def _sum(x: torch.Tensor, mesh, axes=TP_AXIS) -> torch.Tensor:
     if x.dtype.is_floating_point and x.dtype != torch.float32:
-        return mesh.all_reduce(x.to(torch.float32), TP_AXIS).to(x.dtype)
-    return mesh.all_reduce(x, TP_AXIS)
+        return mesh.all_reduce(x.to(torch.float32), axes).to(x.dtype)
+    return mesh.all_reduce(x, axes)
 
 
 def _slice(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -55,23 +77,34 @@ def _slice(x: torch.Tensor, mesh) -> torch.Tensor:
 
 class _CopyTo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return _sum(g, ctx.mesh), None
+        return _sum(g, ctx.mesh, ctx.axes), None, None
 
 
 class _ReduceFrom(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        return _sum(x, mesh)
+    def forward(ctx, x, mesh, axes):
+        return _sum(x, mesh, axes)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
+
+
+class _AllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _sum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.mesh, ctx.axes), None, None
 
 
 class _GatherFrom(torch.autograd.Function):
@@ -96,12 +129,20 @@ class _ScatterTo(torch.autograd.Function):
         return ctx.mesh.all_gather(g, TP_AXIS, g.dim() - 1), None
 
 
-def copy_to(x, mesh):
-    return _CopyTo.apply(x, mesh)
+def copy_to(x, mesh, axes=TP_AXIS):
+    return _CopyTo.apply(x, mesh, axes)
 
 
-def reduce_from(x, mesh):
-    return _ReduceFrom.apply(x, mesh)
+def reduce_from(x, mesh, axes=TP_AXIS):
+    return _ReduceFrom.apply(x, mesh, axes)
+
+
+def all_sum(x, mesh, axes):
+    """``x`` summed over ``axes``, its gradient summed likewise: a term
+    every rank computes from the sum and adds to its own part of the
+    loss (the MoE's aux over the global batch, each rank adding its
+    share)."""
+    return _AllSum.apply(x, mesh, axes)
 
 
 def gather_from(x, mesh):
@@ -110,6 +151,101 @@ def gather_from(x, mesh):
 
 def scatter_to(x, mesh):
     return _ScatterTo.apply(x, mesh)
+
+
+class Exchange(NamedTuple):
+    """The plan of one routing group's :func:`dispatch` and
+    :func:`combine` over ``axes`` (``n`` ranks, this one at ``me``), each
+    rank computing ``rows`` expert slots: ``send_tok`` / ``send_asg``
+    ``[n * rows]`` this rank's local token (assignment) in each slot of
+    each rank, the pad row where it owns none; ``owner`` ``[rows]`` the
+    rank owning each of this rank's slots; ``inv`` ``[t * k]`` each local
+    assignment's slot in the gathered ``[n * rows]``, ``n * rows`` (the pad
+    row) where it is dropped or held on a rank outside ``axes``."""
+
+    mesh: object
+    axes: tuple
+    n: int
+    rows: int
+    top_k: int
+    send_tok: torch.Tensor
+    send_asg: torch.Tensor
+    owner: torch.Tensor
+    inv: torch.Tensor
+
+
+def _padded(x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([x, x.new_zeros((1, x.shape[-1]))])
+
+
+def _from_owners(sent, ex: Exchange):
+    """Each of this rank's slots' row from the block its owner sent."""
+    recv = ex.mesh.all_to_all(sent.contiguous(), ex.axes)
+    recv = recv.view(ex.n, ex.rows, recv.shape[-1])
+    return recv[ex.owner, torch.arange(ex.rows, device=recv.device)]
+
+
+def _to_assignments(rows, ex: Exchange):
+    """Every rank's slot rows gathered, each local assignment's read."""
+    return _padded(ex.mesh.all_gather(rows.contiguous(), ex.axes, 0))[ex.inv]
+
+
+class _Dispatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, ex):
+        ctx.ex = ex
+        return _from_owners(_padded(x2)[ex.send_tok], ex)
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        ex = ctx.ex
+        rows = _to_assignments(dbuf, ex)
+        return rows.view(-1, ex.top_k, rows.shape[-1]).sum(dim=1), None
+
+
+class _Combine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, out_rows, ex):
+        ctx.ex = ex
+        return _to_assignments(out_rows, ex)
+
+    @staticmethod
+    def backward(ctx, drows):
+        return _from_owners(_padded(drows)[ctx.ex.send_asg], ctx.ex), None
+
+
+def dispatch(x2, ex: Exchange):
+    """This rank's expert slots ``[rows, d]`` filled from the local tokens
+    ``x2 [t, d]`` of every rank of ``ex.axes`` (zero rows for empty
+    slots)."""
+    return _Dispatch.apply(x2, ex)
+
+
+def combine(out_rows, ex: Exchange):
+    """Each local assignment's output row ``[t * k, d]`` from the slot
+    outputs ``out_rows [rows, d]`` of every rank of ``ex.axes`` (zero
+    where it was dropped or its expert is held outside them)."""
+    return _Combine.apply(out_rows, ex)
+
+
+def full_output(lp, x, mesh):
+    """A shard's linear on a full ``x``, its output full on every rank: a
+    ``col`` linear's columns gathered, a ``row`` linear's partial sums
+    reduced."""
+    mode = _mode(lp)
+    if mode is Mode.COL:
+        return gather_from(apply_linear(lp, copy_to(x, mesh)), mesh)
+    if mode is Mode.ROW:
+        return reduce_from(apply_linear(lp, scatter_to(x, mesh)), mesh)
+    return apply_linear(lp, x)
+
+
+def rank_block(x, mesh):
+    """This rank's block of ``x``'s last dim over "model" where it
+    divides, else ``x`` (a cache leaf's ``(..., "model")`` spec)."""
+    if x.shape[-1] % mesh.size(TP_AXIS):
+        return x
+    return _slice(x, mesh)
 
 
 def apply_linear(lp, x):

@@ -66,20 +66,24 @@ def global_norm(tensors: Tensors, mesh=None, specs=None) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor, in f32 (0 when empty).
     On a mesh, ``tensors`` are this rank's blocks under ``specs`` (name ->
     spec): the sum of squares of the leaves sharded over some axes is
-    all-reduced over those axes, and a replicated leaf counts once."""
+    all-reduced over those axes, and a replicated leaf counts once; an
+    expert leaf held only on its block of some axes (``specs.experts``)
+    is summed over those too."""
     if mesh is None or mesh.single:
         sums = [t.to(torch.float32).square().sum() for t in tensors.values()]
         if not sums:
             return torch.zeros((), dtype=torch.float32)
         return torch.stack(sums).sum().sqrt()
     from repro_torch.sharding.rules import spec_axes
+    experts = getattr(specs, "experts", {})
     by_axes: Dict[tuple, list] = {}
     for k in sorted(tensors):
-        by_axes.setdefault(spec_axes(specs.get(k, ())), []).append(
+        axes = spec_axes(specs.get(k, ())) + experts.get(k, ((),))[0]
+        by_axes.setdefault(tuple(sorted(set(axes))), []).append(
             tensors[k].to(torch.float32).square().sum())
     total = None
-    for axes, sums in by_axes.items():
-        part = mesh.all_reduce(torch.stack(sums).sum(), axes)
+    for axes in sorted(by_axes):  # one order on every rank
+        part = mesh.all_reduce(torch.stack(by_axes[axes]).sum(), axes)
         total = part if total is None else total + part
     if total is None:
         return torch.zeros((), dtype=torch.float32)

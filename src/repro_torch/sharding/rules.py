@@ -198,6 +198,34 @@ def param_specs(params, mesh) -> Dict[str, Spec]:
             in _stacked_specs(params, mesh_shape(mesh)).items()}
 
 
+def _axes_tuple(axes) -> Tuple[str, ...]:
+    return axes if isinstance(axes, tuple) else (axes,)
+
+
+def expert_split(params, mesh) -> Dict[str, Tuple[Tuple[str, ...], int,
+                                                  int]]:
+    """``{leaf name: (axes, index, n)}`` of the leaves whose stack axis of
+    ``n`` experts is split over ``axes`` (expert parallelism: full-mesh
+    over the data-parallel axes and "model", or over "model" alone),
+    ``index`` the leaf's expert.  A rank holds such a leaf only where its
+    block of ``axes`` holds ``index`` (:func:`holds_expert`)."""
+    out = {}
+    for name, (stack, spec) in _stacked_specs(params,
+                                              mesh_shape(mesh)).items():
+        _, index = leaf_names(name)
+        split = [d for d in range(len(stack)) if spec[d] is not None]
+        if split:
+            d = split[-1]
+            out[name] = (_axes_tuple(spec[d]), index[d], stack[d])
+    return out
+
+
+def holds_expert(mesh, axes, index: int, n: int) -> bool:
+    """Whether ``mesh``'s rank holds expert ``index`` of ``n`` split over
+    ``axes`` (contiguous blocks in the axes' row-major order)."""
+    return index // (n // mesh.size(axes)) == mesh.index(axes)
+
+
 def rank_param_bytes(params, mesh) -> int:
     """The bytes of ``params`` that ``mesh``'s rank holds under the
     reference's layout: each leaf's own dims split as its spec says, and
@@ -205,19 +233,16 @@ def rank_param_bytes(params, mesh) -> int:
     held only by the ranks whose block of that axis holds its index.
     (:func:`param_specs` drops the stack entries; this counts them.)"""
     ms = mesh_shape(mesh)
-    total = 0
+    experts = expert_split(params, ms)
     tensors = dict(params.named_buffers())
     tensors.update(params.named_parameters())
-    for name, (stack, spec) in _stacked_specs(params, ms).items():
-        _, index = leaf_names(name)
-        held = all(axes is None or index[d] // (stack[d] // _axes_size(
-            ms, axes)) == mesh.index(axes) for d, axes in
-            enumerate(spec[:len(stack)]))
-        if held:
-            t = tensors[name]
-            split = math.prod(_axes_size(ms, a) for a in spec[len(stack):]
-                              if a is not None)
-            total += t.numel() // split * t.element_size()
+    total = 0
+    for name, spec in param_specs(params, ms).items():
+        if name in experts and not holds_expert(mesh, *experts[name]):
+            continue
+        t = tensors[name]
+        split = math.prod(_axes_size(ms, a) for a in spec if a is not None)
+        total += t.numel() // split * t.element_size()
     return total
 
 
@@ -278,5 +303,5 @@ def cache_spec_tree(cache, mesh):
 
 __all__ = ["TP_AXIS", "DP_AXES", "COL", "ROW", "Spec", "mesh_shape",
            "padded", "spec_axes", "spec_for_param", "leaf_names",
-           "param_specs", "rank_param_bytes", "batch_spec_tree",
+           "param_specs", "expert_split", "holds_expert", "rank_param_bytes", "batch_spec_tree",
            "cache_spec_tree"]

@@ -23,6 +23,19 @@ full tree's specs (``shard.mesh``, ``shard.specs``), and each linear a
 tree (on every rank).  Checkpoints, the merge and the tests use the pair
 on ``name -> tensor`` dicts too (:func:`shard_tensors`,
 :func:`gather_tensors`).
+
+Experts: where the rule splits an MoE layer's expert dim over mesh axes
+(expert parallelism: over the data-parallel axes and "model", or over
+"model" alone), a rank holds only its block of the experts, whole: the
+layer's ``gate``, ``up`` and ``down`` become ``ModuleDict``s keyed by the
+global expert index (so every leaf keeps its full tree's name,
+``blocks.3.moe.up.5.ad.b``), and the layer carries an
+:class:`ExpertShard` (``layer.ep``) naming the axes and the experts held.
+Where the expert dim does not split, every rank holds every expert with
+its linears ``col`` / ``row`` (tensor-parallel inside each expert), and
+``layer.ep`` has no axes.  ``shard.specs`` is then a :class:`ShardSpecs`:
+the specs of the full tree's leaves, and ``specs.experts`` the expert
+leaves held only on their block (:func:`repro_torch.sharding.rules.expert_split`).
 """
 
 from __future__ import annotations
@@ -30,6 +43,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import enum
+import itertools
 from typing import Dict, Tuple
 
 import torch
@@ -37,7 +51,8 @@ from torch import nn
 
 from repro_torch.core import schemes
 from repro_torch.core.quant import QuantizedLinear
-from .rules import TP_AXIS, Spec, padded, param_specs
+from .rules import (TP_AXIS, Spec, expert_split, holds_expert, padded,
+                    param_specs)
 
 _A, _B = "ad.a", "ad.b"
 
@@ -68,18 +83,67 @@ def gather_tensor(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     return t
 
 
+class ShardSpecs(dict):
+    """``{leaf name: spec}`` of a shard's full tree
+    (:func:`~repro_torch.sharding.rules.param_specs`), and ``experts``:
+    ``{leaf name: (axes, index, n)}`` of the expert leaves a rank holds
+    only where its block of ``axes`` holds expert ``index`` of ``n``."""
+
+    def __init__(self, specs, experts=None):
+        super().__init__(specs)
+        self.experts = dict(experts or {})
+
+
+def _expert_parts(name: str) -> Tuple[str, int, str]:
+    """An expert leaf's (list, expert index, leaf in the expert):
+    ``blocks.3.moe.up.5.ad.b`` -> ("blocks.3.moe.up", 5, "ad.b")."""
+    parts = name.split(".")
+    i = max(j for j, p in enumerate(parts) if p.isdigit())
+    return ".".join(parts[:i]), int(parts[i]), ".".join(parts[i + 1:])
+
+
 def shard_tensors(tensors: Dict, specs: Dict[str, Spec], mesh) -> Dict:
     """``{name: block}`` of ``{name: tensor}`` under ``specs`` (a name
-    missing from ``specs`` is replicated)."""
+    missing from ``specs`` is replicated; an expert leaf of
+    ``specs.experts`` that this rank does not hold is left out)."""
+    experts = getattr(specs, "experts", {})
     return {k: shard_tensor(t, specs.get(k, ()), mesh)
-            for k, t in tensors.items()}
+            for k, t in tensors.items()
+            if k not in experts or holds_expert(mesh, *experts[k])}
 
 
 def gather_tensors(tensors: Dict, specs: Dict[str, Spec], mesh) -> Dict:
     """The inverse of :func:`shard_tensors` (collective: every rank
-    passes the same names in the same order)."""
-    return {k: gather_tensor(t, specs.get(k, ()), mesh)
-            for k, t in tensors.items()}
+    passes the same names in the same order, its own experts' in place
+    of another's).  Each expert leaf comes back for every expert, in the
+    full tree's order: the held experts of a list are stacked and
+    gathered over their axes."""
+    experts = getattr(specs, "experts", {})
+    groups: Dict[Tuple[str, str], list] = {}
+    for k in tensors:
+        if k in experts:
+            pre, _, leaf = _expert_parts(k)
+            groups.setdefault((pre, leaf), []).append(k)
+    full = {}
+    for (pre, leaf), names in groups.items():
+        axes, _, n = experts[names[0]]
+        stacked = torch.stack([tensors[k].detach() for k in names])
+        spec = (axes,) + padded(specs.get(names[0], ()), stacked.ndim - 1)
+        for e, t in enumerate(gather_tensor(stacked, spec, mesh)):
+            full[f"{pre}.{e}.{leaf}"] = t
+    out, done = {}, set()
+    for k, t in tensors.items():
+        if k not in experts:
+            out[k] = gather_tensor(t, specs.get(k, ()), mesh)
+            continue
+        pre, _, _ = _expert_parts(k)
+        if pre not in done:
+            done.add(pre)
+            leaves = [leaf for p, leaf in groups if p == pre]
+            for e in range(experts[k][2]):
+                out.update((f"{pre}.{e}.{leaf}", full[f"{pre}.{e}.{leaf}"])
+                           for leaf in leaves)
+    return out
 
 
 class Mode(enum.Enum):
@@ -164,13 +228,97 @@ def _map_leaves(module: nn.Module, fn, prefix: str = "") -> nn.Module:
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class ExpertShard:
+    """How a shard's MoE layer holds its ``n`` experts: ``axes`` the mesh
+    axes its expert dim is split over (() where every rank holds every
+    expert, tensor-parallel inside each), ``experts`` the global indices
+    of the ones this rank holds, in order."""
+
+    mesh: object
+    axes: Tuple[str, ...]
+    experts: Tuple[int, ...]
+    n: int
+
+
+_EXPERT_LISTS = ("gate", "up", "down")
+
+
+def _is_moe(module: nn.Module) -> bool:
+    return all(k in module._modules for k in ("router",) + _EXPERT_LISTS)
+
+
+def _leaves(module: nn.Module) -> Dict[str, torch.Tensor]:
+    return dict(itertools.chain(module.named_buffers(),
+                                module.named_parameters()))
+
+
+def _map_moe(module: nn.Module, fn, prefix: str = "") -> nn.Module:
+    """A shallow copy of ``module`` with each MoE layer ``fn(prefix,
+    copy of the layer)`` (containers copied, leaves shared)."""
+    out = copy.copy(module)
+    out._modules = dict(module._modules)
+    if _is_moe(module):
+        return fn(prefix, out)
+    out._modules = {k: (_map_moe(m, fn, f"{prefix}{k}.")
+                        if m is not None else None)
+                    for k, m in module._modules.items()}
+    return out
+
+
+def _hold_experts(params: nn.Module, specs: ShardSpecs, mesh) -> nn.Module:
+    """``params`` with each MoE layer keeping the experts this rank holds
+    (``ModuleDict``s keyed by global index) and its :class:`ExpertShard`."""
+    def hold(prefix, moe):
+        n = len(moe.gate)
+        first = next(iter(_leaves(moe.gate[0])))
+        axes = specs.experts.get(f"{prefix}gate.0.{first}", ((),))[0]
+        if axes:
+            per, i = n // mesh.size(axes), mesh.index(axes)
+            held = tuple(range(i * per, (i + 1) * per))
+            for kind in _EXPERT_LISTS:
+                moe._modules[kind] = nn.ModuleDict(
+                    {str(e): moe._modules[kind][e] for e in held})
+        else:
+            held = tuple(range(n))
+        moe.ep = ExpertShard(mesh, axes, held, n)
+        return moe
+    return _map_moe(params, hold)
+
+
+def _gather_experts(shard: nn.Module, specs: ShardSpecs, mesh) -> nn.Module:
+    """The inverse of :func:`_hold_experts` (collective): each expert list
+    whole again, every leaf stacked over the held experts and gathered
+    over their axes."""
+    def gather(prefix, moe):
+        ep = moe.__dict__.pop("ep")
+        if not ep.axes:
+            return moe
+        for kind in _EXPERT_LISTS:
+            held = [moe._modules[kind][str(e)] for e in ep.experts]
+            full = {}
+            for name, t in _leaves(held[0]).items():
+                stacked = torch.stack([_leaves(h)[name].detach()
+                                       for h in held])
+                spec = specs[f"{prefix}{kind}.{ep.experts[0]}.{name}"]
+                full[name] = gather_tensor(
+                    stacked, (ep.axes,) + padded(spec, t.ndim), mesh)
+            moe._modules[kind] = nn.ModuleList(
+                _map_leaves(held[0], lambda n, t, e=e: full[n][e].clone())
+                for e in range(ep.n))
+        return moe
+    return _map_moe(shard, gather)
+
+
 def shard_params(params: nn.Module, mesh) -> nn.Module:
     """This rank's shard of the full ``params`` (see the module
     docstring); ``params`` itself on a mesh of one process."""
     if mesh.single:
         return params
-    specs = param_specs(params, mesh)
-    shard = _map_leaves(params, lambda n, t: shard_tensor(t, specs[n], mesh))
+    specs = ShardSpecs(param_specs(params, mesh),
+                       expert_split(params, mesh))
+    shard = _map_leaves(_hold_experts(params, specs, mesh),
+                        lambda n, t: shard_tensor(t, specs[n], mesh))
     for name, lp in shard.named_modules():
         if schemes.is_linear(lp):
             pre = f"{name}." if name else ""
@@ -188,8 +336,10 @@ def gather_params(shard: nn.Module, mesh) -> nn.Module:
     specs = getattr(shard, "specs", None)
     if specs is None or mesh.single:
         return shard
-    full = _map_leaves(shard,
-                       lambda n, t: gather_tensor(t, specs.get(n, ()), mesh))
+    experts = getattr(specs, "experts", {})
+    full = _map_leaves(_gather_experts(shard, specs, mesh),
+                       lambda n, t: t if n in experts
+                       else gather_tensor(t, specs.get(n, ()), mesh))
     for m in full.modules():
         m.__dict__.pop("tp", None)
     full.__dict__.pop("mesh", None)
@@ -204,6 +354,6 @@ def tp_of(module):
     return tp if tp is not None and tp.mesh.size(TP_AXIS) > 1 else None
 
 
-__all__ = ["Mode", "LinearTP", "shard_tensor", "gather_tensor",
+__all__ = ["Mode", "LinearTP", "ExpertShard", "ShardSpecs", "shard_tensor", "gather_tensor",
            "shard_tensors", "gather_tensors", "shard_params", "gather_params",
            "tp_of"]

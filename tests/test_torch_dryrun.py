@@ -13,8 +13,10 @@ of 16 make the full train_4k cell's plain attention loop 65536 chunk
 pairs a layer), llama7b-proxy's decode_32k on the pod, and a refused
 family.  A rank's parameter bytes count the reference's expert
 parallelism (deepseek-v3's 256 experts over data x model: one a rank),
-which the port's own shard does not yet apply (its MoE families do not
-run on a mesh; ROADMAP.md)."""
+and the port's shard holds exactly those.  The MoE families' train and
+prefill cells are traced at the reduced scale on data 2 x model 2
+(expert dispatch and combine counted as collectives), their decode
+cells refused."""
 
 import json
 import math
@@ -91,11 +93,10 @@ def test_rank_param_bytes_equal_the_reference(trees, mesh):
         ref, _abstract_mesh(sizes, names)), dict(zip(names, sizes)))
     with dryrun.fake_mesh(sizes, names, rank=5) as m:
         got = rank_param_bytes(port, m)
-        if TC.get(arch).family != "mla_moe":
-            # no expert axis sharded: the shard the rank holds
-            shard = shard_params(port, m)
-            assert tensor_bytes(*shard.buffers(),
-                                *shard.parameters()) == got, arch
+        # the shard the rank holds (its experts only, where they split)
+        shard = shard_params(port, m)
+        assert tensor_bytes(*shard.buffers(),
+                            *shard.parameters()) == got, arch
     assert got == want, arch
     assert got < tensor_bytes(*port.buffers(), *port.parameters())
 
@@ -121,6 +122,51 @@ def test_reduced_gemma_train_step_on_a_2x2_mesh():
     assert 0 < rec["cost"]["flops"] < one["cost"]["flops"]
     assert rec["by_op"]["all_reduce"]["calls"] > 0
     assert rec["by_op"]["qalora_matmul"]["calls"] > 0
+
+
+@pytest.mark.parametrize("arch,kind", (("mixtral-8x22b", "train"),
+                                       ("deepseek-v3-671b", "prefill")))
+def test_reduced_moe_cell_on_a_2x2_mesh(arch, kind):
+    """Rank 3 of data 2 x model 2 (full expert parallelism: one of 4
+    experts a rank): the cell counted on ``meta``, its held bytes the
+    reference's sharding, and its cost one device's with the collectives
+    counted: the ranks' kernel-3 FLOPs together one device's, plus only
+    the replicated rank projections of the column linears (within 2%),
+    the dispatch and combine as all-to-alls and all-gathers."""
+    cfg = TC.reduced(arch)
+    cell = ShapeCell(f"{kind}_cell", kind, 64, 8)
+    with dryrun.fake_mesh((2, 2), ("data", "model"), rank=3) as m:
+        rec = dryrun.trace(cfg, cell, m)
+    one = dryrun.trace(cfg, cell)
+    rcfg = RC.reduced(arch)
+    ref = jax.eval_shape(RLM(rcfg).init, jax.random.PRNGKey(0))
+    want = _ref_rank_bytes(ref, ref_param_specs(
+        ref, _abstract_mesh((2, 2), ("data", "model"))),
+        {"data": 2, "model": 2})
+    assert rec["memory"]["params_bytes"] == want
+    flops = 4 * rec["by_op"]["qalora_matmul"]["flops"]
+    base = one["by_op"]["qalora_matmul"]["flops"]
+    assert base <= flops <= 1.02 * base
+    assert rec["by_op"]["all_to_all"]["calls"] > 0
+    assert rec["cost"]["collective_bytes"] > 0
+    assert one["cost"]["collective_bytes"] == 0
+    assert 0 < rec["cost"]["flops"] < one["cost"]["flops"]
+    # the roofline row shows the expert exchange's all-to-all term
+    row = roofline_report.analyze({**rec, "arch": arch, "mesh": "2x2",
+                                   "cell": "train_4k" if kind == "train"
+                                   else "prefill_32k", "n_devices": 4,
+                                   "reduced": True})
+    a2a = rec["by_op"]["all_to_all"]["collective_bytes"] / 450e9
+    assert row["all_to_all_s"] == a2a
+    assert 0 < a2a < row["collective_s"]
+    assert f"| {roofline_report.fmt_s(a2a)} |" in roofline_report.table([row])
+
+
+@pytest.mark.parametrize("arch", ("mixtral-8x22b", "deepseek-v3-671b"))
+def test_moe_decode_on_a_mesh_is_refused(arch, tmp_path):
+    rec = dryrun.run_cell(arch, "decode_32k", "pod", outdir=str(tmp_path))
+    assert rec["status"] == "refused"
+    assert "decode on a mesh" in rec["reason"] and "16c" in rec["reason"]
 
 
 def test_llama_decode_on_the_pod_and_its_roofline_row(tmp_path):

@@ -529,7 +529,8 @@ def test_production_mesh_refuses_another_world_size(mesh, want, capsys):
     assert f"wants {want} processes" in err and "got 1" in err
 
 
-@pytest.mark.parametrize("flags", (["--arch", "mixtral-8x22b"],
+@pytest.mark.parametrize("flags", (["--arch", "mixtral-8x22b", "--mode",
+                                    "lora"],
                                    ["--arch", "rwkv6-7b"],
                                    ["--arch", "gemma3-1b", "--mode", "lora"],
                                    ["--arch", "gemma3-1b", "--mode", "qlora"]))
