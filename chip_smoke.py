@@ -64,8 +64,7 @@ and the line before the card's names what each took):
    (token, layer) routings.
 6. serve   -- ``repro_torch.launch.serve`` on llama7b-proxy at its
    widths (d 4096, d_ff 11008, vocab 32000, int4 g32 r64, bf16) and
-   ``LLAMA_LAYERS`` = 20 of its 32 layers (all 32 until PR 29; so for
-   phases 7-10):
+   ``LLAMA_LAYERS`` = 12 of its 32 layers (so for phases 7-10):
    4 requests x 128 prompt + 32 generated tokens, decoded by replaying
    the captured decode step (one capture, its budget), then the merge
    check; the kernels of that path must have launched on that run,
@@ -414,7 +413,22 @@ and the line before the card's names what each took):
    card against the CPU at d 512 (frames of 16 and none).
 23. mesh_train -- llama7b-proxy trained on a mesh of two processes sharing
    the card (model 2, and pod 2 x model 1's int8 sync), held to one
-   device.
+   device; then moe_mesh, mixtral-8x22b and deepseek-v3-671b trained on
+   model 2 with full expert parallelism, then decoded on it (mixtral
+   merged on the shards, deepseek-v3's latent and rope key split 256 and
+   32 a rank), each held to one device routed as the mesh.
+23b. mesh_decode -- gemma3-1b at its published widths, 6 of 26 layers,
+   decoded on two processes sharing the card through
+   ``steps.make_generate_step``: on model 2 (its one KV head's head_dim
+   split, 128 a rank; 8 rows at a context of 4096; merged and unmerged)
+   and on data 2 x model 1 (1 row at a context of 32752 of 32768, 16384
+   positions a rank, merged by log-sum-exp), 16 greedy tokens each, held
+   to one device decoding from the same cache (each step's logits within
+   2^-4 of max|logit|, ``MD_TOL``, the greedy stream equal up to the first
+   near tie);
+   the head_dim split without the partial scores' sum and the sequence
+   split normalised per rank must fail that bound; kernels 2, 4 and 3a at
+   the new shard shapes against their plain versions; launches exact.
 24. roofline -- gemma3-1b at its published widths (26 layers, d 1152, 4
    query heads and 1 KV head of 256, vocab 262144, int4 g32 r64, bf16),
    one record for each step kind of ``SHAPES`` at a cut size: train_4k
@@ -574,8 +588,8 @@ EXPECTED_S = {"device": 1, "build": 25, "kernels": 10, "flash": 6,
               "baselines": 38, "families": 40, "vision": 14,
               "moe_train": 19, "moe_serve": 68, "mla_serve": 71,
               "mla_train": 50, "recurrent": 72, "rec_train": 35,
-              "encdec": 55, "mesh_train": 35, "moe_mesh": 130,
-              "roofline": 60}
+              "encdec": 55, "mesh_train": 35, "moe_mesh": 105,
+              "mesh_decode": 25, "roofline": 60}
 
 
 def _phase(name, fn, *args):
@@ -1580,12 +1594,12 @@ def _in_turns(run_pass):
 
 SERVE_GEN = 32
 # phases serve, adapters, paged, spec and frontend serve llama7b-proxy at
-# its published widths and 20 of its 32 layers (all 32 until PR 29: the
-# least cut in steps of 4 that keeps the parent's phases under 650 s on
-# the slowest machine seen, with phases rec_train and encdec added)
-LLAMA_LAYERS = 20
+# its published widths and 12 of its 32 layers: with phase mesh_decode
+# the whole script took 792.1 s at 20 layers on an H100 80GB HBM3 at
+# 700 W, at its 800 s budget, and 922 s of command time on another
+LLAMA_LAYERS = 12
 LLAMA_DEPTH = ["--n-layers", str(LLAMA_LAYERS)]
-LLAMA_CUT = f"{LLAMA_LAYERS} of 32 layers (all 32 until PR 29)"
+LLAMA_CUT = f"{LLAMA_LAYERS} of 32 layers"
 
 
 def _llama_cfg():
@@ -8398,6 +8412,21 @@ MOE_MESH_SHAPES = ((320, 6144, 16384), (320, 16384, 6144),
 MOE_MESH_PATH = ("mixtral-8x22b (2 layers, 3 steps) and deepseek-v3-671b (4 "
                  "layers, 2 steps) train on model 2 with full expert "
                  "parallelism, per rank (phase moe_mesh)")
+# after the last train step each arch decodes on the same mesh (mixtral
+# merged on the shards, deepseek-v3 its adapter model: its latent and
+# rope key split 256 and 32 a rank): rows, context (N(0, 1) from a seed),
+# greedy tokens
+MOE_DECODE = (4, 256, 8)
+# the MoE decode's bound on each step's logits against one device: 2^-5
+# of max|logit|.  A row-parallel linear's and the expert combine's
+# partial sums round to bf16 on each rank before their f32 sum: at 2 and
+# 4 layers of these models the gap read 0.67-0.94 (mixtral) and 1.0-1.35
+# (deepseek-v3) of 2^-6 of max|logit| (H100 80GB HBM3, 700 W).  The
+# control, the combine's sum over the expert axes left out, must fail it
+MOE_DECODE_TOL = 2.0 ** -5
+MOE_DECODE_PATH = ("mixtral-8x22b (merged) and deepseek-v3-671b decode on "
+                   "model 2 after their training, 8 tokens each, per rank "
+                   "(phase moe_mesh)")
 
 
 def _moe_mesh_argv(arch, layers, steps):
@@ -8510,6 +8539,8 @@ def _moe_mesh_train(torch, mesh, arch, layers, steps, ckpt_dir=None,
     if arch == "mixtral-8x22b":
         out["merge_codes_scales_identical"], out["merge_zero_max_rel"] = \
             _merge_on_shards(torch, st.params, mesh)
+    out["decode"] = _moe_mesh_decode(torch, mesh, st, arch)
+
     def first_step():
         """Step 1 again from the start: its gathered first moments."""
         with torch.no_grad():
@@ -8544,6 +8575,118 @@ def _moe_mesh_train(torch, mesh, arch, layers, steps, ckpt_dir=None,
     return out
 
 
+def _decode_linears(shard) -> int:
+    """Kernel launches of one decode step on a rank: each quantized linear
+    it holds in the layers (every expert's, whether its slots hold a
+    token or not; MLA's ``kv_up`` none: its absorbed halves are computed
+    once a generation) and a quantized head, once (the MTP block does not
+    decode)."""
+    from repro_torch.core import schemes
+
+    def n(module):
+        # MLA's kv_up runs only as the absorbed weights (LM.absorbed_weights)
+        return sum(1 for name, m in module.named_modules()
+                   if schemes.is_linear(m) and m.scheme in ("qalora", "intq")
+                   and not name.endswith("attn.kv_up"))
+    head = shard.head
+    return sum(n(b) for b in shard.layer_blocks()) + (
+        1 if head is not None and head.scheme in ("qalora", "intq") else 0)
+
+
+def _linear_rows(lp, m):
+    """(M, K, N) of a rank's quantized linear on ``m`` rows (its
+    ``whole`` shards gathered)."""
+    from repro_torch.core import schemes
+    from repro_torch.sharding import tp_of
+    tp = tp_of(lp)
+    q = schemes.quantized_base(tp.whole(lp) if tp is not None else lp)
+    return (m, q.scale.shape[0] * q.group_size, q.scale.shape[1])
+
+
+def _moe_mesh_decode(torch, mesh, st, arch):
+    """``make_generate_step`` on the trained shard after the last train
+    step (mixtral merged on the shards: kernel 2; deepseek-v3 unmerged:
+    kernels 4 and 3a), launches read around it, from a cache of
+    ``MOE_DECODE`` N(0, 1) from a seed; then the tokens teacher-forced
+    through ``make_decode_step`` for each step's logits over the whole
+    vocabulary and the routing of each MoE call; the (M, K, N) of the
+    rank's linears at the step's rows and its experts' capacity."""
+    from repro_torch import kernels
+    from repro_torch.core import schemes
+    from repro_torch.launch import steps as S
+    from repro_torch.models import moe
+    from repro_torch.sharding import cache_part
+    lm, rows, (b, ctx, n_tok) = st.lm, [], MOE_DECODE
+    merged = arch == "mixtral-8x22b"
+    shard = schemes.merge_tree(st.params) if merged else st.params
+    full, logits0 = _md_cache(torch, lm, b, ctx, ctx + n_tok, seed=11)
+    gen, _ = S.make_generate_step(lm, mesh, n_tok)(full)
+    gen(shard, cache_part(full, mesh), logits0)   # warm-up, not timed
+    part = cache_part(full, mesh)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    toks, _ = gen(shard, part, logits0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    routes = []
+    logits = _mesh_logits(torch, lm, mesh, shard, full, toks, routes=routes)
+    control = _mesh_logits(torch, lm, mesh, shard, full, toks,
+                           control="combine_without_sum") if merged else None
+    cap = moe._capacity(lm.cfg.top_k, b, lm.cfg.n_experts,
+                        lm.cfg.capacity_factor)
+    for name, lp in shard.named_modules():
+        if schemes.is_linear(lp) and lp.scheme in ("qalora", "intq"):
+            expert = ".moe." in f".{name}." and ".shared." not in name
+            rows.append(_linear_rows(lp, cap if expert else b))
+    out = {"tokens": toks.cpu(), "logits": logits.cpu(), "routes": routes,
+           "control": None if control is None else control.cpu(),
+           "counts": counts, "wall_s": wall,
+           "step_ms": wall * 1e3 / (n_tok - 1),
+           "expected": _decode_linears(shard) * (n_tok - 1),
+           "kernels": ("qmatvec",) if merged else ("qalora_matvec",
+                                                   "qalora_rank_proj"),
+           "shapes": sorted(set(rows))}
+    del shard, full, gen, part
+    _free(torch)
+    return out
+
+
+def _single_moe_decode(torch, arch, layers, adapters, dec):
+    """One device decoding as the mesh did: the base from the seed, the
+    mesh's trained adapters (gathered), mixtral merged; teacher-forced
+    with the mesh's tokens and routed as its record."""
+    from repro_torch.core import schemes
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import trainable_tensors
+    argv = _moe_mesh_argv(arch, layers, 1)
+    lm = LM(train.build_config(train.build_parser().parse_args(argv)))
+    params = _nudged(torch, argv)
+    with torch.no_grad():
+        for k, t in trainable_tensors(params).items():
+            t.copy_(adapters[k].to(t.device, t.dtype))
+    if arch == "mixtral-8x22b":
+        params = schemes.merge_tree(params)
+    b, ctx, n_tok = MOE_DECODE
+    full, _ = _md_cache(torch, lm, b, ctx, ctx + n_tok, seed=11)
+    calls = iter(dec["routes"])
+
+    def choose(p, idx, scores):
+        return next(calls)["idx"].reshape(idx.shape).to(idx.device)
+    toks = dec["tokens"].to("cuda")
+    one = _one_device_logits(torch, lm, params, full, toks, chooser=choose)
+    held = _held_to_one(torch, dec["logits"].to("cuda"), one, toks,
+                        MOE_DECODE_TOL)
+    if dec["control"] is not None:
+        held["control"] = _held_to_one(torch, dec["control"].to("cuda"), one,
+                                       toks, MOE_DECODE_TOL)
+    del params, full, one
+    _free(torch)
+    return held
+
+
 _MOE_MESH_TENSORS = ("first", "adapters", "control", "no_mtp", "routes")
 
 
@@ -8562,6 +8705,8 @@ def _moe_mesh_rank(rank, ckpt_dir):
         run = _moe_mesh_train(torch, mesh, arch, layers, steps,
                               ckpt_dir if mixtral else None, control=mixtral)
         kept = {k: run.pop(k) for k in _MOE_MESH_TENSORS if k in run}
+        kept["decode"] = {k: run["decode"].pop(k)
+                          for k in ("tokens", "logits", "routes", "control")}
         if rank == 0:
             torch.save(kept, os.path.join(ckpt_dir, f"{arch}.pt"))
         out[arch] = run
@@ -8673,12 +8818,17 @@ def phase_moe_mesh(torch):
                           device_type="cuda", deadline_s=MOE_MESH_DEADLINE_S)
         ranks_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        single = {}
+        single, decode_held = {}, {}
         for arch, layers, steps in MOE_MESH_RUNS:
-            ranks[0][arch].update(torch.load(
-                os.path.join(MOE_MESH_DIR, f"{arch}.pt"), map_location="cpu"))
+            kept = torch.load(os.path.join(MOE_MESH_DIR, f"{arch}.pt"),
+                              map_location="cpu")
+            ranks[0][arch]["decode"].update(kept.pop("decode"))
+            ranks[0][arch].update(kept)
             single[arch] = _single_moe(torch, arch, layers, steps,
                                        ranks[0][arch]["routes"])
+            decode_held[arch] = _single_moe_decode(
+                torch, arch, layers, ranks[0][arch]["adapters"],
+                ranks[0][arch]["decode"])
         arch, layers, steps = MOE_MESH_RUNS[0]
         args = train.build_parser().parse_args(
             _moe_mesh_argv(arch, layers, steps) + ["--ckpt-dir",
@@ -8738,7 +8888,23 @@ def phase_moe_mesh(torch):
                "single_peak_gb": (one["peak_mem_bytes"] or 0) / 1e9,
                "setup_s_per_rank": [r[arch]["setup_s"] for r in ranks]}
         tag = arch.split("-")[0]
+        dec = [r[arch]["decode"] for r in ranks]
+        run["decode"] = {
+            "held": decode_held[arch],
+            "step_ms_per_rank": [d["step_ms"] for d in dec],
+            "launches_per_rank": [{k: d["counts"][k] for k in d["kernels"]}
+                                  for d in dec],
+            "expected_per_rank": [d["expected"] for d in dec],
+            "shapes": dec[0]["shapes"]}
         checks.update({
+            f"{tag}_decode_logits_within_tol": decode_held[arch]["within"],
+            f"{tag}_decode_stream_equal": decode_held[arch]["stream_equal"],
+            f"{tag}_decode_control_fails": "control" not in decode_held[
+                arch] or not decode_held[arch]["control"]["within"],
+            f"{tag}_decode_launches_per_rank": all(
+                d["counts"][k] == d["expected"] and sum(
+                    d["counts"].values()) == d["expected"] * len(
+                    d["kernels"]) for d in dec for k in d["kernels"]),
             f"{tag}_loss_within_tol": max(loss_rel) <= MESH_LOSS_TOL,
             f"{tag}_grads_within_tol": max(grads.values()) <= lim,
             f"{tag}_adapters_within_tol": max(adapters.values()) <= lim,
@@ -8759,10 +8925,27 @@ def phase_moe_mesh(torch):
     one = single["mixtral-8x22b"]
     ctl = _grad_groups(_grads_of(mix["control"], opt_cfg),
                        _grads_of(one["first"], opt_cfg))
+    # kernels 2, 4 and 3a at the decode's new shapes on a rank
+    t0 = time.perf_counter()
+    decode_rows, decode_proj = [], []
+    for arch, _, _ in MOE_MESH_RUNS:
+        d = ranks[0][arch]["decode"]
+        decode_rows += [_check_one(torch, name, m, k, n, BITS, gen,
+                                   timing=False) for m, k, n in d["shapes"]
+                        for name in d["kernels"]
+                        if name != "qalora_rank_proj"]
+        if "qalora_rank_proj" in d["kernels"]:
+            decode_proj += [_check_proj(torch, m, k, gen, gemv=True)
+                            for m, k in sorted({(m, k) for m, k, _
+                                                in d["shapes"]})]
+    _free(torch)
+    checks_s += time.perf_counter() - t0
     checks.update({
         "control_fails_the_limit": max(ctl.values()) > TRAIN_GRAD_TOL,
         "kernel3_at_shard_shapes": all(r["ok"] for r in held),
         "kernel3a_at_shard_shapes": all(r["ok"] for r in proj),
+        "decode_kernels_at_shard_shapes": all(
+            r["ok"] for r in decode_rows + decode_proj),
         "merge_on_shards": all(
             r["mixtral-8x22b"]["merge_codes_scales_identical"]
             and r["mixtral-8x22b"]["merge_zero_max_rel"] <= BF16_U
@@ -8786,6 +8969,11 @@ def phase_moe_mesh(torch):
                                                "tol")} for r in held],
            "kernel3a_rows": [{k: r[k] for k in ("M", "K", "max_abs_err",
                                                 "tol")} for r in proj],
+           "decode_kernel_rows": [{k: r[k] for k in (
+               "kernel", "M", "K", "N", "max_abs_err", "tol")}
+               for r in decode_rows],
+           "decode_kernel3a_rows": [{k: r[k] for k in (
+               "M", "K", "max_abs_err", "tol")} for r in decode_proj],
            "merge_zero_max_rel": [r["mixtral-8x22b"]["merge_zero_max_rel"]
                                   for r in ranks],
            "seconds_by_part": {"kernel_checks": checks_s, "ranks": ranks_s,
@@ -8803,6 +8991,12 @@ def phase_moe_mesh(torch):
               f"{max(r['grad_rel_by_group'].values()):.3f}, adapters "
               f"{max(r['adapter_rel_by_group'].values()):.3f}, flipped "
               f"{r['flipped_share']:.4f}", flush=True)
+        h = r["decode"]["held"]
+        print(f"[chip_smoke] moe_mesh: {a} decode on model 2: "
+              f"{[round(x, 2) for x in r['decode']['step_ms_per_rank']]} ms "
+              f"a step a rank, logits gap {max(h['max_err']):.3e} of bound "
+              f"{min(h['bound']):.3e}, stream equal {h['stream_equal']} "
+              f"(first near ties {h['first_near_tie']})", flush=True)
     print(f"[chip_smoke] moe_mesh: control {max(ctl.values()):.3f} vs "
           f"{TRAIN_GRAD_TOL}; ok {out['ok']}", flush=True)
     emit(out)
@@ -8811,6 +9005,351 @@ def phase_moe_mesh(torch):
                              f"{[k for k, v in checks.items() if not v]}")
     counts = {k: sum(ranks[0][a]["counts"][k] for a, _, _ in MOE_MESH_RUNS)
               for k in ranks[0]["mixtral-8x22b"]["counts"]}
+    decode_counts = {k: sum(ranks[0][a]["decode"]["counts"][k]
+                            for a, _, _ in MOE_MESH_RUNS) for k in counts}
+    return counts, held, proj, decode_counts, decode_rows, decode_proj
+
+
+# ---------------------------------------------------------------------------
+# phase mesh_decode: decode on a mesh of two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# gemma3-1b at its published widths (d 1152, 4 query heads and 1 KV head
+# of 256, vocab 262144, int4 g32 r64, bf16), 6 of its 26 layers: layers
+# 0-4 local (window 512), layer 5 global; seed 0, its adapters nudged by
+# MOE_MESH_NUDGE N(0, 1) from seed 1 (phase moe_mesh's).  Not the serve
+# demo's + 0.01: its rank-one gain puts the same large offset on every
+# column of every linear, the final norm sees that offset's direction
+# whatever the context, and the logits move less than 2^-6 of max|logit|
+# with every layer's attention output halved (a run on the CPU): no
+# merge fault would show
+MD_ARCH, MD_LAYERS = "gemma3-1b", 6
+MD_STEPS = 16  # greedy tokens a run: 15 decode steps
+# (run, mesh sizes over ("data", "model"), rows, context, capacity,
+# models): model 2 splits the one KV head's head_dim (128 a rank), data 2
+# x model 1 the positions of the one row (16384 a rank).  The cache's
+# first ``context`` positions are N(0, 1) from a seed, bf16
+MD_RUNS = (("model2", (1, 2), 8, 4096, 4096 + MD_STEPS,
+            ("merged", "unmerged")),
+           ("seq_data2", (2, 1), 1, 32768 - MD_STEPS, 32768, ("merged",)))
+# each run's control, which must fail MD_TOL
+MD_CONTROL = {"model2": "no_score_sum", "seq_data2": "per_rank_softmax"}
+# each step's logits against one device: within 2^-4 of max|logit|.  The
+# row-parallel wo and down round each rank's partial sum to bf16 before
+# the f32 sum, and a flipped bf16 rounding anywhere moves this model's
+# logits by ~3 of their bf16 steps (1.4 % of max|logit|, a single
+# attention element one step off at layer 0): the phase's runs on the
+# CPU (its plain versions in bf16) read 0.39-0.49 of 2^-4 (1.6-2 x 2^-6)
+# on model 2 and 0.15 on data 2, the controls 7.5-17.8 x 2^-4
+MD_TOL = 2.0 ** -4
+MD_DEADLINE_S = 300.0
+# kernels 2 and 4 at a rank's shard shapes (M, K, N): model 2's columns
+# (wq, wk / wv, gate / up) and rows (wo, down) at 8 rows, data 2 x model
+# 1's whole linears at 1 row
+MD_SHARD_SHAPES = ((8, 1152, 512), (8, 1152, 128), (8, 512, 1152),
+                   (8, 1152, 3456), (8, 3456, 1152))
+MD_WHOLE_SHAPES = ((1, 1152, 1024), (1, 1152, 256), (1, 1024, 1152),
+                   (1, 1152, 6912), (1, 6912, 1152))
+MD_PATH = (f"{MD_ARCH} decode on a mesh ({MD_LAYERS} layers; model 2 "
+           f"merged and unmerged, data 2 x model 1 merged; {MD_STEPS} "
+           f"tokens a run), per rank (phase mesh_decode)")
+
+
+def _md_model(torch):
+    """Phase mesh_decode's model from seed 0 on the card, its adapters
+    nudged (``MOE_MESH_NUDGE`` N(0, 1), seed 1): (lm, {"unmerged": params,
+    "merged": their merge})."""
+    import repro_torch.configs as C
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import trainable_tensors
+    lm = LM(C.get(MD_ARCH).scaled(n_layers=MD_LAYERS))
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        for t in trainable_tensors(params).values():
+            t.add_((MOE_MESH_NUDGE * torch.randn(
+                t.shape, generator=gen, device="cuda")).to(t.dtype))
+    return lm, {"unmerged": params, "merged": serve.merge_model(params)}
+
+
+def _md_cache(torch, lm, rows, ctx, cap, seed, std=1.0):
+    """A full decode cache of ``rows`` x ``cap`` positions (bf16) whose
+    first ``ctx`` are N(0, ``std``^2) from ``seed``, its lengths ``ctx``,
+    and the first token's logits [rows, vocab] f32 from the same
+    generator."""
+    from repro_torch.models.slot_state import cache_leaves
+    cache = lm.init_cache(rows, cap, dtype=torch.bfloat16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for t in cache_leaves(cache["layers"]):
+        t[:, :, :ctx] = (std * torch.randn(t[:, :, :ctx].shape, generator=gen,
+                                           device="cuda")).to(t.dtype)
+    cache["len"].fill_(ctx)
+    return cache, torch.randn((rows, lm.cfg.vocab), generator=gen,
+                              device="cuda")
+
+
+def _moe_tp_without_sum():
+    """The tensor-parallel operators as the MoE layer sees them in the
+    control ``combine_without_sum``: its combined rows' sum over the expert
+    axes left out (each rank keeps its own experts' part)."""
+    import types
+    from repro_torch.models import tp
+    ns = types.SimpleNamespace(**vars(tp))
+    ns.reduce_from = lambda x, mesh, axes=None: x
+    return ns
+
+
+def _md_per_rank_softmax(scores, contract, layout):
+    """The sequence split's control: each rank's softmax normalised over
+    its own positions, the ranks' contexts averaged."""
+    import torch
+    o = contract(torch.softmax(scores, dim=-1))
+    return layout.mesh.all_reduce(o, layout.seq) / layout.mesh.size(
+        layout.seq)
+
+
+# the controls: (module of repro_torch.models, its attribute, a factory
+# of the replacement)
+MD_CONTROLS = {
+    "no_score_sum": ("attention", "_score_sum",
+                     lambda: lambda scores, mesh: scores),
+    "per_rank_softmax": ("attention", "_seq_softmax",
+                         lambda: _md_per_rank_softmax),
+    "combine_without_sum": ("moe", "tp", _moe_tp_without_sum)}
+
+
+def _mesh_logits(torch, lm, mesh, shard, full, toks, control=None,
+                 routes=None):
+    """``make_decode_step``'s steps teacher-forced with ``toks`` (this
+    rank's rows) from a fresh part of ``full``: each step's logits over
+    the whole vocabulary [rows, steps, V] f32 on the card; with
+    ``control`` under it; with ``routes`` (a list) the MoE routing
+    recorded into it."""
+    import importlib
+    from repro_torch.launch import steps as S
+    from repro_torch.models import moe
+    from repro_torch.sharding import cache_part
+    patched = None
+    if control:
+        mod, attr, make = MD_CONTROLS[control]
+        mod = importlib.import_module(f"repro_torch.models.{mod}")
+        patched = (mod, attr, getattr(mod, attr))
+        setattr(mod, attr, make())
+    try:
+        step, _ = S.make_decode_step(lm, mesh)(full)
+        part = cache_part(full, mesh)
+        logs = []
+        with moe.record_routing() as rec:
+            for t in range(toks.shape[1] - 1):
+                lg, part = step(shard, part, toks[:, t:t + 1])
+                logs.append(mesh.all_gather(lg.contiguous(), "model",
+                                            lg.dim() - 1).float())
+        if routes is not None:
+            routes.extend({k: v.to("cpu", copy=True) for k, v in r.items()}
+                          for r in rec)
+    finally:
+        if patched:
+            setattr(*patched)
+    return torch.stack(logs, dim=1)
+
+
+def _one_device_logits(torch, lm, params, full, toks, chooser=None):
+    """One device decoding from a copy of ``full``, teacher-forced with
+    ``toks``: each step's logits [rows, steps, V] f32 (routed by
+    ``chooser``, ``moe.choose_experts``'s, where given)."""
+    from repro_torch.models import moe
+    cache = {"layers": {k: (v.clone() if not isinstance(v, dict) else
+                            {n: t.clone() for n, t in v.items()})
+                        for k, v in full["layers"].items()},
+             "len": full["len"].clone()}
+    ctx = moe.choose_experts(chooser) if chooser else contextlib.nullcontext()
+    logs = []
+    with ctx, torch.no_grad():
+        for t in range(toks.shape[1] - 1):
+            lg, cache = lm.decode_step(params, cache, toks[:, t:t + 1])
+            logs.append(lg.float())
+    return torch.stack(logs, dim=1)
+
+
+def _held_to_one(torch, got, one, toks, tol=MD_TOL):
+    """Mesh logits ``got`` against one device's ``one`` [rows, steps, V]:
+    each step's largest gap and its bound (``tol`` x max|one|), and each
+    row's greedy stream (``toks``, the mesh's: token t + 1 its step t's
+    argmax) against one device's argmax, up to the row's first step whose
+    top two logits lie within the bound."""
+    err = (got - one).abs().amax(dim=(0, 2))
+    bound = tol * one.abs().amax(dim=(0, 2))
+    top = one.topk(2, dim=-1).values
+    tie = (top[..., 0] - top[..., 1]) <= tol * one.abs().amax(
+        dim=-1)                                           # [rows, steps]
+    mine = one.argmax(dim=-1).cpu()
+    nxt = toks[:, 1:].cpu().to(mine.dtype)
+    stream, ties = True, []
+    for r in range(one.shape[0]):
+        first = int(tie[r].nonzero()[0]) if bool(tie[r].any()) \
+            else tie.shape[1]
+        ties.append(first)
+        stream = stream and bool(torch.equal(mine[r, :first],
+                                             nxt[r, :first]))
+    return {"max_err": err.tolist(), "bound": bound.tolist(),
+            "within": bool((err <= bound).all()), "stream_equal": stream,
+            "first_near_tie": ties,
+            "stream_whole_equal": bool(torch.equal(mine, nxt))}
+
+
+def _md_rank(rank):
+    """One rank of phase mesh_decode: each run of ``MD_RUNS`` on its mesh
+    through ``make_generate_step`` (launches read around it), then the
+    same tokens teacher-forced through ``make_decode_step`` for each
+    step's logits and under the run's control; rank 0 holds both to one
+    device decoding from the same cache."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import cache_part, decode_layout, shard_params
+    t0 = time.perf_counter()
+    lm, models = _md_model(torch)
+    out = {"rank": rank, "seconds": {"model": time.perf_counter() - t0},
+           "runs": {}}
+    for run, sizes, rows, ctx, cap, kinds in MD_RUNS:
+        t0 = time.perf_counter()
+        mesh = make_mesh(sizes, ("data", "model"))
+        full, logits0 = _md_cache(torch, lm, rows, ctx, cap, seed=5)
+        layout = decode_layout(full, mesh)
+        n = rows // mesh.size(layout.rows)
+        first = mesh.index(layout.rows) * n
+        for kind in kinds:
+            shard = shard_params(models[kind], mesh)
+            gen, _ = S.make_generate_step(lm, mesh, MD_STEPS,
+                                          models[kind])(full)
+            gen(shard, cache_part(full, mesh),
+                logits0[first:first + n])    # warm-up, not timed
+            part = cache_part(full, mesh)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t1 = time.perf_counter()
+            toks, part = gen(shard, part, logits0[first:first + n])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            counts = kernels.launches()
+            rec = {"wall_s": wall,
+                   "step_ms": wall * 1e3 / (MD_STEPS - 1), "counts": counts,
+                   "expected": lm.step_linears() * (MD_STEPS - 1),
+                   "layout": {"rows": layout.rows, "seq": layout.seq,
+                              "heads": layout.heads,
+                              "feature": layout.feature},
+                   "cache_part_mb": sum(
+                       t.numel() * t.element_size() for t in
+                       part["layers"].values()) / 2**20,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            got = _mesh_logits(torch, lm, mesh, shard, full, toks)
+            ctl = _mesh_logits(torch, lm, mesh, shard, full, toks,
+                               control=MD_CONTROL[run]) \
+                if kind == kinds[0] else None
+            rec["self_consistent"] = bool(torch.equal(
+                got.argmax(dim=-1).cpu(), toks[:, 1:].cpu().long()))
+            if rank == 0:
+                t1 = time.perf_counter()
+                one = _one_device_logits(torch, lm, models[kind], full, toks)
+                torch.cuda.synchronize()
+                rec["one_device_step_ms"] = (time.perf_counter() - t1) \
+                    * 1e3 / (MD_STEPS - 1)
+                rec["held"] = _held_to_one(torch, got, one, toks)
+                if ctl is not None:
+                    rec["control"] = _held_to_one(torch, ctl, one, toks)
+                del one
+            rec["tokens"] = toks.cpu().tolist()
+            out["runs"][f"{run}/{kind}"] = rec
+            del shard, gen, part, got, ctl
+            _free(torch)
+        del full, logits0
+        _free(torch)
+        out["seconds"][run] = time.perf_counter() - t0
+    return out
+
+
+def phase_mesh_decode(torch):
+    """Decode on a mesh (module docstring, phase 23b): kernels 2, 4 and 3a
+    at the new shard shapes against their plain versions, then two ranks
+    sharing the card (gloo; spawned after phase build, they load its
+    libraries and never build)."""
+    from repro_torch.launch.mesh import run_ranks
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    held = [_check_one(torch, name, m, k, n, BITS, gen, timing=False)
+            for m, k, n in MD_SHARD_SHAPES
+            for name in ("qmatvec", "qalora_matvec")]
+    held += [_check_one(torch, "qmatvec", m, k, n, BITS, gen, timing=False)
+             for m, k, n in MD_WHOLE_SHAPES]
+    proj = [_check_proj(torch, m, k, gen, gemv=True) for m, k in sorted(
+        {(m, k) for m, k, _ in MD_SHARD_SHAPES})]
+    _free(torch)
+    checks_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    ranks = run_ranks(_md_rank, 2, (), device_type="cuda",
+                      deadline_s=MD_DEADLINE_S)
+    ranks_s = time.perf_counter() - t0
+    runs = ranks[0]["runs"]
+    checks = {"kernels_at_shard_shapes": all(r["ok"] for r in held),
+              "kernel3a_at_shard_shapes": all(r["ok"] for r in proj)}
+    for key, rec in runs.items():
+        kernel = ("qmatvec",) if key.endswith("/merged") else (
+            "qalora_matvec", "qalora_rank_proj")
+        tag = key.replace("/", "_")
+        checks.update({
+            f"{tag}_logits_within_tol": rec["held"]["within"],
+            f"{tag}_stream_equal": rec["held"]["stream_equal"],
+            f"{tag}_self_consistent": all(
+                r["runs"][key]["self_consistent"] for r in ranks),
+            f"{tag}_launches_per_rank": all(
+                r["runs"][key]["counts"][k] == rec["expected"]
+                and sum(r["runs"][key]["counts"].values())
+                == rec["expected"] * len(kernel)
+                for r in ranks for k in kernel),
+            f"{tag}_tokens_equal_on_both_ranks":
+                ranks[0]["runs"][key]["tokens"]
+                == ranks[1]["runs"][key]["tokens"]})
+        if "control" in rec:
+            checks[f"{tag}_control_fails"] = not rec["control"]["within"]
+    smi = _smi("name,power.limit")
+    out = {"phase": "mesh_decode", "arch": MD_ARCH, "n_layers": MD_LAYERS,
+           "card": smi,
+           "ranks": "2 processes sharing one card (gloo, host copies)",
+           "steps": MD_STEPS, "tol": MD_TOL,
+           "runs": {key: {k: v for k, v in rec.items() if k != "tokens"}
+                    for key, rec in runs.items()},
+           "step_ms_per_rank": {key: [r["runs"][key]["step_ms"]
+                                      for r in ranks] for key in runs},
+           "kernel_rows": [{k: r[k] for k in ("kernel", "M", "K", "N",
+                                              "max_abs_err", "tol")}
+                           for r in held],
+           "kernel3a_rows": [{k: r[k] for k in ("M", "K", "max_abs_err",
+                                                "tol")} for r in proj],
+           "seconds_by_part": {"kernel_checks": checks_s, "ranks": ranks_s,
+                               "rank0": ranks[0]["seconds"]},
+           "checks": checks, "phase_s": time.perf_counter() - t_phase}
+    out["ok"] = all(checks.values())
+    for key, rec in runs.items():
+        print(f"[chip_smoke] mesh_decode: {MD_ARCH} {MD_LAYERS} layers "
+              f"{key} (2 ranks sharing {smi}): "
+              f"{[round(r['runs'][key]['step_ms'], 2) for r in ranks]} ms a "
+              f"step a rank (one device {rec['one_device_step_ms']:.2f}), "
+              f"logits gap {max(rec['held']['max_err']):.3e} of bound "
+              f"{min(rec['held']['bound']):.3e}"
+              + (f", control {max(rec['control']['max_err']):.3e}"
+                 if "control" in rec else "")
+              + f"; stream equal {rec['held']['stream_equal']}",
+              flush=True)
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"mesh_decode checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    counts = {}
+    for rec in runs.values():
+        for k, v in rec["counts"].items():
+            counts[k] = counts.get(k, 0) + v
     return counts, held, proj
 
 
@@ -9233,8 +9772,11 @@ def main() -> int:
         serve_counts.update(encdec_counts)
         serve_counts[MESH_PATH] = _phase("mesh_train", phase_mesh_train,
                                          torch)
-        serve_counts[MOE_MESH_PATH], moe_mesh_held, moe_mesh_proj = _phase(
+        (serve_counts[MOE_MESH_PATH], moe_mesh_held, moe_mesh_proj,
+         serve_counts[MOE_DECODE_PATH], moe_dec_held, moe_dec_proj) = _phase(
             "moe_mesh", phase_moe_mesh, torch)
+        serve_counts[MD_PATH], md_held, md_proj = _phase(
+            "mesh_decode", phase_mesh_decode, torch)
         serve_counts[ROOF_PATH], roof_held = _phase("roofline",
                                                     phase_roofline, torch)
     except Exception as e:  # report, save and fail: no result line
@@ -9252,7 +9794,7 @@ def main() -> int:
         spec = [x for rs in spec_held.values() for x in rs
                 if x["kernel"] == name]
         fam = [x for x in family_held + vision_held + moe_held + mla_held
-               + rec_held + encdec_held + roof_held
+               + rec_held + encdec_held + roof_held + moe_dec_held + md_held
                if x["kernel"] == name]
         held = spec + fam
         summary.append({
@@ -9368,7 +9910,7 @@ def main() -> int:
                for path, c in base_counts.items()},
             **{path: c[PROJ[0]] for path, c in serve_counts.items()}},
         "max_abs_err": max([x["max_abs_err"] for x in r + ragged[PROJ[0]]
-                            + moe_mesh_proj]
+                            + moe_mesh_proj + moe_dec_proj + md_proj]
                            + [train_errs[PROJ[0]], moe_train_errs[PROJ[0]]]),
         **{f"{key}_ms": _per_layer(r, f"{key}_ms")
            for key in ("plain", "library")},

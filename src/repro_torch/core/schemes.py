@@ -658,8 +658,15 @@ def map_linears(module: nn.Module, fn, path: str = "") -> nn.Module:
 
 def merge_tree(params: nn.Module) -> nn.Module:
     """Merge every adapter in the model into its base (tag-driven walk);
-    idempotent."""
-    return map_linears(params, lambda path, lp: merge_linear(lp))
+    idempotent.  A shard's linears keep their tensor-parallel mode
+    (``tp``, :mod:`repro_torch.sharding.shard`): the merge is local to
+    each (group, column), so the merged shard is the merged tree's."""
+    def one(path, lp):
+        out = merge_linear(lp)
+        if "tp" in lp.__dict__:
+            out.tp = lp.tp
+        return out
+    return map_linears(params, one)
 
 
 def _policy_path(path: str) -> str:

@@ -12,17 +12,21 @@ nothing), on the rank's shard of the full-width params
 :func:`~repro_torch.sharding.param_specs`; linears ``col``, ``row`` or
 ``whole``), its rows of the batch
 (:func:`~repro_torch.sharding.batch_spec_tree`) and its part of the
-decode cache (:func:`~repro_torch.sharding.cache_spec_tree`).  Train
-cells run :func:`repro_torch.launch.steps.make_train_step`, prefill
-cells ``LM.prefill``, decode cells ``LM.decode_step`` (``--gen-len N``:
-N - 1 steps and their greedy argmax, the serve loop's program).  One step
-is counted by :class:`repro_torch.perf.cost.CostCounter`: a MoE layer's
-expert dispatch and combine count as the mesh's all-to-all and
-all-gather, and a rank's expert bytes are its experts' only.  A cell the
-port does not run on a mesh (``check_mesh_support``, for decode
-``check_decode_mesh_support``, and for an mla_moe prefill whose
-compressed cache is not the rank's part ``check_prefill_mesh_support``)
-is recorded as refused with the reason.
+decode cache (:func:`~repro_torch.sharding.cache_part` under
+:func:`~repro_torch.sharding.cache_spec_tree`).  Train cells run
+:func:`repro_torch.launch.steps.make_train_step`, prefill cells
+``LM.prefill``, decode cells :func:`~repro_torch.launch.steps.
+make_decode_step`'s step (``--gen-len N``: ``make_generate_step``'s N
+tokens, N - 1 steps and their greedy argmax, the serve loop's program).
+One step is counted by :class:`repro_torch.perf.cost.CostCounter`: a MoE
+layer's expert dispatch and combine count as the mesh's all-to-all and
+all-gather, a decode step's partial-score sums over "model", log-sum-exp
+merges over the data axes and MLA's latent gathers as labelled
+all-reduces and all-gathers, and a rank's expert bytes are its experts'
+only.  A cell the port does not run on a mesh (``check_mesh_support``,
+and for an mla_moe prefill whose compressed cache is not the rank's part
+``check_prefill_mesh_support``) is recorded as refused with the
+reason.
 
 Each cell writes ``<outdir>/<arch>__<cell>__<mesh>.json``: the rank's
 bytes of params, optimizer state, cache and batch (what it holds before
@@ -57,9 +61,6 @@ from repro_torch.perf.cost import CostCounter, tensor_bytes
 from repro_torch.perf.roofline import HW
 
 OUTDIR = "experiments/dryrun_torch"
-MESH_DECODE_NOT_PORTED = (
-    "decode on a mesh of the MoE families is not yet ported (see "
-    "ROADMAP.md, Queue 1 item 16c: decode on a mesh)")
 
 
 @contextlib.contextmanager
@@ -104,44 +105,6 @@ def _rows(mesh, n: int) -> Tuple[int, int]:
     return mesh.index(dp) * size, size
 
 
-def rank_cache(cache, mesh):
-    """This rank's part of a full decode cache: each leaf sliced by
-    :func:`~repro_torch.sharding.cache_spec_tree`, the lengths to the
-    rank's rows."""
-    from repro_torch.sharding import cache_spec_tree, shard_tensor
-    specs = cache_spec_tree(cache, mesh)
-    first, n = _rows(mesh, int(cache["len"].shape[0]))
-
-    def walk(node, spec):
-        if isinstance(node, dict):
-            return {k: walk(v, spec[k]) for k, v in node.items()}
-        return shard_tensor(node, spec, mesh)
-    out = walk(cache, specs)
-    out["len"] = cache["len"][first:first + n]
-    return out
-
-
-def check_decode_mesh_support(cfg, shard, cache, mesh, seq: int) -> None:
-    """Raises NotImplementedError (naming ROADMAP.md) where this rank's
-    part of the cache is not the one the port's tensor-parallel decode
-    holds: its rows must be the rank's batch rows, its positions all
-    ``seq`` of them, and each layer's K and V the KV heads the rank's
-    attention reads, whole (:func:`repro_torch.models.tp.rank_kv_heads`)."""
-    from repro_torch.launch.steps import MESH_NOT_PORTED
-    from repro_torch.models import tp
-    k = cache["layers"]["k"]                     # [L, B, S, KvH, hd]
-    heads = (tp.rank_kv_heads(shard.blocks[0]["attn"], cfg, mesh)
-             if tp.model_mesh(shard) is not None else cfg.n_kv_heads)
-    want = (_rows(mesh, cache["len"].shape[0])[1], seq, heads, cfg.head_dim)
-    got = tuple(k.shape[1:])
-    if got != want:
-        raise NotImplementedError(
-            f"{cfg.name}'s decode cache spec gives a rank (rows, positions, "
-            f"KV heads, head dim) {got}, the port's tensor-parallel decode "
-            f"holds {want}; decode with that cache layout is "
-            f"{MESH_NOT_PORTED}")
-
-
 def check_prefill_mesh_support(cfg, cache, mesh, rows: int) -> None:
     """Raises NotImplementedError (naming ROADMAP.md) where an mla_moe
     prefill's compressed cache on this rank (each leaf [L, B, S, R]) is
@@ -172,30 +135,43 @@ def make_step(lm, kind: str, params, inputs: Dict, mesh=None,
     shard on ``mesh``), on whatever device the tensors are: ``train``
     (the train step, AdamW included; ``inputs["batch"]`` the global
     batch), ``prefill`` (``inputs["batch"]`` this rank's rows) or
-    ``decode`` (``inputs["cache"]``, ``inputs["tokens"]``: this rank's;
-    ``gen_len`` > 0 runs ``gen_len - 1`` steps, each fed the argmax of
-    the last)."""
-    from repro_torch.launch.steps import make_train_step
+    ``decode`` (``inputs["cache"]``, ``inputs["tokens"]``: the full cache
+    and tokens, of which the step takes this rank's part and rows;
+    ``gen_len`` > 0 runs ``make_generate_step``'s ``gen_len - 1`` steps,
+    each fed the argmax of the last)."""
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_generate_step,
+                                          make_train_step)
     from repro_torch.models import moe
     from repro_torch.optim import adamw_init, trainable_tensors
+    from repro_torch.sharding import cache_part, decode_layout
     if kind == "train":
         step = make_train_step(lm, mesh)
         opt = opt_state if opt_state is not None else \
             adamw_init(trainable_tensors(params))
         return lambda: step(params, opt, inputs["batch"])
 
-    @torch.no_grad()
-    def serve():
-        if kind == "prefill":
+    if kind == "prefill":
+        @torch.no_grad()
+        def prefill():
             with moe.rows_over(inputs.get("rows", ())):
                 return lm.prefill(params, inputs["batch"])
-        if not gen_len:
-            return lm.decode_step(params, inputs["cache"], inputs["tokens"])
-        tok = inputs["tokens"]
-        for _ in range(gen_len - 1):
-            logits, _ = lm.decode_step(params, inputs["cache"], tok)
-            tok = logits.argmax(dim=-1).to(torch.int32)[:, None]
-    return serve
+        return prefill
+    cache, tokens = inputs["cache"], inputs["tokens"]
+    part = cache
+    if mesh is not None and not mesh.single:
+        part = cache_part(cache, mesh)
+        rows = decode_layout(cache, mesh).rows
+        n = tokens.shape[0] // mesh.size(rows)
+        tokens = tokens[mesh.index(rows) * n:(mesh.index(rows) + 1) * n]
+    if gen_len:
+        gen, _ = make_generate_step(lm, mesh, gen_len)(cache)
+        cols = lm.cfg.vocab // (mesh.size("model") if mesh else 1)
+        # the first token's logits: zeros of this rank's rows and columns
+        logits = torch.zeros((tokens.shape[0], cols), device=tokens.device)
+        return lambda: gen(params, part, logits)
+    step, _ = make_decode_step(lm, mesh)(cache)
+    return lambda: step(params, part, tokens)
 
 
 def run_step(lm, kind: str, params, inputs: Dict, mesh=None, opt_state=None,
@@ -219,8 +195,8 @@ def trace(cfg, cell, mesh=None, gen_len: int = 0) -> dict:
     from repro_torch.launch.steps import abstract_params, check_mesh_support
     from repro_torch.models.lm import LM
     from repro_torch.optim import adamw_init, trainable_tensors
-    from repro_torch.sharding import batch_spec_tree, rank_param_bytes, \
-        shard_params, shard_tensors
+    from repro_torch.sharding import batch_spec_tree, cache_part, \
+        rank_param_bytes, shard_params, shard_tensors
     lm = LM(cfg)
     sharded = mesh is not None and not mesh.single
     if sharded:
@@ -228,9 +204,6 @@ def trace(cfg, cell, mesh=None, gen_len: int = 0) -> dict:
         # nothing): the family, then the schemes of one layer of each
         # stack (a policy names no layer)
         check_mesh_support(cfg, mesh=mesh)
-        if cell.kind == "decode" and cfg.family != "gqa":
-            raise NotImplementedError(f"{cfg.name} ({cfg.family}): "
-                                      f"{MESH_DECODE_NOT_PORTED}")
     params = abstract_params(lm)
     held = {"params_bytes": rank_param_bytes(params, mesh) if sharded
             else tensor_bytes(*params.buffers(), *params.parameters()),
@@ -252,16 +225,11 @@ def trace(cfg, cell, mesh=None, gen_len: int = 0) -> dict:
             inputs = {"batch": local, "rows": mesh.dp_axes if sharded and
                       _rows(mesh, rows)[1] < rows else ()}
     else:
-        cache = inputs["cache"]
-        if sharded:
-            cache = rank_cache(cache, mesh)
-            check_decode_mesh_support(cfg, params, cache, mesh,
-                                      cell.seq_len)
-        first, n = _rows(mesh, cell.global_batch) if sharded \
-            else (0, cell.global_batch)
-        inputs = {"cache": cache, "tokens": inputs["tokens"][first:first + n]}
-        held["cache_bytes"] = tensor_bytes(cache)
-        held["batch_bytes"] = tensor_bytes(inputs["tokens"])
+        part = cache_part(inputs["cache"], mesh) if sharded \
+            else inputs["cache"]
+        held["cache_bytes"] = tensor_bytes(part)
+        held["batch_bytes"] = tensor_bytes(inputs["tokens"]) * \
+            part["len"].shape[0] // cell.global_batch
     result = []
     counter = run_step(lm, kind, params, inputs, mesh if sharded else None,
                        opt, gen_len=gen_len, out=result)

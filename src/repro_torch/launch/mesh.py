@@ -192,26 +192,31 @@ class Mesh:
         card = torch.device("cuda", torch.cuda.current_device())
         return t.detach().to(card, copy=True).contiguous()
 
-    def all_reduce(self, t: torch.Tensor, axes, op: str = "sum"):
+    def all_reduce(self, t: torch.Tensor, axes, op: str = "sum",
+                   label: str = ""):
         """A new tensor: ``t`` reduced (``"sum"`` or ``"max"``) over
-        ``axes``; ``t`` itself when they hold one process."""
+        ``axes``; ``t`` itself when they hold one process.  A ``label``
+        names the collective's role to the cost counter
+        (``all_reduce[label]``)."""
         g = self.group(axes)
         if g is None:
             return t
         nbytes = t.numel() * t.element_size()
-        with cost.reported("all_reduce", 0, 2 * nbytes, nbytes):
+        with cost.reported(_named("all_reduce", label), 0, 2 * nbytes,
+                           nbytes):
             x = self._wire(t)
             dist.all_reduce(x, op=_OPS[op], group=g)
             return x.to(t.device)
 
-    def all_gather(self, t: torch.Tensor, axes, dim: int):
+    def all_gather(self, t: torch.Tensor, axes, dim: int, label: str = ""):
         """The pieces of ``t`` over ``axes`` concatenated on ``dim``, in
-        the axes' row-major order; ``t`` itself on one process."""
+        the axes' row-major order; ``t`` itself on one process (``label``
+        as :meth:`all_reduce`'s)."""
         g = self.group(axes)
         if g is None:
             return t
         nbytes = t.numel() * t.element_size()
-        with cost.reported("all_gather", 0,
+        with cost.reported(_named("all_gather", label), 0,
                            (1 + self.size(axes)) * nbytes, nbytes):
             x = self._wire(t)
             parts = [torch.empty_like(x) for _ in range(self.size(axes))]
@@ -251,6 +256,10 @@ class Mesh:
         return (" x ".join(f"{a} {s}" for a, s in self.shape.items())
                 + f" (rank {self.rank} of {math.prod(self.sizes)}, backend "
                   f"{self.backend or 'none'})")
+
+
+def _named(op: str, label: str) -> str:
+    return f"{op}[{label}]" if label else op
 
 
 def make_mesh(sizes: Sequence[int], axis_names: Sequence[str]) -> Mesh:

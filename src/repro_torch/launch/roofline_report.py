@@ -8,7 +8,9 @@ the mesh, the reference's table from
 :class:`~repro_torch.perf.roofline.HW`: compute, memory and collective
 time, the dominant term, the share of the collective time in the MoE
 expert exchange's all-to-alls (dispatch forward, combine backward; "-"
-where a cell has none), MODEL_FLOPS, the useful ratio (MODEL_FLOPS over
+where a cell has none) and, for decode cells, in a step's partial-score
+sums over "model", its log-sum-exp merges over the data axes and MLA's
+latent gathers (the mesh's labelled collectives), MODEL_FLOPS, the useful ratio (MODEL_FLOPS over
 the counted flops of every rank) and the next move; then the refused
 cells and their reasons.  Writes the table and the rows as JSON.
 
@@ -68,10 +70,37 @@ def analyze(rec: dict) -> dict:
                        rec.get("reduced", False))
     terms = roofline_terms(OpCost(**rec["cost"]), rec["n_devices"], cfg,
                            SHAPES[rec["cell"]], HW())
-    a2a = rec.get("by_op", {}).get("all_to_all")
+    by_op = rec.get("by_op", {})
+    a2a = by_op.get("all_to_all")
     terms["all_to_all_s"] = (a2a["collective_bytes"] / HW().link_bw
                              if a2a else None)
+    for label in DECODE_COLLECTIVES:
+        terms[f"{label}_s"] = sum(
+            v["collective_bytes"] for k, v in by_op.items()
+            if k.endswith(f"[{label}]")) / HW().link_bw
     return {**{k: v for k, v in rec.items() if k != "by_op"}, **terms}
+
+
+# the labelled collectives of a decode step on a mesh
+# (repro_torch.models.attention): the partial scores' sum over "model"
+# where head_dim splits, the log-sum-exp merge over the data axes where
+# the positions split, MLA's latent and rope key gathered whole
+DECODE_COLLECTIVES = ("score_sum", "lse_merge", "latent_gather")
+
+
+def mla_decode_exchange(cfg, rows: int, seq: int, model: int) -> dict:
+    """The collective bytes a rank's MLA decode step reports a layer (the
+    counter's rule: each collective's operand), for each way to attend
+    over a latent cache split over "model": ``gather_latent`` (the
+    rank's block of ``c`` and ``kr`` all-gathered, bf16) and
+    ``sum_scores`` (every head's absorbed query all-gathered, the partial
+    scores of all heads summed over "model", each head's block of the
+    context gathered back: f32)."""
+    h, r, rope = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_dim
+    hl = h // model
+    return {"gather_latent": rows * seq * (r + rope) // model * 2,
+            "sum_scores": (rows * hl * (r + rope) * 4
+                           + rows * h * seq * 4 + rows * h * r // model * 4)}
 
 
 def load(dryrun_dir: str, meshes) -> list:
@@ -92,16 +121,19 @@ def load(dryrun_dir: str, meshes) -> list:
 
 def table(rows) -> str:
     lines = ["| arch | shape | mesh | compute | memory | collective | "
-             "of which all-to-all | bound | MODEL_FLOPS | useful | held GiB "
+             "of which all-to-all | of which score sums / lse merge / "
+             "latent gather | bound | MODEL_FLOPS | useful | held GiB "
              "| next move |",
-             "|---|---|---|---|---|---|---|---|---|---|---|---|"]
+             "|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
     for r in rows:
         a2a = r.get("all_to_all_s")
+        dec = [r.get(f"{k}_s") or 0.0 for k in DECODE_COLLECTIVES]
         lines.append(
             f"| {r['arch']} | {r['cell']} | {r['mesh']} | "
             f"{fmt_s(r['compute_s'])} | {fmt_s(r['memory_s'])} | "
             f"{fmt_s(r['collective_s'])} | "
             f"{'-' if a2a is None else fmt_s(a2a)} | "
+            f"{' / '.join(fmt_s(x) if x else '-' for x in dec)} | "
             f"{r['dominant'].replace('_s', '')} | {r['model_flops']:.2e} | "
             f"{r['useful_ratio']:.2f} | "
             f"{r['memory']['total_bytes'] / 2**30:.2f} | "

@@ -1,5 +1,6 @@
-"""The QA-LoRA train step (counterpart of ``make_train_fn``,
-``make_train_step``, ``train_state_specs`` and ``make_sync_step`` in
+"""The QA-LoRA train step and the decode steps on a mesh (counterpart of
+``make_train_fn``, ``make_train_step``, ``train_state_specs``,
+``make_decode_step``, ``make_generate_step`` and ``make_sync_step`` in
 ``repro.launch.steps``).
 
 Gradients flow ONLY to the adapters: the quantized base is a set of
@@ -39,11 +40,14 @@ import torch
 
 from repro_torch.core import schemes
 from repro_torch.models import moe
+from repro_torch.models import tp as tpm
 from repro_torch.models.lm import LM
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.compression import compressed_mean
 from repro_torch.optim.partition import split_params, trainable_tensors
-from repro_torch.sharding import batch_spec_tree, param_specs, shard_tensors
+from repro_torch.sharding import (batch_spec_tree, cache_spec_tree,
+                                  check_cache_part, decode_layout,
+                                  param_specs, shard_tensors)
 from repro_torch.sharding.shard import Mode, tp_of
 
 MESH_NOT_PORTED = ("not yet ported on a mesh (see ROADMAP.md, Queue 1 item "
@@ -210,6 +214,91 @@ def make_train_step(lm: LM, mesh, opt_cfg: Optional[AdamWConfig] = None):
     return train_step
 
 
+def make_decode_step(lm: LM, mesh):
+    """The decode step on ``mesh``: returns ``for_cache(cache) -> (step,
+    cspec)``, ``cache`` the full decode cache (tensors or ``meta``
+    shapes) and ``cspec`` its :func:`~repro_torch.sharding.cache_spec_tree`
+    (the reference's ``jit_for`` and its cache shardings; None and
+    :meth:`LM.decode_step` itself on one process).
+    ``step(params, part, tokens, aux=None) -> (logits, part)`` runs
+    :meth:`LM.decode_step` on this rank's shard ``params``, its part of
+    the cache (:func:`~repro_torch.sharding.cache_part`, checked leaf by
+    leaf against the spec's and advanced in place) and its rows of the
+    ``[B, 1]`` tokens (the batch's block over the data-parallel axes
+    where the cache's rows split, else all of it); ``logits`` are those
+    rows' f32 logits over this rank's block of the vocabulary (its whole
+    on a mesh of one "model" process).  The layout it runs on
+    (:class:`~repro_torch.sharding.DecodeLayout`) is the spec's."""
+    def for_cache(cache):
+        if mesh is None or mesh.single:
+            return lm.decode_step, None
+        cspec = cache_spec_tree(cache, mesh)
+        layout = decode_layout(cache, mesh)
+
+        def step(params, part, tokens, aux=None):
+            check_cache_part(part, cache, mesh)
+            return lm.decode_step(params, part, tokens, aux=aux,
+                                  layout=layout)
+        return step, cspec
+    return for_cache
+
+
+def _laid_out_as(shard, want) -> bool:
+    """Whether every leaf ``shard`` holds is a leaf of the tree whose specs
+    are ``want``, split by the same spec (a tree of one process: yes)."""
+    specs = getattr(shard, "specs", None)
+    if specs is None:
+        return True
+    own = [n for n, _ in shard.named_buffers()] + \
+        [n for n, _ in shard.named_parameters()]
+    return all(n in want and want[n] == specs.get(n) for n in own)
+
+
+def make_generate_step(lm: LM, mesh, gen_len: int, params=None):
+    """Greedy generation on ``mesh`` (the reference's ``generate`` under
+    its shardings): returns ``for_cache(cache) -> (generate, cspec)`` as
+    :func:`make_decode_step` does.  ``generate(shard, part, logits) ->
+    (tokens [rows, gen_len] int32, part)`` emits ``gen_len`` tokens from
+    the prefill's ``logits`` of this rank's rows (over the whole
+    vocabulary or this rank's block of it): token t + 1 is the argmax of
+    step t's logits over the whole vocabulary (:func:`tp.greedy`), the
+    same on every rank of "model".  mla_moe's absorbed weights are
+    computed once a call, on the shard.  ``params`` is the full tree the
+    shards come from (the merged one when serving the deployed model, as
+    the reference's ``params_abstract``): a shard of another layout is
+    refused."""
+    want = None if params is None or mesh is None or mesh.single \
+        else param_specs(params, mesh)
+    decode = make_decode_step(lm, mesh)
+
+    def argmax(logits):
+        if logits.shape[-1] == lm.cfg.vocab or mesh is None:
+            return logits.argmax(dim=-1).to(torch.int32)
+        return tpm.greedy(logits, mesh)
+
+    def for_cache(cache):
+        step, cspec = decode(cache)
+
+        @torch.no_grad()
+        def generate(shard, part, logits):
+            if want is not None and not _laid_out_as(shard, want):
+                raise ValueError("the shard is not laid out as the tree "
+                                 "the generate step was built for")
+            aux = lm.absorbed_weights(shard)
+            tok = argmax(logits)
+            out = [tok]
+            for _ in range(gen_len - 1):
+                lg, part = step(shard, part, tok[:, None], aux=aux)
+                tok = argmax(lg)
+                out.append(tok)
+            if gen_len <= 0:
+                return torch.zeros((tok.shape[0], 0), dtype=torch.int32,
+                                   device=tok.device), part
+            return torch.stack(out, dim=1), part
+        return generate, cspec
+    return for_cache
+
+
 def make_sync_step(mesh, tspec=None):
     """The periodic cross-pod adapter sync with int8 compression, in place
     on a ``name -> tensor`` dict of adapters
@@ -238,6 +327,7 @@ def make_sync_step(mesh, tspec=None):
 
 
 __all__ = ["make_train_fn", "make_train_step", "make_sync_step",
+           "make_decode_step", "make_generate_step",
            "train_state_specs", "abstract_params", "model_partial_leaves",
            "grad_sum_axes", "check_mesh_support", "model_schemes",
            "adamw_init", "MESH_NOT_PORTED"]

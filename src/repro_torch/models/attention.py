@@ -7,6 +7,22 @@ absorbed ``kv_up``.  Counterpart of ``repro.models.attention``.
 
 Attention is plain PyTorch, as it is plain jnp in the reference (no model
 there calls the Pallas flash kernel).  Scores and softmax run in f32.
+
+On a mesh the ragged step (decode is its C = 1 case) runs on a rank's part
+of the cache (:class:`~repro_torch.sharding.shard.DecodeLayout`, carried
+by the step's :class:`StepPlan`): where the cache splits the KV heads over
+"model" the rank attends over its own (:func:`repro_torch.models.tp.qkv`);
+where it splits head_dim, q, k and v are gathered whole (the qk-norm and
+rope need whole heads), each rank writes and reads its head_dim block, its
+partial scores are summed over "model" (:func:`_score_sum`) and its block
+of the context gathered back.  MLA's latent and rope key split their last
+dim over "model": each rank writes its block and the step gathers the
+latent whole (fewer collective bytes than summing every head's partial
+scores).  Where the positions split over the data-parallel axes (batch 1
+on long_500k), the rank owning a position writes it (a masked write) and
+each rank attends over its positions at their absolute places; the ranks'
+parts merge by log-sum-exp (:func:`_seq_softmax`, flash decoding across
+ranks).
 """
 
 from __future__ import annotations
@@ -19,6 +35,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.schemes import dense_view, linear_apply, linear_init
+from repro_torch.sharding.rules import TP_AXIS
 from repro_torch.sharding.shard import Mode, tp_of
 from . import tp
 from .common import rmsnorm, rmsnorm_init, rope, rope_table
@@ -99,10 +116,12 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     return out.to(q.dtype)
 
 
-def chunk_mask(qpos, s: int, window=None):
+def chunk_mask(qpos, s: int, window=None, start: int = 0):
     """[B, 1, 1, C, S] bool: cache position k is visible to query row i of
-    slot b (k <= qpos[b, i], and inside the window when one is set)."""
-    kpos = torch.arange(s, device=qpos.device)
+    slot b (k <= qpos[b, i], and inside the window when one is set).  The
+    S positions are ``start..start + S - 1`` (a rank's part of a cache
+    whose positions are split)."""
+    kpos = start + torch.arange(s, device=qpos.device)
     valid = kpos[None, None, :] <= qpos[:, :, None]  # [B, C, S]
     if window:
         valid &= kpos[None, None, :] > (qpos[:, :, None] - window)
@@ -136,6 +155,55 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=None):
     entries including the just-inserted token."""
     return chunk_attention(q, k_cache, v_cache, (cur_len - 1)[:, None],
                            window=window)
+
+
+def _score_sum(scores, mesh):
+    """Partial scores over this rank's head_dim block summed over
+    "model" (f32)."""
+    return mesh.all_reduce(scores, TP_AXIS, label="score_sum")
+
+
+def _seq_softmax(scores, contract, layout):
+    """``contract(softmax(scores))`` where the key positions (the last
+    dim) are split over ``layout.seq``: each rank's exponentials against
+    the global max, its contracted values and their sum merged over the
+    axes (log-sum-exp; one f32 all-reduce of the max, one of the values
+    and sums packed).  ``contract(p)`` keeps p's leading dims first."""
+    mesh = layout.mesh
+    m = mesh.all_reduce(scores.amax(dim=-1), layout.seq, op="max",
+                        label="lse_merge")
+    p = torch.exp(scores - m[..., None])
+    packed = torch.cat([contract(p), p.sum(dim=-1)[..., None]], dim=-1)
+    packed = mesh.all_reduce(packed, layout.seq, label="lse_merge")
+    return packed[..., :-1] / packed[..., -1:]
+
+
+def _softmax_values(scores, contract, layout):
+    """``contract(softmax(scores))`` over the key positions: whole (no
+    ``layout``, or one whose positions do not split) or split
+    (:func:`_seq_softmax`)."""
+    if layout is not None and layout.seq is not None:
+        return _seq_softmax(scores, contract, layout)
+    return contract(torch.softmax(scores, dim=-1))
+
+
+def split_chunk_attention(q, k_cache, v_cache, mask, layout, scale):
+    """:func:`chunk_attention` on a rank's part of the cache: q [B,C,H,Dq]
+    (Dq this rank's head_dim block where ``layout.feature``), caches
+    [B,S',KvH,D'] (S' its positions), ``mask`` its :func:`chunk_mask`,
+    ``scale`` the whole head_dim's.  Returns [B,C,H,D'] f32: the context's
+    head_dim block where the head_dim splits."""
+    b, c, h, dq = q.shape
+    kvh = k_cache.shape[2]
+    qg = q.reshape(b, c, kvh, h // kvh, dq)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
+                          k_cache.to(torch.float32)) * scale
+    if layout.feature is not None:
+        scores = _score_sum(scores, layout.mesh)
+    scores = torch.where(mask, scores, NEG_INF)
+    o = _softmax_values(scores, lambda p: torch.einsum(
+        "bhgqk,bkhd->bhgqd", p, v_cache.to(torch.float32)), layout)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, c, h, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +278,22 @@ def gqa_apply(p, x, cfg: AttnConfig, positions=None, window=None, theta=None,
                 (k, v))
     out = linear_apply(p["wo"], o.reshape(b, s, -1))
     return out, (k, v)
+
+
+def seq_insert_plan(cur_len, n_new, c: int, s: int, start: int):
+    """:func:`insert_plan` into a rank's part of a cache whose positions
+    are split: the part holds the ``s`` positions from ``start``, and a
+    row is written only by the rank whose part holds its position (a
+    masked write: no rank branches on the position).  A row's place in the
+    part is its position modulo ``s``, so the C' <= s places of a slot are
+    distinct on every rank."""
+    c = min(c, s)
+    i = torch.arange(c, device=cur_len.device)[None, :]
+    pos = cur_len.to(torch.int64)[:, None] + i
+    write = ((i < n_new.to(torch.int64)[:, None]) & (pos >= start)
+             & (pos < start + s))
+    rows = torch.arange(cur_len.shape[0], device=cur_len.device)[:, None]
+    return rows, pos % s, write
 
 
 def insert_plan(cur_len, n_new, c: int, s: int):
@@ -307,14 +391,22 @@ class StepPlan:
 
     ``s`` is each slot's capacity; with ``pages`` ([B, P] page rows of a
     paged cache of ``page_size``-token pages) the insert plan is the paged
-    one and ``s`` is P * page_size."""
+    one and ``s`` is P * page_size.  On a mesh ``layout`` is the rank's
+    :class:`~repro_torch.sharding.shard.DecodeLayout` and ``s`` its part's
+    positions (from ``start``, where they split)."""
 
     def __init__(self, cur_len, n_new, c: int, s: int, head_dim: int,
-                 pages=None, page_size: int = 0):
+                 pages=None, page_size: int = 0, layout=None):
         self.positions = (cur_len.to(torch.int64)[:, None]
                           + torch.arange(c, device=cur_len.device)[None, :])
-        self.pages = pages
-        if pages is None:
+        self.pages, self.layout = pages, layout
+        self.start = layout.seq_start(s) if layout is not None else 0
+        if layout is not None and pages is not None:
+            raise NotImplementedError("a paged cache on a mesh: the "
+                                      "reference has none")
+        if layout is not None and layout.seq is not None:
+            self.insert = seq_insert_plan(cur_len, n_new, c, s, self.start)
+        elif pages is None:
             self.insert = insert_plan(cur_len, n_new, c, s)
         else:
             self.insert = paged_insert_plan(cur_len, n_new, c, pages,
@@ -331,7 +423,8 @@ class StepPlan:
     def mask(self, window):
         key = window or 0
         if key not in self._masks:
-            self._masks[key] = chunk_mask(self.positions, self.s, key)
+            self._masks[key] = chunk_mask(self.positions, self.s, key,
+                                          self.start)
         return self._masks[key]
 
 
@@ -339,10 +432,9 @@ def gqa_prefill_chunk(p, x, cache, cur_len, n_new, cfg: AttnConfig,
                       window=None, theta=None, plan=None, pages=None):
     """Ragged chunk step: x [B,C,d]; slot b consumes rows [:n_new[b]] at
     positions cur_len[b].., inserts their K/V into the slotted cache (in
-    place) and attends causally against it.  C == 1 is decode.  On a
-    shard the step runs over the KV heads :func:`tp.qkv` gives this rank
-    (:func:`tp.rank_kv_heads`: the cache holds those), as
-    :func:`gqa_apply` does.
+    place) and attends causally against it.  C == 1 is decode.  On a mesh
+    (``plan.layout``) the cache is this rank's part of it
+    (:func:`_gqa_shard_qkv`, :func:`split_chunk_attention`).
 
     ``pages`` ([B, P] int32) switches the cache leaves from per-slot
     [B, S, ...] to paged pools [n_pages, ps, ...]: inserts go through the
@@ -359,22 +451,59 @@ def gqa_prefill_chunk(p, x, cache, cur_len, n_new, cfg: AttnConfig,
     theta = cfg.rope_theta if theta is None else theta
     window = cfg.window if window is None else window
     positions = plan.positions
+    layout = plan.layout
+    heads = False
     shard = tp_of(p["wq"])
-    if shard is not None:
-        q, k, v, heads = tp.qkv(p, x, cfg, shard.mesh)
+    if layout is not None:
+        q, k, v, heads = _gqa_shard_qkv(p, x, cfg, layout, shard,
+                                        cache["k"].shape[2])
         q, k = _rope_qk(p, q, k, cfg, positions, theta,
                         table=plan.table(theta))
+        if layout.feature is not None:
+            q, k, v = (tp.rank_block(t, layout.mesh) for t in (q, k, v))
     else:
         q, k, v = _qkv(p, x, cfg, positions, theta, table=plan.table(theta))
     kc = _cache_insert(cache["k"], k, cur_len, n_new, pages, plan=plan.insert)
     vc = _cache_insert(cache["v"], v, cur_len, n_new, pages, plan=plan.insert)
-    o = chunk_attention(q, _cache_view(kc, pages), _cache_view(vc, pages),
-                        positions, window=window, mask=plan.mask(window))
-    if shard is not None:
-        out = tp.attn_output(p, o.reshape(b, c, -1), heads, shard.mesh)
+    if layout is None:
+        o = chunk_attention(q, _cache_view(kc, pages), _cache_view(vc, pages),
+                            positions, window=window, mask=plan.mask(window))
     else:
-        out = linear_apply(p["wo"], o.reshape(b, c, -1))
+        o = split_chunk_attention(q, kc, vc, plan.mask(window), layout,
+                                  1.0 / math.sqrt(cfg.head_dim))
+        if layout.feature is not None:
+            o = layout.mesh.all_gather(o.contiguous(), TP_AXIS, o.dim() - 1,
+                                       label="context")
+    o = o.to(x.dtype).reshape(b, c, -1)
+    out = (linear_apply(p["wo"], o) if shard is None
+           else tp.attn_output(p, o, heads, shard.mesh))
     return out, {"k": kc, "v": vc}
+
+
+def _gqa_shard_qkv(p, x, cfg: AttnConfig, layout, shard, cache_heads: int):
+    """q, k, v ``[B, C, heads, hd]`` of a rank's ragged step, before the
+    norms and rope, and whether q holds this rank's query heads: where
+    the cache splits the KV heads over "model", :func:`tp.qkv`'s (which
+    must give the rank ``cache_heads`` of them, its own block); else whole
+    (gathered over "model", each rank then takes its head_dim block where
+    the cache splits head_dim)."""
+    b, c, _ = x.shape
+    if layout.heads is not None:
+        q, k, v, heads = tp.qkv(p, x, cfg, shard.mesh)
+        if not heads or k.shape[2] != cache_heads:
+            raise NotImplementedError(
+                f"the cache holds {cache_heads} KV heads a rank, the "
+                f"tensor-parallel attention reads {k.shape[2]}: no decode "
+                f"step holds that layout")
+        return q, k, v, True
+    if shard is None:
+        lin = {n: linear_apply(p[n], x) for n in ("wq", "wk", "wv")}
+    else:
+        lin = {n: tp.full_output(p[n], x, shard.mesh)
+               for n in ("wq", "wk", "wv")}
+    q, k, v = (lin[n].reshape(b, c, -1, cfg.head_dim)
+               for n in ("wq", "wk", "wv"))
+    return q, k, v, False
 
 
 def gqa_init_cache(batch: int, seq: int, cfg: AttnConfig,
@@ -500,38 +629,48 @@ def _mla_apply_tp(p, x, cfg: MLAConfig, positions, mesh):
     ``q_down`` and ``kv_down`` gathered (the latent norms run on the whole
     latent), ``q_up`` and ``kv_up`` give this rank's heads where they are
     ``col`` and the heads split over "model" (else every head on every
-    rank), ``wo`` the full output.  The cache is this rank's block of the
-    latent and the rope key over "model" (``cache_spec_tree``'s)."""
+    rank), ``wo`` the full output (:func:`_mla_shard_q_ckv`).  The cache
+    is this rank's block of the latent and the rope key over "model"
+    (``cache_spec_tree``'s)."""
     b, s, _ = x.shape
-    h, t = cfg.n_heads, mesh.size(tp.TP_AXIS)
-    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
-    qc = rmsnorm(p["qn"], tp.full_output(p["q_down"], x, mesh))
-    ckv = tp.full_output(p["kv_down"], x, mesh)
-    c = rmsnorm(p["kvn"], ckv[..., :cfg.kv_lora_rank])
-    k_rope = rope(ckv[..., cfg.kv_lora_rank:][:, :, None, :], positions,
-                  cfg.rope_theta)[:, :, 0]
-    heads = h % t == 0 and all(tp_of(p[n]).mode is Mode.COL
-                               for n in ("q_up", "kv_up"))
+    q_nope, q_rope, c, k_rope, heads = _mla_shard_q_ckv(
+        p, x, cfg, positions, None, mesh)
     if heads:
-        hl = h // t
-        q = tp.apply_linear(p["q_up"], tp.copy_to(qc, mesh))
         kv = tp.apply_linear(p["kv_up"], tp.copy_to(c, mesh))
         kr = tp.copy_to(k_rope, mesh)
     else:
-        hl = h
-        q = tp.full_output(p["q_up"], qc, mesh)
         kv = tp.full_output(p["kv_up"], c, mesh)
         kr = k_rope
-    q = q.reshape(b, s, hl, qk)
+    hl = q_nope.shape[2]
     kv = kv.reshape(b, s, hl, cfg.qk_nope_dim + cfg.v_head_dim)
-    q = torch.cat([q[..., :cfg.qk_nope_dim],
-                   rope(q[..., cfg.qk_nope_dim:], positions, cfg.rope_theta)],
-                  dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([kv[..., :cfg.qk_nope_dim], kr[:, :, None, :].expand(
         b, s, hl, cfg.qk_rope_dim)], dim=-1)
     o = flash_attention(q, k, kv[..., cfg.qk_nope_dim:], causal=True)
     out = tp.attn_output(p, o.reshape(b, s, -1), heads, mesh)
     return out, (tp.rank_block(c, mesh), tp.rank_block(k_rope, mesh))
+
+
+def _mla_shard_q_ckv(p, x, cfg: MLAConfig, positions, table, mesh):
+    """A shard's query (nope [B,C,h',nope], roped [B,C,h',rope]), the new
+    latent [B,C,rank] (normed) and rope key [B,C,rope] whole, and whether
+    the h' heads are this rank's (``q_up`` ``col`` and the heads split
+    over "model"; else every head)."""
+    b, c, _ = x.shape
+    h, t = cfg.n_heads, mesh.size(TP_AXIS)
+    qc = rmsnorm(p["qn"], tp.full_output(p["q_down"], x, mesh))
+    ckv = tp.full_output(p["kv_down"], x, mesh)
+    c_new = rmsnorm(p["kvn"], ckv[..., :cfg.kv_lora_rank])
+    kr_new = rope(ckv[..., cfg.kv_lora_rank:][:, :, None, :], positions,
+                  cfg.rope_theta, table=table)[:, :, 0]
+    heads = h % t == 0 and all(tp_of(p[n]).mode is Mode.COL
+                               for n in ("q_up", "kv_up"))
+    q = (tp.apply_linear(p["q_up"], tp.copy_to(qc, mesh)) if heads
+         else tp.full_output(p["q_up"], qc, mesh))
+    q = q.reshape(b, c, -1, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q_rope = rope(q[..., cfg.qk_nope_dim:], positions, cfg.rope_theta,
+                  table=table)
+    return q[..., :cfg.qk_nope_dim], q_rope, c_new, kr_new, heads
 
 
 def mla_apply(p, x, cfg: MLAConfig, positions=None):
@@ -559,7 +698,7 @@ def mla_apply(p, x, cfg: MLAConfig, positions=None):
 
 
 def mla_chunk_attention(q_c, q_rope, c_cache, kr_cache, qpos, *, scale,
-                        mask=None):
+                        mask=None, layout=None):
     """Absorbed ragged-chunk attention over the slotted compressed cache,
     in f32: ``q_c`` [B,C,H,rank] (the nope query absorbed through W_uk),
     ``q_rope`` [B,C,H,rope], caches [B,S,rank] and [B,S,rope], ``qpos``
@@ -567,7 +706,9 @@ def mla_chunk_attention(q_c, q_rope, c_cache, kr_cache, qpos, *, scale,
     the context in the rank space, [B,C,H,rank] f32.  Masked entries hit
     exp(NEG_INF) == 0 exactly; a fully masked row (qpos < 0, an idle
     slot) is a uniform average: garbage, but finite.  ``mask`` is a
-    precomputed :func:`chunk_mask` for these arguments."""
+    precomputed :func:`chunk_mask` for these arguments; with a ``layout``
+    whose positions split, the caches are this rank's positions and the
+    softmax merges over the ranks (:func:`_seq_softmax`)."""
     s_c = torch.einsum("bqhr,bkr->bhqk", q_c.to(torch.float32),
                        c_cache.to(torch.float32))
     s_r = torch.einsum("bqhd,bkd->bhqk", q_rope.to(torch.float32),
@@ -576,8 +717,9 @@ def mla_chunk_attention(q_c, q_rope, c_cache, kr_cache, qpos, *, scale,
     if mask is None:
         mask = chunk_mask(qpos, c_cache.shape[1])
     scores = torch.where(mask[:, 0], scores, NEG_INF)   # [B, 1, C, S]
-    p = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhqk,bkr->bqhr", p, c_cache.to(torch.float32))
+    ctx = _softmax_values(scores, lambda p: torch.einsum(
+        "bhqk,bkr->bhqr", p, c_cache.to(torch.float32)), layout)
+    return ctx.permute(0, 2, 1, 3)
 
 
 def mla_prefill_chunk(p, x, cache, cur_len, n_new, cfg: MLAConfig,
@@ -591,36 +733,53 @@ def mla_prefill_chunk(p, x, cache, cur_len, n_new, cfg: MLAConfig,
     ``w_kv`` is the layer's precomputed (W_uk [rank,H,nope], W_uv
     [rank,H,vdim]) (:func:`kv_up_split`, which runs here when it is None);
     ``plan`` the step's :class:`StepPlan` (its head_dim the rope dim).
-    Not on a shard: MLA's decode on a mesh is not yet ported."""
+
+    On a mesh (``plan.layout``) the cache is this rank's part: where it
+    splits the latent and rope key over "model" the rank writes its block
+    and the step gathers both whole; the rank's heads (``q_up`` and
+    ``kv_up`` ``col``: ``w_kv`` of the shard's ``kv_up``) attend and
+    ``wo`` gives the full output."""
     b, c, _ = x.shape
-    if tp_of(p["q_up"]) is not None:
-        raise NotImplementedError(
-            "MLA's ragged chunk and decode step on a mesh are not yet "
-            "ported (see ROADMAP.md, Queue 1 item 16c: decode on a mesh)")
     if plan is None:
         ps = cache["c"].shape[1]
         s = ps if pages is None else pages.shape[1] * ps
         plan = StepPlan(cur_len, n_new, c, s, cfg.qk_rope_dim, pages=pages,
                         page_size=ps)
-    pages = plan.pages
+    pages, layout = plan.pages, plan.layout
     positions = plan.positions
     table = plan.table(cfg.rope_theta)
-    q_nope, q_rope = _mla_q(p, x, cfg, positions, table=table)
-    c_new, kr_new = _mla_ckv(p, x, cfg, positions, table=table)
+    shard = tp_of(p["q_up"])
+    heads = False
+    if shard is not None:
+        q_nope, q_rope, c_new, kr_new, heads = _mla_shard_q_ckv(
+            p, x, cfg, positions, table, shard.mesh)
+    else:
+        q_nope, q_rope = _mla_q(p, x, cfg, positions, table=table)
+        c_new, kr_new = _mla_ckv(p, x, cfg, positions, table=table)
+    if layout is not None and layout.feature is not None:
+        c_new, kr_new = (tp.rank_block(t, layout.mesh)
+                         for t in (c_new, kr_new))
     cc = _cache_insert(cache["c"], c_new, cur_len, n_new, pages,
                        plan=plan.insert)
     krc = _cache_insert(cache["kr"], kr_new, cur_len, n_new, pages,
                         plan=plan.insert)
+    c_all, kr_all = _cache_view(cc, pages), _cache_view(krc, pages)
+    if layout is not None and layout.feature is not None:
+        c_all, kr_all = (layout.mesh.all_gather(t, TP_AXIS, t.dim() - 1,
+                                                label="latent_gather")
+                         for t in (c_all, kr_all))
     w_uk, w_uv = w_kv if w_kv is not None else kv_up_split(p, cfg, x.dtype)
     q_c = torch.einsum("bqhn,rhn->bqhr", q_nope.to(torch.float32),
                        w_uk.to(torch.float32))
     ctx_c = mla_chunk_attention(
-        q_c, q_rope, _cache_view(cc, pages), _cache_view(krc, pages),
-        positions, scale=1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim),
-        mask=plan.mask(0))
+        q_c, q_rope, c_all, kr_all, positions,
+        scale=1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim),
+        mask=plan.mask(0), layout=layout)
     o = torch.einsum("bqhr,rhv->bqhv", ctx_c, w_uv.to(torch.float32))
-    out = linear_apply(p["wo"], o.reshape(b, c, -1).to(x.dtype))
-    return out, {"c": cc, "kr": krc}
+    o = o.reshape(b, c, -1).to(x.dtype)
+    if shard is None:
+        return linear_apply(p["wo"], o), {"c": cc, "kr": krc}
+    return tp.attn_output(p, o, heads, shard.mesh), {"c": cc, "kr": krc}
 
 
 def mla_decode(p, x, cache, cur_len, cfg: MLAConfig, w_kv=None):
@@ -633,10 +792,12 @@ def mla_decode(p, x, cache, cur_len, cfg: MLAConfig, w_kv=None):
 def kv_up_split(p, cfg: MLAConfig, dtype):
     """The effective (adapter-included) ``kv_up`` weight, dequantised in
     ``dtype``, split into its K half W_uk [rank,H,nope] and V half W_uv
-    [rank,H,vdim]."""
-    w = dense_view(p["kv_up"], dtype=dtype)
-    w = w.reshape(cfg.kv_lora_rank, cfg.n_heads,
-                  cfg.qk_nope_dim + cfg.v_head_dim)
+    [rank,H,vdim].  On a shard H is the heads of this rank's ``kv_up``
+    columns (a ``whole`` linear's gathered: every head)."""
+    lp = p["kv_up"]
+    shard = tp_of(lp)
+    w = dense_view(shard.whole(lp) if shard is not None else lp, dtype=dtype)
+    w = w.reshape(cfg.kv_lora_rank, -1, cfg.qk_nope_dim + cfg.v_head_dim)
     return w[..., :cfg.qk_nope_dim], w[..., cfg.qk_nope_dim:]
 
 

@@ -72,7 +72,7 @@ from .attention import (StepPlan, cross_apply, cross_chunk, cross_init,
 from .common import rmsnorm, rmsnorm_init
 from . import tp
 from .mlp import mlp_apply, mlp_init
-from .moe import moe_apply, moe_init, suspend_recording
+from .moe import moe_apply, moe_init, rows_over, suspend_recording
 from .slot_state import (SlotState, attn_cfg as _attn_cfg, cache_leaves,
                          check_family, hybrid_layout, mamba_cfg as _mamba_cfg,
                          mla_cfg as _mla_cfg, rwkv_cfg as _rwkv_cfg)
@@ -835,11 +835,13 @@ class LM:
                                       device=resolve_device(device),
                                       src_cap=src_cap)
 
-    def decode_step(self, params: LMParams, cache, tokens, aux=None):
+    def decode_step(self, params: LMParams, cache, tokens, aux=None,
+                    layout=None):
         """tokens: [B, 1] -> (logits [B, V], updated cache): the C=1
         always-active case of :meth:`step_ragged`."""
         return self.step_ragged(params, cache, tokens,
-                                torch.ones_like(cache["len"]), aux=aux)
+                                torch.ones_like(cache["len"]), aux=aux,
+                                layout=layout)
 
     @torch.no_grad()
     def absorbed_weights(self, params: LMParams):
@@ -857,13 +859,29 @@ class LM:
                 for part in ("dense", "moe")}
 
     @torch.no_grad()
-    def step_ragged(self, params: LMParams, cache, tokens, n_new, aux=None):
+    def step_ragged(self, params: LMParams, cache, tokens, n_new, aux=None,
+                    layout=None):
         """Ragged serve step: slot b consumes ``tokens[b, :n_new[b]]`` at
         positions ``len[b]..`` and advances by ``n_new[b]``, writing the
         cache in place.  ``aux`` is :meth:`absorbed_weights` of ``params``
         (mla_moe; derived inside the step when None).  Returns (logits
-        [B, V] at each slot's last consumed row, cache)."""
-        h, n_new = self._ragged_trunk(params, cache, tokens, n_new, aux)
+        [B, V] at each slot's last consumed row, cache).
+
+        On a mesh (``params`` a shard) ``cache`` and ``tokens`` are this
+        rank's part and rows, ``layout`` the cache's
+        :class:`~repro_torch.sharding.shard.DecodeLayout` (the MoE layers
+        route the rows over its ``rows`` axes), and the logits this rank's
+        block of the vocabulary (:func:`repro_torch.launch.steps.
+        make_decode_step`)."""
+        if hasattr(params, "specs") and layout is None:
+            raise ValueError("a shard's ragged step needs its cache's "
+                             "DecodeLayout (repro_torch.launch.steps."
+                             "make_decode_step)")
+        rows = rows_over(layout.rows) if layout is not None \
+            else contextlib.nullcontext()
+        with rows:
+            h, n_new = self._ragged_trunk(params, cache, tokens, n_new, aux,
+                                          layout)
         last = (n_new.to(torch.int64) - 1).clamp(0, tokens.shape[1] - 1)
         idx = last[:, None, None].expand(h.shape[0], 1, h.shape[2])
         h_last = torch.gather(h, 1, idx)
@@ -886,9 +904,10 @@ class LM:
         return logits, h, self.slot_state().advance(cache, n_new)
 
     def _ragged_trunk(self, params: LMParams, cache, tokens, n_new,
-                      aux=None):
+                      aux=None, layout=None):
         """The layer stack of a ragged step, on a contiguous or paged cache
-        (a paged cache's capacity is its page rows' width)."""
+        (a paged cache's capacity is its page rows' width), or a rank's
+        part of one under ``layout``."""
         cur = cache["len"]
         n_new = n_new.to(torch.int32)
         x = self._embed(params, tokens)
@@ -906,7 +925,7 @@ class LM:
                 else pages.shape[1] * leaf.shape[2]
             plan = StepPlan(cur, n_new, tokens.shape[1], s,
                             self.cfg.qk_rope_dim, pages=pages,
-                            page_size=leaf.shape[2])
+                            page_size=leaf.shape[2], layout=layout)
             for part in ("dense", "moe"):
                 c, kr = lay[part]["c"], lay[part]["kr"]
                 for layer, blk in enumerate(getattr(params,
@@ -919,7 +938,7 @@ class LM:
         kc, vc = cache["layers"]["k"], cache["layers"]["v"]
         s = kc.shape[2] if pages is None else pages.shape[1] * kc.shape[2]
         plan = StepPlan(cur, n_new, tokens.shape[1], s, self.cfg.head_dim,
-                        pages=pages, page_size=kc.shape[2])
+                        pages=pages, page_size=kc.shape[2], layout=layout)
         for layer, (blk, (window, theta)) in enumerate(
                 zip(params.blocks, self._layer_extras())):
             x, _ = _gqa_block_chunk(blk, x, {"k": kc[layer], "v": vc[layer]},

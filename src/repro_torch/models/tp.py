@@ -58,9 +58,9 @@ from repro_torch.sharding.shard import Mode, tp_of
 
 __all__ = ["copy_to", "reduce_from", "gather_from", "scatter_to",
            "all_sum", "Exchange", "dispatch", "combine", "full_output",
-           "rank_block", "apply_linear", "qkv", "rank_kv_heads", "attn_output",
+           "rank_block", "apply_linear", "qkv", "attn_output",
            "mlp_apply", "model_mesh",
-           "embed", "logits", "xent_sums"]
+           "embed", "logits", "xent_sums", "greedy"]
 
 
 def _sum(x: torch.Tensor, mesh, axes=TP_AXIS) -> torch.Tensor:
@@ -313,18 +313,6 @@ def _kv_heads(modes, h: int, kvh: int, t: int, r: int):
     return heads
 
 
-def rank_kv_heads(p, cfg, mesh) -> int:
-    """How many KV heads a rank's :func:`qkv` gives for attention params
-    ``p`` (what the rank's decode cache holds)."""
-    t = mesh.size(TP_AXIS)
-    h, kvh = cfg.n_heads, cfg.n_kv_heads
-    modes = {n: _mode(p[n]) for n in ("wq", "wk", "wv")}
-    if not (modes["wq"] is Mode.COL and h % t == 0):
-        return kvh
-    heads = _kv_heads(modes, h, kvh, t, mesh.index(TP_AXIS))
-    return kvh // t if heads is None else len(heads)
-
-
 def attn_output(p, o, heads: bool, mesh):
     """``wo`` on the attention's output ``o [B, S, heads * hd]`` (this
     rank's query heads when ``heads``, else all): full on every rank."""
@@ -402,3 +390,18 @@ def xent_sums(head, h, labels, mesh):
                      [..., 0], 0.0)
     ll = reduce_from(ll, mesh)
     return ((lse - ll) * mask).sum(), mask.sum()
+
+
+def greedy(logits, mesh):
+    """The argmax [B] int32 of logits split over "model" (this rank's
+    vocabulary block ``[B, V / model]``): each rank's largest logit and
+    its global column gathered, the first rank holding the largest wins
+    (the whole row's argmax, its first maximum)."""
+    cols = logits.shape[-1]
+    val, idx = logits.max(dim=-1)
+    idx = idx + mesh.index(TP_AXIS) * cols
+    vals = mesh.all_gather(val[None].contiguous(), TP_AXIS, 0)
+    idxs = mesh.all_gather(idx[None].contiguous(), TP_AXIS, 0)
+    win = vals.argmax(dim=0)
+    rows = torch.arange(win.shape[0], device=win.device)
+    return idxs[win, rows].to(torch.int32)

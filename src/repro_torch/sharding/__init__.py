@@ -9,4 +9,5 @@ from .rules import (TP_AXIS, DP_AXES, COL, ROW, padded, spec_axes,  # noqa: F401
 from .shard import (Mode, LinearTP, ExpertShard, ShardSpecs,  # noqa: F401
                     shard_tensor, gather_tensor,
                     shard_tensors, gather_tensors, shard_params,
-                    gather_params, tp_of)
+                    gather_params, tp_of, DecodeLayout, decode_layout,
+                    cache_part, gather_cache, check_cache_part)

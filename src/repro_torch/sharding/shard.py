@@ -24,6 +24,14 @@ tree (on every rank).  Checkpoints, the merge and the tests use the pair
 on ``name -> tensor`` dicts too (:func:`shard_tensors`,
 :func:`gather_tensors`).
 
+Decode caches: :func:`cache_part` slices a full decode cache into this
+rank's part under :func:`~repro_torch.sharding.rules.cache_spec_tree`
+(its lengths to its rows), :func:`gather_cache` inverts it, and
+:func:`check_cache_part` holds a part's every leaf to its spec's shape.
+:class:`DecodeLayout` names how the attention's leaves split (rows and
+positions over the data-parallel axes, KV heads or the last dim over
+"model"): the decode step reads it (:mod:`repro_torch.models.attention`).
+
 Experts: where the rule splits an MoE layer's expert dim over mesh axes
 (expert parallelism: over the data-parallel axes and "model", or over
 "model" alone), a rank holds only its block of the experts, whole: the
@@ -44,15 +52,15 @@ import copy
 import dataclasses
 import enum
 import itertools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.core import schemes
 from repro_torch.core.quant import QuantizedLinear
-from .rules import (TP_AXIS, Spec, expert_split, holds_expert, padded,
-                    param_specs)
+from .rules import (TP_AXIS, Spec, cache_spec_tree, expert_split,
+                    holds_expert, padded, param_specs)
 
 _A, _B = "ad.a", "ad.b"
 
@@ -354,6 +362,155 @@ def tp_of(module):
     return tp if tp is not None and tp.mesh.size(TP_AXIS) > 1 else None
 
 
-__all__ = ["Mode", "LinearTP", "ExpertShard", "ShardSpecs", "shard_tensor", "gather_tensor",
-           "shard_tensors", "gather_tensors", "shard_params", "gather_params",
-           "tp_of"]
+# ---------------------------------------------------------------------------
+# decode caches
+# ---------------------------------------------------------------------------
+
+# the attention leaves of a decode cache, by name: their dims after the
+# layer axis (the reference's cache_spec_tree candidates are written on
+# these)
+_ATTN_DIMS = {"k": ("rows", "seq", "heads", "feature"),
+              "v": ("rows", "seq", "heads", "feature"),
+              "c": ("rows", "seq", "feature"),
+              "kr": ("rows", "seq", "feature")}
+
+
+def _axes_of(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _walk(node, spec, fn, names=()):
+    if isinstance(node, dict):
+        return {k: _walk(v, spec[k], fn, names + (k,))
+                for k, v in node.items()}
+    return fn(names, node, spec)
+
+
+def _shape(x) -> Tuple[int, ...]:
+    return tuple(getattr(x, "shape", x))
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeLayout:
+    """How a rank's decode cache splits its attention leaves (``k`` / ``v``
+    ``[L, B, S, KvH, hd]``, MLA's ``c`` / ``kr`` ``[L, B, S, R]``) under
+    :func:`~repro_torch.sharding.rules.cache_spec_tree`, each entry as a
+    spec's: the axes a dim splits over, None where it does not.  ``rows``
+    the axes its batch rows split over (() where every rank holds every
+    row), ``seq`` the axes its positions split over (a rank at index i
+    over them holds positions ``[i * S / n, (i + 1) * S / n)``), ``heads``
+    "model" where the KV heads split over it, ``feature`` "model" where
+    the last dim (head_dim, MLA's latent and rope key) does."""
+
+    mesh: object
+    rows: Tuple[str, ...]
+    seq: Optional[Tuple[str, ...]]
+    heads: Optional[str]
+    feature: Optional[str]
+
+    def seq_start(self, s_local: int) -> int:
+        """The first global position of a rank part's ``s_local``
+        positions."""
+        return 0 if self.seq is None else \
+            self.mesh.index(self.seq) * s_local
+
+
+def decode_layout(cache, mesh) -> DecodeLayout:
+    """The :class:`DecodeLayout` of a full decode cache (tensors or
+    shapes) on ``mesh``; raises NotImplementedError where its attention
+    leaves do not split alike (no ported config's do not)."""
+    specs = cache_spec_tree(cache, mesh)
+    seen = set()
+
+    def one(names, x, spec):
+        dims = _ATTN_DIMS.get(names[-1]) if names else None
+        if dims is None:
+            return
+        spec = padded(spec, len(_shape(x)))[1:]
+        seen.add(tuple((d, _axes_of(a)) for d, a in zip(dims, spec)))
+    _walk(cache, specs, one)
+    if len(seen) != 1:
+        raise NotImplementedError(
+            f"the decode cache's attention leaves split differently "
+            f"{sorted(seen)}: no decode step holds them")
+    split = dict(next(iter(seen)))
+
+    def over(axes):  # axes of one process split nothing
+        return axes if mesh.size(axes) > 1 else None
+    return DecodeLayout(mesh, over(split["rows"]) or (), over(split["seq"]),
+                        TP_AXIS if over(split.get("heads", ())) else None,
+                        TP_AXIS if over(split["feature"]) else None)
+
+
+def _rows(cache, mesh) -> Tuple[str, ...]:
+    return decode_layout(cache, mesh).rows
+
+
+def cache_part(cache, mesh) -> Dict:
+    """This rank's part of a full decode cache: each leaf sliced by
+    :func:`~repro_torch.sharding.rules.cache_spec_tree` (new tensors), the
+    lengths to the rank's rows (all of them where the rows do not
+    split)."""
+    specs = cache_spec_tree(cache, mesh)
+
+    def part(t, spec):
+        out = shard_tensor(t, spec, mesh)
+        return out.clone() if out is t else out
+    out = _walk(cache, specs, lambda names, t, spec: part(t, spec))
+    out["len"] = part(cache["len"], (_rows(cache, mesh) or None,))
+    return out
+
+
+def gather_cache(part, cache, mesh) -> Dict:
+    """The full decode cache of which ``part`` is this rank's
+    (:func:`cache_part` of a cache shaped as ``cache``, tensors or shapes;
+    collective: every rank calls it), detached."""
+    specs = cache_spec_tree(cache, mesh)
+
+    def whole_leaf(t, spec):
+        out = gather_tensor(t, spec, mesh)
+        return out.clone() if out.data_ptr() == t.data_ptr() else out
+    out = _walk(part, specs, lambda names, t, spec: whole_leaf(t, spec))
+    out["len"] = whole_leaf(part["len"], (_rows(cache, mesh) or None,))
+    return out
+
+
+def _leaf_shapes(tree, names=()) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
+    """``{leaf path: shape}`` of a nested dict of tensors (or shapes)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaf_shapes(v, names + (k,)))
+        return out
+    return {names: _shape(tree)}
+
+
+def check_cache_part(part, cache, mesh) -> None:
+    """Raises ValueError unless every leaf of ``part`` has the shape of
+    its spec's part of the full ``cache`` (tensors or shapes) on ``mesh``
+    (:func:`cache_part`'s), lengths included: a layout that drifted from
+    the rules is refused, not computed on."""
+    want = {}
+
+    def one(names, x, spec):
+        full = _shape(x)
+        want[names] = tuple(n // mesh.size(a) if a is not None else n
+                            for n, a in zip(full, padded(spec, len(full))))
+    _walk(cache, cache_spec_tree(cache, mesh), one)
+    want[("len",)] = (_shape(cache["len"])[0]
+                      // mesh.size(_rows(cache, mesh)),)
+    got = _leaf_shapes(part)
+    bad = [(".".join(k), got.get(k), v) for k, v in want.items()
+           if got.get(k) != v]
+    if bad:
+        raise ValueError(f"a rank's decode cache is not its part under "
+                         f"cache_spec_tree: (leaf, shape, part) {bad[:4]}")
+
+
+__all__ = ["Mode", "LinearTP", "ExpertShard", "ShardSpecs", "shard_tensor",
+           "gather_tensor", "shard_tensors", "gather_tensors",
+           "shard_params", "gather_params", "tp_of", "DecodeLayout",
+           "decode_layout", "cache_part", "gather_cache",
+           "check_cache_part"]

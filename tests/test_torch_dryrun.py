@@ -15,8 +15,14 @@ family.  A rank's parameter bytes count the reference's expert
 parallelism (deepseek-v3's 256 experts over data x model: one a rank),
 and the port's shard holds exactly those.  The MoE families' train and
 prefill cells are traced at the reduced scale on data 2 x model 2
-(expert dispatch and combine counted as collectives), their decode
-cells refused."""
+(expert dispatch and combine counted as collectives).  Decode on the pod:
+mixtral-8x22b's decode_32k (its 8 KV heads' head_dim over "model", the
+partial scores summed) and deepseek-v3-671b's (at two of its 61 layers:
+its latent and rope key over "model", gathered whole, the bytes
+``roofline_report.mla_decode_exchange`` gives), gemma3-1b's decode_32k
+(one KV head's head_dim split) and long_500k (batch 1: the positions
+over "data", merged by log-sum-exp), each with the cache bytes a rank
+holds."""
 
 import json
 import math
@@ -31,7 +37,7 @@ import repro.configs as RC  # noqa: E402
 from repro.models.lm import LM as RLM  # noqa: E402
 from repro.sharding import param_specs as ref_param_specs  # noqa: E402
 import repro_torch.configs as TC  # noqa: E402
-from repro_torch.configs.base import ShapeCell  # noqa: E402
+from repro_torch.configs.base import SHAPES, ShapeCell  # noqa: E402
 from repro_torch.launch import dryrun, roofline_report  # noqa: E402
 from repro_torch.launch.steps import check_mesh_support  # noqa: E402
 from repro_torch.models.lm import LM as TLM  # noqa: E402
@@ -162,11 +168,59 @@ def test_reduced_moe_cell_on_a_2x2_mesh(arch, kind):
     assert f"| {roofline_report.fmt_s(a2a)} |" in roofline_report.table([row])
 
 
-@pytest.mark.parametrize("arch", ("mixtral-8x22b", "deepseek-v3-671b"))
-def test_moe_decode_on_a_mesh_is_refused(arch, tmp_path):
-    rec = dryrun.run_cell(arch, "decode_32k", "pod", outdir=str(tmp_path))
-    assert rec["status"] == "refused"
-    assert "decode on a mesh" in rec["reason"] and "16c" in rec["reason"]
+def _decode_record(arch, cell, tmp_path, layers=None):
+    """A decode cell as rank 0 of the pod: ``run_cell``'s record, or at
+    ``layers`` (mla_moe: the first dense) the trace of the cut config."""
+    if layers is None:
+        return dryrun.run_cell(arch, cell, "pod", outdir=str(tmp_path))
+    cfg = TC.get(arch).scaled(n_layers=layers, n_dense_layers=1)
+    with dryrun.fake_mesh(*dryrun.MESHES["pod"]) as m:
+        rec = dryrun.trace(cfg, SHAPES[cell], m)
+    return {**rec, "ok": True, "status": "ok", "arch": arch, "cell": cell,
+            "mesh": "pod", "n_devices": 256}
+
+
+# (arch, cell, layers traced, labelled collectives present, cache bytes a
+# rank: every layer's leaves and its rows' lengths)
+DECODE_CELLS = {
+    "mixtral_decode": ("mixtral-8x22b", "decode_32k", None, ("score_sum",),
+                       2 * 56 * 8 * 32768 * 8 * 8 * 2 + 8 * 4),
+    "deepseek_decode": ("deepseek-v3-671b", "decode_32k", 2,
+                        ("latent_gather",),
+                        2 * 8 * 32768 * (32 + 4) * 2 + 8 * 4),
+    "gemma_decode": ("gemma3-1b", "decode_32k", None, ("score_sum",),
+                     2 * 26 * 8 * 32768 * 16 * 2 + 8 * 4),
+    "gemma_long": ("gemma3-1b", "long_500k", None,
+                   ("score_sum", "lse_merge"),
+                   2 * 26 * 32768 * 16 * 2 + 4)}
+
+
+@pytest.mark.parametrize("name", list(DECODE_CELLS))
+def test_decode_cells_on_the_pod(name, tmp_path):
+    """The decode cells the cache spec splits otherwise than by whole KV
+    heads are ok on the pod: a rank holds its part of the cache (batch
+    rows 8 of 128, or 32768 of long_500k's 524288 positions; head_dim 16
+    of 256 or 8 of 128; MLA's latent 32 of 512 and rope key 4 of 64) and
+    fits the card; the roofline row names its decode collectives."""
+    arch, cell, layers, labels, cache_bytes = DECODE_CELLS[name]
+    rec = _decode_record(arch, cell, tmp_path, layers)
+    assert rec["ok"] and rec["status"] == "ok", rec.get("reason")
+    mem = rec["memory"]
+    assert mem["cache_bytes"] == cache_bytes
+    assert mem["fits"]
+    row = roofline_report.analyze(rec)
+    for label in labels:
+        assert 0 < row[f"{label}_s"] < row["collective_s"]
+    for label in set(roofline_report.DECODE_COLLECTIVES) - set(labels):
+        assert row[f"{label}_s"] == 0
+    if arch == "deepseek-v3-671b":
+        # the latent gathered: the smaller exchange, as counted
+        sizes = roofline_report.mla_decode_exchange(TC.get(arch), 8, 32768,
+                                                    16)
+        got = rec["by_op"]["all_gather[latent_gather]"]
+        assert got["calls"] == 2 * layers
+        assert got["collective_bytes"] == layers * sizes["gather_latent"]
+        assert sizes["gather_latent"] < sizes["sum_scores"]
 
 
 def test_llama_decode_on_the_pod_and_its_roofline_row(tmp_path):
